@@ -1,0 +1,122 @@
+"""Configuration dataclasses of the port.
+
+Copies of ``ModelConfig``, ``SamplingConfig``, ``CAMDConfig`` and
+``PagedKVConfig`` from the JAX package's ``repro/config.py``, field for
+field, so a config built for one package describes the same model and
+serving setup in the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+# The block kind this slice serves; configs naming others ("local",
+# "ssm", "rglru") are rejected by ``models.model.Model``.
+ATTN = "attn"
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One architecture (the attention-only subset of the reference's
+    fields; families this port does not serve yet are rejected by
+    ``models.model.Model``)."""
+    name: str
+    family: str                   # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int                # query heads
+    num_kv_heads: int             # kv heads (GQA); 1 => MQA
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 => d_model // num_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    attn_window: int = 0          # 0 => full causal; >0 => sliding window
+    local_window: int = 2048
+    block_pattern: Tuple[str, ...] = (ATTN,)
+    mlp_activation: str = "swiglu"             # the one this slice serves
+    tie_embeddings: bool = False
+    moe: object = None
+    ssm: object = None
+    rglru: object = None
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    num_evidence_tokens: int = 0
+    evidence_dim: int = 0
+    vision: object = None
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads == 0:
+            return 0
+        return self.d_model // self.num_heads
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        pat = self.block_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.num_layers))
+
+    def with_overrides(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """The reference's CPU-smoke-size variant of an attention-only
+        config (same rule as ``repro.config.ModelConfig.reduced``)."""
+        kw = dict(
+            num_layers=max(2, min(len(self.block_pattern), 3)),
+            d_model=256, d_ff=512, vocab_size=512, head_dim=64)
+        if self.num_heads:
+            kw["num_heads"] = 4
+            kw["num_kv_heads"] = min(self.num_kv_heads, 2) \
+                if self.num_kv_heads > 1 else 1
+        if self.attn_window:
+            kw["attn_window"] = 64
+        kw["local_window"] = 64
+        return self.with_overrides(**kw)
+
+
+@dataclass(frozen=True)
+class CAMDConfig:
+    """Coverage-Aware Multimodal Decoding hyper-parameters (paper §5.1)."""
+    lambda_g: float = 0.9
+    lambda_c: float = 0.7
+    delta: float = 0.05
+    tau: float = 0.90
+    cluster_threshold: float = 0.85
+    max_clusters: int = 16
+    max_rounds: int = 8
+    samples_per_round: int = 4
+    min_samples: int = 2
+    dirichlet_prior: float = 0.5
+    score_scale: float = 1.0
+    guidance_strength: float = 1.0
+    patience: int = 3
+    ei_cost_per_token: float = 1e-4
+
+
+@dataclass(frozen=True)
+class PagedKVConfig:
+    """Paged KV-cache settings of the serving engine (paged impls).
+    ``num_pages=0`` sizes the pool to the dense worst case
+    (slots * cache_len / page_size + 1 quarantine page)."""
+    page_size: int = 16
+    num_pages: int = 0
+    kv_dtype: str = "auto"
+    kv_byte_budget: int = 0
+
+
+@dataclass(frozen=True)
+class SamplingConfig:
+    temperature: float = 0.7
+    top_p: float = 0.9
+    top_k: int = 0                 # 0 = off
+    min_p: float = 0.0             # 0 = off
+    repetition_penalty: float = 1.05
+    max_new_tokens: int = 64

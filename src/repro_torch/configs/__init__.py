@@ -1,0 +1,42 @@
+"""Architecture config registry of the port.
+
+``get_config`` accepts the arch id ("qwen3-0.6b") or the module name
+("qwen3_0_6b"), as the reference's registry does. Only the configs this
+port serves are registered.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.config import ModelConfig
+
+_MODULES = {
+    "qwen3_0_6b": "qwen3-0.6b",
+}
+
+_BY_NAME: Dict[str, ModelConfig] = {}
+
+
+def _load() -> None:
+    if _BY_NAME:
+        return
+    for mod, name in _MODULES.items():
+        cfg: ModelConfig = importlib.import_module(
+            f"repro_torch.configs.{mod}").CONFIG
+        if cfg.name != name:
+            raise ValueError(f"config module {mod} names {cfg.name!r}")
+        _BY_NAME[name] = cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _load()
+    name = _MODULES.get(name, name)
+    if name not in _BY_NAME:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_BY_NAME)}")
+    return _BY_NAME[name]
+
+
+def list_configs() -> List[str]:
+    _load()
+    return sorted(_BY_NAME)

@@ -1,0 +1,59 @@
+"""Carry the JAX package's parameters into the port.
+
+``params_from_jax`` takes the reference's param pytree with numpy leaves
+(``jax.tree.map(np.asarray, params)``) and returns a state dict for
+``models.model.Model``. The reference stacks the layers of each
+block-pattern position on a leading axis (``params["super"]``,
+``repro/models/transformer.py:153-155``); layer ``i * len(pattern) + p``
+is entry ``i`` of ``params["super"][p]``, and the unstacked
+``params["tail"]`` layers follow.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]):
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            _flatten(v, name + ".", out)
+        else:
+            out[name] = np.asarray(v)
+
+
+def params_from_jax(np_tree: Mapping[str, Any],
+                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """State dict (CPU tensors, the tree's dtypes) for ``Model(cfg)``."""
+    pat = cfg.block_pattern
+    n_super = cfg.num_layers // len(pat)
+    flat: Dict[str, np.ndarray] = {}
+    _flatten({k: v for k, v in np_tree.items() if k not in ("super", "tail")},
+             "", flat)
+    for p, stacked in enumerate(np_tree["super"]):
+        per_pos: Dict[str, np.ndarray] = {}
+        _flatten(stacked, "", per_pos)
+        for name, arr in per_pos.items():
+            if arr.shape[0] != n_super:
+                raise ValueError(f"super[{p}].{name}: leading axis "
+                                 f"{arr.shape[0]} != {n_super} blocks")
+            for i in range(n_super):
+                flat[f"layers.{i * len(pat) + p}.{name}"] = arr[i]
+    for j, layer in enumerate(np_tree.get("tail", ())):
+        per_layer: Dict[str, np.ndarray] = {}
+        _flatten(layer, "", per_layer)
+        for name, arr in per_layer.items():
+            flat[f"layers.{n_super * len(pat) + j}.{name}"] = arr
+    return {k: _to_tensor(v) for k, v in flat.items()}
+
+
+def _to_tensor(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":       # ml_dtypes bfloat16: go via bits
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))      # a writable copy

@@ -1,0 +1,150 @@
+"""Public entry points of the port's attention kernels.
+
+Dispatch follows the tensor: on a CPU tensor each wrapper runs the plain
+PyTorch version (``ref.py``); on a CUDA tensor it launches its hand-written
+kernel (``csrc/*.cu``) or raises. There is no switch that runs the plain
+path on the card. Every wrapper checks device, dtype, shape and
+contiguity, allocates its output with ``torch.empty``, launches on the
+current stream, raises on a nonzero ``cudaGetLastError()``, and adds one to
+its entry in ``LAUNCHES``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ref
+
+# launches of each kernel since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float8_e4m3fn: 3}
+_ACT_DTYPES = (torch.float32, torch.bfloat16)
+_FLASH_HD = (16, 32, 64, 128)
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t is None:
+            continue
+        _check(t.is_cuda and t.device == dev,
+               f"{name}: every tensor must lie on {dev}, got {t.device}")
+        _check(t.is_contiguous(), f"{name}: tensors must be contiguous")
+
+
+def _launch(name: str, *args) -> None:
+    from repro_torch.kernels import build
+    fn = getattr(build.load(name), name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Prefill attention. q: (B, L, H, hd); k/v: (B, L, Hkv, hd) with
+    Hkv | H, grouped (not expanded). Returns (B, L, H, hd) in q's dtype.
+    The kernel has no key-mask argument, like the TPU kernel: bucketed
+    prefill relies on causality to keep real rows exact."""
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    B, L, H, hd = q.shape
+    Hkv = k.shape[2]
+    _check_cuda("flash_attention", q, k, v)
+    _check(q.dtype in _ACT_DTYPES and k.dtype == q.dtype and
+           v.dtype == q.dtype, "flash_attention: q/k/v fp32 or bf16, alike")
+    _check(k.shape == (B, L, Hkv, hd) and v.shape == k.shape and
+           H % Hkv == 0, f"flash_attention: bad shapes {q.shape} {k.shape}")
+    _check(hd in _FLASH_HD, f"flash_attention: head_dim {hd} not in "
+           f"{_FLASH_HD}")
+    out = torch.empty_like(q)
+    _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), B, L, H, Hkv, hd, int(causal), int(window),
+            _DTYPE_CODES[q.dtype])
+    return out
+
+
+def _check_decode_q(name: str, q, Hkv: int, hd: int) -> None:
+    B, one, H, qd = q.shape
+    _check(one == 1 and qd == hd and H % Hkv == 0 and
+           H // Hkv <= 8 and hd <= 128,
+           f"{name}: q {tuple(q.shape)} vs Hkv={Hkv}, hd={hd} (needs "
+           "H/Hkv <= 8, head_dim <= 128)")
+    _check(q.dtype in _ACT_DTYPES, f"{name}: q must be fp32 or bf16")
+
+
+def decode_attention(q, k, v, kv_mask):
+    """One query token vs a dense cache. q: (B, 1, H, hd); k/v:
+    (B, S, Hkv, hd) in q's dtype; kv_mask: (B, S) bool."""
+    if not q.is_cuda:
+        return ref.decode_attention_ref(q, k, v, kv_mask)
+    B, S, Hkv, hd = k.shape
+    _check_cuda("decode_attention", q, k, v, kv_mask)
+    _check_decode_q("decode_attention", q, Hkv, hd)
+    _check(q.shape[0] == B and v.shape == k.shape and
+           kv_mask.shape == (B, S) and kv_mask.dtype == torch.bool and
+           k.dtype == q.dtype and v.dtype == q.dtype,
+           "decode_attention: k/v (B, S, Hkv, hd) in q's dtype, mask "
+           "(B, S) bool")
+    out = torch.empty_like(q)
+    _launch("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kv_mask.data_ptr(), out.data_ptr(), B, S, q.shape[2], Hkv, hd,
+            _DTYPE_CODES[q.dtype])
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
+                           k_scale=None, v_scale=None):
+    """One query token vs KV pages. q: (B, 1, H, hd); pools (P, ps, Hkv,
+    hd) fp32/bf16/int8/fp8-e4m3; block_table (B, n) int32 (ids clipped to
+    [0, P-1]); lengths (B,) int32. Quantized pools need both
+    ``k_scale``/``v_scale`` (P, ps, Hkv) fp32."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if not q.is_cuda:
+        return ref.paged_decode_attention_ref(q, k_pages, v_pages,
+                                              block_table, lengths,
+                                              k_scale=k_scale,
+                                              v_scale=v_scale)
+    P, ps, Hkv, hd = k_pages.shape
+    B, n = block_table.shape
+    name = "paged_decode_attention"
+    _check_cuda(name, q, k_pages, v_pages, block_table, lengths, k_scale,
+                v_scale)
+    _check_decode_q(name, q, Hkv, hd)
+    quantized = k_pages.dtype in (torch.int8, torch.float8_e4m3fn)
+    _check(k_pages.dtype in _DTYPE_CODES and v_pages.dtype == k_pages.dtype
+           and v_pages.shape == k_pages.shape,
+           f"{name}: pools alike, fp32/bf16/int8/fp8")
+    _check(quantized == (k_scale is not None),
+           f"{name}: int8/fp8 pools need scales, others take none")
+    if quantized:
+        _check(k_scale.shape == (P, ps, Hkv) and v_scale.shape == (P, ps, Hkv)
+               and k_scale.dtype == torch.float32 and
+               v_scale.dtype == torch.float32,
+               f"{name}: scales (P, ps, Hkv) fp32")
+    _check(q.shape[0] == B and block_table.dtype == torch.int32 and
+           lengths.shape == (B,) and lengths.dtype == torch.int32,
+           f"{name}: block_table (B, n) int32, lengths (B,) int32")
+    out = torch.empty_like(q)
+    _launch(name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr() if quantized else None,
+            v_scale.data_ptr() if quantized else None,
+            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            B, q.shape[2], Hkv, hd, P, ps, n, _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[k_pages.dtype])
+    return out

@@ -1,0 +1,72 @@
+"""Plain PyTorch versions of the three attention kernels.
+
+Each computes the same function as its CUDA kernel (``csrc/*.cu``) with
+plain tensor ops: fp32 math, the reference's ``NEG_INF = -1e30`` masking
+and a full softmax. They follow ``repro/kernels/ref.py:15-77``. The kernel
+wrappers in ``ops.py`` run these on CPU tensors; ``chip_smoke.py`` holds
+each kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _expand(k: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, heads, hd) by repeating each kv head."""
+    rep = heads // k.shape[2]
+    return k if rep == 1 else torch.repeat_interleave(k, rep, dim=2)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """Prefill attention. q: (B, L, H, hd); k/v: (B, L, Hkv, hd) with
+    Hkv | H (Hkv == H is the reference's pre-expanded layout)."""
+    B, L, H, hd = q.shape
+    k = _expand(k, H).float()
+    v = _expand(v, H).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * hd ** -0.5
+    qp = torch.arange(L, device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    rel = qp - kp
+    mask = torch.ones_like(rel, dtype=torch.bool)
+    if causal:
+        mask &= rel >= 0
+    if window > 0:
+        mask &= rel < window
+    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, kv_mask):
+    """One query token vs a dense cache. q: (B, 1, H, hd); k/v:
+    (B, S, Hkv, hd); kv_mask: (B, S) bool."""
+    B, _, H, hd = q.shape
+    kx = _expand(k, H).float()
+    vx = _expand(v, H).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) * hd ** -0.5
+    s = torch.where(kv_mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vx).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_table, lengths,
+                               k_scale=None, v_scale=None):
+    """One query token vs KV pages. q: (B, 1, H, hd); pools
+    (P, ps, Hkv, hd); block_table (B, n) int32 page ids (clipped to
+    [0, P-1]); lengths (B,) live tokens. ``k_scale``/``v_scale``:
+    (P, ps, Hkv) fp32 scales of int8/fp8 pools, dequantized after the
+    gather."""
+    P, ps = k_pages.shape[:2]
+    bt = block_table.long().clamp(0, P - 1)
+    B, n = bt.shape
+    k = k_pages[bt].reshape(B, n * ps, *k_pages.shape[2:])
+    v = v_pages[bt].reshape(B, n * ps, *v_pages.shape[2:])
+    if k_scale is not None:
+        Hkv = k_scale.shape[-1]
+        k = k.float() * k_scale[bt].reshape(B, n * ps, Hkv)[..., None]
+        v = v.float() * v_scale[bt].reshape(B, n * ps, Hkv)[..., None]
+    mask = torch.arange(n * ps, device=q.device)[None, :] < \
+        lengths.long()[:, None]
+    return decode_attention_ref(q, k, v, mask)

@@ -1,0 +1,132 @@
+"""Serving launcher of the port: build a model and serve CAMD requests.
+
+    python -m repro_torch.launch.serve --arch qwen3-0.6b --mode camd \
+        --impl paged_cuda --requests 8 --prompt-len 256 --max-new 32
+
+Weights are random, made from seed 0 (no checkpoint is in the
+repository), and the model runs in fp32, as in the reference CLI.
+``--reduced`` (the default, as in the reference CLI) serves the
+CPU-smoke-size variant of the config; ``--no-reduced`` serves it at its
+published widths, and ``--num-layers`` cuts its depth. Runs on the CUDA
+device unless ``--device cpu``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import CAMDConfig, PagedKVConfig, SamplingConfig
+from repro_torch.configs import get_config
+from repro_torch.models.model import build_model
+from repro_torch.serving.engine import IMPLS, Request, ServeEngine
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", "--config", default="qwen3-0.6b",
+                    help="arch id ('qwen3-0.6b') or module name")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="serve the CPU-smoke-size variant of the config "
+                         "(--no-reduced: its published widths)")
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="cut the model to this many layers (0 = keep)")
+    ap.add_argument("--mode", default="camd",
+                    choices=["camd", "best_of_n", "self_consistency",
+                             "greedy"])
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=128,
+                    help="per-slot KV capacity (prompt + new tokens)")
+    ap.add_argument("--eos-id", type=int, default=1,
+                    help="end-of-sequence token; an id outside the vocab "
+                         "makes every candidate run to its token limit")
+    ap.add_argument("--impl", default="torch", choices=list(IMPLS),
+                    help="torch/paged: plain PyTorch attention; cuda/"
+                         "paged_cuda: the hand-written kernels")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="KV pool size; 0 = dense-equivalent worst case")
+    ap.add_argument("--macro-steps", type=int, default=8,
+                    help="device decode steps per launch; 0 = legacy "
+                         "per-token host loop")
+    ap.add_argument("--sched-policy", default="fifo",
+                    choices=["fifo", "coverage"])
+    ap.add_argument("--global-budget", type=int, default=0,
+                    help="hard token budget across the stream (0 = none)")
+    ap.add_argument("--no-bucket-prefill", action="store_true")
+    ap.add_argument("--prefill-bucket-min", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA device)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="sampling and request seed")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Serve one batch of synthetic requests; prints results and
+    telemetry and returns them (``engine``, ``results``, ``seconds``,
+    ``tokens_per_s``)."""
+    args = parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.num_layers:
+        cfg = cfg.with_overrides(num_layers=args.num_layers)
+    cfg = cfg.with_overrides(dtype="float32")      # fp32, as the reference
+    model = build_model(cfg, torch.float32, device=args.device, seed=0)
+    eng = ServeEngine(
+        model, slots=args.slots, cache_len=args.cache_len,
+        sampling=SamplingConfig(max_new_tokens=args.max_new),
+        camd=CAMDConfig(), mode=args.mode, max_new_tokens=args.max_new,
+        eos_id=args.eos_id, impl=args.impl,
+        paged_kv=PagedKVConfig(page_size=args.page_size,
+                               num_pages=args.num_pages),
+        macro_steps=args.macro_steps,
+        bucket_prefill=not args.no_bucket_prefill,
+        prefill_bucket_min=args.prefill_bucket_min,
+        sched_policy=args.sched_policy, global_budget=args.global_budget,
+        seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            2, cfg.vocab_size, size=args.prompt_len).astype(np.int32)))
+    sync = torch.cuda.synchronize if model.device.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        results = eng.run()
+    sync()
+    secs = time.perf_counter() - t0
+    for r in results:
+        print(f"req {r.uid}: candidates={r.n_candidates} rounds={r.rounds} "
+              f"tokens={r.tokens_spent} p*={r.p_star:.3f} "
+              f"early={r.stopped_early} out={r.tokens[:8].tolist()}")
+    print(f"engine [{cfg.name}, {cfg.num_layers}L d{cfg.d_model}, "
+          f"{args.impl} on {model.device}]: {eng.total_steps} steps, "
+          f"{eng.total_tokens} tokens in {secs:.3f}s "
+          f"({eng.total_tokens / secs:.1f} tok/s, prefill included)")
+    print(f"macro-step: K={eng.macro_steps}, {eng.macro_launches} launches, "
+          f"{eng.host_syncs} host syncs")
+    ss = eng.sched_stats()
+    print(f"scheduler: {ss['policy']} admitted={ss['admitted_candidates']} "
+          f"spent={ss['spent']}/{ss['global_budget'] or 'inf'} "
+          f"declined={ss['declined_rounds']} starved={ss['starved']}")
+    if eng.paged:
+        s = eng.kv_stats()
+        print(f"paged kv: peak {s['max_in_use']}/{s['num_pages']} pages "
+              f"({s['peak_kv_bytes'] / 1e6:.2f} MB resident at peak vs "
+              f"{s['dense_equiv_bytes'] / 1e6:.2f} MB dense-equivalent)")
+    return {"engine": eng, "results": results, "seconds": secs,
+            "tokens_per_s": eng.total_tokens / secs}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""Shared building blocks: norms, RoPE, dense/MLP, embeddings.
+
+Plain functions on tensors, following ``repro/models/layers.py``: weights
+keep the reference's (d_in, d_out) "kernel" layout so ``x @ kernel`` is
+the same product, and norms and RoPE compute in fp32 and cast back.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def rmsnorm(scale, x, eps: float = 1e-6):
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rmsnorm_headwise(scale, x, eps: float = 1e-6):
+    """qk-norm: normalize the last (head) dim with a shared scale."""
+    return rmsnorm(scale, x, eps)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., L, H, hd); positions: broadcastable to (..., L)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)
+    angles = positions[..., None].float() * freqs          # (..., L, hd/2)
+    cos = torch.cos(angles)[..., None, :]                  # (..., L, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense(kernel, x, bias: Optional[torch.Tensor] = None):
+    y = x @ kernel
+    return y if bias is None else y + bias
+
+
+def mlp(p, x):
+    """SwiGLU MLP: p is an ``MLP`` module (w_gate, w_up, w_down)."""
+    return p.w_down(F.silu(p.w_gate(x)) * p.w_up(x))
+
+
+def _normal(shape, scale, dtype, device, gen):
+    w = torch.randn(shape, generator=gen, device=device,
+                    dtype=torch.float32) * scale
+    return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """``x @ kernel (+ bias)`` with a (d_in, d_out) kernel, initialised
+    N(0, 1) * d_in^-0.5 like ``repro.models.layers.dense_init``."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
+                 dtype=torch.float32, device=None, gen=None):
+        super().__init__()
+        self.kernel = _normal((d_in, d_out), d_in ** -0.5, dtype, device, gen)
+        self.bias = nn.Parameter(torch.zeros(d_out, dtype=dtype,
+                                             device=device),
+                                 requires_grad=False) if bias else None
+
+    def forward(self, x):
+        return dense(self.kernel, x, self.bias)
+
+
+class Norm(nn.Module):
+    """RMSNorm scale holder (the reference's ``{"scale": ones(d)}``)."""
+
+    def __init__(self, d: int, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                  requires_grad=False)
+
+
+class MLP(nn.Module):
+    """SwiGLU MLP weights (the reference's ``mlp_init`` for "swiglu")."""
+
+    def __init__(self, d_model: int, d_ff: int, *, dtype=torch.float32,
+                 device=None, gen=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, gen=gen)
+        self.w_gate = Dense(d_model, d_ff, **kw)
+        self.w_up = Dense(d_model, d_ff, **kw)
+        self.w_down = Dense(d_ff, d_model, **kw)
+
+
+def embed(table, tokens):
+    return table[tokens]
+
+
+def unembed(x, table, tied: bool):
+    """Tied: ``x @ table.T`` over the (V, d) embedding table; untied:
+    ``x @ kernel`` over a (d, V) kernel."""
+    return x @ table.T if tied else x @ table

@@ -1,0 +1,142 @@
+"""Decoder-only attention stacks: cache layouts, prefill and decode.
+
+Follows ``repro/models/transformer.py`` for attention-only stacks, with a
+Python loop over layers where the reference scans over stacked
+super-blocks. Caches stack the per-layer tensors on a leading layer axis:
+
+  dense: {"k", "v": (num_layers, B, S, Hkv, hd), "pos": (B,) int32}
+  paged: {"k_pages", "v_pages": (num_layers, P, ps, Hkv, hd),
+          ["k_scale", "v_scale": (num_layers, P, ps, Hkv) fp32,]
+          "pos": (B,) int32, "block_table": (B, cache_len // ps) int32}
+
+so ``cache["k"][l]`` is layer l's (B, S, Hkv, hd) ring and
+``cache["k_pages"][l]`` its (P, ps, Hkv, hd) pool. Prefill and decode
+update the cache tensors in place and return the same dict.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
+
+
+def _ring_len(cfg: ModelConfig, cache_len: int) -> int:
+    return cache_len if cfg.attn_window == 0 else \
+        min(cache_len, cfg.attn_window)
+
+
+def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device):
+    hd = cfg.resolved_head_dim
+    shape = (cfg.num_layers, batch, _ring_len(cfg, cache_len),
+             cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+
+def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                     page_size: int, num_pages: int, kv_dtype: str = "auto",
+                     device=None):
+    """Decode cache whose KV lives in a shared page pool per layer,
+    addressed through ``block_table`` (``transformer.py:262``). Windowed
+    layers are not paged (their ring is already bounded)."""
+    if cache_len % page_size:
+        raise ValueError(f"cache_len {cache_len} is not a multiple of "
+                         f"page_size {page_size}")
+    if cfg.attn_window:
+        raise ValueError("windowed attention layers are not paged")
+    hd = cfg.resolved_head_dim
+    sdtype, quantized = attn_lib.kv_storage_dtype(kv_dtype, dtype)
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, hd)
+    cache = {"k_pages": torch.zeros(shape, dtype=sdtype, device=device),
+             "v_pages": torch.zeros(shape, dtype=sdtype, device=device)}
+    if quantized:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    cache["pos"] = torch.zeros(batch, dtype=torch.int32, device=device)
+    cache["block_table"] = torch.zeros((batch, cache_len // page_size),
+                                       dtype=torch.int32, device=device)
+    return cache
+
+
+def _mlp_part(blk, cfg: ModelConfig, x):
+    if blk.mlp is None:                 # d_ff == 0: attention-only block
+        return x
+    h = rmsnorm(blk.ln2.scale, x, cfg.norm_eps)
+    return x + mlp(blk.mlp, h)
+
+
+def _logits(model, h):
+    cfg = model.cfg
+    h = rmsnorm(model.final_norm.scale, h, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return unembed(h, model.embed.table, tied=True), h
+    return unembed(h, model.unembed.kernel, tied=False), h
+
+
+def transformer_prefill(model, tokens, cache, *, impl: str = "torch",
+                        lengths=None):
+    """Run the prompt and seed the dense ``cache`` (``transformer.py:297``).
+
+    Without ``lengths`` all rows share the prompt length L. With
+    ``lengths`` ((B,) int32) rows are right-padded to a common bucket:
+    last-token logits/hidden come from each row's true last position and
+    ``pos`` is seeded per row. Causal masking keeps every real position
+    exact under right-padding. Returns (logits_last (B, V), hidden_last
+    (B, d), cache)."""
+    cfg = model.cfg
+    x = embed(model.embed.table, tokens)
+    B, L, _ = x.shape
+    positions = torch.arange(L, device=x.device).expand(B, L)
+    kv_mask = None
+    if lengths is not None and impl == "torch":
+        kv_mask = torch.arange(L, device=x.device)[None, :] < \
+            lengths.long()[:, None]
+    for i, blk in enumerate(model.layers):
+        h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
+        y, (k, v) = attn_lib.attn_prefill(blk.attn, cfg, h, positions,
+                                          window=cfg.attn_window, impl=impl,
+                                          kv_mask=kv_mask)
+        x = _mlp_part(blk, cfg, x + y)
+        attn_lib.prefill_into_cache(cache["k"][i], cache["v"][i], k, v)
+    if lengths is None:
+        x_last = x[:, -1:]
+        cache["pos"] = torch.full((B,), L, dtype=torch.int32,
+                                  device=x.device)
+    else:
+        idx = (lengths.long() - 1)[:, None, None].expand(B, 1, x.shape[-1])
+        x_last = x.gather(1, idx)
+        cache["pos"] = lengths.to(torch.int32)
+    logits, hidden = _logits(model, x_last)
+    return logits[:, 0], hidden[:, 0], cache
+
+
+def transformer_decode(model, token, cache, *, impl: str = "torch"):
+    """One decode step (``transformer.py:493``). token: (B,) or (B, 1).
+    Every row's KV is written at its ``pos`` and every ``pos`` advances,
+    idle rows included. Returns (logits (B, V), hidden (B, d), cache)."""
+    cfg = model.cfg
+    if token.dim() == 1:
+        token = token[:, None]
+    pos = cache["pos"]
+    bt = cache.get("block_table")
+    x = embed(model.embed.table, token)
+    for i, blk in enumerate(model.layers):
+        h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
+        if bt is not None:
+            y = attn_lib.attn_decode_paged(
+                blk.attn, cfg, h, cache["k_pages"][i], cache["v_pages"][i],
+                pos, bt, impl=impl,
+                ks=cache["k_scale"][i] if "k_scale" in cache else None,
+                vs=cache["v_scale"][i] if "v_scale" in cache else None)
+        else:
+            y = attn_lib.attn_decode(blk.attn, cfg, h, cache["k"][i],
+                                     cache["v"][i], pos,
+                                     window=cfg.attn_window, impl=impl)
+        x = _mlp_part(blk, cfg, x + y)
+    logits, hidden = _logits(model, x)
+    cache["pos"] = pos + 1
+    return logits[:, 0], hidden[:, 0], cache

@@ -1,0 +1,962 @@
+"""Slot-scheduled batched serving engine with CAMD adaptive decoding.
+
+The port of ``repro/serving/engine.py`` for decoder-only attention
+models. A fixed decode batch of ``slots``; each slot holds one candidate
+generation of some request. When a request reaches coverage its slots
+free and refill from the queue, so CAMD's adaptive allocation falls out of
+slot scheduling.
+
+Decode runs either as the legacy per-token loop (``macro_steps=0``: one
+step, one host sync) or as macro-steps: a Python loop of K device steps
+with one host sync per launch. The loop keeps the reference
+``while_loop``'s exit rule (stop after the step in which any slot
+finishes, or when no slot is active) on the device: iterations past that
+point run masked — no slot state changes, no position advances, no
+frontier page consumed — so a launch ends in exactly the state the
+reference's loop exits with, without a host round trip per step.
+
+Paged KV (impls ``paged``/``paged_cuda``) lives in a shared page pool
+(``PagePool``): candidates share their request's full prompt pages and copy
+the partial tail page; before each launch the host stages every live
+slot's next pages into a (B, F) frontier the device advances the block
+table through, and unconsumed pages go back afterwards.
+
+Sampling noise comes from ``noise`` (default ``GumbelNoise``): decode
+noise for global step t depends on (seed, t) only, so token streams do not
+depend on ``macro_steps``.
+
+Impls: ``torch`` / ``paged`` run plain PyTorch attention, ``cuda`` /
+``paged_cuda`` the hand-written kernels. Prefix caching, chunked prefill,
+speculation, mesh serving, quantized (int8/fp8) pools, multimodal
+requests, cancellation and async pumping are later slices of the port:
+asking for any of them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import CAMDConfig, PagedKVConfig, SamplingConfig
+from repro_torch.core import controller as ctrl
+from repro_torch.models import attention as attn_lib
+from repro_torch.sampling.samplers import (GumbelNoise, sample_token,
+                                           sample_token_batch)
+from repro_torch.serving.page_pool import PagePool
+from repro_torch.serving.scheduler import (NewWork, RoundWork,
+                                           SchedulerContext, make_scheduler)
+
+IMPLS = ("torch", "cuda", "paged", "paged_cuda")
+_MODEL_IMPL = {"torch": "torch", "cuda": "cuda", "paged": "torch",
+               "paged_cuda": "cuda"}
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                      # (L,) int32
+    evidence: Optional[np.ndarray] = None   # multimodal slice: unsupported
+    image: Optional[np.ndarray] = None      # multimodal slice: unsupported
+
+
+@dataclasses.dataclass
+class Result:
+    uid: int
+    tokens: np.ndarray                      # best candidate's generation
+    n_candidates: int
+    tokens_spent: int
+    rounds: int
+    p_star: float
+    best_score: float
+    stopped_early: bool
+    candidates: List[Dict[str, Any]]        # per-candidate records
+
+
+@dataclasses.dataclass
+class EngineState:
+    """Per-slot device state (updated in place by the decode step)."""
+    cache: Dict[str, torch.Tensor]
+    last_token: torch.Tensor   # (B,) int64
+    token_counts: torch.Tensor  # (B, V) fp32
+    sum_lp: torch.Tensor       # (B,)
+    n_tok: torch.Tensor        # (B,) int32
+    prev_h: torch.Tensor       # (B, d) unit hidden of the previous token
+    sum_coh: torch.Tensor      # (B,)
+    sum_emb: torch.Tensor      # (B, d)
+    active: torch.Tensor       # (B,) bool
+    out_buf: torch.Tensor      # (B, max_new) int64
+    bias: torch.Tensor         # (B, V) CAMD mixture guidance
+    greedy: torch.Tensor       # (B,) bool
+    limit: torch.Tensor        # (B,) int32 per-candidate token limit
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _unsupported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (a later slice of the PyTorch port)")
+
+
+class ServeEngine:
+    def __init__(self, model, *, slots: int = 8, cache_len: int = 512,
+                 sampling: SamplingConfig = SamplingConfig(),
+                 camd: CAMDConfig = CAMDConfig(), mode: str = "camd",
+                 n_candidates: int = 8, eos_id: int = 1,
+                 max_new_tokens: int = 64, impl: str = "torch",
+                 paged_kv: PagedKVConfig = PagedKVConfig(),
+                 macro_steps: int = 8, bucket_prefill: bool = True,
+                 prefill_bucket_min: int = 16, sched_policy="fifo",
+                 global_budget: int = 0, prefix_cache: bool = False,
+                 prefill_chunk: int = 0,
+                 prefill_shards: int = 0, mesh=None, spec_k: int = 0,
+                 xmodal_rescore: bool = False, seed: int = 0, noise=None):
+        if mode not in ("camd", "best_of_n", "self_consistency", "greedy"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if macro_steps < 0:
+            raise ValueError("macro_steps must be >= 0")
+        for what, asked in (("the prefix cache", prefix_cache),
+                            ("chunked prefill", prefill_chunk),
+                            ("prefill/decode disaggregation", prefill_shards),
+                            ("mesh serving", mesh is not None),
+                            ("speculative decoding", spec_k > 1),
+                            ("xmodal rescoring", xmodal_rescore)):
+            if asked:
+                raise _unsupported(what)
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        self.B = slots
+        self.V = self.cfg.vocab_size
+        self.d = self.cfg.d_model
+        self.cache_len = cache_len
+        self.sampling = sampling
+        self.camd = camd
+        self.mode = mode
+        self.n_candidates = 1 if mode == "greedy" else n_candidates
+        self.eos_id = eos_id
+        self.max_new = max_new_tokens
+        self.impl = impl
+        self.macro_steps = macro_steps
+        self.paged = impl.startswith("paged")
+        self._model_impl = _MODEL_IMPL[impl]
+        if self.paged and not model.has_pageable_layers:
+            raise ValueError(f"impl={impl!r} pages full-context attention "
+                             f"KV, but {self.cfg.name} has none")
+        self.kv_dtype = paged_kv.kv_dtype
+        if not self.paged and self.kv_dtype != "auto":
+            raise ValueError(f"kv_dtype={self.kv_dtype!r} needs a paged impl")
+        if self.paged:
+            _, quantized = attn_lib.kv_storage_dtype(self.kv_dtype,
+                                                     model.param_dtype)
+            if quantized:
+                raise _unsupported(f"serving from a {self.kv_dtype} KV pool")
+            ps = paged_kv.page_size
+            if cache_len % ps:
+                raise ValueError(f"cache_len {cache_len} must be a multiple "
+                                 f"of page_size {ps}")
+            self.page_size = ps
+            self.pages_per_slot = cache_len // ps
+            num_pages = paged_kv.num_pages or slots * self.pages_per_slot + 1
+            self.pool = PagePool(num_pages, ps)
+            self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
+            self._slot_pos = np.zeros(slots, np.int64)
+            self._slot_limit = np.zeros(slots, np.int64)
+            # pages a running candidate may still allocate are reserved at
+            # admission, so an admitted candidate can always finish
+            self._slot_reserved = np.zeros(slots, np.int64)
+            self._reserved = 0
+            # the most page boundaries one slot crosses in K steps, plus
+            # the boundary the first step may land on
+            self._frontier_width = min(max(1, -(-max(macro_steps, 1) // ps)
+                                           + 1), self.pages_per_slot)
+        else:
+            self.pool = None
+        self.noise = noise if noise is not None else \
+            GumbelNoise(seed, self.device)
+        self._t = 0                      # global decode step counter
+
+        self._queue: List[Request] = []
+        self._slot_req = np.full(slots, -1, np.int64)
+        self._slot_cand = np.full(slots, -1, np.int64)
+        self._slot_lim = np.full(slots, max_new_tokens, np.int64)
+        self._reqs: Dict[int, Dict[str, Any]] = {}
+        self._next_cand = 0
+        self._dtype = model.param_dtype
+        self.scheduler = make_scheduler(sched_policy,
+                                        global_budget=global_budget)
+        self._arrival: Dict[int, int] = {}
+        self._submit_seq = 0
+        self.starved_uids: List[int] = []
+        self.prefill_calls = 0
+        self.prefill_tokens = 0
+        self.bucket_prefill = bool(bucket_prefill) and \
+            model.supports_bucketed_prefill
+        self.prefill_bucket_min = prefill_bucket_min
+        self._min_ring = cache_len if self.cfg.attn_window == 0 else \
+            min(cache_len, self.cfg.attn_window)
+        self.state = self._blank_state()
+        self._greedy_row = torch.tensor([mode == "greedy"],
+                                        device=self.device)
+        # telemetry: device decode steps, macro launches, decode-loop host
+        # synchronizations, tokens generated
+        self.total_steps = 0
+        self.total_tokens = 0
+        self.macro_launches = 0
+        self.host_syncs = 0
+
+    # ------------------------------------------------------------------
+    def _sync(self, tensors) -> List[np.ndarray]:
+        """Decode-loop host readback: one counted synchronization."""
+        self.host_syncs += 1
+        return [t.cpu().numpy() for t in tensors]
+
+    def _any_live(self) -> bool:
+        return bool((self._slot_req >= 0).any())
+
+    def _blank_state(self) -> EngineState:
+        B, V, d, dev = self.B, self.V, self.d, self.device
+        if self.paged:
+            cache = self.model.make_paged_cache(
+                B, self.cache_len, self._dtype, page_size=self.page_size,
+                num_pages=self.pool.num_pages, kv_dtype=self.kv_dtype)
+        else:
+            cache = self.model.make_cache(B, self.cache_len, self._dtype)
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return EngineState(
+            cache=cache, last_token=zeros(B, dtype=torch.long),
+            token_counts=zeros(B, V), sum_lp=zeros(B),
+            n_tok=zeros(B, dtype=torch.int32), prev_h=zeros(B, d),
+            sum_coh=zeros(B), sum_emb=zeros(B, d),
+            active=zeros(B, dtype=torch.bool),
+            out_buf=zeros(B, self.max_new, dtype=torch.long),
+            bias=zeros(B, V), greedy=zeros(B, dtype=torch.bool),
+            limit=torch.full((B,), self.max_new, dtype=torch.int32,
+                             device=dev))
+
+    # ------------------------------------------------------------------
+    def _decode_step(self, noise, go=None) -> torch.Tensor:
+        """One decode + sample + CAMD-aggregate step over all slots, in
+        place. ``go``: optional 0-dim bool tensor; when False the step is
+        masked (no slot state changes, positions stay). Returns the (B,)
+        bool mask of slots whose candidate finished in this step."""
+        st = self.state
+        pos0 = st.cache["pos"]
+        logits, hidden, cache = self.model.decode_step(
+            st.last_token, st.cache, impl=self._model_impl)
+        if go is not None:
+            cache["pos"] = torch.where(go, cache["pos"], pos0)
+        tok, lp = sample_token(logits.float(), self.sampling,
+                               st.token_counts, st.bias, greedy=st.greedy,
+                               noise=noise)
+        act = st.active if go is None else st.active & go
+        actf = act.float()
+        h32 = hidden.float()
+        hn = h32 / (torch.linalg.vector_norm(h32, dim=-1, keepdim=True)
+                    + 1e-8)
+        st.sum_lp += lp * actf
+        coh = (hn * st.prev_h).sum(-1)
+        st.sum_coh += coh * actf * (st.n_tok > 0).float()
+        st.sum_emb += h32 * actf[:, None]
+        st.token_counts[torch.arange(self.B, device=self.device), tok] += actf
+        write = (torch.arange(self.max_new, device=self.device)[None, :] ==
+                 st.n_tok[:, None]) & act[:, None]
+        st.out_buf = torch.where(write, tok[:, None], st.out_buf)
+        st.n_tok += act.to(torch.int32)
+        done = act & ((tok == self.eos_id) | (st.n_tok >= st.limit))
+        st.last_token = torch.where(act, tok, st.last_token)
+        st.prev_h = torch.where(act[:, None], hn, st.prev_h)
+        st.active = st.active & ~done
+        return done
+
+    def _macro_step(self, frontier) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K decode steps with the reference's early exit kept on the
+        device (see the module docstring). Paged slots pull their next
+        page from the staged ``frontier`` row when their write position
+        crosses a page boundary. Returns (done of the last real step,
+        number of real steps) as device tensors."""
+        K = max(self.macro_steps, 1)
+        st, B, dev = self.state, self.B, self.device
+        go = st.active.any()
+        steps = torch.zeros((), dtype=torch.int32, device=dev)
+        done_out = torch.zeros(B, dtype=torch.bool, device=dev)
+        rows = torch.arange(B, device=dev)
+        if self.paged:
+            fidx = torch.zeros(B, dtype=torch.long, device=dev)
+            F = frontier.shape[1]
+        for i in range(K):
+            if self.paged:
+                pos = st.cache["pos"].long()
+                bt = st.cache["block_table"]
+                need = st.active & go & (pos % self.page_size == 0)
+                li = torch.clamp(pos // self.page_size, 0, bt.shape[1] - 1)
+                page = frontier.gather(1, fidx.clamp(0, F - 1)[:, None])[:, 0]
+                bt[rows, li] = torch.where(need, page, bt[rows, li])
+                fidx += need.long()
+            done = self._decode_step(self._step_noise(self._t + i), go)
+            steps += go.to(torch.int32)
+            done_out = torch.where(go, done, done_out)
+            go = go & st.active.any() & ~done.any()
+        return done_out, steps
+
+    def _step_noise(self, t: int):
+        if self.mode == "greedy":
+            return None
+        return self.noise.step(t, self.B, self.V)
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        if req.evidence is not None or req.image is not None:
+            raise _unsupported("multimodal requests (evidence / images)")
+        if req.uid in self._reqs or any(r.uid == req.uid
+                                        for r in self._queue):
+            raise ValueError(f"duplicate request uid {req.uid}")
+        self._arrival[req.uid] = self._submit_seq
+        self._submit_seq += 1
+        self._queue.append(req)
+
+    def cancel(self, uid: int) -> bool:
+        raise _unsupported("request cancellation")
+
+    def pump(self) -> bool:
+        raise _unsupported("async pumping")
+
+    # -- paged cache plumbing ------------------------------------------
+    def _write_pages(self, row, pages: List[int], start: int,
+                     broadcast: bool = False):
+        """Copy prefill KV of a 1-row dense cache into pool pages, every
+        layer at once: consecutive page-sized spans from ``start``, or with
+        ``broadcast`` the one span at ``start`` into every page (the
+        identical CoW tail copies of a round's candidates)."""
+        if not pages:
+            return
+        n, ps = len(pages), self.page_size
+        span = ps if broadcast else n * ps
+        pg = torch.as_tensor(pages, device=self.device)
+        cache = self.state.cache
+        for name, pool in (("k", cache["k_pages"]), ("v", cache["v_pages"])):
+            seg = row[name][:, 0, start:start + span]    # (nL, span, Hkv, hd)
+            seg = seg.reshape(pool.shape[0], -1, *pool.shape[2:])
+            if broadcast:
+                seg = seg.expand(pool.shape[0], n, *pool.shape[2:])
+            pool[:, pg] = seg.to(pool.dtype)
+
+    def _seed_prompt_pages(self, info):
+        """Allocate and write the request's full prompt pages once (one
+        pool hold each, released when the request finishes)."""
+        if info.get("prompt_seeded"):
+            return
+        full = self.pool.alloc(info["prompt_len"] // self.page_size)
+        self._write_pages(info["cache_row"], full, 0)
+        info["prompt_pages"] = full
+        info["prompt_seeded"] = True
+
+    def _seed_paged_slots(self, info, slot_ids: List[int], lim: int):
+        """Point ``slot_ids`` at the request's prompt pages: full pages are
+        shared (refcounted), the partial tail page is copied per candidate
+        — the copy-on-write point."""
+        L = info["prompt_len"]
+        ps = self.page_size
+        if L + lim > self.cache_len:
+            raise ValueError(f"prompt {L} + limit {lim} overflows the paged "
+                             f"cache of {self.cache_len} (no ring wrap)")
+        full, tail_len = divmod(L, ps)
+        self._seed_prompt_pages(info)
+        bt_rows = np.zeros((len(slot_ids), self.pages_per_slot), np.int32)
+        tails = []
+        for j, s in enumerate(slot_ids):
+            pages = list(info["prompt_pages"])
+            self.pool.share(pages)
+            if tail_len:
+                tail = self.pool.alloc(1)
+                tails += tail
+                pages += tail
+            self._slot_pages[s] = pages
+            self._slot_pos[s] = L
+            self._slot_limit[s] = L + lim
+            future = self._pages_per_candidate(L, lim) - (1 if tail_len else 0)
+            self._slot_reserved[s] = future
+            self._reserved += future
+            bt_rows[j, :len(pages)] = pages
+        self._write_pages(info["cache_row"], tails, full * ps, broadcast=True)
+        idx = torch.as_tensor(slot_ids, device=self.device)
+        cache = self.state.cache
+        cache["block_table"][idx] = torch.as_tensor(bt_rows,
+                                                    device=self.device)
+        cache["pos"][idx] = L
+
+    def _pages_per_candidate(self, prompt_len: int,
+                             lim: Optional[int] = None) -> int:
+        """Pages a candidate may allocate beyond the shared prompt pages:
+        its tail copy plus every boundary crossed decoding ``lim`` tokens."""
+        lim = self.max_new if lim is None else lim
+        return -((prompt_len + lim) // -self.page_size) - \
+            prompt_len // self.page_size
+
+    def _paged_affordable(self, info, want: int,
+                          lim: Optional[int] = None) -> int:
+        """Candidates of this request the pool can fund right now (free
+        pages minus live reservations and the unseeded prompt hold)."""
+        L = info["prompt_len"]
+        per_cand = self._pages_per_candidate(L, lim)
+        need_hold = 0 if info.get("prompt_seeded") else L // self.page_size
+        avail = self.pool.free_pages - self._reserved - need_hold
+        return max(0, min(want, avail // max(per_cand, 1)))
+
+    @staticmethod
+    def _page_crossings(lo: int, hi: int, ps: int) -> int:
+        """Page boundaries a write position crosses over [lo, hi)."""
+        return -(-hi // ps) - (-(-lo // ps))
+
+    def _stage_frontier(self):
+        """Stage each live slot's next pages for one macro launch, out of
+        its admission-time reservation. Returns ({slot: (start_pos,
+        pages)}, (B, F) frontier tensor; idle rows hold page 0)."""
+        fr = np.zeros((self.B, self._frontier_width), np.int32)
+        staged: Dict[int, Tuple[int, List[int]]] = {}
+        ps = self.page_size
+        for s in range(self.B):
+            if self._slot_req[s] < 0:
+                continue
+            p = int(self._slot_pos[s])
+            hi = min(p + max(self.macro_steps, 1), int(self._slot_limit[s]))
+            need = self._page_crossings(p, hi, ps)
+            pages: List[int] = []
+            if need > 0:
+                if need > self._slot_reserved[s]:
+                    raise RuntimeError(f"slot {s} needs {need} frontier "
+                                       f"pages, reserved "
+                                       f"{self._slot_reserved[s]}")
+                pages = self.pool.stage_frontier(need)
+                self._slot_reserved[s] -= need
+                self._reserved -= need
+                fr[s, :need] = pages
+            staged[s] = (p, pages)
+        return staged, torch.as_tensor(fr, device=self.device)
+
+    def _reclaim_frontier(self, staged, pos_np):
+        """After a launch: the consumed frontier prefix becomes slot pages,
+        the rest returns to the pool and to the slot's reservation."""
+        for s, (p0, pages) in staged.items():
+            p1 = int(pos_np[s])
+            used = self._page_crossings(p0, p1, self.page_size)
+            if used > len(pages):
+                raise RuntimeError(f"slot {s} advanced past its frontier")
+            self._slot_pages[s] += pages[:used]
+            unused = pages[used:]
+            if unused:
+                self.pool.return_frontier(unused)
+                self._slot_reserved[s] += len(unused)
+                self._reserved += len(unused)
+            self._slot_pos[s] = p1
+
+    def _alloc_step_pages(self):
+        """Legacy loop only: before each step hand a fresh page to every
+        live slot whose next write starts a page, mirrored into the
+        device block table."""
+        rows, cols, vals = [], [], []
+        for s in range(self.B):
+            if self._slot_req[s] < 0:
+                continue
+            p = int(self._slot_pos[s])
+            if p % self.page_size == 0:
+                li = p // self.page_size
+                if li >= self.pages_per_slot:
+                    raise RuntimeError(f"slot {s} ran past the paged cache "
+                                       f"({p} >= {self.cache_len})")
+                page = self.pool.alloc(1)[0]
+                self._slot_pages[s].append(page)
+                if self._slot_reserved[s] > 0:
+                    self._slot_reserved[s] -= 1
+                    self._reserved -= 1
+                rows.append(s)
+                cols.append(li)
+                vals.append(page)
+            self._slot_pos[s] += 1
+        if rows:
+            bt = self.state.cache["block_table"]
+            bt[torch.as_tensor(rows, device=self.device),
+               torch.as_tensor(cols, device=self.device)] = \
+                torch.as_tensor(vals, dtype=torch.int32, device=self.device)
+
+    def kv_stats(self) -> Dict[str, Any]:
+        """Pool accounting with resident KV bytes against the dense worst
+        case (slots x cache_len) the paged layout replaces."""
+        if not self.paged:
+            raise ValueError("kv_stats needs a paged impl")
+        stats = self.pool.stats()
+        cache = self.state.cache
+        bpp = sum(cache[k][:, 0].numel() * cache[k].element_size()
+                  for k in ("k_pages", "v_pages"))
+        stats.update(kv_dtype=self.kv_dtype, bytes_per_page=bpp,
+                     resident_kv_bytes=stats["in_use"] * bpp,
+                     peak_kv_bytes=stats["max_in_use"] * bpp,
+                     dense_equiv_bytes=self.B * self.pages_per_slot * bpp)
+        return stats
+
+    def sched_stats(self) -> Dict[str, Any]:
+        s = dict(self.scheduler.stats())
+        s.update(starved=len(self.starved_uids),
+                 prefill_calls=self.prefill_calls,
+                 prefill_tokens=self.prefill_tokens)
+        return s
+
+    # -- admission -----------------------------------------------------
+    def _admit(self, req: Request, slot_ids: List[int],
+               limit: Optional[int] = None):
+        """Seed slots with the request's prompt cache and sample the first
+        token of each candidate from the prefill logits in one batched
+        draw. ``limit`` is the scheduler's per-candidate token grant."""
+        lim = self.max_new if limit is None else min(int(limit),
+                                                     self.max_new)
+        info = self._reqs[req.uid]
+        st = self.state
+        idx = torch.as_tensor(slot_ids, device=self.device)
+        n = len(slot_ids)
+        if self.paged:
+            self._seed_paged_slots(info, slot_ids, lim)
+        else:
+            row = info["cache_row"]
+            st.cache["k"][:, idx] = row["k"]
+            st.cache["v"][:, idx] = row["v"]
+            st.cache["pos"][idx] = row["pos"]
+        bias = info.get("bias")
+        toks, lps = sample_token_batch(info["prefill_logits"], self.sampling,
+                                       bias=bias, greedy=self._greedy_row,
+                                       noise=self.noise.first(n, self.V))
+        h0 = info["prefill_hidden"]
+        hn0 = h0 / (torch.linalg.vector_norm(h0, dim=-1, keepdim=True) + 1e-8)
+        st.last_token[idx] = toks
+        st.token_counts[idx] = torch.nn.functional.one_hot(
+            toks, self.V).float()
+        st.sum_lp[idx] = lps
+        st.n_tok[idx] = 1
+        st.prev_h[idx] = hn0.expand(n, -1)
+        st.sum_coh[idx] = 0.0
+        st.sum_emb[idx] = 0.0
+        st.active[idx] = True
+        out = torch.zeros((n, self.max_new), dtype=torch.long,
+                          device=self.device)
+        out[:, 0] = toks
+        st.out_buf[idx] = out
+        st.bias[idx] = 0.0 if bias is None else bias.expand(n, -1)
+        st.greedy[idx] = self.mode == "greedy"
+        st.limit[idx] = lim
+        for s in slot_ids:
+            self._slot_req[s] = req.uid
+            self._slot_cand[s] = self._next_cand
+            self._slot_lim[s] = lim
+            info["cand_slots"].append((self._next_cand, s))
+            self._next_cand += 1
+
+    # -- prefill -------------------------------------------------------
+    def _init_info(self, req: Request, cache_row, lg, h, prompt_len: int):
+        self._reqs[req.uid] = {
+            "req": req, "cache_row": cache_row,
+            "prefill_logits": lg.float(), "prefill_hidden": h.float(),
+            "prompt_len": prompt_len,
+            "camd": ctrl.init_state(self.camd, 1, self.d, self.V,
+                                    self.device),
+            "bias": None, "round": 0, "cand_slots": [], "records": {},
+            "done": False}
+
+    def _prefill_request(self, req: Request):
+        """Unbucketed path: one prefill call for one request."""
+        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                 device=self.device)[None]
+        row = self.model.make_cache(1, self.cache_len, self._dtype)
+        lg, h, row = self.model.prefill(prompt, row, impl=self._model_impl)
+        self.prefill_calls += 1
+        self.prefill_tokens += len(req.prompt)
+        self._init_info(req, row, lg, h, len(req.prompt))
+
+    def _bucket_len(self, prompt_len: int) -> int:
+        return _next_pow2(max(prompt_len, self.prefill_bucket_min))
+
+    def _prefill_pending(self):
+        """Prefill the queued requests that have no cache yet (a bounded
+        queue prefix), batching same-bucket prompts — right-padded to a
+        power-of-two length — into one prefill call each."""
+        ahead = max(self.B, 4)
+        pending = [r for r in self._queue[:ahead] if r.uid not in self._reqs]
+        if not pending:
+            return
+        if not self.bucket_prefill:
+            for r in pending:
+                self._prefill_request(r)
+            return
+        groups: Dict[int, List[Request]] = {}
+        for r in pending:
+            groups.setdefault(self._bucket_len(len(r.prompt)), []).append(r)
+        for Lb, reqs in sorted(groups.items()):
+            if Lb > min(self._min_ring, self.cache_len):
+                for r in reqs:          # the padded bucket would wrap a ring
+                    self._prefill_request(r)
+            else:
+                self._prefill_bucket(Lb, reqs)
+
+    def _prefill_bucket(self, Lb: int, reqs: List[Request]):
+        n = len(reqs)
+        nb = _next_pow2(n)          # row counts bucket too, as the reference
+        toks = np.zeros((nb, Lb), np.int64)
+        lens = np.full((nb,), Lb, np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, :len(r.prompt)] = r.prompt
+            lens[i] = len(r.prompt)
+        cache = self.model.make_cache(nb, self.cache_len, self._dtype)
+        lg, h, cache = self.model.prefill(
+            torch.as_tensor(toks, device=self.device), cache,
+            impl=self._model_impl,
+            lengths=torch.as_tensor(lens, device=self.device))
+        self.prefill_calls += 1
+        self.prefill_tokens += int(lens[:n].sum())
+        for i, r in enumerate(reqs):
+            row = {"k": cache["k"][:, i:i + 1], "v": cache["v"][:, i:i + 1],
+                   "pos": cache["pos"][i:i + 1]}
+            self._init_info(r, row, lg[i:i + 1], h[i:i + 1], int(lens[i]))
+
+    # -- scheduling ------------------------------------------------------
+    def _free_slots(self) -> List[int]:
+        return [i for i in range(self.B) if self._slot_req[i] < 0]
+
+    def _per_round(self) -> int:
+        if self.mode == "greedy":
+            return 1
+        if self.mode == "camd":
+            return self.camd.samples_per_round
+        return min(self.n_candidates, self.B)
+
+    def _schedule(self):
+        """Prefill what is queued, then let the traffic policy fill the
+        free slots (paged engines admit only what the pool can fund)."""
+        self._prefill_pending()
+        self.scheduler.schedule(_EngineSchedContext(self))
+
+    def _needed(self, info) -> int:
+        if self.mode == "camd":
+            return self.camd.samples_per_round
+        running = sum(1 for _, s in info["cand_slots"]
+                      if self._slot_req[s] == info["req"].uid)
+        return max(0, self.n_candidates - len(info["records"]) - running)
+
+    # -- completion ------------------------------------------------------
+    def _finish_candidates(self, slots: List[int]):
+        """Fold finished slots into candidate records with one batched
+        readback, then host bookkeeping; completed rounds fold next."""
+        st = self.state
+        idx = torch.as_tensor(slots, device=self.device)
+        out_buf, sum_lp, n_tok, sum_coh, sum_emb, counts = self._sync(
+            (st.out_buf[idx], st.sum_lp[idx], st.n_tok[idx], st.sum_coh[idx],
+             st.sum_emb[idx], st.token_counts[idx]))
+        uids: List[int] = []
+        for j, slot in enumerate(slots):
+            uid = int(self._slot_req[slot])
+            cand = int(self._slot_cand[slot])
+            info = self._reqs[uid]
+            n = int(n_tok[j])
+            rec = {"uid": cand, "tokens": out_buf[j][:n].astype(np.int32),
+                   "sum_lp": float(sum_lp[j]), "n": n,
+                   "sum_coh": float(sum_coh[j]),
+                   "emb": sum_emb[j] / max(n, 1), "counts": counts[j]}
+            # Eq. 12 from the incremental aggregates (text-only: no S_align)
+            s_gen = rec["sum_lp"] / max(n, 1)
+            s_coh = rec["sum_coh"] / max(n - 1, 1)
+            rec["score"] = s_gen + self.camd.lambda_c * s_coh
+            info["records"][cand] = rec
+            self._slot_req[slot] = -1
+            self._slot_cand[slot] = -1
+            self.total_tokens += n
+            self.scheduler.on_finish(uid, n, int(self._slot_lim[slot]))
+            self._slot_lim[slot] = self.max_new
+            if self.paged:
+                self.pool.free(self._slot_pages[slot])
+                self._slot_pages[slot] = []
+                self._reserved -= int(self._slot_reserved[slot])
+                self._slot_reserved[slot] = 0
+            if uid not in uids:
+                uids.append(uid)
+        if self.paged:
+            # freed slots' dead writes land on the quarantine page
+            st.cache["block_table"][idx] = self.pool.quarantine_page()
+        due = [u for u in uids
+               if not any(self._slot_req[s] == u for s in range(self.B))]
+        if due:
+            self._finish_rounds(due)
+
+    def _finish_rounds(self, uids: List[int]):
+        """Fold every completed round in one batched
+        ``round_update_assign`` call."""
+        R = self._per_round()
+        batch = []
+        for uid in uids:
+            info = self._reqs[uid]
+            recs = [info["records"][c] for c, _ in info["cand_slots"]
+                    if c in info["records"] and
+                    "scored" not in info["records"][c]]
+            if not recs:
+                continue
+            for r in recs:
+                r["scored"] = True
+            if len(recs) > R:
+                raise RuntimeError(f"round of {len(recs)} > {R} candidates")
+            batch.append((uid, recs))
+        if not batch:
+            return
+        dev = self.device
+
+        def field(key, dtype):
+            rows = []
+            for _, recs in batch:
+                vals = [r[key] for r in recs]
+                vals += [recs[0][key]] * (R - len(recs))   # padding rows
+                rows.append(np.asarray(vals))
+            return torch.as_tensor(np.stack(rows), dtype=dtype, device=dev)
+
+        inp = ctrl.RoundInputs(
+            scores=field("score", torch.float32),
+            embs=field("emb", torch.float32),
+            token_counts=field("counts", torch.float32),
+            lengths=field("n", torch.int32),
+            valid=torch.as_tensor(
+                [[True] * len(recs) + [False] * (R - len(recs))
+                 for _, recs in batch], device=dev),
+            uids=field("uid", torch.int32))
+        states = ctrl.stack_states([self._reqs[u]["camd"] for u, _ in batch])
+        if self.mode != "camd":
+            # the fixed-budget baselines keep folding every round
+            states = states._replace(stopped=torch.zeros_like(states.stopped))
+        new_states, biases, clusters = ctrl.round_update_assign(
+            self.camd, states, inp)
+        stopped_np, clusters_np, pstar_np, best_np = self._sync(
+            (new_states.stopped, clusters, new_states.p_star,
+             new_states.best_score))
+        for i, (uid, recs) in enumerate(batch):
+            info = self._reqs[uid]
+            info["camd"] = ctrl.select_state(new_states, i)
+            info["p_star"] = float(pstar_np[i])
+            info["best_score_host"] = float(best_np[i])
+            for j, r in enumerate(recs):
+                r["cluster"] = int(clusters_np[i, j])
+            info["round"] += 1
+            if self.mode == "camd":
+                info["bias"] = biases[i:i + 1]
+                stopped = bool(stopped_np[i])
+            else:
+                info["bias"] = None
+                stopped = len(info["records"]) >= self.n_candidates
+            if stopped:
+                self._finish_request(uid)
+            else:
+                info["pending_round"] = True
+
+    def _finish_request(self, uid: int):
+        """Finalize a request with the candidates it has: drop its prompt
+        cache row and its prompt-page holds."""
+        info = self._reqs[uid]
+        info["done"] = True
+        info["pending_round"] = False
+        info["cache_row"] = None
+        if self.paged and info.get("prompt_pages"):
+            self.pool.free(info.pop("prompt_pages"))
+
+    def _has_pending(self) -> bool:
+        return bool(self._queue) or any(
+            not i["done"] and i.get("pending_round")
+            for i in self._reqs.values())
+
+    def _raise_pool_sizing(self):
+        blocked = self._queue[0].uid if self._queue else \
+            next(uid for uid, i in self._reqs.items() if not i["done"])
+        raise RuntimeError(
+            f"paged KV pool ({self.pool.num_pages} pages of "
+            f"{self.page_size}) cannot admit request {blocked} — raise "
+            "num_pages or lower max_new_tokens/prompt lengths")
+
+    def _finalize_starved(self):
+        """Terminal drain once the global token budget is spent: pending
+        work finalizes with whatever candidates it has."""
+        for req in self._queue:
+            if req.uid not in self._reqs:
+                self._reqs[req.uid] = {
+                    "req": req, "cache_row": None,
+                    "camd": ctrl.init_state(self.camd, 1, self.d, self.V,
+                                            self.device),
+                    "bias": None, "round": 0, "cand_slots": [],
+                    "records": {}, "done": False}
+        self._queue.clear()
+        for uid, info in self._reqs.items():
+            if not info["done"]:
+                if not info["records"]:
+                    self.starved_uids.append(uid)
+                self._finish_request(uid)
+
+    def _refill_idle(self) -> bool:
+        """No slot is live: admit queued work or pending rounds. Returns
+        True when all work is complete."""
+        if not self._has_pending():
+            return True
+        self._schedule()
+        if not self._any_live():
+            if self.scheduler.exhausted():
+                self._finalize_starved()
+                return True
+            if self.paged:
+                self._raise_pool_sizing()
+        return False
+
+    # -- run loops -------------------------------------------------------
+    def run(self) -> List[Result]:
+        if self.macro_steps <= 0:
+            return self._run_legacy()
+        self._schedule()
+        while self._step():
+            pass
+        return [self._result(uid) for uid in self._reqs]
+
+    def _step(self) -> bool:
+        """One fused-loop iteration: refill when idle, else stage the
+        frontier, run one macro launch and fold its results. Returns False
+        once all work is drained."""
+        if not self._any_live():
+            return not self._refill_idle()
+        staged, frontier = self._stage_frontier() if self.paged \
+            else (None, None)
+        done, steps = self._macro_step(frontier)
+        self.macro_launches += 1
+        done_np, pos_np, steps_np = self._sync(
+            (done, self.state.cache["pos"], steps))
+        self.total_steps += int(steps_np)
+        self._t += int(steps_np)
+        if self.paged:
+            self._reclaim_frontier(staged, pos_np)
+        done_slots = [int(s) for s in np.nonzero(done_np)[0]
+                      if self._slot_req[s] >= 0]
+        if done_slots:
+            self._finish_candidates(done_slots)
+            self._schedule()
+        return True
+
+    def _run_legacy(self) -> List[Result]:
+        """Per-token host loop (``macro_steps=0``): one step, one host sync
+        and one block-table update per generated token."""
+        self._schedule()
+        while True:
+            if not self._any_live():
+                if self._refill_idle():
+                    break
+                continue
+            if self.paged:
+                self._alloc_step_pages()
+            done = self._decode_step(self._step_noise(self._t))
+            self.total_steps += 1
+            self._t += 1
+            (done_np,) = self._sync((done,))
+            if done_np.any():
+                for s in np.nonzero(done_np)[0]:
+                    if self._slot_req[int(s)] >= 0:
+                        self._finish_candidates([int(s)])
+                self._schedule()
+        return [self._result(uid) for uid in self._reqs]
+
+    def _result(self, uid: int) -> Result:
+        info = self._reqs[uid]
+        cs = info["camd"]
+        p_star = float(cs.p_star[0])
+        best_score = float(cs.best_score[0])
+        recs = list(info["records"].values())
+        if not recs:                     # budget-starved
+            return Result(uid=uid, tokens=np.zeros((0,), np.int32),
+                          n_candidates=0, tokens_spent=0,
+                          rounds=info["round"], p_star=p_star,
+                          best_score=best_score, stopped_early=False,
+                          candidates=[])
+        if self.mode == "self_consistency":
+            # majority vote: the largest cluster's best-scoring member
+            n_cl = int(cs.table.n_clusters[0])
+            members: List[Dict[str, Any]] = []
+            if n_cl > 0:
+                sizes = cs.table.sizes[0, :n_cl].cpu().numpy()
+                best_k = int(np.argmax(sizes))
+                members = [r for r in recs if r.get("cluster", -1) == best_k]
+            chosen = max(members or recs, key=lambda r: r["score"])
+        else:
+            chosen = info["records"].get(int(cs.best_uid[0])) or \
+                max(recs, key=lambda r: r["score"])
+        return Result(
+            uid=uid, tokens=chosen["tokens"], n_candidates=len(recs),
+            tokens_spent=int(sum(r["n"] for r in recs)),
+            rounds=info["round"], p_star=p_star, best_score=best_score,
+            stopped_early=(self.mode == "camd" and bool(cs.stopped[0]) and
+                           p_star >= 1.0 - self.camd.delta),
+            candidates=[{k: v for k, v in r.items()
+                         if k not in ("counts", "emb")} for r in recs])
+
+
+class _EngineSchedContext(SchedulerContext):
+    """The engine side of the scheduler facade; free slots are handed out
+    in ascending order, as in the reference."""
+
+    def __init__(self, eng: ServeEngine):
+        self.eng = eng
+        self.max_new = eng.max_new
+
+    def free_slots(self) -> int:
+        return len(self.eng._free_slots())
+
+    def queued_new(self) -> List[NewWork]:
+        eng = self.eng
+        out = []
+        for r in eng._queue:
+            if r.uid not in eng._reqs:
+                break                    # prefill covers a queue prefix
+            out.append(NewWork(uid=r.uid, arrival=eng._arrival[r.uid],
+                               want=eng._per_round(),
+                               prompt_len=eng._reqs[r.uid]["prompt_len"]))
+        return out
+
+    def pending_rounds(self) -> List[RoundWork]:
+        eng = self.eng
+        out = []
+        for uid, info in eng._reqs.items():
+            if info["done"] or info.get("pending_round") is not True:
+                continue
+            recs = list(info["records"].values())
+            scores = [r["score"] for r in recs]
+            out.append(RoundWork(
+                uid=uid, arrival=eng._arrival.get(uid, 0),
+                want=eng._needed(info), rounds=info["round"],
+                p_star=info.get("p_star", 0.0), delta=eng.camd.delta,
+                best_score=info.get("best_score_host",
+                                    max(scores, default=0.0)),
+                scores=scores,
+                mean_len=float(np.mean([r["n"] for r in recs]))
+                if recs else 0.0))
+        return out
+
+    def affordable(self, uid: int, want: int, limit: int) -> int:
+        eng = self.eng
+        if not eng.paged:
+            return want
+        return eng._paged_affordable(eng._reqs[uid], want, limit)
+
+    def admit_new(self, uid: int, take: int, limit: int) -> None:
+        eng = self.eng
+        i = next(i for i, r in enumerate(eng._queue) if r.uid == uid)
+        eng._admit(eng._queue.pop(i), eng._free_slots()[:take], limit=limit)
+
+    def admit_round(self, uid: int, take: int, limit: int) -> None:
+        eng = self.eng
+        info = eng._reqs[uid]
+        info["pending_round"] = False
+        eng._admit(info["req"], eng._free_slots()[:take], limit=limit)
+
+    def finish_request(self, uid: int) -> None:
+        self.eng._finish_request(uid)

@@ -1,0 +1,47 @@
+"""The port stands alone: no ``repro_torch`` module imports ``jax`` or any
+module of the JAX package ``repro``.
+
+A fresh interpreter installs an import hook that refuses those names,
+then imports every module of the port and runs its serve entry point on
+the CPU.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+from repro_torch.launch import serve
+serve.main(["--device", "cpu", "--requests", "2", "--max-new", "4",
+            "--impl", "paged_cuda", "--num-layers", "1"])
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print("imported", len(names), "modules")
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    n = int(out.stdout.strip().splitlines()[-1].split()[1])
+    assert n >= 15, out.stdout

@@ -1,0 +1,165 @@
+"""The port's attention kernels, on the CPU and (marked ``gpu``) the card.
+
+On the CPU the kernel wrappers run their plain PyTorch versions
+(``repro_torch.kernels.ref``); those are held against the JAX package's
+oracles (``repro.kernels.ref``) and its Pallas kernels in interpret mode,
+as ``tests/test_kernels.py`` and ``tests/test_paged_attention.py`` run
+them, on the same numpy inputs: fp32 within atol/rtol 2e-5, bf16 within
+2e-2. The CUDA kernels themselves are held against these plain versions
+on the card by ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.paged_decode_attention import \
+    paged_decode_attention as pallas_paged
+from repro.models.attention import kv_quantize as jquantize
+from repro_torch.kernels import ops, ref
+
+TOLS = {"float32": dict(rtol=2e-5, atol=2e-5),
+        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small CPU shapes gain nothing from torch's thread pool, and its
+    threads contend with the other test workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(x, dtype):
+    """The same values as a jnp array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(x).astype(jnp.dtype(dtype))
+    tt = torch.from_numpy(np.array(x, np.float32)).to(TDT[dtype])
+    return j, tt
+
+
+def _close(exp, out, dtype):
+    np.testing.assert_allclose(np.asarray(exp, np.float32),
+                               out.float().numpy(), **TOLS[dtype])
+
+
+def _expand(x, rep):
+    return np.repeat(x, rep, axis=2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,H,Hkv,hd,causal,window", [
+    (64, 2, 2, 64, True, 0), (200, 4, 2, 64, True, 0),
+    (130, 2, 1, 128, True, 48), (37, 2, 2, 16, False, 0)])
+def test_flash_plain_matches_reference(dtype, L, H, Hkv, hd, causal,
+                                       window):
+    rng = np.random.default_rng(L + H + hd)
+    B = 2
+    q = rng.standard_normal((B, L, H, hd))
+    k = rng.standard_normal((B, L, Hkv, hd))
+    v = rng.standard_normal((B, L, Hkv, hd))
+    jq, tq = _pair(q, dtype)
+    jk, tk = _pair(_expand(k, H // Hkv), dtype)
+    jv, tv = _pair(_expand(v, H // Hkv), dtype)
+    _, tkg = _pair(k, dtype)
+    _, tvg = _pair(v, dtype)
+    exp = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    # the reference's expanded heads and the port's grouped ones
+    _close(exp, ref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                        window=window), dtype)
+    _close(exp, ops.flash_attention(tq, tkg, tvg, causal=causal,
+                                    window=window), dtype)
+    if dtype == "float32":
+        pal = pallas_flash(jq, jk, jv, causal=causal, window=window,
+                           blk_q=128, blk_k=128, interpret=True)
+        _close(pal, ops.flash_attention(tq, tkg, tvg, causal=causal,
+                                        window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Hkv,hd", [(128, 4, 1, 64), (300, 8, 2, 64),
+                                        (96, 4, 4, 128)])
+def test_decode_plain_matches_reference(dtype, S, H, Hkv, hd):
+    rng = np.random.default_rng(S + H)
+    B = 2
+    jq, tq = _pair(rng.standard_normal((B, 1, H, hd)), dtype)
+    jk, tk = _pair(rng.standard_normal((B, S, Hkv, hd)), dtype)
+    jv, tv = _pair(rng.standard_normal((B, S, Hkv, hd)), dtype)
+    mask = rng.random((B, S)) < 0.75
+    mask[:, :2] = True
+    exp = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(mask))
+    out = ops.decode_attention(tq, tk, tv, torch.from_numpy(mask))
+    _close(exp, out, dtype)
+    if dtype == "float32":
+        pal = pallas_decode(jq, jk, jv, jnp.asarray(mask), blk_s=128,
+                            interpret=True)
+        _close(pal, out, dtype)
+
+
+def _paged_inputs(rng, B, H, Hkv, hd, ps, n):
+    P = B * n + 2
+    q = rng.standard_normal((B, 1, H, hd))
+    kp = rng.standard_normal((P, ps, Hkv, hd))
+    vp = rng.standard_normal((P, ps, Hkv, hd))
+    bt = (1 + rng.permutation(P - 1)[:B * n]).reshape(B, n).astype(np.int32)
+    return q, kp, vp, bt
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("ps,Hkv,H", [(16, 2, 8), (8, 1, 4), (64, 4, 4)])
+def test_paged_plain_matches_reference(pool, ps, Hkv, H):
+    rng = np.random.default_rng(ps + H)
+    B, hd, n = 3, 64, 4
+    q, kp, vp, bt = _paged_inputs(rng, B, H, Hkv, hd, ps, n)
+    # ragged: a one-token row, a mid-page row, an exactly-full row
+    lengths = np.array([1, (n - 1) * ps + ps // 2 + 1, n * ps], np.int32)
+    dtype = "bfloat16" if pool == "bfloat16" else "float32"
+    jq, tq = _pair(q, dtype)
+    jbt, jln = jnp.asarray(bt), jnp.asarray(lengths)
+    tbt, tln = torch.from_numpy(bt), torch.from_numpy(lengths)
+    if pool in ("int8", "fp8"):
+        qd = jnp.int8 if pool == "int8" else jnp.float8_e4m3fn
+        jk, jks = jquantize(jnp.asarray(kp, jnp.float32), qd)
+        jv, jvs = jquantize(jnp.asarray(vp, jnp.float32), qd)
+        tdt = torch.int8 if pool == "int8" else torch.float8_e4m3fn
+        tk = torch.from_numpy(np.array(jk).view(np.uint8)).view(tdt)
+        tv = torch.from_numpy(np.array(jv).view(np.uint8)).view(tdt)
+        tks, tvs = torch.from_numpy(np.array(jks)), \
+            torch.from_numpy(np.array(jvs))
+    else:
+        jk, tk = _pair(kp, dtype)
+        jv, tv = _pair(vp, dtype)
+        jks = jvs = tks = tvs = None
+    exp = jref.paged_decode_attention_ref(jq, jk, jv, jbt, jln, k_scale=jks,
+                                          v_scale=jvs)
+    out = ops.paged_decode_attention(tq, tk, tv, tbt, tln, k_scale=tks,
+                                     v_scale=tvs)
+    _close(exp, out, dtype)
+    if pool in ("float32", "int8"):
+        pal = pallas_paged(jq, jk, jv, jbt, jln, k_scale=jks, v_scale=jvs,
+                           interpret=True)
+        _close(pal, out, dtype)
+
+
+def test_cpu_tensors_take_the_plain_path():
+    """CPU tensors never reach a CUDA kernel: no launch is counted."""
+    rng = np.random.default_rng(7)
+    ops.reset_launches()
+    q = torch.from_numpy(rng.standard_normal((1, 16, 2, 16)).astype(
+        np.float32))
+    ops.flash_attention(q, q, q)
+    ops.decode_attention(q[:, :1], q, q, torch.ones(1, 16, dtype=torch.bool))
+    ops.paged_decode_attention(q[:, :1], q.reshape(2, 8, 2, 16),
+                               q.reshape(2, 8, 2, 16),
+                               torch.zeros(1, 2, dtype=torch.int32),
+                               torch.full((1,), 16, dtype=torch.int32))
+    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
+                            "paged_decode_attention": 0}
+    with pytest.raises(ValueError, match="both"):
+        ops.paged_decode_attention(q[:, :1], q, q, None, None,
+                                   k_scale=torch.ones(1))
