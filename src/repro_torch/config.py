@@ -1,19 +1,47 @@
 """Configuration dataclasses of the port.
 
-Copies of ``ModelConfig``, ``SamplingConfig``, ``CAMDConfig`` and
-``PagedKVConfig`` from the JAX package's ``repro/config.py``, field for
-field, so a config built for one package describes the same model and
-serving setup in the other.
+Copies of ``ModelConfig``, ``VisionConfig``, ``SamplingConfig``,
+``CAMDConfig`` and ``PagedKVConfig`` from the JAX package's
+``repro/config.py``, field for field, so a config built for one package
+describes the same model and serving setup in the other.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 # The block kind this slice serves; configs naming others ("local",
 # "ssm", "rglru") are rejected by ``models.model.Model``.
 ATTN = "attn"
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    """ViT vision tower of the image-prefill serving path: an image of
+    ``image_h`` x ``image_w`` yields ``n_patches`` embeddings, which must
+    equal the LM's ``num_evidence_tokens``."""
+    image_h: int = 336
+    image_w: int = 336
+    patch: int = 14
+    channels: int = 3
+    num_layers: int = 4
+    d_model: int = 256
+    num_heads: int = 4
+    d_ff: int = 512
+
+    @property
+    def n_patches(self) -> int:
+        return (self.image_h // self.patch) * (self.image_w // self.patch)
+
+    @staticmethod
+    def for_tokens(n: int, patch: int = 4, **kw) -> "VisionConfig":
+        """A tower whose patch grid yields exactly ``n`` tokens (square
+        grid when ``n`` is a perfect square, else ``n`` x 1)."""
+        r = int(round(n ** 0.5))
+        gh, gw = (r, r) if r * r == n else (n, 1)
+        return VisionConfig(image_h=gh * patch, image_w=gw * patch,
+                            patch=patch, **kw)
 
 
 @dataclass(frozen=True)
@@ -36,7 +64,7 @@ class ModelConfig:
     attn_window: int = 0          # 0 => full causal; >0 => sliding window
     local_window: int = 2048
     block_pattern: Tuple[str, ...] = (ATTN,)
-    mlp_activation: str = "swiglu"             # the one this slice serves
+    mlp_activation: str = "swiglu"             # the LM's; the tower's is gelu
     tie_embeddings: bool = False
     moe: object = None
     ssm: object = None
@@ -45,7 +73,7 @@ class ModelConfig:
     num_encoder_layers: int = 0
     num_evidence_tokens: int = 0
     evidence_dim: int = 0
-    vision: object = None
+    vision: Optional[VisionConfig] = None      # None: precomputed evidence
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     source: str = ""
@@ -68,7 +96,8 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """The reference's CPU-smoke-size variant of an attention-only
-        config (same rule as ``repro.config.ModelConfig.reduced``)."""
+        config, evidence and vision tower included (same rule as
+        ``repro.config.ModelConfig.reduced``)."""
         kw = dict(
             num_layers=max(2, min(len(self.block_pattern), 3)),
             d_model=256, d_ff=512, vocab_size=512, head_dim=64)
@@ -76,6 +105,13 @@ class ModelConfig:
             kw["num_heads"] = 4
             kw["num_kv_heads"] = min(self.num_kv_heads, 2) \
                 if self.num_kv_heads > 1 else 1
+        if self.num_evidence_tokens:
+            kw["num_evidence_tokens"] = 8
+            kw["evidence_dim"] = min(self.evidence_dim, 256) or 256
+            if self.vision is not None:
+                kw["vision"] = VisionConfig.for_tokens(
+                    8, patch=4, num_layers=2, d_model=64, num_heads=2,
+                    d_ff=128)
         if self.attn_window:
             kw["attn_window"] = 64
         kw["local_window"] = 64

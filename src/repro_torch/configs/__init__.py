@@ -1,7 +1,7 @@
 """Architecture config registry of the port.
 
-``get_config`` accepts the arch id ("qwen3-0.6b") or the module name
-("qwen3_0_6b"), as the reference's registry does. Only the configs this
+``get_config`` accepts the arch id ("llava-1.5-7b") or the module name
+("llava_1_5_7b"), as the reference's registry does. Only the configs this
 port serves are registered.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ from repro_torch.config import ModelConfig
 
 _MODULES = {
     "qwen3_0_6b": "qwen3-0.6b",
+    "llava_1_5_7b": "llava-1.5-7b",
 }
 
 _BY_NAME: Dict[str, ModelConfig] = {}

@@ -6,11 +6,14 @@
 block-pattern position on a leading axis (``params["super"]``,
 ``repro/models/transformer.py:153-155``); layer ``i * len(pattern) + p``
 is entry ``i`` of ``params["super"][p]``, and the unstacked
-``params["tail"]`` layers follow.
+``params["tail"]`` layers follow. Other subtrees flatten by name; a
+sequence inside them, such as the vision tower's tuple of blocks
+(``repro/models/vision.py:62``), by index: ``vision.blocks.<i>.wq.kernel``.
+The evidence projection carries over as ``evidence_proj.kernel``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +26,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]):
         name = f"{prefix}{k}"
         if isinstance(v, Mapping):
             _flatten(v, name + ".", out)
+        elif isinstance(v, Sequence):
+            _flatten({str(i): x for i, x in enumerate(v)}, name + ".", out)
         else:
             out[name] = np.asarray(v)
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded through ``ctypes``. Builds
+shared library with a plain C interface, loaded through ``ctypes``; a
+source may hold several entry points (``xmodal_score.cu`` holds two). Builds
 happen at first use into ``build/kernels/`` at the repository root (listed
 in ``.gitignore``); a library's file name carries a hash of its sources and
 flags, so an edited kernel rebuilds and an unchanged one loads as is.
@@ -26,16 +27,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the extern "C" entry points (pointers as c_void_p: a
-# bare Python int would be passed as a 32-bit int and cut the address)
-SIGNATURES = {
-    "flash_attention": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-    "decode_attention": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
-    "paged_decode_attention": [_P] * 8 + [_I] * 9 + [_P],
+# the extern "C" entry points: name -> (source in csrc/, C signature with
+# pointers as c_void_p: a bare Python int would be passed as a 32-bit int
+# and cut the address)
+KERNELS = {
+    "flash_attention": ("flash_attention", [_P, _P, _P, _P] + [_I] * 8 + [_P]),
+    "decode_attention": ("decode_attention",
+                         [_P, _P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "paged_decode_attention": ("paged_decode_attention",
+                               [_P] * 8 + [_I] * 9 + [_P]),
+    "xmodal_score_mean": ("xmodal_score", [_P] * 6 + [_I] * 5 + [_P]),
+    "xmodal_score_max": ("xmodal_score", [_P] * 5 + [_I] * 5 + [_P]),
 }
+SOURCES = sorted({src for src, _ in KERNELS.values()})
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# per-kernel build record: seconds spent in nvcc (0 when the library was
+_FNS: Dict[str, object] = {}
+# per-source build record: seconds spent in nvcc (0 when the library was
 # already built) and the compiler's -Xptxas -v report
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
 
@@ -56,7 +64,7 @@ def _lib_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start nvcc for one kernel; returns (process, tmp path, out path, t0)
+    """Start nvcc for one source; returns (process, tmp path, out path, t0)
     or None when the library is already built."""
     out = _lib_path(name)
     if out.exists():
@@ -85,8 +93,9 @@ def _finish(name: str, started) -> None:
 
 
 def build_all(names: List[str] = None) -> Dict[str, Dict[str, object]]:
-    """Compile every kernel (or ``names``) in parallel; returns BUILD_INFO."""
-    names = list(SIGNATURES) if names is None else names
+    """Compile every source (or the sources ``names``) in parallel;
+    returns BUILD_INFO."""
+    names = SOURCES if names is None else names
     started = {n: _start(n) for n in names}
     for n in names:
         _finish(n, started[n])
@@ -94,13 +103,23 @@ def build_all(names: List[str] = None) -> Dict[str, Dict[str, object]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built on first use, with its C signature."""
+    """The library of source ``name``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         _finish(name, _start(name))
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str):
+    """The C entry point ``name`` with its signature, its library built on
+    first use."""
+    fn = _FNS.get(name)
+    if fn is None:
+        src, argtypes = KERNELS[name]
+        fn = getattr(load(src), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn

@@ -1,6 +1,7 @@
-// Shared pieces of the port's attention kernels: element conversions and
-// the one-query-token decode body that both decode kernels instantiate
-// (dense cache: decode_attention.cu; paged pool: paged_decode_attention.cu).
+// Shared pieces of the port's kernels: dtype codes, element conversions,
+// warp reductions, and the one-query-token decode body that both decode
+// kernels instantiate (dense cache: decode_attention.cu; paged pool:
+// paged_decode_attention.cu). xmodal_score.cu uses the first three.
 //
 // Built for sm_90a by kernels/build.py with a plain C interface per .cu
 // file; the Python wrappers in kernels/ops.py check shapes, dtypes and

@@ -1,4 +1,5 @@
-"""Public entry points of the port's attention kernels.
+"""Public entry points of the port's kernels: attention (K1-K3) and the
+cross-modal score (K4).
 
 Dispatch follows the tensor: on a CPU tensor each wrapper runs the plain
 PyTorch version (``ref.py``); on a CUDA tensor it launches its hand-written
@@ -18,12 +19,15 @@ from repro_torch.kernels import ref
 
 # launches of each kernel since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0,
+                            "xmodal_score_mean": 0, "xmodal_score_max": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 _FLASH_HD = (16, 32, 64, 128)
+# rows and visual rows per block of csrc/xmodal_score.cu (XM_ROWS, XM_COLS)
+_XMODAL_ROWS, _XMODAL_COLS = 32, 64
 
 
 def reset_launches() -> None:
@@ -48,7 +52,7 @@ def _check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
 
 def _launch(name: str, *args) -> None:
     from repro_torch.kernels import build
-    fn = getattr(build.load(name), name)
+    fn = build.function(name)
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -148,3 +152,75 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
             B, q.shape[2], Hkv, hd, P, ps, n, _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[k_pages.dtype])
     return out
+
+
+
+def _check_xmodal(name: str, rows, vis) -> None:
+    B, n, d = rows.shape
+    _check(rows.dtype in _ACT_DTYPES and vis.dtype == rows.dtype,
+           f"{name}: rows and visual rows fp32 or bf16, alike")
+    _check(vis.dim() == 3 and vis.shape[0] == B and vis.shape[2] == d and
+           min(n, vis.shape[1], d) > 0,
+           f"{name}: bad shapes {tuple(rows.shape)} {tuple(vis.shape)}")
+
+
+def xmodal_mean_sum(token_embs, mask, visual_feats):
+    """K4a: (B,) fp32 sum_t mask[t] * sum_j cos(tok_t, vis_j). token_embs:
+    (B, L, d); mask: (B, L) fp32; visual_feats: (B, Nv, d), fp32 or bf16
+    like token_embs."""
+    if not token_embs.is_cuda:
+        return ref.xmodal_mean_sum_ref(token_embs, mask, visual_feats)
+    name = "xmodal_score_mean"
+    _check_cuda(name, token_embs, mask, visual_feats)
+    _check_xmodal(name, token_embs, visual_feats)
+    B, L, d = token_embs.shape
+    Nv = visual_feats.shape[1]
+    _check(mask.shape == (B, L) and mask.dtype == torch.float32,
+           f"{name}: mask must be ({B}, {L}) fp32")
+    dev = token_embs.device
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    ticket = torch.zeros(B, dtype=torch.int32, device=dev)
+    partial = torch.empty(B * -(-L // _XMODAL_ROWS) * -(-Nv // _XMODAL_COLS),
+                          dtype=torch.float32, device=dev)
+    _launch(name, token_embs.data_ptr(), mask.data_ptr(),
+            visual_feats.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
+            out.data_ptr(), B, L, Nv, d, _DTYPE_CODES[token_embs.dtype])
+    return out
+
+
+def xmodal_max_sum(text_feats, visual_feats):
+    """K4b: (B,) fp32 sum_r max_j cos(txt_r, vis_j). text_feats:
+    (B, Nt, d); visual_feats: (B, Nv, d), fp32 or bf16 alike."""
+    if not text_feats.is_cuda:
+        return ref.xmodal_max_sum_ref(text_feats, visual_feats)
+    name = "xmodal_score_max"
+    _check_cuda(name, text_feats, visual_feats)
+    _check_xmodal(name, text_feats, visual_feats)
+    B, Nt, d = text_feats.shape
+    Nv = visual_feats.shape[1]
+    dev = text_feats.device
+    out = torch.empty(B, dtype=torch.float32, device=dev)
+    ticket = torch.zeros(B, dtype=torch.int32, device=dev)
+    partial = torch.empty(B * -(-Nv // _XMODAL_COLS) * Nt,
+                          dtype=torch.float32, device=dev)
+    _launch(name, text_feats.data_ptr(), visual_feats.data_ptr(),
+            partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), B, Nt, Nv,
+            d, _DTYPE_CODES[text_feats.dtype])
+    return out
+
+
+def xmodal_score(token_embs, mask, visual_feats, text_feats):
+    """S_align of paper Eq. 8-9 per batch row: token_embs (B, L, d); mask
+    (B, L) fp32; visual_feats (B, Nv, d); text_feats (B, Nt, d). Returns
+    (B,) fp32 0.5 * (sum1 / (max(sum mask, 1) * Nv) + sum2 / Nt), with
+    sum1 from K4a and sum2 from K4b."""
+    if not token_embs.is_cuda:
+        return ref.xmodal_score_ref(token_embs, mask, visual_feats,
+                                    text_feats)
+    _check(text_feats.dtype == token_embs.dtype,
+           "xmodal_score: token and text rows alike")
+    sum1 = xmodal_mean_sum(token_embs, mask, visual_feats)
+    sum2 = xmodal_max_sum(text_feats, visual_feats)
+    n_tok = torch.clamp(mask.sum(-1), min=1.0)
+    return 0.5 * (sum1 / (n_tok * visual_feats.shape[1]) +
+                  sum2 / text_feats.shape[1])

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the three attention kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each computes the same function as its CUDA kernel (``csrc/*.cu``) with
 plain tensor ops: fp32 math, the reference's ``NEG_INF = -1e30`` masking
-and a full softmax. They follow ``repro/kernels/ref.py:15-77``. The kernel
+and a full softmax for attention, whole cosine matrices for the
+cross-modal score. They follow ``repro/kernels/ref.py:15-94``. The kernel
 wrappers in ``ops.py`` run these on CPU tensors; ``chip_smoke.py`` holds
 each kernel against them on the card.
 """
@@ -70,3 +71,41 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_table, lengths,
     mask = torch.arange(n * ps, device=q.device)[None, :] < \
         lengths.long()[:, None]
     return decode_attention_ref(q, k, v, mask)
+
+
+
+def _unit_rows(x):
+    """x / max(|x|, 1e-8) over the last dim, in fp32 (the kernels' rule)."""
+    x = x.float()
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
+                           min=1e-8)
+
+
+def xmodal_mean_sum_ref(token_embs, mask, visual_feats):
+    """K4a's sum: (B,) sum_t mask[t] * sum_j cos(tok_t, vis_j)."""
+    sim = torch.einsum("bld,bnd->bln", _unit_rows(token_embs),
+                       _unit_rows(visual_feats))
+    return (sim.sum(-1) * mask.float()).sum(-1)
+
+
+def xmodal_max_sum_ref(text_feats, visual_feats):
+    """K4b's sum: (B,) sum_r max_j cos(txt_r, vis_j)."""
+    sim = torch.einsum("brd,bnd->brn", _unit_rows(text_feats),
+                       _unit_rows(visual_feats))
+    return sim.amax(-1).sum(-1)
+
+
+def xmodal_score_ref(token_embs, mask, visual_feats, text_feats):
+    """S_align of paper Eq. 8-9 per batch row (``ref.py:78``).
+    token_embs: (B, L, d); mask: (B, L); visual_feats: (B, Nv, d);
+    text_feats: (B, Nt, d). Rows are normalised as x / max(|x|, 1e-8) in
+    fp32; term 1 averages each masked token's cosine over all visual rows,
+    term 2 each text row's best visual match. Returns (B,) fp32."""
+    tok, vis = _unit_rows(token_embs), _unit_rows(visual_feats)
+    txt = _unit_rows(text_feats)
+    m = mask.float()
+    sim_tv = torch.einsum("bld,bnd->bln", tok, vis)
+    term1 = (sim_tv.mean(-1) * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
+    sim_rt = torch.einsum("brd,bnd->brn", txt, vis)
+    term2 = sim_rt.amax(-1).mean(-1)
+    return 0.5 * (term1 + term2)

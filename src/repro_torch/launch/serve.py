@@ -2,6 +2,15 @@
 
     python -m repro_torch.launch.serve --arch qwen3-0.6b --mode camd \
         --impl paged_cuda --requests 8 --prompt-len 256 --max-new 32
+    python -m repro_torch.launch.serve --arch llava-1.5-7b --no-reduced \
+        --impl paged_cuda --xmodal-rescore --image-pool 2 --cache-len 864
+
+Configs with a vision tower serve image requests: synthetic images drawn
+from a pool of ``--image-pool`` distinct ones, encoded at submit time and
+prefilled ahead of the prompt; configs with evidence tokens but no tower
+get random precomputed evidence. The random draws follow the reference
+CLI's order (``repro/launch/serve.py:197-216``), so one seed makes the
+same requests in both packages.
 
 Weights are random, made from seed 0 (no checkpoint is in the
 repository), and the model runs in fp32, as in the reference CLI.
@@ -19,7 +28,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.config import CAMDConfig, PagedKVConfig, SamplingConfig
+from repro_torch.config import (CAMDConfig, PagedKVConfig, SamplingConfig,
+                                VisionConfig)
 from repro_torch.configs import get_config
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import IMPLS, Request, ServeEngine
@@ -35,6 +45,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "(--no-reduced: its published widths)")
     ap.add_argument("--num-layers", type=int, default=0,
                     help="cut the model to this many layers (0 = keep)")
+    ap.add_argument("--image-tokens", type=int, default=0,
+                    help="vision configs: encode the synthetic images into "
+                         "N image tokens each (the tower's patch grid is "
+                         "cut to N; 0 = the config's count)")
+    ap.add_argument("--image-pool", type=int, default=2,
+                    help="distinct images the synthetic requests draw "
+                         "from; repeats hit the submit-time feature memo")
+    ap.add_argument("--xmodal-rescore", action="store_true",
+                    help="rescore finished candidates' S_align by the "
+                         "cross-modal score (Eq. 8-9; the K4 kernels under "
+                         "the cuda impls) instead of the incremental "
+                         "aggregate")
     ap.add_argument("--mode", default="camd",
                     choices=["camd", "best_of_n", "self_consistency",
                              "greedy"])
@@ -69,6 +91,33 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def make_requests(cfg, args) -> List[Request]:
+    """The synthetic requests, drawn in the reference CLI's order: first
+    the pool images, then per request its prompt followed by its image
+    index (or, without a tower, its raw evidence)."""
+    rng = np.random.default_rng(args.seed)
+    images = []
+    if cfg.num_evidence_tokens and cfg.vision is not None:
+        v = cfg.vision
+        images = [rng.standard_normal(
+            (v.image_h, v.image_w, v.channels)).astype(np.float32)
+            for _ in range(max(1, args.image_pool))]
+    reqs = []
+    for i in range(args.requests):
+        prompt = rng.integers(2, cfg.vocab_size,
+                              size=args.prompt_len).astype(np.int32)
+        if images:
+            reqs.append(Request(uid=i, prompt=prompt,
+                                image=images[int(rng.integers(len(images)))]))
+            continue
+        ev = None
+        if cfg.num_evidence_tokens:
+            ev = rng.standard_normal((cfg.num_evidence_tokens,
+                                      cfg.evidence_dim)).astype(np.float32)
+        reqs.append(Request(uid=i, prompt=prompt, evidence=ev))
+    return reqs
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Serve one batch of synthetic requests; prints results and
     telemetry and returns them (``engine``, ``results``, ``seconds``,
@@ -80,6 +129,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     if args.num_layers:
         cfg = cfg.with_overrides(num_layers=args.num_layers)
     cfg = cfg.with_overrides(dtype="float32")      # fp32, as the reference
+    if args.image_tokens:
+        if cfg.vision is None:
+            raise SystemExit(f"--image-tokens needs a vision config; "
+                             f"{cfg.name} has no vision tower")
+        v = cfg.vision
+        cfg = cfg.with_overrides(
+            num_evidence_tokens=args.image_tokens,
+            vision=VisionConfig.for_tokens(
+                args.image_tokens, patch=v.patch, num_layers=v.num_layers,
+                d_model=v.d_model, num_heads=v.num_heads, d_ff=v.d_ff))
     model = build_model(cfg, torch.float32, device=args.device, seed=0)
     eng = ServeEngine(
         model, slots=args.slots, cache_len=args.cache_len,
@@ -92,11 +151,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         bucket_prefill=not args.no_bucket_prefill,
         prefill_bucket_min=args.prefill_bucket_min,
         sched_policy=args.sched_policy, global_budget=args.global_budget,
-        seed=args.seed)
-    rng = np.random.default_rng(args.seed)
-    for i in range(args.requests):
-        eng.submit(Request(uid=i, prompt=rng.integers(
-            2, cfg.vocab_size, size=args.prompt_len).astype(np.int32)))
+        xmodal_rescore=args.xmodal_rescore, seed=args.seed)
+    for req in make_requests(cfg, args):
+        eng.submit(req)
     sync = torch.cuda.synchronize if model.device.type == "cuda" \
         else (lambda: None)
     sync()
@@ -124,6 +181,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         print(f"paged kv: peak {s['max_in_use']}/{s['num_pages']} pages "
               f"({s['peak_kv_bytes'] / 1e6:.2f} MB resident at peak vs "
               f"{s['dense_equiv_bytes'] / 1e6:.2f} MB dense-equivalent)")
+    if eng.image_encodes or eng.image_feat_hits:
+        print(f"vision frontend: {eng.image_encodes} tower encodes, "
+              f"{eng.image_feat_hits} feature-memo hits")
     return {"engine": eng, "results": results, "seconds": secs,
             "tokens_per_s": eng.total_tokens / secs}
 

@@ -50,7 +50,11 @@ def dense(kernel, x, bias: Optional[torch.Tensor] = None):
 
 
 def mlp(p, x):
-    """SwiGLU MLP: p is an ``MLP`` module (w_gate, w_up, w_down)."""
+    """p is an ``MLP`` module: SwiGLU (w_gate, w_up, w_down) or the
+    non-gated gelu MLP (w_in, w_out). ``jax.nn.gelu`` defaults to the tanh
+    approximation, so the gelu here is the tanh form too."""
+    if p.activation == "gelu":
+        return p.w_out(F.gelu(p.w_in(x), approximate="tanh"))
     return p.w_down(F.silu(p.w_gate(x)) * p.w_up(x))
 
 
@@ -86,15 +90,23 @@ class Norm(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU MLP weights (the reference's ``mlp_init`` for "swiglu")."""
+    """MLP weights as the reference's ``mlp_init``: "swiglu" (w_gate, w_up,
+    w_down) or "gelu" (w_in, w_out)."""
 
-    def __init__(self, d_model: int, d_ff: int, *, dtype=torch.float32,
-                 device=None, gen=None):
+    def __init__(self, d_model: int, d_ff: int, activation: str = "swiglu",
+                 *, dtype=torch.float32, device=None, gen=None):
         super().__init__()
+        if activation not in ("swiglu", "gelu"):
+            raise NotImplementedError(f"{activation} MLPs are not ported")
+        self.activation = activation
         kw = dict(dtype=dtype, device=device, gen=gen)
-        self.w_gate = Dense(d_model, d_ff, **kw)
-        self.w_up = Dense(d_model, d_ff, **kw)
-        self.w_down = Dense(d_ff, d_model, **kw)
+        if activation == "swiglu":
+            self.w_gate = Dense(d_model, d_ff, **kw)
+            self.w_up = Dense(d_model, d_ff, **kw)
+            self.w_down = Dense(d_ff, d_model, **kw)
+        else:
+            self.w_in = Dense(d_model, d_ff, **kw)
+            self.w_out = Dense(d_ff, d_model, **kw)
 
 
 def embed(table, tokens):

@@ -3,9 +3,11 @@ API the engine calls (``repro/models/model.py:94-223``).
 
 Parameter names mirror the reference's param tree: ``embed.table``,
 ``layers.<i>.ln1.scale``, ``layers.<i>.attn.wq.kernel``,
-``layers.<i>.mlp.w_gate.kernel``, ``final_norm.scale`` and, untied,
-``unembed.kernel`` — ``convert.params_from_jax`` produces exactly these
-keys. This slice serves decoder-only attention stacks; other families
+``layers.<i>.mlp.w_gate.kernel``, ``final_norm.scale``, untied
+``unembed.kernel`` and, for the vlm family, ``evidence_proj.kernel`` and
+the vision tower's ``vision.*`` — ``convert.params_from_jax`` produces
+exactly these keys. The port serves decoder-only attention stacks, with
+evidence tokens and a vision tower in the vlm family; other families
 raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ from repro_torch.config import ATTN, ModelConfig
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Norm, Dense, _normal
+from repro_torch.models.vision import VisionTower, vision_encode
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -29,15 +32,17 @@ def _check_supported(cfg: ModelConfig) -> None:
         ("mixture-of-experts", cfg.moe is not None),
         ("SSM / RG-LRU / local-attention blocks",
          any(k != ATTN for k in cfg.layer_kinds)),
-        ("vision tower / evidence tokens",
-         cfg.vision is not None or cfg.num_evidence_tokens > 0),
-        (f"{cfg.mlp_activation} MLPs", cfg.mlp_activation != "swiglu"),
+        ("evidence tokens / vision towers outside the vlm family",
+         cfg.family != "vlm" and (cfg.vision is not None or
+                                  cfg.num_evidence_tokens > 0)),
+        (f"{cfg.mlp_activation} LM MLPs", cfg.mlp_activation != "swiglu"),
     ]
     for what, present in unsupported:
         if present:
             raise NotImplementedError(
                 f"{cfg.name}: {what} are not ported yet; this slice serves "
-                "decoder-only attention stacks")
+                "decoder-only attention stacks (with evidence in the vlm "
+                "family)")
 
 
 class Embedding(nn.Module):
@@ -59,7 +64,8 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     """Decoder-only attention LM with seeded random weights (load real or
-    reference weights with ``load_state_dict``)."""
+    reference weights with ``load_state_dict``), with the evidence
+    projection and vision tower of a vlm config."""
 
     def __init__(self, cfg: ModelConfig, param_dtype=None, *, device=None,
                  seed: int = 0):
@@ -77,6 +83,12 @@ class Model(nn.Module):
                                device=self.device)
         if not cfg.tie_embeddings:
             self.unembed = Dense(cfg.d_model, cfg.vocab_size, **kw)
+        # transformer.py:162-167
+        self.evidence_proj = Dense(cfg.evidence_dim, cfg.d_model, **kw) \
+            if cfg.num_evidence_tokens and cfg.evidence_dim != cfg.d_model \
+            else None
+        self.vision = VisionTower(cfg, **kw) if cfg.vision is not None \
+            else None
 
     # -- serving ---------------------------------------------------------
     def make_cache(self, batch: int, cache_len: int, dtype=None):
@@ -91,11 +103,24 @@ class Model(nn.Module):
                                        num_pages, kv_dtype=kv_dtype,
                                        device=self.device)
 
-    def prefill(self, tokens, cache, *, impl: str = "torch", lengths=None):
-        """``lengths``: optional (B,) int32 true lengths for
-        length-bucketed batched prefill over right-padded rows."""
-        return tf_lib.transformer_prefill(self, tokens, cache, impl=impl,
-                                          lengths=lengths)
+    def prefill(self, tokens, cache, evidence=None, *, impl: str = "torch",
+                lengths=None):
+        """``evidence``: optional (B, Ne, De) rows prefilled ahead of the
+        tokens. ``lengths``: optional (B,) int32 true lengths, evidence
+        rows included, for length-bucketed batched prefill over
+        right-padded rows."""
+        return tf_lib.transformer_prefill(self, tokens, cache, evidence,
+                                          impl=impl, lengths=lengths)
+
+    def encode_image(self, images):
+        """Vision-tower encode (``repro/models/model.py:144``): images
+        (B, H, W, C) float -> evidence (B, num_evidence_tokens,
+        evidence_dim)."""
+        if self.vision is None:
+            raise ValueError(f"{self.cfg.name} has no vision tower "
+                             "(cfg.vision is None)")
+        images = images.to(self.vision.patch_proj.kernel.dtype)
+        return vision_encode(self.vision, self.cfg, images)
 
     def decode_step(self, token, cache, *, impl: str = "torch"):
         return tf_lib.transformer_decode(self, token, cache, impl=impl)
@@ -111,6 +136,14 @@ class Model(nn.Module):
         """Right-padded bucketed prefill is exact for attention-only
         stacks (causality hides the pads from real positions)."""
         return True
+
+    @property
+    def has_vision_tower(self) -> bool:
+        return self.cfg.vision is not None
+
+    @property
+    def num_evidence_tokens(self) -> int:
+        return self.cfg.num_evidence_tokens
 
 
 def build_model(cfg: ModelConfig, param_dtype=None, *, device=None,

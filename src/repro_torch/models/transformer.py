@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import embed, mlp, rmsnorm, unembed
+from repro_torch.models.layers import dense, embed, mlp, rmsnorm, unembed
 
 
 def _ring_len(cfg: ModelConfig, cache_len: int) -> int:
@@ -77,18 +77,37 @@ def _logits(model, h):
     return unembed(h, model.unembed.kernel, tied=False), h
 
 
-def transformer_prefill(model, tokens, cache, *, impl: str = "torch",
-                        lengths=None):
+def embed_inputs(model, tokens, evidence=None):
+    """Token embeddings, with the evidence rows first when given
+    (``transformer.py:175``): (B, Ne + L, d). Evidence of another width
+    goes through ``evidence_proj``, which, as in the reference, takes the
+    evidence before its cast to the activation dtype."""
+    x = embed(model.embed.table, tokens)
+    if evidence is None:
+        return x
+    if model.evidence_proj is None:
+        ev = evidence.to(x.dtype)
+    else:
+        kernel = model.evidence_proj.kernel
+        dt = torch.promote_types(evidence.dtype, kernel.dtype)
+        ev = dense(kernel.to(dt), evidence.to(dt)).to(x.dtype)
+    return torch.cat([ev, x], dim=1)
+
+
+def transformer_prefill(model, tokens, cache, evidence=None, *,
+                        impl: str = "torch", lengths=None):
     """Run the prompt and seed the dense ``cache`` (``transformer.py:297``).
 
-    Without ``lengths`` all rows share the prompt length L. With
-    ``lengths`` ((B,) int32) rows are right-padded to a common bucket:
-    last-token logits/hidden come from each row's true last position and
-    ``pos`` is seeded per row. Causal masking keeps every real position
-    exact under right-padding. Returns (logits_last (B, V), hidden_last
-    (B, d), cache)."""
+    ``evidence`` ((B, Ne, De), optional) is prepended to the token
+    embeddings; positions run over the concatenated sequence. Without
+    ``lengths`` all rows share the length Ne + L. With ``lengths`` ((B,)
+    int32, counting evidence rows) rows are right-padded to a common
+    bucket: last-token logits/hidden come from each row's true last
+    position and ``pos`` is seeded per row. Causal masking keeps every
+    real position exact under right-padding. Returns (logits_last (B, V),
+    hidden_last (B, d), cache)."""
     cfg = model.cfg
-    x = embed(model.embed.table, tokens)
+    x = embed_inputs(model, tokens, evidence)
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device).expand(B, L)
     kv_mask = None

@@ -25,15 +25,25 @@ Sampling noise comes from ``noise`` (default ``GumbelNoise``): decode
 noise for global step t depends on (seed, t) only, so token streams do not
 depend on ``macro_steps``.
 
-Impls: ``torch`` / ``paged`` run plain PyTorch attention, ``cuda`` /
-``paged_cuda`` the hand-written kernels. Prefix caching, chunked prefill,
-speculation, mesh serving, quantized (int8/fp8) pools, multimodal
-requests, cancellation and async pumping are later slices of the port:
-asking for any of them raises ``NotImplementedError``.
+Multimodal requests (models with evidence tokens) carry precomputed
+``evidence`` rows or an ``image``, which the model's vision tower encodes
+at submit time, memoised by the image's content hash. The evidence rows
+prefill ahead of the prompt; every decode step adds the generated token's
+mean cosine against the request's (projected, normalised) evidence rows
+to ``align_sum``, the incremental S_align of the candidate score; with
+``xmodal_rescore`` each finished candidate's S_align is recomputed
+instead by the cross-modal score (paper Eq. 8-9, kernel K4).
+
+Impls: ``torch`` / ``paged`` run plain PyTorch attention and scoring,
+``cuda`` / ``paged_cuda`` the hand-written kernels. Prefix caching,
+chunked prefill, speculation, mesh serving, quantized (int8/fp8) pools,
+cancellation and async pumping are later slices of the port: asking for
+any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,6 +51,7 @@ import torch
 
 from repro_torch.config import CAMDConfig, PagedKVConfig, SamplingConfig
 from repro_torch.core import controller as ctrl
+from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
 from repro_torch.sampling.samplers import (GumbelNoise, sample_token,
                                            sample_token_batch)
@@ -57,8 +68,9 @@ _MODEL_IMPL = {"torch": "torch", "cuda": "cuda", "paged": "torch",
 class Request:
     uid: int
     prompt: np.ndarray                      # (L,) int32
-    evidence: Optional[np.ndarray] = None   # multimodal slice: unsupported
-    image: Optional[np.ndarray] = None      # multimodal slice: unsupported
+    evidence: Optional[np.ndarray] = None   # (Ne, De) frontend embeddings
+    image: Optional[np.ndarray] = None      # (H, W, C) raw image, encoded
+                                            # into evidence at submit
 
 
 @dataclasses.dataclass
@@ -85,6 +97,7 @@ class EngineState:
     prev_h: torch.Tensor       # (B, d) unit hidden of the previous token
     sum_coh: torch.Tensor      # (B,)
     sum_emb: torch.Tensor      # (B, d)
+    align_sum: torch.Tensor    # (B,) running token-evidence alignment
     active: torch.Tensor       # (B,) bool
     out_buf: torch.Tensor      # (B, max_new) int64
     bias: torch.Tensor         # (B, V) CAMD mixture guidance
@@ -124,8 +137,7 @@ class ServeEngine:
                             ("chunked prefill", prefill_chunk),
                             ("prefill/decode disaggregation", prefill_shards),
                             ("mesh serving", mesh is not None),
-                            ("speculative decoding", spec_k > 1),
-                            ("xmodal rescoring", xmodal_rescore)):
+                            ("speculative decoding", spec_k > 1)):
             if asked:
                 raise _unsupported(what)
         self.model = model
@@ -180,6 +192,18 @@ class ServeEngine:
         self.noise = noise if noise is not None else \
             GumbelNoise(seed, self.device)
         self._t = 0                      # global decode step counter
+        self.has_evidence = bool(self.cfg.num_evidence_tokens)
+        # image frontend: submit-time tower encode, memoised by the
+        # sha256 of the image bytes in a FIFO of 64 entries
+        self._image_feats: Dict[bytes, np.ndarray] = {}
+        self.image_encodes = 0
+        self.image_feat_hits = 0
+        # recompute each finished candidate's S_align by the cross-modal
+        # score (Eq. 8-9) instead of the incremental aggregate
+        self.xmodal_rescore = bool(xmodal_rescore) and self.has_evidence
+        # (B, Ne, d) normalised evidence rows of each slot's request,
+        # refreshed whenever admissions change (``_gather_evid``)
+        self._evid: Optional[torch.Tensor] = None
 
         self._queue: List[Request] = []
         self._slot_req = np.full(slots, -1, np.int64)
@@ -235,7 +259,7 @@ class ServeEngine:
             cache=cache, last_token=zeros(B, dtype=torch.long),
             token_counts=zeros(B, V), sum_lp=zeros(B),
             n_tok=zeros(B, dtype=torch.int32), prev_h=zeros(B, d),
-            sum_coh=zeros(B), sum_emb=zeros(B, d),
+            sum_coh=zeros(B), sum_emb=zeros(B, d), align_sum=zeros(B),
             active=zeros(B, dtype=torch.bool),
             out_buf=zeros(B, self.max_new, dtype=torch.long),
             bias=zeros(B, V), greedy=zeros(B, dtype=torch.bool),
@@ -266,6 +290,12 @@ class ServeEngine:
         coh = (hn * st.prev_h).sum(-1)
         st.sum_coh += coh * actf * (st.n_tok > 0).float()
         st.sum_emb += h32 * actf[:, None]
+        if self.has_evidence:
+            # mean over all of the gathered row's evidence, zero padding
+            # rows included, as the reference (engine.py:652-659)
+            st.align_sum += torch.einsum(
+                "bnd,bd->bn", self._evid, self._unit_embed(tok)).mean(-1) \
+                * actf
         st.token_counts[torch.arange(self.B, device=self.device), tok] += actf
         write = (torch.arange(self.max_new, device=self.device)[None, :] ==
                  st.n_tok[:, None]) & act[:, None]
@@ -307,6 +337,11 @@ class ServeEngine:
             go = go & st.active.any() & ~done.any()
         return done_out, steps
 
+    def _unit_embed(self, tok) -> torch.Tensor:
+        """fp32 token embeddings over their norms (+1e-8)."""
+        e = self.model.embed.table[tok].float()
+        return e / (torch.linalg.vector_norm(e, dim=-1, keepdim=True) + 1e-8)
+
     def _step_noise(self, t: int):
         if self.mode == "greedy":
             return None
@@ -314,14 +349,46 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
-        if req.evidence is not None or req.image is not None:
-            raise _unsupported("multimodal requests (evidence / images)")
         if req.uid in self._reqs or any(r.uid == req.uid
                                         for r in self._queue):
             raise ValueError(f"duplicate request uid {req.uid}")
+        if req.image is not None and req.evidence is None:
+            self._encode_image(req)
+        if req.evidence is not None:
+            want = (self.cfg.num_evidence_tokens,
+                    self.cfg.evidence_dim or self.d)
+            if not self.has_evidence or np.shape(req.evidence) != want:
+                raise ValueError(
+                    f"request {req.uid}: evidence of shape "
+                    f"{np.shape(req.evidence)}, but {self.cfg.name} takes "
+                    f"{want if self.has_evidence else 'none'}")
         self._arrival[req.uid] = self._submit_seq
         self._submit_seq += 1
         self._queue.append(req)
+
+    def _encode_image(self, req: Request) -> None:
+        """Vision-tower encode at submit time (``engine.py:963``): the
+        image becomes the request's evidence. Features are memoised by the
+        image's content hash, so a repeated image costs a dict lookup."""
+        if self.cfg.vision is None:
+            raise ValueError(
+                f"request {req.uid} carries an image but {self.cfg.name} "
+                "has no vision tower (cfg.vision is None)")
+        img = np.ascontiguousarray(np.asarray(req.image, np.float32))
+        digest = hashlib.sha256(img.tobytes()).digest()
+        feats = self._image_feats.get(digest)
+        if feats is None:
+            with torch.inference_mode():
+                feats = self.model.encode_image(
+                    torch.as_tensor(img, device=self.device)[None])[0]
+            feats = feats.float().cpu().numpy()
+            self.image_encodes += 1
+            self._image_feats[digest] = feats
+            while len(self._image_feats) > 64:      # FIFO memo
+                self._image_feats.pop(next(iter(self._image_feats)))
+        else:
+            self.image_feat_hits += 1
+        req.evidence = feats
 
     def cancel(self, uid: int) -> bool:
         raise _unsupported("request cancellation")
@@ -506,7 +573,9 @@ class ServeEngine:
         s = dict(self.scheduler.stats())
         s.update(starved=len(self.starved_uids),
                  prefill_calls=self.prefill_calls,
-                 prefill_tokens=self.prefill_tokens)
+                 prefill_tokens=self.prefill_tokens,
+                 image_encodes=self.image_encodes,
+                 image_feat_hits=self.image_feat_hits)
         return s
 
     # -- admission -----------------------------------------------------
@@ -534,6 +603,12 @@ class ServeEngine:
                                        noise=self.noise.first(n, self.V))
         h0 = info["prefill_hidden"]
         hn0 = h0 / (torch.linalg.vector_norm(h0, dim=-1, keepdim=True) + 1e-8)
+        if self.has_evidence:
+            # the first token's alignment (engine.py:1599-1606)
+            st.align_sum[idx] = (self._unit_embed(toks) @
+                                 info["evid_row"][0].T).mean(-1)
+        else:
+            st.align_sum[idx] = 0.0
         st.last_token[idx] = toks
         st.token_counts[idx] = torch.nn.functional.one_hot(
             toks, self.V).float()
@@ -558,25 +633,75 @@ class ServeEngine:
             self._next_cand += 1
 
     # -- prefill -------------------------------------------------------
+    def _prompt_span(self, req: Request) -> int:
+        """Cache positions the prompt occupies, evidence rows included."""
+        ne = self.cfg.num_evidence_tokens if req.evidence is not None else 0
+        return len(req.prompt) + ne
+
     def _init_info(self, req: Request, cache_row, lg, h, prompt_len: int):
-        self._reqs[req.uid] = {
+        info = {
             "req": req, "cache_row": cache_row,
             "prefill_logits": lg.float(), "prefill_hidden": h.float(),
             "prompt_len": prompt_len,
             "camd": ctrl.init_state(self.camd, 1, self.d, self.V,
                                     self.device),
             "bias": None, "round": 0, "cand_slots": [], "records": {},
-            "done": False}
+            "align_const": 0.0, "done": False}
+        if self.has_evidence and req.evidence is not None:
+            # engine.py:1680-1715
+            evp = torch.as_tensor(req.evidence, dtype=torch.float32,
+                                  device=self.device)
+            if self.model.evidence_proj is not None:
+                evp = evp @ self.model.evidence_proj.kernel.float()
+            evn = evp / (torch.linalg.vector_norm(evp, dim=-1, keepdim=True)
+                         + 1e-8)
+            info["evid_row"] = evn[None]
+            # Eq. 8 term 2: prompt-token embeddings against the evidence,
+            # constant per request
+            temb = self._unit_embed(torch.as_tensor(
+                np.asarray(req.prompt, np.int64), device=self.device))
+            if self.xmodal_rescore:
+                info["text_row"] = temb[None]                # (1, L, d)
+            sim = temb @ evn.T                               # (L, Ne)
+            stats = [sim.amax(-1).mean()]
+            ne_ev = int(evn.shape[0])
+            if ne_ev > 1:
+                # the coverage scheduler's difficulty prior: normalised
+                # entropy of each prompt token's evidence attachment
+                p_att = torch.softmax(sim, dim=-1)
+                stats.append(-(p_att * torch.log(p_att + 1e-9)).sum(-1)
+                             .mean())
+            vals = torch.stack(stats).tolist()
+            info["align_const"] = vals[0]
+            info["evidence_entropy"] = \
+                vals[1] / float(np.log(ne_ev)) if ne_ev > 1 else 0.0
+        else:
+            info["evid_row"] = torch.zeros((1, 1, self.d),
+                                           device=self.device)
+        self._reqs[req.uid] = info
+
+    def _evidence(self, reqs: List[Request], rows: int):
+        """(rows, Ne, De) evidence of ``reqs`` (which all carry evidence,
+        or none) in the param dtype, zero rows past them; None for
+        text-only requests."""
+        if reqs[0].evidence is None:
+            return None
+        ev = np.zeros((rows,) + np.shape(reqs[0].evidence), np.float32)
+        for i, r in enumerate(reqs):
+            ev[i] = r.evidence
+        return torch.as_tensor(ev, device=self.device).to(self._dtype)
 
     def _prefill_request(self, req: Request):
         """Unbucketed path: one prefill call for one request."""
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None]
         row = self.model.make_cache(1, self.cache_len, self._dtype)
-        lg, h, row = self.model.prefill(prompt, row, impl=self._model_impl)
+        lg, h, row = self.model.prefill(prompt, row,
+                                        self._evidence([req], 1),
+                                        impl=self._model_impl)
         self.prefill_calls += 1
-        self.prefill_tokens += len(req.prompt)
-        self._init_info(req, row, lg, h, len(req.prompt))
+        self.prefill_tokens += self._prompt_span(req)
+        self._init_info(req, row, lg, h, self._prompt_span(req))
 
     def _bucket_len(self, prompt_len: int) -> int:
         return _next_pow2(max(prompt_len, self.prefill_bucket_min))
@@ -593,28 +718,32 @@ class ServeEngine:
             for r in pending:
                 self._prefill_request(r)
             return
-        groups: Dict[int, List[Request]] = {}
+        # groups share a padded token bucket and an evidence count; only
+        # the token part is padded
+        groups: Dict[Tuple[int, int], List[Request]] = {}
         for r in pending:
-            groups.setdefault(self._bucket_len(len(r.prompt)), []).append(r)
-        for Lb, reqs in sorted(groups.items()):
-            if Lb > min(self._min_ring, self.cache_len):
+            ne = self.cfg.num_evidence_tokens if r.evidence is not None else 0
+            groups.setdefault((self._bucket_len(len(r.prompt)), ne),
+                              []).append(r)
+        for (Lb, ne), reqs in sorted(groups.items()):
+            if Lb + ne > min(self._min_ring, self.cache_len):
                 for r in reqs:          # the padded bucket would wrap a ring
                     self._prefill_request(r)
             else:
-                self._prefill_bucket(Lb, reqs)
+                self._prefill_bucket(Lb, ne, reqs)
 
-    def _prefill_bucket(self, Lb: int, reqs: List[Request]):
+    def _prefill_bucket(self, Lb: int, ne: int, reqs: List[Request]):
         n = len(reqs)
         nb = _next_pow2(n)          # row counts bucket too, as the reference
         toks = np.zeros((nb, Lb), np.int64)
-        lens = np.full((nb,), Lb, np.int32)
+        lens = np.full((nb,), Lb + ne, np.int32)   # dummy rows: full length
         for i, r in enumerate(reqs):
             toks[i, :len(r.prompt)] = r.prompt
-            lens[i] = len(r.prompt)
+            lens[i] = len(r.prompt) + ne
         cache = self.model.make_cache(nb, self.cache_len, self._dtype)
         lg, h, cache = self.model.prefill(
             torch.as_tensor(toks, device=self.device), cache,
-            impl=self._model_impl,
+            self._evidence(reqs, nb), impl=self._model_impl,
             lengths=torch.as_tensor(lens, device=self.device))
         self.prefill_calls += 1
         self.prefill_tokens += int(lens[:n].sum())
@@ -636,9 +765,11 @@ class ServeEngine:
 
     def _schedule(self):
         """Prefill what is queued, then let the traffic policy fill the
-        free slots (paged engines admit only what the pool can fund)."""
+        free slots (paged engines admit only what the pool can fund) and
+        stage the slots' evidence rows for the next launches."""
         self._prefill_pending()
         self.scheduler.schedule(_EngineSchedContext(self))
+        self._evid = self._gather_evid()
 
     def _needed(self, info) -> int:
         if self.mode == "camd":
@@ -648,14 +779,30 @@ class ServeEngine:
         return max(0, self.n_candidates - len(info["records"]) - running)
 
     # -- completion ------------------------------------------------------
+    def _xmodal_fn(self, tokens: np.ndarray, evid_row, text_row) -> float:
+        """S_align of one finished candidate by the cross-modal score
+        (``engine.py:2091``): its token embeddings, padded to ``max_new``
+        and masked, against the request's evidence and prompt rows. The
+        kernel impls run K4; the plain impls its plain version."""
+        n = len(tokens)
+        toks = np.zeros(self.max_new, np.int64)
+        toks[:n] = tokens
+        mask = torch.as_tensor(np.arange(self.max_new) < n,
+                               dtype=torch.float32, device=self.device)
+        emb = self._unit_embed(torch.as_tensor(toks, device=self.device))
+        fn = ops.xmodal_score if self._model_impl == "cuda" \
+            else ref.xmodal_score_ref
+        return float(fn(emb[None], mask[None], evid_row, text_row)[0])
+
     def _finish_candidates(self, slots: List[int]):
         """Fold finished slots into candidate records with one batched
         readback, then host bookkeeping; completed rounds fold next."""
         st = self.state
         idx = torch.as_tensor(slots, device=self.device)
-        out_buf, sum_lp, n_tok, sum_coh, sum_emb, counts = self._sync(
-            (st.out_buf[idx], st.sum_lp[idx], st.n_tok[idx], st.sum_coh[idx],
-             st.sum_emb[idx], st.token_counts[idx]))
+        out_buf, sum_lp, n_tok, sum_coh, sum_emb, align_sum, counts = \
+            self._sync((st.out_buf[idx], st.sum_lp[idx], st.n_tok[idx],
+                        st.sum_coh[idx], st.sum_emb[idx], st.align_sum[idx],
+                        st.token_counts[idx]))
         uids: List[int] = []
         for j, slot in enumerate(slots):
             uid = int(self._slot_req[slot])
@@ -665,11 +812,20 @@ class ServeEngine:
             rec = {"uid": cand, "tokens": out_buf[j][:n].astype(np.int32),
                    "sum_lp": float(sum_lp[j]), "n": n,
                    "sum_coh": float(sum_coh[j]),
-                   "emb": sum_emb[j] / max(n, 1), "counts": counts[j]}
-            # Eq. 12 from the incremental aggregates (text-only: no S_align)
+                   "emb": sum_emb[j] / max(n, 1),
+                   "align": float(align_sum[j]) / max(n, 1),
+                   "counts": counts[j]}
+            # Eq. 12 from the incremental aggregates
             s_gen = rec["sum_lp"] / max(n, 1)
             s_coh = rec["sum_coh"] / max(n - 1, 1)
-            rec["score"] = s_gen + self.camd.lambda_c * s_coh
+            s_align = 0.5 * (rec["align"] + info["align_const"]) \
+                if self.has_evidence else 0.0
+            if self.xmodal_rescore and "text_row" in info and n > 0:
+                s_align = self._xmodal_fn(rec["tokens"], info["evid_row"],
+                                          info["text_row"])
+                rec["s_align_xmodal"] = s_align
+            rec["score"] = s_gen + self.camd.lambda_g * s_align \
+                + self.camd.lambda_c * s_coh
             info["records"][cand] = rec
             self._slot_req[slot] = -1
             self._slot_cand[slot] = -1
@@ -790,7 +946,7 @@ class ServeEngine:
                     "camd": ctrl.init_state(self.camd, 1, self.d, self.V,
                                             self.device),
                     "bias": None, "round": 0, "cand_slots": [],
-                    "records": {}, "done": False}
+                    "records": {}, "align_const": 0.0, "done": False}
         self._queue.clear()
         for uid, info in self._reqs.items():
             if not info["done"]:
@@ -813,6 +969,24 @@ class ServeEngine:
         return False
 
     # -- run loops -------------------------------------------------------
+    def _gather_evid(self) -> Optional[torch.Tensor]:
+        """(B, Ne, d) evidence rows of each slot's request (zero rows for
+        idle slots and text-only requests, padded to the longest), staged
+        for the next launches (``engine.py:2633``). Refreshed after every
+        scheduling pass, where the reference's launch loop refreshes it."""
+        if not self.has_evidence:
+            return None
+        rows = []
+        for s in range(self.B):
+            uid = int(self._slot_req[s])
+            if uid >= 0 and "evid_row" in self._reqs[uid]:
+                rows.append(self._reqs[uid]["evid_row"][0])
+            else:
+                rows.append(torch.zeros((1, self.d), device=self.device))
+        ne = max(r.shape[0] for r in rows)
+        return torch.stack([torch.nn.functional.pad(
+            r, (0, 0, 0, ne - r.shape[0])) for r in rows])
+
     def run(self) -> List[Result]:
         if self.macro_steps <= 0:
             return self._run_legacy()
@@ -917,9 +1091,12 @@ class _EngineSchedContext(SchedulerContext):
         for r in eng._queue:
             if r.uid not in eng._reqs:
                 break                    # prefill covers a queue prefix
+            info = eng._reqs[r.uid]
             out.append(NewWork(uid=r.uid, arrival=eng._arrival[r.uid],
                                want=eng._per_round(),
-                               prompt_len=eng._reqs[r.uid]["prompt_len"]))
+                               prompt_len=info["prompt_len"],
+                               evidence_entropy=info.get("evidence_entropy",
+                                                         0.0)))
         return out
 
     def pending_rounds(self) -> List[RoundWork]:

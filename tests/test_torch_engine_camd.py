@@ -6,7 +6,8 @@ at admission (``engine.py:1590``), ``fold_in(decode_key, t)`` per fused
 step (``engine.py:333, :722``) and ``split(self.key)`` per legacy step —
 so CAMD-mode streams, candidate counts and round counts must equal the
 reference's token for token, dense and paged. Also: the port's page-pool
-copy keeps its invariants, and features of later slices raise.
+copy keeps its invariants, features of later slices raise, and a
+text-only model refuses multimodal requests.
 """
 import dataclasses
 
@@ -164,8 +165,12 @@ def test_later_slices_raise(tiny):
         with pytest.raises(NotImplementedError):
             ServeEngine(model, cache_len=64, **kw)
     eng = ServeEngine(model, cache_len=64)
-    with pytest.raises(NotImplementedError):
+    # multimodal requests are served now, but not by a text-only model
+    with pytest.raises(ValueError, match="evidence"):
         eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
                            evidence=np.zeros((2, 4), np.float32)))
+    with pytest.raises(ValueError, match="vision"):
+        eng.submit(Request(uid=1, prompt=np.arange(4, dtype=np.int32),
+                           image=np.zeros((8, 8, 3), np.float32)))
     with pytest.raises(NotImplementedError):
         eng.cancel(0)

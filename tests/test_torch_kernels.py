@@ -158,8 +158,11 @@ def test_cpu_tensors_take_the_plain_path():
                                q.reshape(2, 8, 2, 16),
                                torch.zeros(1, 2, dtype=torch.int32),
                                torch.full((1,), 16, dtype=torch.int32))
+    x = q.reshape(1, 32, 16)
+    ops.xmodal_score(x, torch.ones(1, 32), x, x)
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
-                            "paged_decode_attention": 0}
+                            "paged_decode_attention": 0,
+                            "xmodal_score_mean": 0, "xmodal_score_max": 0}
     with pytest.raises(ValueError, match="both"):
         ops.paged_decode_attention(q[:, :1], q, q, None, None,
                                    k_scale=torch.ones(1))

@@ -7,7 +7,9 @@ a machine with only PyTorch; there, skip the JAX-importing conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: fp32 within atol/rtol 2e-5, bf16 within 2e-2 (the kernels
-accumulate in fp32 in another order than the plain versions).
+accumulate in fp32 in another order than the plain versions). The
+cross-modal score kernels take fp32 tolerances at both input types: they
+and their plain versions compute in fp32 from the same bf16 values.
 """
 import pytest
 import torch
@@ -89,6 +91,34 @@ def test_paged_decode_kernel_on_card(gen, pool):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,Nv,Nt,d", [
+    (3, 1, 7, 129, 48),          # ragged everywhere, d not a chunk multiple
+    (2, 33, 65, 31, 100),
+    (1, 32, 576, 256, 4096),     # the serving shape
+])
+def test_xmodal_kernels_on_card(gen, dtype, B, L, Nv, Nt, d):
+    tok, vis, txt = (_rand(gen, (B, n, d), dtype) for n in (L, Nv, Nt))
+    k = min(Nv, Nt)                      # some strong text-visual matches
+    vis[:, :k] = (vis[:, :k].float() + 2 * txt[:, :k].float()).to(dtype)
+    mask = (torch.rand(B, L, generator=gen, device="cuda") < 0.7).float()
+    mask[-1] = 0.0                       # a row with no live token
+    tol = TOLS[torch.float32]
+    before = dict(ops.LAUNCHES)
+    torch.testing.assert_close(ops.xmodal_mean_sum(tok, mask, vis),
+                               ref.xmodal_mean_sum_ref(tok, mask, vis), **tol)
+    torch.testing.assert_close(ops.xmodal_max_sum(txt, vis),
+                               ref.xmodal_max_sum_ref(txt, vis), **tol)
+    out = ops.xmodal_score(tok, mask, vis, txt)
+    torch.testing.assert_close(out, ref.xmodal_score_ref(tok, mask, vis, txt),
+                               **tol)
+    for name in ("xmodal_score_mean", "xmodal_score_max"):
+        assert ops.LAUNCHES[name] == before[name] + 2
+    # no float atomics: a second run gives the same bits
+    assert torch.equal(out, ops.xmodal_score(tok, mask, vis, txt))
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_bad_input_on_card(gen):
     q = _rand(gen, (1, 16, 2, 64))
     with pytest.raises(ValueError, match="contiguous"):
@@ -100,3 +130,10 @@ def test_wrappers_reject_bad_input_on_card(gen):
         ops.decode_attention(q[:, :1].contiguous(), q.cpu(), q,
                              torch.ones(1, 16, dtype=torch.bool,
                                         device="cuda"))
+    x = q.reshape(1, 32, 64)
+    with pytest.raises(ValueError, match="mask"):
+        ops.xmodal_score(x, torch.ones(1, 32, device="cuda",
+                                       dtype=torch.bfloat16), x, x)
+    with pytest.raises(ValueError, match="alike"):
+        ops.xmodal_score(x, torch.ones(1, 32, device="cuda"),
+                         x.to(torch.bfloat16), x)
