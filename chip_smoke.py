@@ -9,8 +9,11 @@ Run from the root of a checkout. It
      csrc`` with nvcc, one process per source, all at once;
   3. kernel phase: holds each kernel against its plain PyTorch version on
      the card (fp32 and bf16, head_dim 64 and 128, the serving shapes and
-     ragged edges, int8/fp8 pools for the paged kernel, ragged row counts
-     for the cross-modal score) and times kernel, plain version and —
+     ragged edges, granite's 24/8 heads of width 64 (GQA group 3) for the
+     attention kernels, key lengths for the flash kernel, int8/fp8 pools
+     for the paged kernel, ragged row counts for the cross-modal score,
+     granite's prefill and decode dispatch shapes and ragged ones for the
+     MoE dispatch and combine) and times kernel, plain version and —
      where one PyTorch call computes the same function —
      ``scaled_dot_product_attention``, beside a bound from bytes and
      operations;
@@ -27,6 +30,10 @@ Run from the root of a checkout. It
      that the vision tower encoded each distinct image once, and times one
      image encode and one bucketed image prefill; the dense check also
      holds the kernel-rescored scores against the plain engine's;
+  10-12. the same three phases on full-width granite-moe-3b-a800m (40
+     experts, top-8): the serve phase checks that the flash, paged decode
+     and both MoE kernels carried it, the MoE kernels once per layer per
+     forward, and times one bucketed prefill and one decode forward;
 and prints a JSON line describing every kernel, the card line again, and
 last ``{"ok": true, "device": {...}}``. Any failure exits nonzero. It
 exits with an error, printing no result, without a CUDA device or outside
@@ -47,6 +54,12 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
 # serving configuration of the main path
 SERVE = dict(slots=8, page=16, requests=8, prompt=256, max_new=32)
 CACHE_LEN = SERVE["prompt"] + SERVE["max_new"]     # 288, a page multiple
+# granite-moe-3b-a800m's MoE layer: 40 experts, top-8, d 1536, capacity
+# factor 1.25 in groups of 256 tokens; C = ceil(g k / E * 1.25) rounded up
+# to a multiple of 8 (repro/models/moe.py:61)
+GRANITE_MOE = dict(E=40, k=8, d=1536)
+GRANITE_PREFILL = dict(G=8, g=256, C=64)   # one 8 x 256 prefill bucket
+GRANITE_DECODE = dict(G=1, g=8, C=8)       # one decode step of 8 slots
 # the multimodal path: llava-1.5-7b's 576 image tokens ahead of the prompt
 IMAGE_TOKENS = 576
 MM_CACHE_LEN = IMAGE_TOKENS + CACHE_LEN            # 864, a page multiple
@@ -161,24 +174,31 @@ def flash_phase(torch, ops, ref, timer):
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(1)
     errs = []
-    cases = [  # (B, L, H, Hkv, hd, causal, window)
-        (8, 256, 16, 8, 128, True, 0),     # serving prefill bucket
-        (2, 200, 4, 2, 64, True, 0),       # L not a tile multiple
-        (2, 300, 4, 4, 128, True, 96),     # causal + sliding window
-        (1, 37, 2, 1, 64, False, 0),       # tiny, non-causal, MQA
+    cases = [  # (B, L, H, Hkv, hd, causal, window, key lengths)
+        (8, 256, 16, 8, 128, True, 0, None),   # serving prefill bucket
+        (2, 200, 4, 2, 64, True, 0, None),     # L not a tile multiple
+        (2, 300, 4, 4, 128, True, 96, None),   # causal + sliding window
+        (1, 37, 2, 1, 64, False, 0, None),     # tiny, non-causal, MQA
+        (8, 256, 24, 8, 64, True, 0, None),    # granite bucket, G = 3
+        (3, 200, 24, 8, 64, True, 0, [200, 37, 130]),  # padded rows, G = 3
+        (2, 256, 16, 8, 128, True, 0, [1, 100]),       # padded rows, G = 2
     ]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for B, L, H, Hkv, hd, causal, window in cases:
+        for B, L, H, Hkv, hd, causal, window, lens in cases:
             q = torch.randn(B, L, H, hd, generator=g, device="cuda").to(dt)
             k = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dt)
             v = torch.randn(B, L, Hkv, hd, generator=g, device="cuda").to(dt)
-            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            ln = None if lens is None else torch.tensor(
+                lens, dtype=torch.int32, device="cuda")
+            out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      lengths=ln)
             exp = ref.flash_attention_ref(q, k, v, causal=causal,
-                                          window=window)
+                                          window=window, lengths=ln)
             errs.append(compare(
                 torch, "flash_attention", f"{dtype} B{B} L{L} H{H}/{Hkv} "
-                f"hd{hd} causal={int(causal)} w={window}", out, exp, dtype))
+                f"hd{hd} causal={int(causal)} w={window} lens={lens}", out,
+                exp, dtype))
     # timing at the serving shape (fp32, as the serve phase runs)
     B, L, H, Hkv, hd = 8, SERVE["prompt"], 16, 8, 128
     q = torch.randn(B, L, H, hd, generator=g, device="cuda")
@@ -211,6 +231,7 @@ def decode_phase(torch, ops, ref, timer):
         (8, CACHE_LEN, 16, 8, 128, "ring"),    # serving decode, mid-run
         (2, 300, 8, 2, 64, "random"),          # S not a tile multiple, G=4
         (3, 128, 4, 4, 128, "ring"),           # G = 1
+        (8, CACHE_LEN, 24, 8, 64, "ring"),     # granite decode, G = 3
     ]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -279,6 +300,7 @@ def paged_phase(torch, ops, ref, timer, kv_quantize):
         (8, 16, 8, 128, SERVE["page"], n_serve, serve_lens),
         (3, 8, 2, 64, 16, 5, [1, 37, 80]),      # length 1, non-multiples
         (3, 4, 4, 128, 64, 3, [64, 130, 5]),
+        (8, 24, 8, 64, SERVE["page"], n_serve, serve_lens),   # granite, G 3
     ]
     kinds = [("float32", torch.float32), ("bfloat16", torch.bfloat16),
              ("float32", torch.int8), ("bfloat16", torch.int8),
@@ -387,6 +409,123 @@ def xmodal_phase(torch, ops, ref, timer):
     t_mean["max_abs_err"] = max(errs["xmodal_score_mean"])
     t_max["max_abs_err"] = max(errs["xmodal_score_max"])
     return {"xmodal_score_mean": t_mean, "xmodal_score_max": t_max}
+
+
+def moe_tables(torch, gen, G, g, E, C, k, skew=0.0):
+    """Index tables of a capacity dispatch (the port's own
+    ``dispatch_tables``: choice-major priority) from random routing: each
+    token's k distinct experts by random logits, tilted towards the low
+    expert ids by ``skew`` so that capacity binds. Returns (idx, slot,
+    gates, kept choices)."""
+    from repro_torch.models.moe import dispatch_tables
+    logits = torch.randn(G, g, E, generator=gen, device="cuda") + \
+        skew * torch.linspace(1, 0, E, device="cuda")
+    vals, gate_idx = torch.sort(torch.softmax(logits, -1), dim=-1,
+                                descending=True, stable=True)
+    gates = vals[..., :k] / vals[..., :k].sum(-1, keepdim=True)
+    idx, slot, keep = dispatch_tables(gate_idx[..., :k], E, C)
+    return idx, slot, gates.contiguous(), int(keep.sum())
+
+
+def moe_phase(torch, ops, ref, timer):
+    """K5a (dispatch: slot rows gathered from token rows) and K5b (combine:
+    each token's k expert rows, weighted by its gates, summed in fp32).
+    K5a copies bits, so it must equal its plain version exactly; K5b sums
+    in the plain version's order, within the tolerance of its input type.
+    Both must give the same bits on a second run."""
+    g_ = torch.Generator(device="cuda").manual_seed(6)
+    E, k, d = GRANITE_MOE["E"], GRANITE_MOE["k"], GRANITE_MOE["d"]
+    P, D = GRANITE_PREFILL, GRANITE_DECODE
+    cases = [  # (name, G, g, E, C, k, d, routing skew)
+        ("granite prefill", P["G"], P["g"], E, P["C"], k, d, 1.0),
+        ("granite decode", D["G"], D["g"], E, D["C"], k, d, 0.0),
+        ("d % 4 != 0", 2, 37, 5, 8, 3, 1001, 0.0),
+        ("k 1, d 130", 3, 24, 6, 8, 1, 130, 0.0),
+        ("C binds hard", 1, 64, 4, 8, 4, 256, 2.0),
+        ("every slot empty", 1, 16, 4, 8, 2, 64, None),
+    ]
+    errs = {"moe_dispatch": [0.0], "moe_combine": []}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, G, g, E_, C, k_, d_, skew in cases:
+            if skew is None:
+                idx = torch.full((G, E_, C), -1, dtype=torch.int32,
+                                 device="cuda")
+                slot = torch.full((G, g, k_), -1, dtype=torch.int32,
+                                  device="cuda")
+                gates = torch.rand(G, g, k_, generator=g_, device="cuda")
+                kept = 0
+            else:
+                idx, slot, gates, kept = moe_tables(torch, g_, G, g, E_, C,
+                                                    k_, skew)
+            case = f"{dtype} {name}: G{G} g{g} E{E_} C{C} k{k_} d{d_} " \
+                f"kept {kept}/{G * g * k_}"
+            x = torch.randn(G, g, d_, generator=g_, device="cuda").to(dt)
+            out = ops.moe_dispatch(idx, x)
+            same = torch.equal(out, ref.moe_dispatch_ref(idx, x))
+            print(f"  {'moe_dispatch':24s} {case:44s} "
+                  f"{'bit for bit ok' if same else 'FAIL'}")
+            check(same, f"moe_dispatch {case}: differs from the plain "
+                  "version")
+            check(torch.equal(out, ops.moe_dispatch(idx, x)),
+                  f"moe_dispatch {case}: two runs differ")
+            eo = torch.randn(G, E_, C, d_, generator=g_, device="cuda").to(dt)
+            out = ops.moe_combine(slot, gates, eo)
+            errs["moe_combine"].append(compare(
+                torch, "moe_combine", case, out,
+                ref.moe_combine_ref(slot, gates, eo), dtype))
+            check(torch.equal(out, ops.moe_combine(slot, gates, eo)),
+                  f"moe_combine {case}: two runs differ")
+
+    def timed(G, g, C):
+        """Kernel, plain and library times of both kernels at one of
+        granite's shapes (fp32, as served), beside their byte bounds. The
+        library call is the reference's own formulation, one einsum over
+        the dense 0/1 dispatch or gate-weighted combine table
+        (G, g, E, C), the same information as the kernels' index tables;
+        the table is built outside the timed call."""
+        idx, slot, gates, kept = moe_tables(torch, g_, G, g, E, C, k,
+                                            1.0 if G > 1 else 0.0)
+        x = torch.randn(G, g, d, generator=g_, device="cuda")
+        eo = torch.randn(G, E, C, d, generator=g_, device="cuda")
+        comb = torch.zeros(G, g, E * C + 1, device="cuda")
+        comb.scatter_(2, torch.where(slot >= 0, slot, E * C).long(), gates)
+        comb = comb[..., :E * C].reshape(G, g, E, C).contiguous()
+        disp = (comb > 0).float()                # gates are positive
+        shape = f"fp32 G{G} g{g} E{E} C{C} k{k} d{d}, {kept} of " \
+            f"{G * g * k} choices kept"
+        tk = times(timer, lambda: ops.moe_dispatch(idx, x),
+                   "moe_dispatch_kernel",
+                   lambda: ref.moe_dispatch_ref(idx, x),
+                   lambda: torch.einsum("gsec,gsd->gecd", disp, x))
+        # bytes: the token rows some slot takes, the table, every slot row
+        grp = torch.arange(G, device="cuda")[:, None, None]
+        tokens = torch.unique((idx + g * grp)[idx >= 0]).numel()
+        tk["bound_ms"], tk["bound_by"] = bound_ms(
+            4 * (tokens * d + idx.numel() + idx.numel() * d), 0, "float32")
+        tc = times(timer, lambda: ops.moe_combine(slot, gates, eo),
+                   "moe_combine_kernel",
+                   lambda: ref.moe_combine_ref(slot, gates, eo),
+                   lambda: torch.einsum("gsec,gecd->gsd", comb, eo))
+        tc["bound_ms"], tc["bound_by"] = bound_ms(
+            4 * (kept * d + 2 * slot.numel() + G * g * d), 2 * kept * d,
+            "float32")
+        for t in (tk, tc):
+            t["shape"] = shape
+        return tk, tc
+
+    # the decode shape carries nearly every launch of the serve phase; the
+    # prefill bucket moves the most bytes per launch
+    out = {}
+    dec = timed(D["G"], D["g"], D["C"])
+    pre = timed(P["G"], P["g"], P["C"])
+    for name, td, tp in zip(("moe_dispatch", "moe_combine"), dec, pre):
+        td["max_abs_err"] = max(errs[name])
+        td["prefill"] = {key: tp[key] for key in (
+            "shape", "ms", "call_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")}
+        out[name] = td
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -535,11 +674,85 @@ def profile_phase(torch, serve, argv):
               f"x{e.count:<6d} {e.key[:90]}")
 
 
+GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--no-reduced", "--impl",
+                "paged_cuda", "--mode", "camd",
+                "--slots", str(SERVE["slots"]),
+                "--page-size", str(SERVE["page"]),
+                "--requests", str(SERVE["requests"]),
+                "--prompt-len", str(SERVE["prompt"]),
+                "--max-new", str(SERVE["max_new"]),
+                "--cache-len", str(CACHE_LEN), "--eos-id", "49155",
+                "--device", "cuda", "--seed", "0"]
+
+
+def moe_launch_checks(out, launches):
+    """Each forward of the served model (one per bucketed prefill, one per
+    iteration of every macro launch) runs the flash or the paged decode
+    kernel, and the MoE dispatch and combine, once per layer."""
+    eng = out["engine"]
+    L = eng.cfg.num_layers
+    steps = eng.macro_launches * eng.macro_steps
+    forwards = eng.prefill_calls + steps
+    want = {"flash_attention": L * eng.prefill_calls,
+            "paged_decode_attention": L * steps,
+            "moe_dispatch": L * forwards, "moe_combine": L * forwards}
+    for name, n in want.items():
+        check(launches[name] == n, f"serve: {name} launched "
+              f"{launches[name]} times, not {n} ({L} layers)")
+    print(f"moe path: {forwards} forwards ({eng.prefill_calls} prefill, "
+          f"{steps} decode), {L} MoE layers each: moe_dispatch and "
+          f"moe_combine {L * forwards} launches each, {L} per forward")
+
+
+def granite_timing(torch, out, timer):
+    """One bucketed prefill of the serve phase's shape (8 x 256 tokens)
+    and one decode forward of 8 slots through the paged pool at position
+    256, by CUDA events on the served model, and the decode forward's
+    device time by kernel under torch.profiler."""
+    model = out["engine"].model
+    B, L, ps = SERVE["slots"], SERVE["prompt"], SERVE["page"]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(2, model.cfg.vocab_size, (B, L), generator=g,
+                         device="cuda")
+    lens = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    n = CACHE_LEN // ps
+    with torch.inference_mode():
+        cache = model.make_cache(B, CACHE_LEN)
+        prefill_ms = timer.ms(lambda: model.prefill(
+            toks, cache, impl="cuda", lengths=lens), reps=3, warmup=1)
+        paged = model.make_paged_cache(B, CACHE_LEN, page_size=ps,
+                                       num_pages=B * n + 1)
+        paged["block_table"].copy_(1 + torch.arange(
+            B * n, device="cuda", dtype=torch.int32).reshape(B, n))
+        tok = toks[:, -1]
+
+        def step():
+            paged["pos"].fill_(L)
+            model.decode_step(tok, paged, impl="cuda")
+
+        decode_ms = timer.ms(step, reps=5, warmup=2)
+        by_kernel = {k: v for k, v in timer._kernel_times(step, 5).items()
+                     if k not in timer._flush_keys}
+    busy = sum(by_kernel.values()) / 5 / 1e3
+    print(f"granite: one bucketed prefill of {B} x {L} tokens "
+          f"{prefill_ms:.2f} ms; one decode forward of {B} slots "
+          f"{decode_ms:.2f} ms (CUDA events, L2 flushed), of which "
+          f"{busy:.2f} ms device time:")
+    for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {v / 5 / 1e3:8.3f} ms {100 * v / 5 / 1e3 / busy:5.1f}% "
+              f"{k[:90]}")
+
+
 QWEN_DENSE_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced", "--num-layers",
                    "4", "--mode", "greedy", "--requests", "4",
                    "--prompt-len", "64", "--max-new", "16", "--cache-len",
                    "96", "--eos-id", "151936", "--device", "cuda",
                    "--seed", "1"]
+GRANITE_DENSE_ARGV = ["--arch", "granite-moe-3b-a800m", "--no-reduced",
+                      "--num-layers", "4", "--mode", "greedy", "--requests",
+                      "4", "--prompt-len", "64", "--max-new", "16",
+                      "--cache-len", "96", "--eos-id", "49155",
+                      "--device", "cuda", "--seed", "1"]
 LLAVA_DENSE_ARGV = ["--arch", "llava-1.5-7b", "--no-reduced", "--num-layers",
                     "4", "--mode", "greedy", "--xmodal-rescore",
                     "--requests", "4", "--prompt-len", "64", "--max-new",
@@ -623,13 +836,21 @@ def main() -> None:
                "decode_attention": decode_phase(torch, ops, ref, timer),
                "paged_decode_attention": paged_phase(torch, ops, ref, timer,
                                                      kv_quantize),
-               **xmodal_phase(torch, ops, ref, timer)}
+               **xmodal_phase(torch, ops, ref, timer),
+               **moe_phase(torch, ops, ref, timer)}
     for name, t in timings.items():
         lib = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"  {name}: {t['shape']}: kernel {t['ms']:.4f} ms (call "
               f"{t['call_ms']:.4f} ms), plain "
               f"{t['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        if "prefill" in t:
+            tp = t["prefill"]
+            print(f"  {name}: {tp['shape']}: kernel {tp['ms']:.4f} ms "
+                  f"(call {tp['call_ms']:.4f} ms), plain "
+                  f"{tp['plain_ms']:.4f} ms, library "
+                  f"{tp['library_ms']:.4f} ms, bound "
+                  f"{tp['bound_ms']:.4f} ms ({tp['bound_by']})")
 
     # qwen3-0.6b, text requests
     runs = {}
@@ -658,13 +879,31 @@ def main() -> None:
         torch, ops, serve, LLAVA_DENSE_ARGV,
         ("flash_attention", "decode_attention", "xmodal_score_mean",
          "xmodal_score_max"))
+    free_memory(torch)
+    # granite-moe-3b-a800m, text requests through the MoE layers
+    runs["granite-moe-3b-a800m serve"], out = serve_phase(
+        torch, ops, serve, GRANITE_ARGV,
+        ("flash_attention", "paged_decode_attention", "moe_dispatch",
+         "moe_combine"))
+    moe_launch_checks(out, runs["granite-moe-3b-a800m serve"])
+    granite_timing(torch, out, timer)
+    del out
+    free_memory(torch)
+    profile_phase(torch, serve, GRANITE_ARGV)
+    free_memory(torch)
+    runs["granite-moe-3b-a800m dense check"] = dense_check(
+        torch, ops, serve, GRANITE_DENSE_ARGV,
+        ("flash_attention", "decode_attention", "moe_dispatch",
+         "moe_combine"))
 
     # launches: the serve phases for the kernels the serving path runs,
     # the dense checks for the dense decode kernel (K3), which only the
     # dense impls run
     paths = {"decode_attention": ("qwen3-0.6b dense check",
-                                  "llava-1.5-7b dense check")}
-    serves = ("qwen3-0.6b serve", "llava-1.5-7b serve")
+                                  "llava-1.5-7b dense check",
+                                  "granite-moe-3b-a800m dense check")}
+    serves = ("qwen3-0.6b serve", "llava-1.5-7b serve",
+              "granite-moe-3b-a800m serve")
     meta = {
         "flash_attention": ("flash_attention",
                             "kernels/flash_attention.py:89"),
@@ -675,6 +914,8 @@ def main() -> None:
         "xmodal_score_mean": ("xmodal_score",
                               "kernels/xmodal_score.py:112"),
         "xmodal_score_max": ("xmodal_score", "kernels/xmodal_score.py:127"),
+        "moe_dispatch": ("moe_dispatch", "kernels/moe_dispatch.py:67"),
+        "moe_combine": ("moe_dispatch", "kernels/moe_dispatch.py:88"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -690,8 +931,8 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
-            **({"sdpa_on_gathered_ms": t["sdpa_on_gathered_ms"]}
-               if "sdpa_on_gathered_ms" in t else {})})
+            **{key: t[key] for key in ("sdpa_on_gathered_ms", "prefill")
+               if key in t}})
     print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

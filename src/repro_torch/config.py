@@ -1,9 +1,9 @@
 """Configuration dataclasses of the port.
 
-Copies of ``ModelConfig``, ``VisionConfig``, ``SamplingConfig``,
-``CAMDConfig`` and ``PagedKVConfig`` from the JAX package's
-``repro/config.py``, field for field, so a config built for one package
-describes the same model and serving setup in the other.
+Copies of ``ModelConfig``, ``MoEConfig``, ``VisionConfig``,
+``SamplingConfig``, ``CAMDConfig`` and ``PagedKVConfig`` from the JAX
+package's ``repro/config.py``, field for field, so a config built for one
+package describes the same model and serving setup in the other.
 """
 from __future__ import annotations
 
@@ -14,6 +14,25 @@ from typing import Optional, Tuple
 # The block kind this slice serves; configs naming others ("local",
 # "ssm", "rglru") are rejected by ``models.model.Model``.
 ATTN = "attn"
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings of the MLP sub-block."""
+    num_experts: int
+    top_k: int
+    # d_ff of each expert (per-expert hidden width).
+    expert_d_ff: int
+    # weight of the auxiliary load-balance loss during training.
+    aux_loss_weight: float = 0.01
+    # expert capacity factor (GShard); tokens beyond capacity are dropped.
+    capacity_factor: float = 1.25
+    # token group size of the capacity dispatch.
+    group_size: int = 256
+    # router jitter noise (training only)
+    router_noise: float = 0.0
+    # number of shared (always-on) experts, e.g. DeepSeek/Kimi style.
+    num_shared_experts: int = 0
 
 
 @dataclass(frozen=True)
@@ -66,7 +85,7 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = (ATTN,)
     mlp_activation: str = "swiglu"             # the LM's; the tower's is gelu
     tie_embeddings: bool = False
-    moe: object = None
+    moe: Optional[MoEConfig] = None
     ssm: object = None
     rglru: object = None
     is_encoder_decoder: bool = False
@@ -96,7 +115,7 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """The reference's CPU-smoke-size variant of an attention-only
-        config, evidence and vision tower included (same rule as
+        config, experts, evidence and vision tower included (same rule as
         ``repro.config.ModelConfig.reduced``)."""
         kw = dict(
             num_layers=max(2, min(len(self.block_pattern), 3)),
@@ -105,6 +124,11 @@ class ModelConfig:
             kw["num_heads"] = 4
             kw["num_kv_heads"] = min(self.num_kv_heads, 2) \
                 if self.num_kv_heads > 1 else 1
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=2, expert_d_ff=128,
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                capacity_factor=4.0)  # dropless in practice at smoke scale
         if self.num_evidence_tokens:
             kw["num_evidence_tokens"] = 8
             kw["evidence_dim"] = min(self.evidence_dim, 256) or 256

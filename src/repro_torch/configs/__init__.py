@@ -14,6 +14,7 @@ from repro_torch.config import ModelConfig
 _MODULES = {
     "qwen3_0_6b": "qwen3-0.6b",
     "llava_1_5_7b": "llava-1.5-7b",
+    "granite_moe_3b_a800m": "granite-moe-3b-a800m",
 }
 
 _BY_NAME: Dict[str, ModelConfig] = {}

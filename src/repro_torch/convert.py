@@ -6,7 +6,9 @@
 block-pattern position on a leading axis (``params["super"]``,
 ``repro/models/transformer.py:153-155``); layer ``i * len(pattern) + p``
 is entry ``i`` of ``params["super"][p]``, and the unstacked
-``params["tail"]`` layers follow. Other subtrees flatten by name; a
+``params["tail"]`` layers follow; an MoE layer's leaves land at
+``layers.<i>.moe.router.kernel`` and ``layers.<i>.moe.w_gate`` (up,
+down). Other subtrees flatten by name; a
 sequence inside them, such as the vision tower's tuple of blocks
 (``repro/models/vision.py:62``), by index: ``vision.blocks.<i>.wq.kernel``.
 The evidence projection carries over as ``evidence_proj.kernel``.

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded through ``ctypes``; a
-source may hold several entry points (``xmodal_score.cu`` holds two). Builds
+source may hold several entry points (``xmodal_score.cu`` and
+``moe_dispatch.cu`` hold two each). Builds
 happen at first use into ``build/kernels/`` at the repository root (listed
 in ``.gitignore``); a library's file name carries a hash of its sources and
 flags, so an edited kernel rebuilds and an unchanged one loads as is.
@@ -31,13 +32,15 @@ _I = ctypes.c_int
 # pointers as c_void_p: a bare Python int would be passed as a 32-bit int
 # and cut the address)
 KERNELS = {
-    "flash_attention": ("flash_attention", [_P, _P, _P, _P] + [_I] * 8 + [_P]),
+    "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 8 + [_P]),
     "decode_attention": ("decode_attention",
                          [_P, _P, _P, _P, _P] + [_I] * 6 + [_P]),
     "paged_decode_attention": ("paged_decode_attention",
                                [_P] * 8 + [_I] * 9 + [_P]),
     "xmodal_score_mean": ("xmodal_score", [_P] * 6 + [_I] * 5 + [_P]),
     "xmodal_score_max": ("xmodal_score", [_P] * 5 + [_I] * 5 + [_P]),
+    "moe_dispatch": ("moe_dispatch", [_P] * 3 + [_I] * 6 + [_P]),
+    "moe_combine": ("moe_dispatch", [_P] * 4 + [_I] * 6 + [_P]),
 }
 SOURCES = sorted({src for src, _ in KERNELS.values()})
 

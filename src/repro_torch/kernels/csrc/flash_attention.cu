@@ -6,7 +6,13 @@
 // optional sliding window (rel < window), kv padding masked, fp32 online
 // softmax. It reads grouped K/V (B, L, Hkv, hd) directly: query head h uses
 // kv head h / (H / Hkv), so the expanded copy the TPU path builds
-// (`_expand_kv`) never exists.
+// (`_expand_kv`) never exists. Unlike the TPU kernel it takes optional
+// per-row key lengths: keys at or past kv_len[b] are masked, as the
+// reference's plain path masks them in a length-bucketed prefill
+// (repro/models/transformer.py:324). Real rows of such a bucket never see
+// those keys anyway; the pad rows then do not either, so their hidden
+// states, which choose experts and compete for expert capacity in an MoE
+// layer, equal the plain path's.
 //
 // What bounds it on an H100: operations. A 64-row query tile does
 // 4 * 64 * hd FLOPs per key row it reads, well above the card's
@@ -48,8 +54,9 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int L, int H,
-             int Hkv, float scale, int causal, int window) {
+             const T* __restrict__ v, const int* __restrict__ kv_len,
+             T* __restrict__ o, int L, int H, int Hkv, float scale,
+             int causal, int window) {
   constexpr int QS = HD + 1;       // padded row strides: no bank conflicts
   constexpr int CW = HD / 16;      // output columns per thread
   const int q0 = blockIdx.x * FA_BQ;
@@ -58,6 +65,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;   // 16 lanes of a half-warp share ty
+  const int klen = kv_len ? min(L, kv_len[b]) : L;   // keys [0, klen) valid
 
   extern __shared__ float sm[];
   float* Qs = sm;                    // (BQ, QS) pre-scaled
@@ -83,7 +91,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // key tiles that can hold an unmasked key for some query of this tile
-  const int kend = causal ? min(L, q0 + FA_BQ) : L;
+  const int kend = causal ? min(klen, q0 + FA_BQ) : klen;
   const int kbeg = window > 0 ? max(0, q0 - window + 1) / FA_BK * FA_BK : 0;
 
   for (int k0 = kbeg; k0 < kend; k0 += FA_BK) {
@@ -92,7 +100,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / HD, d = i - r * HD;
       const int kp = k0 + r;
       float kx = 0.f, vx = 0.f;
-      if (kp < L) {
+      if (kp < klen) {
         const size_t off = (((size_t)b * L + kp) * Hkv + hk) * HD + d;
         kx = to_float(k[off]);
         vx = to_float(v[off]);
@@ -128,7 +136,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx * 4 + j;
-        ok[j] = kp < L && (!causal || qp >= kp) &&
+        ok[j] = kp < klen && (!causal || qp >= kp) &&
                 (window <= 0 || qp - kp < window);
         if (ok[j]) m_t = fmaxf(m_t, s[i][j]);
       }
@@ -177,9 +185,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-static int launch(const void* q, const void* k, const void* v, void* out,
-                  int B, int L, int H, int Hkv, int causal, int window,
-                  cudaStream_t stream) {
+static int launch(const void* q, const void* k, const void* v,
+                  const int* kv_len, void* out, int B, int L, int H, int Hkv,
+                  int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -188,36 +196,38 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((L + FA_BQ - 1) / FA_BQ, H, B);
   flash_kernel<T, HD><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), L, H, Hkv,
+      static_cast<const T*>(v), kv_len, static_cast<T*>(out), L, H, Hkv,
       1.0f / sqrtf(static_cast<float>(HD)), causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-static int launch_hd(const void* q, const void* k, const void* v, void* out,
-                     int B, int L, int H, int Hkv, int hd, int causal,
-                     int window, cudaStream_t st) {
+static int launch_hd(const void* q, const void* k, const void* v,
+                     const int* kl, void* out, int B, int L, int H, int Hkv,
+                     int hd, int causal, int window, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, B, L, H, Hkv, causal, window, st);
-    case 32: return launch<T, 32>(q, k, v, out, B, L, H, Hkv, causal, window, st);
-    case 64: return launch<T, 64>(q, k, v, out, B, L, H, Hkv, causal, window, st);
-    case 128: return launch<T, 128>(q, k, v, out, B, L, H, Hkv, causal, window, st);
+    case 16: return launch<T, 16>(q, k, v, kl, out, B, L, H, Hkv, causal, window, st);
+    case 32: return launch<T, 32>(q, k, v, kl, out, B, L, H, Hkv, causal, window, st);
+    case 64: return launch<T, 64>(q, k, v, kl, out, B, L, H, Hkv, causal, window, st);
+    case 128: return launch<T, 128>(q, k, v, kl, out, B, L, H, Hkv, causal, window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// q: (B, L, H, hd); k/v: (B, L, Hkv, hd), Hkv | H; out like q.
-// dtype: F32 or BF16; hd in {16, 32, 64, 128}. Returns cudaGetLastError().
+// q: (B, L, H, hd); k/v: (B, L, Hkv, hd), Hkv | H; kv_len: (B,) int32 in
+// [1, L], or null for all L keys; out like q. dtype: F32 or BF16; hd in
+// {16, 32, 64, 128}. Returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int L, int H, int Hkv,
-                               int hd, int causal, int window, int dtype,
-                               void* stream) {
+                               const void* kv_len, void* out, int B, int L,
+                               int H, int Hkv, int hd, int causal, int window,
+                               int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* kl = static_cast<const int*>(kv_len);
   if (dtype == F32)
-    return launch_hd<float>(q, k, v, out, B, L, H, Hkv, hd, causal, window,
-                            st);
+    return launch_hd<float>(q, k, v, kl, out, B, L, H, Hkv, hd, causal,
+                            window, st);
   if (dtype == BF16)
-    return launch_hd<__nv_bfloat16>(q, k, v, out, B, L, H, Hkv, hd, causal,
-                                    window, st);
+    return launch_hd<__nv_bfloat16>(q, k, v, kl, out, B, L, H, Hkv, hd,
+                                    causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

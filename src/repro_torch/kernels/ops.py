@@ -1,5 +1,5 @@
-"""Public entry points of the port's kernels: attention (K1-K3) and the
-cross-modal score (K4).
+"""Public entry points of the port's kernels: attention (K1-K3), the
+cross-modal score (K4) and the MoE dispatch and combine (K5).
 
 Dispatch follows the tensor: on a CPU tensor each wrapper runs the plain
 PyTorch version (``ref.py``); on a CUDA tensor it launches its hand-written
@@ -20,7 +20,8 @@ from repro_torch.kernels import ref
 # launches of each kernel since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0,
                             "paged_decode_attention": 0,
-                            "xmodal_score_mean": 0, "xmodal_score_max": 0}
+                            "xmodal_score_mean": 0, "xmodal_score_max": 0,
+                            "moe_dispatch": 0, "moe_combine": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
@@ -28,6 +29,8 @@ _ACT_DTYPES = (torch.float32, torch.bfloat16)
 _FLASH_HD = (16, 32, 64, 128)
 # rows and visual rows per block of csrc/xmodal_score.cu (XM_ROWS, XM_COLS)
 _XMODAL_ROWS, _XMODAL_COLS = 32, 64
+# the most choices per token csrc/moe_dispatch.cu takes (MC_MAX_K)
+_MOE_MAX_K = 32
 
 
 def reset_launches() -> None:
@@ -59,25 +62,35 @@ def _launch(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    lengths=None):
     """Prefill attention. q: (B, L, H, hd); k/v: (B, L, Hkv, hd) with
-    Hkv | H, grouped (not expanded). Returns (B, L, H, hd) in q's dtype.
-    The kernel has no key-mask argument, like the TPU kernel: bucketed
-    prefill relies on causality to keep real rows exact."""
-    if not q.is_cuda:
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    Hkv | H, grouped (not expanded). ``lengths``: optional (B,) int32 in
+    [1, L]; keys at or past a row's length are masked (the pad keys of a
+    length-bucketed prefill). A window shorter than L could then leave a
+    pad row with no key, so the two do not go together. Returns
+    (B, L, H, hd) in q's dtype."""
     B, L, H, hd = q.shape
+    _check(lengths is None or window <= 0 or L <= window,
+           "flash_attention: lengths with a window shorter than L")
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       lengths=lengths)
     Hkv = k.shape[2]
-    _check_cuda("flash_attention", q, k, v)
+    _check_cuda("flash_attention", q, k, v, lengths)
     _check(q.dtype in _ACT_DTYPES and k.dtype == q.dtype and
            v.dtype == q.dtype, "flash_attention: q/k/v fp32 or bf16, alike")
     _check(k.shape == (B, L, Hkv, hd) and v.shape == k.shape and
            H % Hkv == 0, f"flash_attention: bad shapes {q.shape} {k.shape}")
     _check(hd in _FLASH_HD, f"flash_attention: head_dim {hd} not in "
            f"{_FLASH_HD}")
+    _check(lengths is None or (lengths.shape == (B,) and
+                               lengths.dtype == torch.int32),
+           "flash_attention: lengths (B,) int32")
     out = torch.empty_like(q)
     _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), B, L, H, Hkv, hd, int(causal), int(window),
+            None if lengths is None else lengths.data_ptr(), out.data_ptr(),
+            B, L, H, Hkv, hd, int(causal), int(window),
             _DTYPE_CODES[q.dtype])
     return out
 
@@ -224,3 +237,54 @@ def xmodal_score(token_embs, mask, visual_feats, text_feats):
     n_tok = torch.clamp(mask.sum(-1), min=1.0)
     return 0.5 * (sum1 / (n_tok * visual_feats.shape[1]) +
                   sum2 / text_feats.shape[1])
+
+
+def moe_dispatch(idx, x):
+    """K5a: expert inputs (G, E, C, d) in x's dtype. Slot (e, c) of group
+    gr holds row ``x[gr, idx[gr, e, c]]``, or zeros where the id is -1
+    (ids outside [0, g) are empty too). idx: (G, E, C) int32; x:
+    (G, g, d) fp32 or bf16."""
+    if not x.is_cuda:
+        return ref.moe_dispatch_ref(idx, x)
+    name = "moe_dispatch"
+    _check_cuda(name, x, idx)
+    _check(x.dtype in _ACT_DTYPES, f"{name}: x must be fp32 or bf16")
+    _check(idx.dtype == torch.int32 and idx.dim() == 3 and x.dim() == 3 and
+           idx.shape[0] == x.shape[0] and min(idx.shape) > 0 and
+           min(x.shape) > 0,
+           f"{name}: idx (G, E, C) int32 and x (G, g, d), got "
+           f"{tuple(idx.shape)} {idx.dtype} {tuple(x.shape)}")
+    G, E, C = idx.shape
+    g, d = x.shape[1:]
+    out = torch.empty((G, E, C, d), dtype=x.dtype, device=x.device)
+    _launch(name, idx.data_ptr(), x.data_ptr(), out.data_ptr(), G, E, C, g,
+            d, x.element_size())
+    return out
+
+
+def moe_combine(slot, gates, expert_out):
+    """K5b: (G, g, d) fp32 ``sum_j gates[.., j] * row(slot[.., j])`` over
+    each token's k choices, in j order; -1 (dropped) and other ids outside
+    [0, E*C) add nothing. slot: (G, g, k) int32 flat E*C slot ids; gates:
+    (G, g, k) fp32; expert_out: (G, E, C, d) fp32 or bf16."""
+    if not expert_out.is_cuda:
+        return ref.moe_combine_ref(slot, gates, expert_out)
+    name = "moe_combine"
+    _check_cuda(name, expert_out, slot, gates)
+    _check(expert_out.dtype in _ACT_DTYPES and gates.dtype == torch.float32
+           and slot.dtype == torch.int32,
+           f"{name}: slot int32, gates fp32, expert_out fp32 or bf16")
+    _check(slot.dim() == 3 and gates.shape == slot.shape and
+           expert_out.dim() == 4 and expert_out.shape[0] == slot.shape[0]
+           and min(slot.shape) > 0 and min(expert_out.shape) > 0,
+           f"{name}: slot and gates (G, g, k), expert_out (G, E, C, d), got "
+           f"{tuple(slot.shape)} {tuple(gates.shape)} "
+           f"{tuple(expert_out.shape)}")
+    G, g, k = slot.shape
+    _, E, C, d = expert_out.shape
+    _check(k <= _MOE_MAX_K, f"{name}: k {k} > {_MOE_MAX_K}")
+    out = torch.empty((G, g, d), dtype=torch.float32, device=slot.device)
+    _launch(name, slot.data_ptr(), gates.data_ptr(), expert_out.data_ptr(),
+            out.data_ptr(), G, g, k, E * C, d,
+            _DTYPE_CODES[expert_out.dtype])
+    return out

@@ -3,7 +3,8 @@
 Each computes the same function as its CUDA kernel (``csrc/*.cu``) with
 plain tensor ops: fp32 math, the reference's ``NEG_INF = -1e30`` masking
 and a full softmax for attention, whole cosine matrices for the
-cross-modal score. They follow ``repro/kernels/ref.py:15-94``. The kernel
+cross-modal score, indexed gathers for the MoE dispatch and combine.
+They follow ``repro/kernels/ref.py:15-113``. The kernel
 wrappers in ``ops.py`` run these on CPU tensors; ``chip_smoke.py`` holds
 each kernel against them on the card.
 """
@@ -20,9 +21,11 @@ def _expand(k: torch.Tensor, heads: int) -> torch.Tensor:
     return k if rep == 1 else torch.repeat_interleave(k, rep, dim=2)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        lengths=None):
     """Prefill attention. q: (B, L, H, hd); k/v: (B, L, Hkv, hd) with
-    Hkv | H (Hkv == H is the reference's pre-expanded layout)."""
+    Hkv | H (Hkv == H is the reference's pre-expanded layout). ``lengths``:
+    optional (B,) key lengths; keys at or past them are masked."""
     B, L, H, hd = q.shape
     k = _expand(k, H).float()
     v = _expand(v, H).float()
@@ -35,7 +38,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
         mask &= rel >= 0
     if window > 0:
         mask &= rel < window
-    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    mask = mask[None, None]
+    if lengths is not None:
+        mask = mask & (kp < lengths.long()[:, None])[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
@@ -109,3 +115,34 @@ def xmodal_score_ref(token_embs, mask, visual_feats, text_feats):
     sim_rt = torch.einsum("brd,bnd->brn", txt, vis)
     term2 = sim_rt.amax(-1).mean(-1)
     return 0.5 * (term1 + term2)
+
+
+def moe_dispatch_ref(idx, x):
+    """K5a: idx (G, E, C) int32 token ids (-1 empty); x (G, g, d). Returns
+    (G, E, C, d) in x's dtype: slot (e, c) holds row ``x[gr, idx]``, or
+    zeros. Ids outside [0, g) are empty, as in the kernel."""
+    G, g, _ = x.shape
+    valid = (idx >= 0) & (idx < g)
+    grp = torch.arange(G, device=x.device)[:, None, None]
+    rows = x[grp, idx.long().clamp(0, g - 1)]
+    return torch.where(valid[..., None], rows,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def moe_combine_ref(slot, gates, expert_out):
+    """K5b: slot (G, g, k) flat E*C slot ids (-1 dropped); gates (G, g, k);
+    expert_out (G, E, C, d). Returns (G, g, d) fp32: sum_j gate * row,
+    accumulated in j order like the kernel. Ids outside [0, E*C) are
+    dropped."""
+    G, E, C, d = expert_out.shape
+    EC = E * C
+    flat = expert_out.reshape(G, EC, d)
+    valid = (slot >= 0) & (slot < EC)
+    grp = torch.arange(G, device=slot.device)[:, None, None]
+    rows = flat[grp, slot.long().clamp(0, EC - 1)].float()   # (G, g, k, d)
+    w = torch.where(valid, gates.float(), torch.zeros((), device=slot.device))
+    acc = torch.zeros(rows.shape[:2] + (d,), dtype=torch.float32,
+                      device=slot.device)
+    for j in range(slot.shape[-1]):
+        acc = acc + w[..., j, None] * rows[:, :, j]
+    return acc

@@ -100,16 +100,22 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, kv_mask=None,
 
 
 def attn_prefill(p: Attention, cfg: ModelConfig, x, positions, *,
-                 window: int = 0, impl: str = "torch", kv_mask=None):
+                 window: int = 0, impl: str = "torch", lengths=None):
     """Full-sequence causal attention. Returns (out (B, L, d), (k, v)) for
-    cache seeding. ``kv_mask`` (B, L) pins pad rows of bucketed prefill on
-    the torch path; the flash kernel, like the TPU one, has no mask
-    argument and relies on causality (real rows are identical)."""
+    cache seeding. ``lengths`` ((B,) int32, optional): the true lengths of
+    right-padded rows in a bucketed prefill; keys past them are masked on
+    both paths, as the reference's plain path masks them
+    (``transformer.py:324``). Real positions never attend to pads anyway
+    (causality); masking also pins the pad rows, whose hidden states an
+    MoE layer routes and counts against expert capacity."""
     B, L, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, positions)
     if impl == "cuda":
-        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  lengths=lengths)
     else:
+        kv_mask = None if lengths is None else \
+            torch.arange(L, device=x.device)[None, :] < lengths.long()[:, None]
         out = sdpa(q, k, v, causal=True, window=window, kv_mask=kv_mask)
     return p.wo(out.reshape(B, L, -1)), (k, v)
 

@@ -3,12 +3,14 @@ API the engine calls (``repro/models/model.py:94-223``).
 
 Parameter names mirror the reference's param tree: ``embed.table``,
 ``layers.<i>.ln1.scale``, ``layers.<i>.attn.wq.kernel``,
-``layers.<i>.mlp.w_gate.kernel``, ``final_norm.scale``, untied
-``unembed.kernel`` and, for the vlm family, ``evidence_proj.kernel`` and
-the vision tower's ``vision.*`` — ``convert.params_from_jax`` produces
-exactly these keys. The port serves decoder-only attention stacks, with
-evidence tokens and a vision tower in the vlm family; other families
-raise ``NotImplementedError``.
+``layers.<i>.mlp.w_gate.kernel`` (or, in MoE configs,
+``layers.<i>.moe.router.kernel`` and ``layers.<i>.moe.w_gate``),
+``final_norm.scale``, untied ``unembed.kernel`` and, for the vlm family,
+``evidence_proj.kernel`` and the vision tower's ``vision.*`` —
+``convert.params_from_jax`` produces exactly these keys. The port serves
+decoder-only attention stacks with dense or MoE MLPs, with evidence
+tokens and a vision tower in the vlm family; other families raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.config import ATTN, ModelConfig
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Norm, Dense, _normal
+from repro_torch.models.moe import MoE
 from repro_torch.models.vision import VisionTower, vision_encode
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -29,7 +32,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = [
         ("encoder-decoder", cfg.is_encoder_decoder),
-        ("mixture-of-experts", cfg.moe is not None),
         ("SSM / RG-LRU / local-attention blocks",
          any(k != ATTN for k in cfg.layer_kinds)),
         ("evidence tokens / vision towers outside the vlm family",
@@ -41,8 +43,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         if present:
             raise NotImplementedError(
                 f"{cfg.name}: {what} are not ported yet; this slice serves "
-                "decoder-only attention stacks (with evidence in the vlm "
-                "family)")
+                "decoder-only attention stacks with dense or MoE MLPs "
+                "(with evidence in the vlm family)")
 
 
 class Embedding(nn.Module):
@@ -57,9 +59,11 @@ class Block(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.ln1 = Norm(cfg.d_model, **kw)
         self.attn = Attention(cfg, gen=gen, **kw)
-        self.ln2 = Norm(cfg.d_model, **kw) if cfg.d_ff > 0 else None
+        has_mlp = cfg.d_ff > 0 or cfg.moe is not None   # transformer.py:37
+        self.ln2 = Norm(cfg.d_model, **kw) if has_mlp else None
+        self.moe = MoE(cfg, gen=gen, **kw) if cfg.moe is not None else None
         self.mlp = MLP(cfg.d_model, cfg.d_ff, gen=gen, **kw) \
-            if cfg.d_ff > 0 else None
+            if has_mlp and self.moe is None else None
 
 
 class Model(nn.Module):

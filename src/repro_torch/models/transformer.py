@@ -20,6 +20,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import dense, embed, mlp, rmsnorm, unembed
+from repro_torch.models.moe import moe_apply
 
 
 def _ring_len(cfg: ModelConfig, cache_len: int) -> int:
@@ -62,10 +63,15 @@ def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     return cache
 
 
-def _mlp_part(blk, cfg: ModelConfig, x):
-    if blk.mlp is None:                 # d_ff == 0: attention-only block
+def _mlp_part(blk, cfg: ModelConfig, x, impl: str):
+    """The MLP sub-block (``transformer.py:61``): dense, or MoE with its
+    dispatch and combine through ``impl``. Serving drops the MoE's router
+    losses, as the reference's prefill and decode do."""
+    if blk.ln2 is None:                 # d_ff == 0: attention-only block
         return x
     h = rmsnorm(blk.ln2.scale, x, cfg.norm_eps)
+    if blk.moe is not None:
+        return x + moe_apply(blk.moe, cfg, h, impl=impl)[0]
     return x + mlp(blk.mlp, h)
 
 
@@ -104,22 +110,21 @@ def transformer_prefill(model, tokens, cache, evidence=None, *,
     int32, counting evidence rows) rows are right-padded to a common
     bucket: last-token logits/hidden come from each row's true last
     position and ``pos`` is seeded per row. Causal masking keeps every
-    real position exact under right-padding. Returns (logits_last (B, V),
-    hidden_last (B, d), cache)."""
+    real position exact under right-padding; keys past each row's length
+    are masked on both impls (``attention.attn_prefill``). Returns
+    (logits_last (B, V), hidden_last (B, d), cache)."""
     cfg = model.cfg
     x = embed_inputs(model, tokens, evidence)
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device).expand(B, L)
-    kv_mask = None
-    if lengths is not None and impl == "torch":
-        kv_mask = torch.arange(L, device=x.device)[None, :] < \
-            lengths.long()[:, None]
+    if lengths is not None:
+        lengths = lengths.to(torch.int32)
     for i, blk in enumerate(model.layers):
         h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
         y, (k, v) = attn_lib.attn_prefill(blk.attn, cfg, h, positions,
                                           window=cfg.attn_window, impl=impl,
-                                          kv_mask=kv_mask)
-        x = _mlp_part(blk, cfg, x + y)
+                                          lengths=lengths)
+        x = _mlp_part(blk, cfg, x + y, impl)
         attn_lib.prefill_into_cache(cache["k"][i], cache["v"][i], k, v)
     if lengths is None:
         x_last = x[:, -1:]
@@ -155,7 +160,7 @@ def transformer_decode(model, token, cache, *, impl: str = "torch"):
             y = attn_lib.attn_decode(blk.attn, cfg, h, cache["k"][i],
                                      cache["v"][i], pos,
                                      window=cfg.attn_window, impl=impl)
-        x = _mlp_part(blk, cfg, x + y)
+        x = _mlp_part(blk, cfg, x + y, impl)
     logits, hidden = _logits(model, x)
     cache["pos"] = pos + 1
     return logits[:, 0], hidden[:, 0], cache

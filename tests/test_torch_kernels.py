@@ -81,6 +81,28 @@ def test_flash_plain_matches_reference(dtype, L, H, Hkv, hd, causal,
                                         window=window), dtype)
 
 
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (6, 2)])
+def test_flash_plain_with_lengths_matches_reference(H, Hkv):
+    """Key lengths (a right-padded prefill bucket): K2's plain version
+    masks keys past each row's length as the reference's plain path does
+    with its key mask (``repro.models.attention.sdpa``), pad rows
+    included."""
+    from repro.models.attention import sdpa as jsdpa
+    rng = np.random.default_rng(H)
+    B, L, hd = 3, 40, 64
+    lens = np.array([40, 7, 23], np.int32)
+    q, k, v = (rng.standard_normal((B, L, n, hd)).astype(np.float32)
+               for n in (H, Hkv, Hkv))
+    exp = jsdpa(q, k, v, causal=True,
+                kv_mask=np.arange(L)[None, :] < lens[:, None])
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    _close(exp, ops.flash_attention(tq, tk, tv, lengths=torch.from_numpy(
+        lens)), "float32")
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(tq, tk, tv, window=16,
+                            lengths=torch.from_numpy(lens))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,Hkv,hd", [(128, 4, 1, 64), (300, 8, 2, 64),
                                         (96, 4, 4, 128)])
@@ -160,9 +182,13 @@ def test_cpu_tensors_take_the_plain_path():
                                torch.full((1,), 16, dtype=torch.int32))
     x = q.reshape(1, 32, 16)
     ops.xmodal_score(x, torch.ones(1, 32), x, x)
+    ops.moe_dispatch(torch.full((1, 2, 8), -1, dtype=torch.int32), x)
+    ops.moe_combine(torch.zeros(1, 32, 2, dtype=torch.int32),
+                    torch.ones(1, 32, 2), x.reshape(1, 2, 16, 16))
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0,
                             "paged_decode_attention": 0,
-                            "xmodal_score_mean": 0, "xmodal_score_max": 0}
+                            "xmodal_score_mean": 0, "xmodal_score_max": 0,
+                            "moe_dispatch": 0, "moe_combine": 0}
     with pytest.raises(ValueError, match="both"):
         ops.paged_decode_attention(q[:, :1], q, q, None, None,
                                    k_scale=torch.ones(1))

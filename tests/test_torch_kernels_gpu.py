@@ -137,3 +137,87 @@ def test_wrappers_reject_bad_input_on_card(gen):
     with pytest.raises(ValueError, match="alike"):
         ops.xmodal_score(x, torch.ones(1, 32, device="cuda"),
                          x.to(torch.bfloat16), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_with_lengths_on_card(gen, dtype):
+    """Key lengths (right-padded prefill rows) at granite's 24/8 heads of
+    width 64 (GQA group 3)."""
+    B, L, H, Hkv, hd = 3, 200, 24, 8, 64
+    q = _rand(gen, (B, L, H, hd), dtype)
+    k = _rand(gen, (B, L, Hkv, hd), dtype)
+    v = _rand(gen, (B, L, Hkv, hd), dtype)
+    for lens in (None, [200, 37, 1]):
+        ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device="cuda")
+        _close(ops.flash_attention(q, k, v, lengths=ln),
+               ref.flash_attention_ref(q, k, v, lengths=ln), dtype)
+
+
+def _moe_tables(g_, G, g, E, C, k):
+    from repro_torch.models.moe import dispatch_tables
+    logits = torch.randn(G, g, E, generator=g_, device="cuda")
+    vals, gate_idx = torch.sort(torch.softmax(logits, -1), dim=-1,
+                                descending=True, stable=True)
+    gates = (vals[..., :k] / vals[..., :k].sum(-1, keepdim=True)).contiguous()
+    idx, slot, _ = dispatch_tables(gate_idx[..., :k], E, C)
+    return idx, slot, gates
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,g,E,C,k,d", [
+    (8, 256, 40, 64, 8, 1536),     # granite's prefill bucket
+    (1, 8, 40, 8, 8, 1536),        # granite's decode step
+    (2, 37, 5, 8, 3, 1001),        # d not a multiple of 4, capacity binds
+    (3, 24, 6, 8, 1, 130),         # k = 1
+])
+def test_moe_kernels_on_card(gen, dtype, G, g, E, C, k, d):
+    """K5a equals its plain version bit for bit, K5b within the dtype's
+    tolerance; both repeat bitwise."""
+    idx, slot, gates = _moe_tables(gen, G, g, E, C, k)
+    x = _rand(gen, (G, g, d), dtype)
+    eo = _rand(gen, (G, E, C, d), dtype)
+    before = dict(ops.LAUNCHES)
+    out = ops.moe_dispatch(idx, x)
+    assert torch.equal(out, ref.moe_dispatch_ref(idx, x))
+    assert torch.equal(out, ops.moe_dispatch(idx, x))
+    comb = ops.moe_combine(slot, gates, eo)
+    _close(comb, ref.moe_combine_ref(slot, gates, eo), dtype)
+    assert torch.equal(comb, ops.moe_combine(slot, gates, eo))
+    for name in ("moe_dispatch", "moe_combine"):
+        assert ops.LAUNCHES[name] == before[name] + 2
+    # every slot empty, every choice dropped
+    none = torch.full_like(idx, -1)
+    assert torch.equal(ops.moe_dispatch(none, x), torch.zeros_like(out))
+    assert torch.equal(ops.moe_combine(torch.full_like(slot, -1), gates, eo),
+                       torch.zeros_like(comb))
+
+
+@pytest.mark.gpu
+def test_moe_wrappers_reject_bad_input_on_card(gen):
+    idx, slot, gates = _moe_tables(gen, 1, 8, 4, 8, 2)
+    x = _rand(gen, (1, 8, 64))
+    eo = _rand(gen, (1, 4, 8, 64))
+    with pytest.raises(ValueError, match="int32"):
+        ops.moe_dispatch(idx.long(), x)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        ops.moe_dispatch(idx, x.half())
+    with pytest.raises(ValueError, match="G, g, d"):
+        ops.moe_dispatch(idx, x[0])
+    with pytest.raises(ValueError, match="gates fp32"):
+        ops.moe_combine(slot, gates.to(torch.bfloat16), eo)
+    with pytest.raises(ValueError, match="expert_out"):
+        ops.moe_combine(slot, gates, eo[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.moe_combine(slot, gates, eo.transpose(2, 3))
+    with pytest.raises(ValueError, match="k 33"):
+        many = torch.zeros(1, 8, 33, dtype=torch.int32, device="cuda")
+        ops.moe_combine(many, torch.ones(1, 8, 33, device="cuda"), eo)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(x[None].reshape(1, 8, 1, 64),
+                            x[None].reshape(1, 8, 1, 64),
+                            x[None].reshape(1, 8, 1, 64), window=4,
+                            lengths=torch.ones(1, dtype=torch.int32,
+                                               device="cuda"))

@@ -253,7 +253,7 @@ def test_unsupported_families_raise():
     from repro_torch.configs import get_config
     base = get_config("qwen3_0_6b").reduced()
     assert get_config("qwen3-0.6b") is get_config("qwen3_0_6b")
-    for kw in (dict(moe=object()), dict(block_pattern=("ssm",)),
+    for kw in (dict(block_pattern=("ssm",)),
                dict(is_encoder_decoder=True), dict(num_evidence_tokens=4),
                dict(mlp_activation="gelu")):
         with pytest.raises(NotImplementedError):
