@@ -13,7 +13,8 @@ Run from the root of a checkout. It
      attention kernels, key lengths for the flash kernel, int8/fp8 pools
      for the paged kernel, ragged row counts for the cross-modal score,
      granite's prefill and decode dispatch shapes and ragged ones for the
-     MoE dispatch and combine) and times kernel, plain version and —
+     MoE dispatch and combine) and times kernel (the dense decode kernel
+     also at cache lengths 16 to 32768), plain version and —
      where one PyTorch call computes the same function —
      ``scaled_dot_product_attention``, beside a bound from bytes and
      operations;
@@ -63,6 +64,11 @@ GRANITE_DECODE = dict(G=1, g=8, C=8)       # one decode step of 8 slots
 # the multimodal path: llava-1.5-7b's 576 image tokens ahead of the prompt
 IMAGE_TOKENS = 576
 MM_CACHE_LEN = IMAGE_TOKENS + CACHE_LEN            # 864, a page multiple
+# K3's second timing shape: the reference's decode_32k cache length
+# (repro/config.py:263); K3 is timed at each length of the sweep, from
+# one 16-row tile to 2048 of them
+DECODE_LONG = 32768
+DECODE_SWEEP = (16, 64, CACHE_LEN, 4096, DECODE_LONG)
 
 
 def fail(msg: str) -> None:
@@ -117,6 +123,13 @@ class Timer:
         check(bool(times), f"timer: the profiler saw no kernel "
               f"{kernel or ''} in the call")
         return sum(times.values()) / reps / 1e3
+
+    def by_kernel(self, fn, reps: int = 20) -> dict:
+        """Device ms per call of each kernel the call runs, the flush
+        left out."""
+        return {k: v / reps / 1e3 for k, v in
+                self._kernel_times(fn, reps).items()
+                if k not in self._flush_keys}
 
     def ms(self, fn, reps: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -223,52 +236,111 @@ def ring_mask(torch, pos, S):
     return p - torch.remainder(p - slot[None, :], S) >= 0
 
 
-def decode_phase(torch, ops, ref, timer):
+def decode_timing(torch, ops, ref, timer, g, S):
+    """K3 timed at qwen3's heads (fp32, B 8, H 16, Hkv 8, hd 128) with cache
+    length S, under a ring mask whose write position lies in the last 32
+    slots: the device time of every kernel its wrapper runs (split and
+    combine; the breakdown under ``by_kernel``), the plain version and
+    SDPA on the same inputs, and the byte bound of the valid rows. Returns
+    (times, max_abs_err against the plain version)."""
     F = torch.nn.functional
+    B, H, Hkv, hd = 8, 16, 8, 128
+    q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
+    k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
+    v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
+    pos = torch.randint(max(0, S - 32), S, (B,), generator=g, device="cuda")
+    mask = ring_mask(torch, pos, S)
+    fn = lambda: ops.decode_attention(q, k, v, mask)   # noqa: E731
+    plain = lambda: ref.decode_attention_ref(q, k, v, mask)  # noqa: E731
+    err = compare(torch, "decode_attention",
+                  f"float32 B{B} S{S} H{H}/{Hkv} hd{hd} ring (timed)",
+                  fn(), plain(), "float32")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    am = mask[:, None, None, :]
+    t = times(timer, fn, None, plain,
+              lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, attn_mask=am, enable_gqa=True))
+    t["by_kernel"] = timer.by_kernel(fn)
+    live = int(mask.sum())
+    nbytes = 4 * 2 * q.numel() + mask.numel() + 4 * 2 * live * Hkv * hd
+    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 4 * H * hd * live,
+                                            "float32")
+    t["S"] = S
+    t["shape"] = f"fp32 B{B} S{S} H{H} Hkv{Hkv} hd{hd} ring mask"
+    return t, err
+
+
+def decode_phase(torch, ops, ref, timer):
+    """K3 against its plain version at the serving, granite and ragged
+    shapes, at the split plan's edges (only the first split valid, one
+    split, a ragged last split) and at the launcher's other instantiations
+    (G 8; rows copied in 4- and 2-byte units), twice each for the same
+    bits; then timed (``decode_timing``) at each cache length of
+    ``DECODE_SWEEP``: the serving length is K3's row, the reference's
+    decode_32k length its "long" entry."""
     g = torch.Generator(device="cuda").manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = []
     cases = [  # (B, S, H, Hkv, hd, mask kind)
         (8, CACHE_LEN, 16, 8, 128, "ring"),    # serving decode, mid-run
         (2, 300, 8, 2, 64, "random"),          # S not a tile multiple, G=4
         (3, 128, 4, 4, 128, "ring"),           # G = 1
         (8, CACHE_LEN, 24, 8, 64, "ring"),     # granite decode, G = 3
+        (8, 4096, 16, 8, 128, "first split"),  # rows only in split 0
+        (8, 16, 16, 8, 128, "ring"),           # one split, no combine
+        (4, 1000, 8, 2, 64, "random"),         # ragged last split
+        (2, 300, 16, 2, 128, "ring"),          # G = 8
+        (3, 500, 8, 4, 33, "random"),  # 4-byte units (fp32), 2-byte (bf16)
+        (2, 200, 6, 2, 36, "ring"),    # 16-byte units (fp32), 4-byte (bf16)
     ]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for B, S, H, Hkv, hd, kind in cases:
+            n_split, rows = ops.decode_splits(B, Hkv, S, sms)
             q = torch.randn(B, 1, H, hd, generator=g, device="cuda").to(dt)
             k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda").to(dt)
             v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda").to(dt)
             if kind == "ring":
                 pos = torch.randint(0, S, (B,), generator=g, device="cuda")
                 mask = ring_mask(torch, pos, S)
+            elif kind == "first split":   # early in every request
+                pos = torch.randint(0, rows, (B,), generator=g,
+                                    device="cuda")
+                mask = ring_mask(torch, pos, S)
+                check(n_split > 1 and not bool(mask[:, rows:].any()),
+                      "decode case: valid rows past the first split")
             else:
                 mask = torch.rand(B, S, generator=g, device="cuda") < 0.75
                 mask[:, :2] = True
             out = ops.decode_attention(q, k, v, mask)
             exp = ref.decode_attention_ref(q, k, v, mask)
-            errs.append(compare(torch, "decode_attention",
-                                f"{dtype} B{B} S{S} H{H}/{Hkv} hd{hd} {kind}",
-                                out, exp, dtype))
-    B, S, H, Hkv, hd = 8, CACHE_LEN, 16, 8, 128
-    q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
-    k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
-    v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
-    pos = torch.randint(SERVE["prompt"], S, (B,), generator=g, device="cuda")
-    mask = ring_mask(torch, pos, S)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    am = mask[:, None, None, :]
-    t = times(timer, lambda: ops.decode_attention(q, k, v, mask),
-              "decode_kernel",
-              lambda: ref.decode_attention_ref(q, k, v, mask),
-              lambda: F.scaled_dot_product_attention(
-                  qt, kt, vt, attn_mask=am, enable_gqa=True))
-    live = int(mask.sum())
-    nbytes = 4 * 2 * q.numel() + mask.numel() + 4 * 2 * live * Hkv * hd
-    flops = 4 * H * hd * live
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, "float32")
+            case = f"{dtype} B{B} S{S} H{H}/{Hkv} hd{hd} {kind} " \
+                f"{n_split}x{rows}"
+            errs.append(compare(torch, "decode_attention", case, out, exp,
+                                dtype))
+            check(torch.equal(out, ops.decode_attention(q, k, v, mask)),
+                  f"decode_attention {case}: two runs differ")
+
+    sweep = {}
+    for S in DECODE_SWEEP:
+        t, err = decode_timing(torch, ops, ref, timer, g, S)
+        errs.append(err)
+        n_split, rows = ops.decode_splits(8, 8, S, sms)
+        t["shape"] += f", {n_split} splits of {rows} rows"
+        print(f"  decode_attention S {S}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.5f} ms; by kernel: " + ", ".join(
+                  f"{name[:60]} {ms:.4f} ms" for name, ms in
+                  t["by_kernel"].items()))
+        sweep[S] = t
+    t = sweep[CACHE_LEN]
     t["max_abs_err"] = max(errs)
-    t["shape"] = f"fp32 B{B} S{S} H{H} Hkv{Hkv} hd{hd} ring mask"
+    t["long"] = {key: sweep[DECODE_LONG][key] for key in (
+        "shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "by_kernel")}
+    t["sweep"] = [{key: tt[key] for key in ("S", "ms", "library_ms",
+                                            "bound_ms")}
+                  for tt in sweep.values()]
     return t
 
 
@@ -844,8 +916,10 @@ def main() -> None:
               f"{t['call_ms']:.4f} ms), plain "
               f"{t['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
-        if "prefill" in t:
-            tp = t["prefill"]
+        for key in ("prefill", "long"):
+            if key not in t:
+                continue
+            tp = t[key]
             print(f"  {name}: {tp['shape']}: kernel {tp['ms']:.4f} ms "
                   f"(call {tp['call_ms']:.4f} ms), plain "
                   f"{tp['plain_ms']:.4f} ms, library "
@@ -931,7 +1005,8 @@ def main() -> None:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
-            **{key: t[key] for key in ("sdpa_on_gathered_ms", "prefill")
+            **{key: t[key] for key in ("sdpa_on_gathered_ms", "prefill",
+                                       "long", "sweep", "by_kernel")
                if key in t}})
     print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"kernels": kernels}))

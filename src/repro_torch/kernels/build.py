@@ -33,8 +33,7 @@ _I = ctypes.c_int
 # and cut the address)
 KERNELS = {
     "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 8 + [_P]),
-    "decode_attention": ("decode_attention",
-                         [_P, _P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "decode_attention": ("decode_attention", [_P] * 6 + [_I] * 8 + [_P]),
     "paged_decode_attention": ("paged_decode_attention",
                                [_P] * 8 + [_I] * 9 + [_P]),
     "xmodal_score_mean": ("xmodal_score", [_P] * 6 + [_I] * 5 + [_P]),

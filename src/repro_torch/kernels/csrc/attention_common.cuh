@@ -195,3 +195,367 @@ __device__ void decode_body(const TQ* __restrict__ q,
     }
   }
 }
+
+// --------------------------------------------------------------------------
+// Split-KV decode ("flash-decoding"): one query token against one split of
+// a batch row's KV rows, for the G query heads of one kv head.
+//
+// Grid (kv head, batch row, split). Split s takes rows [s * rows_per_split,
+// min(num_rows, (s + 1) * rows_per_split)), whole DEC_TILE-row tiles but
+// for a ragged last one. Each of the block's SPL_WARPS warps takes
+// SPL_WROWS rows of every tile and runs on its own: it copies its rows of
+// K and V into its own ring of SPL_STAGES shared-memory stages with
+// cp.async (16-byte units where the row's byte length and the bases allow
+// it), SPL_STAGES - 1 tiles ahead of the tile it computes, and keeps an
+// fp32 online softmax (running max m and sum l of its lanes' head, and
+// its lanes' head dims of each query head's accumulator) in registers. So
+// no block-wide barrier runs per tile; the warps' (m, l, acc) are merged
+// once at the end, in warp order. A lane holds head dims lane + 32 i of
+// every query head; the 4 * GP dot products of a tile are summed across
+// the warp with one reduce-scatter (31 shuffles for GP = 8), after which
+// lane L holds the score of row L / 8 for head (L / (8 / GP)) % GP.
+//
+// Invalid rows are never read: their copies zero-fill the stage (cp.async
+// with a source size of 0), and their weight is exactly 0. The validity
+// of the warp's 4 rows of a tile comes from Rows::valid4 as one word; lane
+// l holds the word of tile 32 c + l, and the next 32 tiles' words are
+// loaded a whole chunk ahead.
+//
+// With one split the block writes acc / max(l, 1e-20) in q's dtype itself;
+// otherwise it writes (acc, m, l) per query head to the fp32 workspace
+// (B, Hkv, n_split, G, hd + 2) and split_combine_body merges the splits
+// in split order, so two runs give the same bits. A split (or a warp)
+// without a valid row has m = NEG_INF_F, l = 0 and acc = 0 and weighs
+// exp(NEG_INF_F - M) = 0 beside one that has; a batch row without a valid
+// row gets 0.
+//
+// `Rows` is the decode_body interface plus valid4(b, j, jend): bit r set
+// where row j + r is valid and below jend.
+// --------------------------------------------------------------------------
+constexpr int SPL_WARPS = 4;
+constexpr int SPL_THREADS = 32 * SPL_WARPS;
+constexpr int SPL_WROWS = DEC_TILE / SPL_WARPS;   // rows per warp per tile
+constexpr int SPL_STAGES = 2;
+constexpr int SPL_NI = DEC_MAX_HD / 32;           // head dims per lane
+constexpr int DEC_MAX_SPLIT = 64;                 // ops.py plans at most this
+
+__host__ __device__ constexpr int spl_row_bytes(int hd, int elem) {
+  return (hd * elem + 15) / 16 * 16;
+}
+
+// dynamic shared memory of split_decode_body: the warps' stage rings, or
+// the merge area that reuses them
+constexpr size_t split_smem_bytes(int G, int hd, int elem) {
+  const size_t stages = (size_t)SPL_WARPS * SPL_STAGES * SPL_WROWS * 2 *
+                        spl_row_bytes(hd, elem);
+  const size_t merge = sizeof(float) * SPL_WARPS * G * (hd + 2);
+  return stages > merge ? stages : merge;
+}
+
+struct SplitWarpScratch {
+  unsigned vw[SPL_STAGES];                  // validity word of each stage
+  float ksc[SPL_STAGES][SPL_WROWS], vsc[SPL_STAGES][SPL_WROWS];
+  float p[SPL_WROWS * DEC_MAX_G];           // weights of the tile's rows
+  float alpha[DEC_MAX_G];                   // rescale of each head's acc
+};
+// the largest case the launchers take fits the 48 KB a block may use
+// without opting in to more
+static_assert(split_smem_bytes(DEC_MAX_G, DEC_MAX_HD, sizeof(float)) +
+                      SPL_WARPS * sizeof(SplitWarpScratch) <=
+                  48 * 1024,
+              "split_decode_body's shared memory exceeds 48 KB");
+
+// Copy U bytes from global to shared memory, or U zero bytes when !ok
+// (nothing is read then). U = 16 and 4 are asynchronous (cp.async); U = 2,
+// for rows of an odd number of 2-byte elements, is a plain copy.
+template <int U>
+__device__ __forceinline__ void copy_unit(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (U == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0) : "memory");
+  } else if constexpr (U == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0) : "memory");
+  } else {
+    *static_cast<uint16_t*>(dst) =
+        ok ? *static_cast<const uint16_t*>(src) : uint16_t(0);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Sum N values per lane over the warp so that lane L ends with the sum of
+// value L >> (5 - log2 N): each step keeps half of the values (the upper
+// half on lanes whose bit O is set) and adds the partner's; once one
+// value is left, the remaining steps sum it whole.
+template <int N, int O>
+__device__ __forceinline__ void reduce_scatter(float* v, int lane) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      const bool up = lane & O;
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) {
+        const float send = up ? v[j] : v[j + N / 2];
+        const float keep = up ? v[j + N / 2] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      reduce_scatter<N / 2, O / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      reduce_scatter<1, O / 2>(v, lane);
+    }
+  }
+}
+
+template <int GP, int U, typename TQ, typename TKV, typename Rows>
+__device__ void split_decode_body(const TQ* __restrict__ q,
+                                  const TKV* __restrict__ kc,
+                                  const TKV* __restrict__ vc,
+                                  TQ* __restrict__ out,
+                                  float* __restrict__ part, const Rows& rows,
+                                  int H, int Hkv, int hd, int rows_per_split,
+                                  float scale) {
+  static_assert(GP == 1 || GP == 2 || GP == 4 || GP == 8, "GP: 1, 2, 4, 8");
+  constexpr int LOG_GP = GP == 1 ? 0 : GP == 2 ? 1 : GP == 4 ? 2 : 3;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int G = H / Hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  extern __shared__ __align__(16) unsigned char spl_smem[];
+  __shared__ SplitWarpScratch scratch[SPL_WARPS];
+  SplitWarpScratch& sw = scratch[warp];
+  const int rb = spl_row_bytes(hd, sizeof(TKV));
+  unsigned char* kbuf =
+      spl_smem + (size_t)warp * SPL_STAGES * SPL_WROWS * 2 * rb;
+  unsigned char* vbuf = kbuf + SPL_STAGES * SPL_WROWS * rb;
+  const int units = hd * (int)sizeof(TKV) / U;    // copy units per row
+
+  const int j0 = split * rows_per_split;
+  const int j1 = min(rows.num_rows(b), j0 + rows_per_split);
+  const int ntiles = j1 > j0 ? (j1 - j0 + DEC_TILE - 1) / DEC_TILE : 0;
+
+  // this lane's head dims of the group's queries, pre-scaled; heads past G
+  // (GP pads G up to a power of two) are zero and never weigh anything
+  const size_t qbase = ((size_t)b * H + (size_t)h * G) * hd;
+  float qr[GP][SPL_NI], acc[GP][SPL_NI];
+#pragma unroll
+  for (int g = 0; g < GP; ++g)
+#pragma unroll
+    for (int i = 0; i < SPL_NI; ++i) {
+      const int d = lane + 32 * i;
+      qr[g][i] = (g < G && d < hd) ? to_float(q[qbase + g * hd + d]) * scale
+                                   : 0.f;
+      acc[g][i] = 0.f;
+    }
+  // after the reduce-scatter lane L holds row r_lane, head g_lane; the
+  // 8 / GP lanes of one (row, head) hold the same value
+  const int r_lane = lane >> 3;
+  const int g_lane = (lane >> (3 - LOG_GP)) & (GP - 1);
+  const bool first_dup = (lane & ((8 >> LOG_GP) - 1)) == 0;
+  float m_run = NEG_INF_F, l_run = 0.f;   // of head g_lane
+
+  auto word = [&](int tt) -> unsigned {
+    return tt < ntiles ? rows.valid4(b, j0 + tt * DEC_TILE +
+                                         warp * SPL_WROWS, j1)
+                       : 0u;
+  };
+  unsigned mcur = word(lane), mnext = word(32 + lane);
+
+  // copy this warp's rows of tile tt into stage tt % SPL_STAGES; one
+  // commit group per call, empty past the last tile
+  auto prefetch = [&](int tt) {
+    if (tt < ntiles) {
+      if (tt > 0 && (tt & 31) == 0) {
+        mcur = mnext;
+        mnext = word(tt + 32 + lane);
+      }
+      const unsigned vw = __shfl_sync(FULL, mcur, tt & 31);
+      const int s = tt % SPL_STAGES;
+      const int jb = j0 + tt * DEC_TILE + warp * SPL_WROWS;
+      if (lane < SPL_WROWS) {
+        const bool ok = (vw >> lane) & 1u;
+        sw.ksc[s][lane] = ok ? rows.k_scale(b, h, jb + lane) : 0.f;
+        sw.vsc[s][lane] = ok ? rows.v_scale(b, h, jb + lane) : 0.f;
+      }
+      if (lane == 0) sw.vw[s] = vw;
+      for (int e = lane; e < SPL_WROWS * units; e += 32) {
+        const int r = e / units, u = e - r * units;
+        const bool ok = (vw >> r) & 1u;
+        const size_t off = ok ? rows.offset(b, h, jb + r) : 0;
+        const size_t dst = (size_t)(s * SPL_WROWS + r) * rb + (size_t)u * U;
+        copy_unit<U>(kbuf + dst,
+                     reinterpret_cast<const unsigned char*>(kc + off) + u * U,
+                     ok);
+        copy_unit<U>(vbuf + dst,
+                     reinterpret_cast<const unsigned char*>(vc + off) + u * U,
+                     ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < SPL_STAGES - 1; ++s) prefetch(s);
+  for (int t = 0; t < ntiles; ++t) {
+    prefetch(t + SPL_STAGES - 1);
+    cp_async_wait<SPL_STAGES - 1>();
+    __syncwarp();
+    const int s = t % SPL_STAGES;
+    const unsigned vw = sw.vw[s];
+    if (vw != 0u) {   // warp-uniform: a tile with no valid row changes nothing
+      // scores: part[r * GP + g] = lane's share of q_g . k_r
+      float part[SPL_WROWS * GP];
+#pragma unroll
+      for (int r = 0; r < SPL_WROWS; ++r) {
+        const TKV* kr =
+            reinterpret_cast<const TKV*>(kbuf + (size_t)(s * SPL_WROWS + r) * rb);
+        float kf[SPL_NI];
+#pragma unroll
+        for (int i = 0; i < SPL_NI; ++i) {
+          const int d = lane + 32 * i;
+          kf[i] = d < hd ? to_float(kr[d]) : 0.f;
+        }
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          float a = 0.f;
+#pragma unroll
+          for (int i = 0; i < SPL_NI; ++i) a += qr[g][i] * kf[i];
+          part[r * GP + g] = a;
+        }
+      }
+      reduce_scatter<SPL_WROWS * GP, 16>(part, lane);
+      const bool ok = ((vw >> r_lane) & 1u) && g_lane < G;
+      const float sc = part[0] * sw.ksc[s][r_lane];
+      float mt = ok ? sc : NEG_INF_F;
+      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 8));
+      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 16));
+      const float m_new = fmaxf(m_run, mt);
+      const float p = ok ? expf(sc - m_new) : 0.f;
+      float ps = p + __shfl_xor_sync(FULL, p, 8);
+      ps += __shfl_xor_sync(FULL, ps, 16);
+      const float alpha = expf(m_run - m_new);
+      l_run = alpha * l_run + ps;
+      m_run = m_new;
+      if (first_dup) {
+        sw.p[r_lane * GP + g_lane] = p * sw.vsc[s][r_lane];
+        if (r_lane == 0) sw.alpha[g_lane] = alpha;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < GP; ++g) {
+        const float a = sw.alpha[g];
+#pragma unroll
+        for (int i = 0; i < SPL_NI; ++i) acc[g][i] *= a;
+      }
+#pragma unroll
+      for (int r = 0; r < SPL_WROWS; ++r) {
+        const TKV* vr =
+            reinterpret_cast<const TKV*>(vbuf + (size_t)(s * SPL_WROWS + r) * rb);
+        float vf[SPL_NI];
+#pragma unroll
+        for (int i = 0; i < SPL_NI; ++i) {
+          const int d = lane + 32 * i;
+          vf[i] = d < hd ? to_float(vr[d]) : 0.f;
+        }
+#pragma unroll
+        for (int g = 0; g < GP; ++g) {
+          const float pr = sw.p[r * GP + g];
+#pragma unroll
+          for (int i = 0; i < SPL_NI; ++i) acc[g][i] += pr * vf[i];
+        }
+      }
+    }
+    __syncwarp();   // the stage and the weights are read before reuse
+  }
+  cp_async_wait<0>();
+
+  // merge the warps' (m, l, acc) in warp order, in the stage area
+  __syncthreads();
+  const int ld = hd + 2;
+  float* mrg = reinterpret_cast<float*>(spl_smem);   // (warps, G, hd + 2)
+  float* mine = mrg + (size_t)warp * G * ld;
+  if (lane < 8 && first_dup && g_lane < G) {
+    mine[g_lane * ld + hd] = m_run;
+    mine[g_lane * ld + hd + 1] = l_run;
+  }
+#pragma unroll
+  for (int g = 0; g < GP; ++g)
+#pragma unroll
+    for (int i = 0; i < SPL_NI; ++i) {
+      const int d = lane + 32 * i;
+      if (g < G && d < hd) mine[g * ld + d] = acc[g][i];
+    }
+  __syncthreads();
+  for (int idx = tid; idx < G * hd; idx += SPL_THREADS) {
+    const int g = idx / hd, d = idx - g * hd;
+    float M = NEG_INF_F;
+#pragma unroll
+    for (int w = 0; w < SPL_WARPS; ++w)
+      M = fmaxf(M, mrg[(w * G + g) * ld + hd]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPL_WARPS; ++w) {
+      const float* mw = mrg + (w * G + g) * ld;
+      const float e = expf(mw[hd] - M);
+      L += e * mw[hd + 1];
+      A += e * mw[d];
+    }
+    if (gridDim.z == 1) {
+      out[qbase + idx] = from_float<TQ>(A / fmaxf(L, 1e-20f));
+    } else {
+      float* pp = part + (((size_t)(b * Hkv + h) * gridDim.z + split) * G +
+                          g) * ld;
+      pp[d] = A;
+      if (d == 0) {
+        pp[hd] = M;
+        pp[hd + 1] = L;
+      }
+    }
+  }
+}
+
+// Merge the n_split partials of split_decode_body for one (kv head, batch
+// row) block, in split order: out = sum_s e_s acc_s / max(sum_s e_s l_s,
+// 1e-20) with e_s = exp(m_s - max_s m_s). Blocks of SPL_THREADS.
+template <typename TQ>
+__device__ void split_combine_body(const float* __restrict__ part,
+                                   TQ* __restrict__ out, int H, int Hkv,
+                                   int hd, int n_split) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int G = H / Hkv, ld = hd + 2;
+  __shared__ float w_s[DEC_MAX_G][DEC_MAX_SPLIT];
+  __shared__ float l_s[DEC_MAX_G];
+  const float* pb = part + (size_t)(b * Hkv + h) * n_split * G * ld;
+  if (threadIdx.x < G) {
+    const int g = threadIdx.x;
+    float M = NEG_INF_F;
+    for (int s = 0; s < n_split; ++s)
+      M = fmaxf(M, pb[(s * G + g) * ld + hd]);
+    float L = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float e = expf(pb[(s * G + g) * ld + hd] - M);
+      w_s[g][s] = e;
+      L += e * pb[(s * G + g) * ld + hd + 1];
+    }
+    l_s[g] = L;
+  }
+  __syncthreads();
+  const size_t qbase = ((size_t)b * H + (size_t)h * G) * hd;
+  for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
+    const int g = idx / hd, d = idx - g * hd;
+    float A = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      A += w_s[g][s] * pb[(s * G + g) * ld + d];
+    out[qbase + idx] = from_float<TQ>(A / fmaxf(l_s[g], 1e-20f));
+  }
+}

@@ -19,11 +19,16 @@
 // Design. The TPU kernels run one program per token group, which on this
 // card would be 8 blocks at a prefill bucket and 1 at decode for 132 SMs.
 // Here:
-//   K5a: one warp per slot row, 8 rows per block of 256 threads. The warp
-//        reads the row's token id once (a broadcast load) and copies the
-//        row with 16-byte loads and stores where the row's byte length and
-//        both base addresses allow it (4- or 2-byte units otherwise): the
-//        copy is bitwise, so one kernel serves fp32 and bf16. Empty slots
+//   K5a: a flat grid over the output's copy units, MD_UNITS per thread
+//        (16 bytes where the row's byte length and both base addresses
+//        allow it, 4- or 2-byte units otherwise: the copy is bitwise, so
+//        one kernel serves fp32 and bf16). A block first resolves the
+//        source row of each slot row its units fall in (one token id load
+//        per row, into shared memory), then every thread loads its units
+//        and stores them; neighbouring threads take neighbouring units.
+//        At granite's decode shape (320 slot rows of 384 units) that is
+//        240 blocks of 256 threads, each thread two 16-byte copies, where
+//        one warp per row gave 40 blocks of 12 copies a lane. Empty slots
 //        are written as zeros without reading anything.
 //   K5b: one block of 256 threads per (token, 256 columns of d). The block
 //        stages the token's k slot ids and gates in shared memory; each
@@ -37,7 +42,8 @@
 #include "attention_common.cuh"
 
 constexpr int MD_THREADS = 256;
-constexpr int MD_ROWS = MD_THREADS / 32;      // slot rows per block
+constexpr int MD_UNITS = 2;                   // copy units per thread
+constexpr int MD_CHUNK = MD_THREADS * MD_UNITS;   // units per block
 constexpr int MC_THREADS = 256;               // columns per block
 constexpr int MC_MAX_K = 32;                  // ops.py checks k <= this
 
@@ -45,19 +51,35 @@ template <typename V>
 __global__ void __launch_bounds__(MD_THREADS)
 moe_dispatch_kernel(const int* __restrict__ idx, const V* __restrict__ x,
                     V* __restrict__ out, long rows, int EC, int g, int nv) {
-  const long row = (long)blockIdx.x * MD_ROWS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const int t = idx[row];
-  V* dst = out + row * nv;
-  if (t < 0 || t >= g) {
-    const V z{};
-    for (int i = lane; i < nv; i += 32) dst[i] = z;
-    return;
+  // source row (group * g + token) of each slot row this block writes,
+  // -1 for an empty slot; a chunk of MD_CHUNK units spans at most
+  // MD_CHUNK rows (nv = 1)
+  __shared__ long src_s[MD_CHUNK];
+  const long total = rows * nv;
+  const long u0 = (long)blockIdx.x * MD_CHUNK;
+  const long r0 = u0 / nv;
+  const long r1 = (min(u0 + MD_CHUNK, total) - 1) / nv;
+  for (long r = r0 + threadIdx.x; r <= r1; r += MD_THREADS) {
+    const int t = idx[r];
+    src_s[r - r0] = (t >= 0 && t < g) ? (r / EC) * g + t : -1;
   }
-  const V* src = x + ((row / EC) * g + t) * (long)nv;
-#pragma unroll 4
-  for (int i = lane; i < nv; i += 32) dst[i] = src[i];
+  __syncthreads();
+  V val[MD_UNITS];
+#pragma unroll
+  for (int a = 0; a < MD_UNITS; ++a) {
+    const int lu = (int)(u0 - r0 * nv) + threadIdx.x + a * MD_THREADS;
+    const int rr = lu / nv;
+    val[a] = V{};
+    if (u0 + threadIdx.x + a * MD_THREADS < total) {
+      const long src = src_s[rr];
+      if (src >= 0) val[a] = x[src * nv + (lu - rr * nv)];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < MD_UNITS; ++a) {
+    const long u = u0 + threadIdx.x + a * MD_THREADS;
+    if (u < total) out[u] = val[a];
+  }
 }
 
 template <typename T>
@@ -91,7 +113,7 @@ static int launch_dispatch(const void* idx, const void* x, void* out,
                            long rows, int EC, int g, int nv,
                            cudaStream_t st) {
   const unsigned blocks =
-      static_cast<unsigned>((rows + MD_ROWS - 1) / MD_ROWS);
+      static_cast<unsigned>((rows * nv + MD_CHUNK - 1) / MD_CHUNK);
   moe_dispatch_kernel<V><<<blocks, MD_THREADS, 0, st>>>(
       static_cast<const int*>(idx), static_cast<const V*>(x),
       static_cast<V*>(out), rows, EC, g, nv);

@@ -11,7 +11,7 @@ its entry in ``LAUNCHES``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,6 +31,10 @@ _FLASH_HD = (16, 32, 64, 128)
 _XMODAL_ROWS, _XMODAL_COLS = 32, 64
 # the most choices per token csrc/moe_dispatch.cu takes (MC_MAX_K)
 _MOE_MAX_K = 32
+# split-KV decode plan (csrc/attention_common.cuh): rows per tile
+# (DEC_TILE), the most splits (DEC_MAX_SPLIT), the fewest tiles a split
+# takes, and the blocks per SM the plan aims for
+DEC_TILE, DEC_MAX_SPLIT, DEC_MIN_TILES, DEC_BLOCKS_PER_SM = 16, 64, 4, 16
 
 
 def reset_launches() -> None:
@@ -104,9 +108,30 @@ def _check_decode_q(name: str, q, Hkv: int, hd: int) -> None:
     _check(q.dtype in _ACT_DTYPES, f"{name}: q must be fp32 or bf16")
 
 
+def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
+    """Split plan of the dense decode kernel on a card of ``sms`` SMs:
+    (n_split, rows_per_split).
+
+    The cache axis of each (batch row, kv head) is cut into ``n_split``
+    runs of ``rows_per_split`` rows, a multiple of ``DEC_TILE`` (the last
+    run ragged), so that the grid of B * Hkv * n_split blocks reaches
+    ``DEC_BLOCKS_PER_SM * sms``, each split keeps at least
+    ``DEC_MIN_TILES`` tiles, and no split is empty. One split for large
+    B * Hkv or short S.
+    """
+    tiles = max(1, -(-S // DEC_TILE))
+    n = min(-(-DEC_BLOCKS_PER_SM * sms // max(1, B * Hkv)),
+            -(-tiles // DEC_MIN_TILES), DEC_MAX_SPLIT)
+    per = -(-tiles // max(1, n))
+    return -(-tiles // per), per * DEC_TILE
+
+
 def decode_attention(q, k, v, kv_mask):
     """One query token vs a dense cache. q: (B, 1, H, hd); k/v:
-    (B, S, Hkv, hd) in q's dtype; kv_mask: (B, S) bool."""
+    (B, S, Hkv, hd) in q's dtype; kv_mask: (B, S) bool. On the card the
+    cache axis is split across blocks (``decode_splits``); the splits'
+    partials go to an fp32 workspace (B, Hkv, n_split, H / Hkv, hd + 2)
+    that a second kernel of the same launch merges."""
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k, v, kv_mask)
     B, S, Hkv, hd = k.shape
@@ -117,10 +142,18 @@ def decode_attention(q, k, v, kv_mask):
            k.dtype == q.dtype and v.dtype == q.dtype,
            "decode_attention: k/v (B, S, Hkv, hd) in q's dtype, mask "
            "(B, S) bool")
+    H = q.shape[2]
+    n_split, rows = decode_splits(
+        B, Hkv, S, torch.cuda.get_device_properties(q.device)
+        .multi_processor_count)
     out = torch.empty_like(q)
+    work = None if n_split == 1 else torch.empty(
+        (B, Hkv, n_split, H // Hkv, hd + 2), dtype=torch.float32,
+        device=q.device)
     _launch("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kv_mask.data_ptr(), out.data_ptr(), B, S, q.shape[2], Hkv, hd,
-            _DTYPE_CODES[q.dtype])
+            kv_mask.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), B, S, H, Hkv, hd,
+            n_split, rows, _DTYPE_CODES[q.dtype])
     return out
 
 

@@ -123,6 +123,28 @@ def test_decode_plain_matches_reference(dtype, S, H, Hkv, hd):
         _close(pal, out, dtype)
 
 
+@pytest.mark.parametrize("B,Hkv,S", [
+    (8, 8, 288), (8, 8, 32768),       # must fill 132 SMs
+    (8, 8, 16), (8, 8, 64), (8, 8, 4096), (2, 2, 300), (1, 1, 1),
+    (1, 8, 32768), (300, 8, 64), (8, 8, 1000), (8, 24, 288)])
+def test_decode_splits_cover_the_cache(B, Hkv, S):
+    """The split plan of the dense decode kernel cuts [0, S) into runs of
+    whole 16-row tiles (the last may be ragged) without overlap or empty
+    splits, and fills an H100's 132 SMs at the serving shapes."""
+    n, rows = ops.decode_splits(B, Hkv, S, 132)
+    assert 1 <= n <= ops.DEC_MAX_SPLIT
+    assert rows % ops.DEC_TILE == 0 and rows > 0
+    runs = [(s * rows, min(S, (s + 1) * rows)) for s in range(n)]
+    assert runs[0][0] == 0 and runs[-1][1] == max(S, 0)
+    for (a0, a1), (b0, _) in zip(runs, runs[1:]):
+        assert a1 == b0 and a1 - a0 == rows
+    assert S <= 0 or runs[-1][1] > runs[-1][0]
+    if (B, Hkv) == (8, 8) and S in (288, 32768):
+        assert B * Hkv * n >= 132
+    if S <= ops.DEC_TILE:
+        assert n == 1
+
+
 def _paged_inputs(rng, B, H, Hkv, hd, ps, n):
     P = B * n + 2
     q = rng.standard_normal((B, 1, H, hd))

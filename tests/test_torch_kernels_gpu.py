@@ -64,6 +64,56 @@ def test_dense_decode_kernel_on_card(gen, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["first split only", "one split",
+                                  "ragged last split", "granite G 3",
+                                  "no valid row", "G 8", "hd 33", "hd 36"])
+def test_dense_decode_split_cases_on_card(gen, dtype, case):
+    """The split-KV plan's edge cases: only the first split holds valid
+    rows (the rest weigh exactly 0), a plan of one split (no combine), an
+    S that is not a multiple of the split length, granite's 24/8 heads of
+    width 64, and a batch row with no valid row (output 0, as the kernel
+    had it before the split). Then the instantiations the serving shapes
+    do not reach: eight query heads per kv head, and rows whose byte
+    length is no multiple of 16, copied in 4-byte units (fp32 hd 33, bf16
+    hd 36) or 2-byte units (bf16 hd 33). Two runs give the same bits."""
+    B, S, H, Hkv, hd = {"first split only": (8, 4096, 16, 8, 128),
+                        "one split": (8, 16, 16, 8, 128),
+                        "ragged last split": (4, 1000, 8, 2, 64),
+                        "granite G 3": (8, 288, 24, 8, 64),
+                        "no valid row": (3, 300, 8, 4, 128),
+                        "G 8": (2, 300, 16, 2, 128),
+                        "hd 33": (3, 500, 8, 4, 33),
+                        "hd 36": (2, 200, 6, 2, 36)}[case]
+    n_split, rows = ops.decode_splits(
+        B, Hkv, S, torch.cuda.get_device_properties(0).multi_processor_count)
+    q = _rand(gen, (B, 1, H, hd), dtype)
+    k = _rand(gen, (B, S, Hkv, hd), dtype)
+    v = _rand(gen, (B, S, Hkv, hd), dtype)
+    mask = torch.rand(B, S, generator=gen, device="cuda") < 0.7
+    mask[:, 0] = True
+    if case == "first split only":
+        assert n_split > 1
+        mask[:, rows // 2:] = False
+    elif case == "one split":
+        assert n_split == 1
+    elif case == "ragged last split":
+        assert S % rows != 0
+    elif case == "no valid row":
+        mask[1] = False
+    else:
+        assert n_split > 1
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, k, v, mask)
+    exp = ref.decode_attention_ref(q, k, v, mask)
+    if case == "no valid row":
+        exp[1] = 0
+    _close(out, exp, dtype)
+    assert torch.equal(out, ops.decode_attention(q, k, v, mask))
+    assert ops.LAUNCHES["decode_attention"] == before + 2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8,
                                   torch.float8_e4m3fn])
 def test_paged_decode_kernel_on_card(gen, pool):
@@ -221,3 +271,18 @@ def test_moe_wrappers_reject_bad_input_on_card(gen):
                             x[None].reshape(1, 8, 1, 64), window=4,
                             lengths=torch.ones(1, dtype=torch.int32,
                                                device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_decode_grid_on_card(gen, dtype):
+    """K5a at granite's decode shape (G 1, g 8, E 40, C 8, d 1536) with
+    empty slots and ids outside [0, g) among the slots: bit for bit with
+    its plain version, twice."""
+    G, g, E, C, d = 1, 8, 40, 8, 1536
+    idx = torch.randint(-2, g + 2, (G, E, C), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    x = _rand(gen, (G, g, d), dtype)
+    out = ops.moe_dispatch(idx, x)
+    assert torch.equal(out, ref.moe_dispatch_ref(idx, x))
+    assert torch.equal(out, ops.moe_dispatch(idx, x))
