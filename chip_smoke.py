@@ -10,11 +10,14 @@ Run from the root of a checkout. It
   3. kernel phase: holds each kernel against its plain PyTorch version on
      the card (fp32 and bf16, head_dim 64 and 128, the serving shapes and
      ragged edges, granite's 24/8 heads of width 64 (GQA group 3) for the
-     attention kernels, key lengths for the flash kernel, int8/fp8 pools
-     for the paged kernel, ragged row counts for the cross-modal score,
-     granite's prefill and decode dispatch shapes and ragged ones for the
-     MoE dispatch and combine) and times kernel (the dense decode kernel
-     also at cache lengths 16 to 32768), plain version and —
+     attention kernels, key lengths for the flash kernel, the split
+     plan's edges for both decode kernels, int8/fp8 pools, shared and
+     out-of-range page ids and odd page sizes for the paged kernel,
+     ragged row counts for the cross-modal score, granite's prefill and
+     decode dispatch shapes and ragged ones for the MoE dispatch and
+     combine) and times kernel (both decode kernels also at cache lengths
+     16 to 32768, the paged one at llava's and granite's decode shapes
+     too), plain version and —
      where one PyTorch call computes the same function —
      ``scaled_dot_product_attention``, beside a bound from bytes and
      operations;
@@ -41,6 +44,7 @@ exits with an error, printing no result, without a CUDA device or outside
 a checkout of the repository.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -236,38 +240,79 @@ def ring_mask(torch, pos, S):
     return p - torch.remainder(p - slot[None, :], S) >= 0
 
 
-def decode_timing(torch, ops, ref, timer, g, S):
-    """K3 timed at qwen3's heads (fp32, B 8, H 16, Hkv 8, hd 128) with cache
-    length S, under a ring mask whose write position lies in the last 32
-    slots: the device time of every kernel its wrapper runs (split and
-    combine; the breakdown under ``by_kernel``), the plain version and
-    SDPA on the same inputs, and the byte bound of the valid rows. Returns
-    (times, max_abs_err against the plain version)."""
+def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
+                  Hkv=8, hd=128, lengths=None):
+    """K3 (dense cache) or, with ``paged``, K1 (a pool of 16-row pages,
+    each row's S slots through its block table) timed in fp32 at B, H,
+    Hkv, hd (by default qwen3's heads) with S cache slots a row. The
+    valid rows are those at or below a position in the last 32 slots (K3:
+    a ring mask; K1: lengths = position + 1), or below ``lengths`` (K1).
+    Returns (times, max_abs_err against the plain version): the device
+    time of every kernel the wrapper runs (split and combine; the
+    breakdown under ``by_kernel``), the plain version's, SDPA's on the
+    dense cache (K3: ``library_ms``) or on the view gathered from the
+    pages (K1: ``sdpa_on_gathered_ms``; no one PyTorch call reads a block
+    table, so K1's ``library_ms`` is null), and the byte bound of the
+    valid rows."""
     F = torch.nn.functional
-    B, H, Hkv, hd = 8, 16, 8, 128
-    q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
-    k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
-    v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
-    pos = torch.randint(max(0, S - 32), S, (B,), generator=g, device="cuda")
-    mask = ring_mask(torch, pos, S)
-    fn = lambda: ops.decode_attention(q, k, v, mask)   # noqa: E731
-    plain = lambda: ref.decode_attention_ref(q, k, v, mask)  # noqa: E731
-    err = compare(torch, "decode_attention",
-                  f"float32 B{B} S{S} H{H}/{Hkv} hd{hd} ring (timed)",
-                  fn(), plain(), "float32")
+    if lengths is None:
+        pos = torch.randint(max(0, S - 32), S, (B,), generator=g,
+                            device="cuda")
+    if paged:
+        ps = SERVE["page"]
+        n = S // ps
+        q, kp, vp, bt, ln, _, _ = paged_setup(
+            torch, g, B, H, Hkv, hd, ps, n,
+            (pos + 1).tolist() if lengths is None else lengths,
+            torch.float32, torch.float32, None)
+        fn = lambda: ops.paged_decode_attention(q, kp, vp, bt, ln)  # noqa
+        plain = lambda: ref.paged_decode_attention_ref(  # noqa: E731
+            q, kp, vp, bt, ln)
+        k = kp[bt.long()].reshape(B, S, Hkv, hd)
+        v = vp[bt.long()].reshape(B, S, Hkv, hd)
+        mask = torch.arange(S, device="cuda")[None, :] < ln[:, None]
+        name, index_bytes = "paged_decode_attention", 4 * (bt.numel() + B)
+        shape = f"fp32 B{B} H{H} Hkv{Hkv} hd{hd} ps{ps} n{n} lengths " \
+            f"{int(ln.min())}..{int(ln.max())}"
+    else:
+        q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
+        k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
+        v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
+        mask = ring_mask(torch, pos, S)
+        fn = lambda: ops.decode_attention(q, k, v, mask)   # noqa: E731
+        plain = lambda: ref.decode_attention_ref(  # noqa: E731
+            q, k, v, mask)
+        name, index_bytes = "decode_attention", mask.numel()
+        shape = f"fp32 B{B} S{S} H{H} Hkv{Hkv} hd{hd} ring mask"
+    err = compare(torch, name, f"float32 B{B} S{S} H{H}/{Hkv} hd{hd} "
+                  "(timed)", fn(), plain(), "float32")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     am = mask[:, None, None, :]
-    t = times(timer, fn, None, plain,
-              lambda: F.scaled_dot_product_attention(
-                  qt, kt, vt, attn_mask=am, enable_gqa=True))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=am, enable_gqa=True)
+    t = times(timer, fn, None, plain, None if paged else sdpa)
+    if paged:
+        t["sdpa_on_gathered_ms"] = timer.device_ms(sdpa)
     t["by_kernel"] = timer.by_kernel(fn)
     live = int(mask.sum())
-    nbytes = 4 * 2 * q.numel() + mask.numel() + 4 * 2 * live * Hkv * hd
+    nbytes = 4 * 2 * q.numel() + index_bytes + 4 * 2 * live * Hkv * hd
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 4 * H * hd * live,
                                             "float32")
+    n_split, rows = ops.decode_splits(
+        B, Hkv, S, torch.cuda.get_device_properties(0).multi_processor_count)
     t["S"] = S
-    t["shape"] = f"fp32 B{B} S{S} H{H} Hkv{Hkv} hd{hd} ring mask"
+    t["shape"] = f"{shape}, {n_split} splits of {rows} rows"
+    sdpa_ms = t["sdpa_on_gathered_ms"] if paged else t["library_ms"]
+    print(f"  {name} S {S}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound "
+          f"{t['bound_ms']:.5f} ms ({shape}); by kernel: " + ", ".join(
+              f"{k_[:60]} {ms:.4f} ms" for k_, ms in t["by_kernel"].items()))
     return t, err
+
+
+# keys of a timing kept under another shape's entry of the kernels line
+SUB_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
 
 
 def decode_phase(torch, ops, ref, timer):
@@ -323,21 +368,12 @@ def decode_phase(torch, ops, ref, timer):
 
     sweep = {}
     for S in DECODE_SWEEP:
-        t, err = decode_timing(torch, ops, ref, timer, g, S)
+        sweep[S], err = decode_timing(torch, ops, ref, timer, g, S)
         errs.append(err)
-        n_split, rows = ops.decode_splits(8, 8, S, sms)
-        t["shape"] += f", {n_split} splits of {rows} rows"
-        print(f"  decode_attention S {S}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.5f} ms; by kernel: " + ", ".join(
-                  f"{name[:60]} {ms:.4f} ms" for name, ms in
-                  t["by_kernel"].items()))
-        sweep[S] = t
     t = sweep[CACHE_LEN]
     t["max_abs_err"] = max(errs)
-    t["long"] = {key: sweep[DECODE_LONG][key] for key in (
-        "shape", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by", "by_kernel")}
+    t["long"] = {key: sweep[DECODE_LONG][key]
+                 for key in SUB_KEYS + ("by_kernel",)}
     t["sweep"] = [{key: tt[key] for key in ("S", "ms", "library_ms",
                                             "bound_ms")}
                   for tt in sweep.values()]
@@ -346,6 +382,8 @@ def decode_phase(torch, ops, ref, timer):
 
 def paged_setup(torch, g, B, H, Hkv, hd, ps, n, lengths, pool_dtype, q_dtype,
                 kv_quantize):
+    """Random fp32 pages cast or quantized to ``pool_dtype`` and a block
+    table of distinct pages in random order (page 0 unused)."""
     P = B * n + 3
     q = torch.randn(B, 1, H, hd, generator=g, device="cuda").to(q_dtype)
     kf = torch.randn(P, ps, Hkv, hd, generator=g, device="cuda")
@@ -363,61 +401,105 @@ def paged_setup(torch, g, B, H, Hkv, hd, ps, n, lengths, pool_dtype, q_dtype,
 
 
 def paged_phase(torch, ops, ref, timer, kv_quantize):
-    F = torch.nn.functional
+    """K1 against its plain version in five (q, pool) kinds at the serving
+    shapes, at the split plan's edges (only the first split live, one
+    split, a ragged last split, lengths past n * ps), at block tables the
+    engine makes or must survive (two rows sharing pages, as copy-on-write
+    seeding leaves them; page ids out of range, clipped), at page sizes 8,
+    64 and 6 (no multiple of 4: rows are looked up one by one), at G 8,
+    and at hd 33 and 36 (copy units of 4, 2 and 1 bytes), twice each for
+    the same bits; then timed (``decode_timing``) at llava's and granite's
+    decode shapes and at qwen3's heads over ``DECODE_SWEEP``
+    (``paged_timing``)."""
     g = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_serve = CACHE_LEN // SERVE["page"]
     serve_lens = [SERVE["prompt"] + 1 + 4 * i for i in range(8)]
     errs = []
-    cases = [  # (B, H, Hkv, hd, ps, n, lengths)
-        (8, 16, 8, 128, SERVE["page"], n_serve, serve_lens),
-        (3, 8, 2, 64, 16, 5, [1, 37, 80]),      # length 1, non-multiples
-        (3, 4, 4, 128, 64, 3, [64, 130, 5]),
-        (8, 24, 8, 64, SERVE["page"], n_serve, serve_lens),   # granite, G 3
+    cases = [  # (label, B, H, Hkv, hd, ps, n, lengths)
+        ("qwen3 serving", 8, 16, 8, 128, SERVE["page"], n_serve, serve_lens),
+        ("length 1, ragged", 3, 8, 2, 64, 16, 5, [1, 37, 80]),
+        ("ps 64", 3, 4, 4, 128, 64, 3, [64, 130, 5]),
+        ("granite G 3", 8, 24, 8, 64, SERVE["page"], n_serve, serve_lens),
+        ("first split only", 8, 16, 8, 128, 16, 256, None),
+        ("one split", 8, 16, 8, 128, 16, 1, [1, 2, 5, 8, 11, 13, 15, 16]),
+        ("ragged last split", 4, 8, 2, 64, 16, 63, [1008, 1001, 977, 100]),
+        ("lengths past n*ps", 3, 8, 4, 128, 16, 4, [69, 164, 64]),
+        ("shared pages", 4, 16, 8, 128, 16, 18, [288, 200, 150, 30]),
+        ("page ids out of range", 3, 16, 8, 128, 16, 18, [288, 250, 100]),
+        ("ps 8", 3, 8, 2, 128, 8, 40, [320, 171, 9]),
+        ("ps 64, splits", 2, 16, 8, 128, 64, 10, [640, 300]),
+        ("ps 6", 3, 8, 2, 64, 6, 50, [300, 133, 7]),
+        ("G 8", 2, 16, 2, 128, 16, 19, [300, 151]),
+        ("hd 33", 3, 8, 4, 33, 16, 32, [500, 250, 17]),
+        ("hd 36", 2, 6, 2, 36, 16, 13, [200, 101]),
     ]
     kinds = [("float32", torch.float32), ("bfloat16", torch.bfloat16),
              ("float32", torch.int8), ("bfloat16", torch.int8),
              ("float32", torch.float8_e4m3fn)]
     for qname, pool_dtype in kinds:
         q_dtype = getattr(torch, qname)
-        for B, H, Hkv, hd, ps, n, lens in cases:
+        for label, B, H, Hkv, hd, ps, n, lens in cases:
+            n_split, rows = ops.decode_splits(B, Hkv, n * ps, sms)
+            if lens is None:   # early in every request: split 0 only
+                lens = torch.randint(1, rows, (B,), generator=g,
+                                     device="cuda").tolist()
+                check(n_split > 1, f"paged case {label}: one split")
             q, kp, vp, bt, ln, ks, vs = paged_setup(
                 torch, g, B, H, Hkv, hd, ps, n, lens, pool_dtype, q_dtype,
                 kv_quantize)
+            if label == "shared pages":
+                bt[1, :13] = bt[0, :13]
+            elif label == "page ids out of range":
+                bt[0, 1], bt[1, 0], bt[2, 5] = -5, kp.shape[0] + 7, -1
             out = ops.paged_decode_attention(q, kp, vp, bt, ln, k_scale=ks,
                                              v_scale=vs)
             exp = ref.paged_decode_attention_ref(q, kp, vp, bt, ln,
                                                  k_scale=ks, v_scale=vs)
             pname = str(pool_dtype).replace("torch.", "")
-            errs.append(compare(
-                torch, "paged_decode_attention",
-                f"q {qname} pool {pname} B{B} H{H}/{Hkv} hd{hd} ps{ps}",
-                out, exp, qname))
-    B, H, Hkv, hd, ps = 8, 16, 8, 128, SERVE["page"]
-    q, kp, vp, bt, ln, _, _ = paged_setup(
-        torch, g, B, H, Hkv, hd, ps, n_serve, serve_lens, torch.float32,
-        torch.float32, kv_quantize)
-    t = times(timer, lambda: ops.paged_decode_attention(q, kp, vp, bt, ln),
-              "paged_decode_kernel",
-              lambda: ref.paged_decode_attention_ref(q, kp, vp, bt, ln))
-    # no single PyTorch call reads a block table: library_ms stays null;
-    # SDPA over the dense view gathered from the same pages is a yardstick
-    k = kp[bt.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
-    v = vp[bt.long()].reshape(B, -1, Hkv, hd).transpose(1, 2)
-    am = (torch.arange(k.shape[2], device="cuda")[None, :] <
-          ln[:, None])[:, None, None, :]
-    qt = q.transpose(1, 2)
-    t["sdpa_on_gathered_ms"] = timer.device_ms(
-        lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=am,
-                                               enable_gqa=True))
-    live = int(ln.sum())
-    nbytes = 4 * 2 * q.numel() + 4 * (bt.numel() + B) + \
-        4 * 2 * live * Hkv * hd
-    flops = 4 * H * hd * live
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, "float32")
-    t["max_abs_err"] = max(errs)
-    t["shape"] = f"fp32 B{B} H{H} Hkv{Hkv} hd{hd} ps{ps} lengths " \
-        f"{serve_lens[0]}..{serve_lens[-1]}"
+            case = f"q {qname} pool {pname} {label}: B{B} H{H}/{Hkv} " \
+                f"hd{hd} ps{ps} n{n} {n_split}x{rows}"
+            errs.append(compare(torch, "paged_decode_attention", case, out,
+                                exp, qname))
+            check(torch.equal(out, ops.paged_decode_attention(
+                q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)),
+                  f"paged_decode_attention {case}: two runs differ")
+
+    t, err = paged_timing(torch, ops, ref, timer, g)
+    t["max_abs_err"] = max(errs + [err])
     return t
+
+
+def paged_timing(torch, ops, ref, timer, g):
+    """K1 timed (``decode_timing``) at qwen3's heads over ``DECODE_SWEEP``
+    (at the serving length with the serve phase's lengths: K1's row; the
+    reference's decode_32k length: its "long" entry) and at llava's and
+    granite's decode shapes. Takes any tree's ``ops``, so that one call can
+    time a parent's kernel too. Returns (times, max_abs_err)."""
+    serve_lens = [SERVE["prompt"] + 1 + 4 * i for i in range(8)]
+    sweep, errs = {}, []
+    for S in DECODE_SWEEP:
+        sweep[S], err = decode_timing(
+            torch, ops, ref, timer, g, S, paged=True,
+            lengths=serve_lens if S == CACHE_LEN else None)
+        errs.append(err)
+    llava, err = decode_timing(
+        torch, ops, ref, timer, g, MM_CACHE_LEN, paged=True, H=32, Hkv=32,
+        lengths=[MM_CACHE_LEN - 31 + 4 * i for i in range(8)])
+    errs.append(err)
+    granite, err = decode_timing(
+        torch, ops, ref, timer, g, CACHE_LEN, paged=True, H=24, Hkv=8, hd=64,
+        lengths=serve_lens)
+    errs.append(err)
+    t = sweep[CACHE_LEN]
+    for key, tt in (("llava", llava), ("granite", granite),
+                    ("long", sweep[DECODE_LONG])):
+        t[key] = {k_: tt[k_] for k_ in SUB_KEYS + ("sdpa_on_gathered_ms",
+                                                   "by_kernel")}
+    t["sweep"] = [{key: tt[key] for key in ("S", "ms", "sdpa_on_gathered_ms",
+                                            "bound_ms")}
+                  for tt in sweep.values()]
+    return t, max(errs)
 
 
 def xmodal_phase(torch, ops, ref, timer):
@@ -897,9 +979,15 @@ def main() -> None:
     info = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f}s wall, parallel")
     for name, rec in info.items():
-        regs = [ln.strip() for ln in str(rec["log"]).splitlines()
-                if "registers" in ln]
-        print(f"  {name}: nvcc {rec['seconds']:.1f}s; " + " | ".join(regs))
+        log = str(rec["log"])
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        stack = [int(x) for x in re.findall(r"(\d+) bytes stack frame", log)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        print(f"  {name}: nvcc {rec['seconds']:.1f}s; {len(regs)} kernels, "
+              f"registers {min(regs, default=0)}-{max(regs, default=0)}, "
+              f"stack <= {max(stack, default=0)} bytes, spill stores "
+              f"{sum(spills)} bytes")
         build.load(name)
 
     timer = Timer(torch)
@@ -916,14 +1004,15 @@ def main() -> None:
               f"{t['call_ms']:.4f} ms), plain "
               f"{t['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
-        for key in ("prefill", "long"):
+        for key in ("prefill", "long", "llava", "granite"):
             if key not in t:
                 continue
             tp = t[key]
+            lib = "null" if tp["library_ms"] is None else \
+                f"{tp['library_ms']:.4f}"
             print(f"  {name}: {tp['shape']}: kernel {tp['ms']:.4f} ms "
                   f"(call {tp['call_ms']:.4f} ms), plain "
-                  f"{tp['plain_ms']:.4f} ms, library "
-                  f"{tp['library_ms']:.4f} ms, bound "
+                  f"{tp['plain_ms']:.4f} ms, library {lib} ms, bound "
                   f"{tp['bound_ms']:.4f} ms ({tp['bound_by']})")
 
     # qwen3-0.6b, text requests
@@ -1006,7 +1095,8 @@ def main() -> None:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **{key: t[key] for key in ("sdpa_on_gathered_ms", "prefill",
-                                       "long", "sweep", "by_kernel")
+                                       "long", "llava", "granite", "sweep",
+                                       "by_kernel")
                if key in t}})
     print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"kernels": kernels}))

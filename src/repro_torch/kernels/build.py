@@ -35,7 +35,7 @@ KERNELS = {
     "flash_attention": ("flash_attention", [_P] * 5 + [_I] * 8 + [_P]),
     "decode_attention": ("decode_attention", [_P] * 6 + [_I] * 8 + [_P]),
     "paged_decode_attention": ("paged_decode_attention",
-                               [_P] * 8 + [_I] * 9 + [_P]),
+                               [_P] * 9 + [_I] * 11 + [_P]),
     "xmodal_score_mean": ("xmodal_score", [_P] * 6 + [_I] * 5 + [_P]),
     "xmodal_score_max": ("xmodal_score", [_P] * 5 + [_I] * 5 + [_P]),
     "moe_dispatch": ("moe_dispatch", [_P] * 3 + [_I] * 6 + [_P]),

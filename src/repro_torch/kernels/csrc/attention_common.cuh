@@ -1,7 +1,8 @@
 // Shared pieces of the port's kernels: dtype codes, element conversions,
-// warp reductions, and the one-query-token decode body that both decode
-// kernels instantiate (dense cache: decode_attention.cu; paged pool:
-// paged_decode_attention.cu). xmodal_score.cu uses the first three.
+// warp reductions, and the split-KV decode kernels with their launcher,
+// which both decode kernels instantiate through a `Rows` type that says
+// where a batch row's KV rows lie (dense cache: decode_attention.cu; paged
+// pool: paged_decode_attention.cu). The other kernels use the first three.
 //
 // Built for sm_90a by kernels/build.py with a plain C interface per .cu
 // file; the Python wrappers in kernels/ops.py check shapes, dtypes and
@@ -47,153 +48,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// --------------------------------------------------------------------------
-// One query token against a run of KV rows (decode).
-//
-// One block per (kv head, batch row). The G = H / Hkv query heads of the kv
-// head share every K/V tile the block reads, so the cache is read once per
-// group, not once per query head. Rows stream through shared memory in
-// tiles of DEC_TILE with an fp32 online softmax (running max m, sum l, and
-// accumulator per query head). Invalid rows are never loaded and weigh
-// exactly 0. `Rows` says how many rows a batch row has, which are valid,
-// where row j lives, and its dequantization scales.
-// --------------------------------------------------------------------------
-constexpr int DEC_TILE = 16;
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_MAX_G = 8;
-constexpr int DEC_MAX_HD = 128;
-constexpr int DEC_ACC = DEC_MAX_G * DEC_MAX_HD / DEC_THREADS;
-constexpr int DEC_LOADS = DEC_TILE * DEC_MAX_HD / DEC_THREADS;
-
-inline size_t decode_smem_bytes(int G, int hd) {
-  return sizeof(float) * (G * hd + 2 * DEC_TILE * hd + G * DEC_TILE);
-}
-
-template <typename TQ, typename TKV, typename Rows>
-__device__ void decode_body(const TQ* __restrict__ q,
-                            const TKV* __restrict__ kc,
-                            const TKV* __restrict__ vc, TQ* __restrict__ out,
-                            const Rows& rows, int H, int Hkv, int hd,
-                            float scale) {
-  const int h = blockIdx.x;   // kv head
-  const int b = blockIdx.y;   // batch row
-  const int G = H / Hkv;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-
-  extern __shared__ float smem[];
-  float* qs = smem;                       // (G, hd), pre-scaled
-  float* ks = qs + G * hd;                // (DEC_TILE, hd)
-  float* vs = ks + DEC_TILE * hd;         // (DEC_TILE, hd)
-  float* ps = vs + DEC_TILE * hd;         // (G, DEC_TILE) scores, then p
-  __shared__ float m_s[DEC_MAX_G], l_s[DEC_MAX_G], alpha_s[DEC_MAX_G];
-  // per row of the tile: valid?, where its (kv head h) vector starts, and
-  // its dequantization scales: resolved once per row, not per element
-  __shared__ int valid_s[DEC_TILE];
-  __shared__ size_t base_s[DEC_TILE];
-  __shared__ float kscale_s[DEC_TILE], vscale_s[DEC_TILE];
-
-  // q is (B, 1, H, hd): this group's heads are h*G .. h*G+G-1
-  const size_t qbase = ((size_t)b * H + (size_t)h * G) * hd;
-  for (int i = tid; i < G * hd; i += DEC_THREADS)
-    qs[i] = to_float(q[qbase + i]) * scale;
-  if (tid < G) {
-    m_s[tid] = NEG_INF_F;
-    l_s[tid] = 0.f;
-  }
-  float acc[DEC_ACC];
-#pragma unroll
-  for (int a = 0; a < DEC_ACC; ++a) acc[a] = 0.f;
-
-  const int nrows = rows.num_rows(b);
-  for (int j0 = 0; j0 < nrows; j0 += DEC_TILE) {
-    __syncthreads();   // previous tile fully consumed
-    if (tid < DEC_TILE) {
-      const int j = j0 + tid;
-      const bool ok = j < nrows && rows.valid(b, j);
-      valid_s[tid] = ok;
-      if (ok) {
-        base_s[tid] = rows.offset(b, h, j);
-        kscale_s[tid] = rows.k_scale(b, h, j);
-        vscale_s[tid] = rows.v_scale(b, h, j);
-      }
-    }
-    __syncthreads();
-    // every load of the tile is issued before any is stored, so the
-    // thread waits on device memory once per tile, not once per element
-    float kx[DEC_LOADS], vx[DEC_LOADS];
-#pragma unroll
-    for (int a = 0; a < DEC_LOADS; ++a) {
-      const int i = tid + a * DEC_THREADS;
-      kx[a] = vx[a] = 0.f;
-      if (i < DEC_TILE * hd) {
-        const int r = i / hd, d = i - r * hd;
-        if (valid_s[r]) {
-          kx[a] = to_float(kc[base_s[r] + d]) * kscale_s[r];
-          vx[a] = to_float(vc[base_s[r] + d]) * vscale_s[r];
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < DEC_LOADS; ++a) {
-      const int i = tid + a * DEC_THREADS;
-      if (i < DEC_TILE * hd) {
-        ks[i] = kx[a];
-        vs[i] = vx[a];
-      }
-    }
-    __syncthreads();
-    // scores: one warp per (head, row) pair, lanes split the head dim
-    for (int p = warp; p < G * DEC_TILE; p += DEC_THREADS / 32) {
-      const int g = p / DEC_TILE, r = p - g * DEC_TILE;
-      float s = 0.f;
-      for (int d = lane; d < hd; d += 32) s += qs[g * hd + d] * ks[r * hd + d];
-      s = warp_sum(s);
-      if (lane == 0) ps[p] = s;
-    }
-    __syncthreads();
-    if (tid < G) {   // online softmax update, one thread per query head
-      const int g = tid;
-      const float m_old = m_s[g];
-      float m_t = NEG_INF_F;
-      for (int r = 0; r < DEC_TILE; ++r)
-        if (valid_s[r]) m_t = fmaxf(m_t, ps[g * DEC_TILE + r]);
-      const float m_new = fmaxf(m_old, m_t);
-      const float alpha = expf(m_old - m_new);
-      float sum = 0.f;
-      for (int r = 0; r < DEC_TILE; ++r) {
-        const float pr =
-            valid_s[r] ? expf(ps[g * DEC_TILE + r] - m_new) : 0.f;
-        ps[g * DEC_TILE + r] = pr;
-        sum += pr;
-      }
-      l_s[g] = alpha * l_s[g] + sum;
-      m_s[g] = m_new;
-      alpha_s[g] = alpha;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < DEC_ACC; ++a) {
-      const int idx = tid + a * DEC_THREADS;
-      if (idx < G * hd) {
-        const int g = idx / hd, d = idx - g * hd;
-        float v = acc[a] * alpha_s[g];
-#pragma unroll 4
-        for (int r = 0; r < DEC_TILE; ++r)
-          v += ps[g * DEC_TILE + r] * vs[r * hd + d];
-        acc[a] = v;
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int a = 0; a < DEC_ACC; ++a) {
-    const int idx = tid + a * DEC_THREADS;
-    if (idx < G * hd) {
-      const int g = idx / hd;
-      out[qbase + idx] = from_float<TQ>(acc[a] / fmaxf(l_s[g], 1e-20f));
-    }
-  }
+inline bool aligned(const void* p, unsigned n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
 }
 
 // --------------------------------------------------------------------------
@@ -219,7 +75,10 @@ __device__ void decode_body(const TQ* __restrict__ q,
 // with a source size of 0), and their weight is exactly 0. The validity
 // of the warp's 4 rows of a tile comes from Rows::valid4 as one word; lane
 // l holds the word of tile 32 c + l, and the next 32 tiles' words are
-// loaded a whole chunk ahead.
+// loaded a whole chunk ahead. Where Rows::TILE_KEYS is set, lane l also
+// holds the tile's key (for the paged pool, where the tile lies: its page
+// read from the block table), so no copy waits on an index load.
+// Dequantization scales ride in the same cp.async group as their rows.
 //
 // With one split the block writes acc / max(l, 1e-20) in q's dtype itself;
 // otherwise it writes (acc, m, l) per query head to the fp32 workspace
@@ -229,9 +88,22 @@ __device__ void decode_body(const TQ* __restrict__ q,
 // exp(NEG_INF_F - M) = 0 beside one that has; a batch row without a valid
 // row gets 0.
 //
-// `Rows` is the decode_body interface plus valid4(b, j, jend): bit r set
-// where row j + r is valid and below jend.
+// `Rows` says where a batch row's KV rows lie:
+//   num_rows(b)                rows [0, num_rows) may be valid;
+//   capacity()                 (host) the most rows a batch row has: the
+//                              plan's n_split * rows_per_split covers it;
+//   valid4(b, j, jend)         bit r set where row j + r is valid and
+//                              below jend;
+//   TILE_KEYS                  whether tile_key(b, j) is loaded for each
+//                              tile (j its first row) and handed to the
+//                              tile's row lookups (0 is handed otherwise);
+//   offset(b, h, j, key)       element offset of row j's kv head h;
+//   k_scales(), v_scales()     dequantization scales, or null;
+//   scale_index(b, h, j, key)  row j's index into them.
 // --------------------------------------------------------------------------
+constexpr int DEC_TILE = 16;      // rows per tile
+constexpr int DEC_MAX_G = 8;      // query heads per kv head
+constexpr int DEC_MAX_HD = 128;   // head dim
 constexpr int SPL_WARPS = 4;
 constexpr int SPL_THREADS = 32 * SPL_WARPS;
 constexpr int SPL_WROWS = DEC_TILE / SPL_WARPS;   // rows per warp per tile
@@ -266,8 +138,9 @@ static_assert(split_smem_bytes(DEC_MAX_G, DEC_MAX_HD, sizeof(float)) +
               "split_decode_body's shared memory exceeds 48 KB");
 
 // Copy U bytes from global to shared memory, or U zero bytes when !ok
-// (nothing is read then). U = 16 and 4 are asynchronous (cp.async); U = 2,
-// for rows of an odd number of 2-byte elements, is a plain copy.
+// (nothing is read then). U = 16 and 4 are asynchronous (cp.async); U = 2
+// and 1, for rows of 2- or 1-byte elements whose byte length is odd or
+// not a multiple of 4, are plain copies.
 template <int U>
 __device__ __forceinline__ void copy_unit(void* dst, const void* src,
                                           bool ok) {
@@ -278,9 +151,13 @@ __device__ __forceinline__ void copy_unit(void* dst, const void* src,
   } else if constexpr (U == 4) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                  "l"(src), "r"(ok ? 4 : 0) : "memory");
-  } else {
+  } else if constexpr (U == 2) {
     *static_cast<uint16_t*>(dst) =
         ok ? *static_cast<const uint16_t*>(src) : uint16_t(0);
+  } else {
+    static_assert(U == 1, "copy units of 16, 4, 2 or 1 bytes");
+    *static_cast<uint8_t*>(dst) =
+        ok ? *static_cast<const uint8_t*>(src) : uint8_t(0);
   }
 }
 
@@ -369,7 +246,14 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
                                          warp * SPL_WROWS, j1)
                        : 0u;
   };
+  auto key = [&](int tt) -> int {
+    if constexpr (Rows::TILE_KEYS)
+      return tt < ntiles ? rows.tile_key(b, j0 + tt * DEC_TILE) : 0;
+    else
+      return 0;
+  };
   unsigned mcur = word(lane), mnext = word(32 + lane);
+  [[maybe_unused]] int kcur = key(lane), knext = key(32 + lane);
 
   // copy this warp's rows of tile tt into stage tt % SPL_STAGES; one
   // commit group per call, empty past the last tile
@@ -378,20 +262,32 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
       if (tt > 0 && (tt & 31) == 0) {
         mcur = mnext;
         mnext = word(tt + 32 + lane);
+        if constexpr (Rows::TILE_KEYS) {
+          kcur = knext;
+          knext = key(tt + 32 + lane);
+        }
       }
       const unsigned vw = __shfl_sync(FULL, mcur, tt & 31);
+      int kt = 0;
+      if constexpr (Rows::TILE_KEYS) kt = __shfl_sync(FULL, kcur, tt & 31);
       const int s = tt % SPL_STAGES;
       const int jb = j0 + tt * DEC_TILE + warp * SPL_WROWS;
       if (lane < SPL_WROWS) {
         const bool ok = (vw >> lane) & 1u;
-        sw.ksc[s][lane] = ok ? rows.k_scale(b, h, jb + lane) : 0.f;
-        sw.vsc[s][lane] = ok ? rows.v_scale(b, h, jb + lane) : 0.f;
+        const float* ksp = rows.k_scales();
+        if (ksp != nullptr) {
+          const size_t si = ok ? rows.scale_index(b, h, jb + lane, kt) : 0;
+          copy_unit<4>(&sw.ksc[s][lane], ksp + si, ok);
+          copy_unit<4>(&sw.vsc[s][lane], rows.v_scales() + si, ok);
+        } else {
+          sw.ksc[s][lane] = sw.vsc[s][lane] = 1.f;
+        }
       }
       if (lane == 0) sw.vw[s] = vw;
       for (int e = lane; e < SPL_WROWS * units; e += 32) {
         const int r = e / units, u = e - r * units;
         const bool ok = (vw >> r) & 1u;
-        const size_t off = ok ? rows.offset(b, h, jb + r) : 0;
+        const size_t off = ok ? rows.offset(b, h, jb + r, kt) : 0;
         const size_t dst = (size_t)(s * SPL_WROWS + r) * rb + (size_t)u * U;
         copy_unit<U>(kbuf + dst,
                      reinterpret_cast<const unsigned char*>(kc + off) + u * U,
@@ -558,4 +454,87 @@ __device__ void split_combine_body(const float* __restrict__ part,
       A += w_s[g][s] * pb[(s * G + g) * ld + d];
     out[qbase + idx] = from_float<TQ>(A / fmaxf(l_s[g], 1e-20f));
   }
+}
+
+template <typename TQ, typename TKV, int GP, int U, typename Rows>
+__global__ void __launch_bounds__(SPL_THREADS,
+                                  (GP <= 2 ? 6 : GP == 4 ? 5 : 4))
+split_decode_kernel(const TQ* q, const TKV* k, const TKV* v, TQ* out,
+                    float* part, Rows rows, int H, int rows_per_split,
+                    float scale) {
+  split_decode_body<GP, U, TQ, TKV, Rows>(q, k, v, out, part, rows, H,
+                                          rows.Hkv, rows.hd, rows_per_split,
+                                          scale);
+}
+
+template <typename TQ>
+__global__ void __launch_bounds__(SPL_THREADS)
+split_combine_kernel(const float* part, TQ* out, int H, int Hkv, int hd,
+                     int n_split) {
+  split_combine_body<TQ>(part, out, H, Hkv, hd, n_split);
+}
+
+// --------------------------------------------------------------------------
+// The one launcher of both decode kernels: it checks the split plan, picks
+// the copy unit and GP, launches the split kernel on the grid (kv head,
+// batch row, split) and, with more than one split, the combine kernel.
+// --------------------------------------------------------------------------
+struct SplitLaunch {
+  const void *q, *k, *v;   // q (B, 1, H, hd) of TQ; K/V rows of TKV
+  void* out;               // like q
+  float* part;             // workspace (B, Hkv, n_split, G, hd + 2), or
+                           // null for one split
+  int B, H, n_split, rows_per_split;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TKV, int GP, int U, typename Rows>
+int launch_split_kernel(const SplitLaunch& a, const Rows& rows) {
+  const size_t smem = split_smem_bytes(a.H / rows.Hkv, rows.hd, sizeof(TKV));
+  split_decode_kernel<TQ, TKV, GP, U, Rows>
+      <<<dim3(rows.Hkv, a.B, a.n_split), SPL_THREADS, smem, a.stream>>>(
+          static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+          static_cast<const TKV*>(a.v), static_cast<TQ*>(a.out), a.part,
+          rows, a.H, a.rows_per_split,
+          1.0f / sqrtf(static_cast<float>(rows.hd)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TQ, typename TKV, int U, typename Rows>
+int launch_split_g(const SplitLaunch& a, const Rows& rows) {
+  const int G = a.H / rows.Hkv;
+  if (G == 1) return launch_split_kernel<TQ, TKV, 1, U>(a, rows);
+  if (G == 2) return launch_split_kernel<TQ, TKV, 2, U>(a, rows);
+  if (G <= 4) return launch_split_kernel<TQ, TKV, 4, U>(a, rows);
+  return launch_split_kernel<TQ, TKV, 8, U>(a, rows);
+}
+
+// The copy unit: 16 bytes where a row's byte length and both bases allow,
+// else 4, else the element (2- and 1-byte elements only: a row of 4-byte
+// elements always takes 4-byte units), so only those (TKV, U) pairs exist.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan or shape
+// the kernels do not take.
+template <typename TQ, typename TKV, typename Rows>
+int launch_split_decode(const SplitLaunch& a, const Rows& rows) {
+  const int Hkv = rows.Hkv, hd = rows.hd;
+  if (a.H % Hkv != 0 || a.H / Hkv > DEC_MAX_G || hd > DEC_MAX_HD ||
+      a.n_split < 1 || a.n_split > DEC_MAX_SPLIT ||
+      a.rows_per_split % DEC_TILE != 0 ||
+      (long)a.n_split * a.rows_per_split < rows.capacity() ||
+      (a.n_split > 1 && a.part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = hd * static_cast<int>(sizeof(TKV));
+  int err;
+  if (nb % 16 == 0 && aligned(a.k, 16) && aligned(a.v, 16))
+    err = launch_split_g<TQ, TKV, 16>(a, rows);
+  else if (nb % 4 == 0 && aligned(a.k, 4) && aligned(a.v, 4))
+    err = launch_split_g<TQ, TKV, 4>(a, rows);
+  else if constexpr (sizeof(TKV) < 4)
+    err = launch_split_g<TQ, TKV, static_cast<int>(sizeof(TKV))>(a, rows);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0 || a.n_split == 1) return err;
+  split_combine_kernel<TQ><<<dim3(Hkv, a.B), SPL_THREADS, 0, a.stream>>>(
+      a.part, static_cast<TQ*>(a.out), a.H, Hkv, hd, a.n_split);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -120,10 +120,6 @@ static int launch_dispatch(const void* idx, const void* x, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-static bool aligned(const void* p, unsigned n) {
-  return reinterpret_cast<uintptr_t>(p) % n == 0;
-}
-
 // idx: (G, E, C) int32, -1 empty; x: (G, g, d) of elem_bytes 4 (fp32) or 2
 // (bf16); out: (G, E, C, d) like x. Returns cudaGetLastError().
 extern "C" int moe_dispatch(const void* idx, const void* x, void* out, int G,

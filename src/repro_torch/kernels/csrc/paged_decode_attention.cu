@@ -11,13 +11,21 @@
 // element pair against 2-8 bytes read. The floor is the LIVE K/V rows
 // (sum of lengths, not n*ps) over 3.35 TB/s, so quantized pools lower it.
 //
-// Design: one block per (kv head, batch row) serving the group's G query
-// heads from each page read (decode_body in attention_common.cuh). The
-// block walks only ceil(lengths[b] / 16) row tiles and reads each row's page
-// id from the block table itself (the TPU kernel's scalar prefetch becomes
-// a load of bt[b, j / ps]). 64 blocks at B = 8, Hkv = 8 leave most of the
-// 132 SMs idle; splitting pages across blocks (flash-decoding plus a
-// combine pass) is the next step for this kernel.
+// Design: the split-KV body and launcher that the dense decode kernel
+// runs (split_decode_body, launch_split_decode in attention_common.cuh),
+// on a grid of (kv head, batch row, split). The TPU kernel walks a row's
+// pages as a sequential grid axis with the block table as scalar
+// prefetch; here the plan (ops.decode_splits over the block table's
+// capacity n * ps) comes from shapes alone, since reading the lengths on
+// the host would wait for the device at every decode step. Splits past a
+// row's length copy nothing and weigh nothing in the combine; lengths past
+// n * ps are clipped. Every block serves the G query heads of its kv head
+// from each row it reads. With pages of a multiple of 16 rows a 16-row
+// tile lies in one page, so the body loads each tile's page id from the
+// block table a chunk of 32 tiles ahead, beside the validity words, and no
+// copy waits on the table; other page sizes look the page up per row.
+// int8/fp8 rows are hd bytes, copied in 16-, 4- or 1-byte units; their
+// scales ride in the rows' cp.async group.
 #include "attention_common.cuh"
 
 struct PagedRows {
@@ -26,78 +34,69 @@ struct PagedRows {
   const float* ks;          // (P, ps, Hkv) or null
   const float* vs;
   int P, ps, n, Hkv, hd;
+  static constexpr bool TILE_KEYS = true;
+  __host__ __device__ int capacity() const { return n * ps; }
   __device__ int num_rows(int b) const {
     return max(0, min(n * ps, lengths[b]));
   }
-  __device__ bool valid(int b, int j) const { return j < lengths[b]; }
-  __device__ int slot(int b, int j) const {   // page * ps + offset
-    const int page = min(max(bt[(size_t)b * n + j / ps], 0), P - 1);
-    return page * ps + j % ps;
+  __device__ unsigned valid4(int b, int j, int jend) const {
+    const int e = min(lengths[b], jend) - j;
+    return e >= 4 ? 0xfu : e <= 0 ? 0u : (1u << e) - 1u;
   }
-  __device__ size_t offset(int b, int h, int j) const {
-    return ((size_t)slot(b, j) * Hkv + h) * hd;
+  __device__ int page(int b, int j) const {
+    return min(max(bt[(size_t)b * n + j / ps], 0), P - 1);
   }
-  __device__ float k_scale(int b, int h, int j) const {
-    return ks ? ks[(size_t)slot(b, j) * Hkv + h] : 1.f;
+  // the slot (page * ps + offset) of the tile's first row j where the
+  // tile lies in one page, else -1
+  __device__ int tile_key(int b, int j) const {
+    return ps % DEC_TILE == 0 ? page(b, j) * ps + j % ps : -1;
   }
-  __device__ float v_scale(int b, int h, int j) const {
-    return vs ? vs[(size_t)slot(b, j) * Hkv + h] : 1.f;
+  __device__ int slot(int b, int j, int key) const {
+    return key >= 0 ? key + (j & (DEC_TILE - 1)) : page(b, j) * ps + j % ps;
+  }
+  __device__ size_t offset(int b, int h, int j, int key) const {
+    return ((size_t)slot(b, j, key) * Hkv + h) * hd;
+  }
+  __device__ const float* k_scales() const { return ks; }
+  __device__ const float* v_scales() const { return vs; }
+  __device__ size_t scale_index(int b, int h, int j, int key) const {
+    return (size_t)slot(b, j, key) * Hkv + h;
   }
 };
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(DEC_THREADS)
-paged_decode_kernel(const TQ* q, const TKV* kp, const TKV* vp, TQ* out,
-                    PagedRows rows, int H, float scale) {
-  decode_body<TQ, TKV, PagedRows>(q, kp, vp, out, rows, H, rows.Hkv,
-                                  rows.hd, scale);
-}
-
-template <typename TQ, typename TKV>
-static int launch(const void* q, const void* kp, const void* vp,
-                  PagedRows rows, void* out, int B, int H,
-                  cudaStream_t stream) {
-  const dim3 grid(rows.Hkv, B);
-  const size_t smem = decode_smem_bytes(H / rows.Hkv, rows.hd);
-  paged_decode_kernel<TQ, TKV><<<grid, DEC_THREADS, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), static_cast<TQ*>(out), rows, H,
-      1.0f / sqrtf(static_cast<float>(rows.hd)));
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename TQ>
-static int launch_q(const void* q, const void* kp, const void* vp,
-                    PagedRows rows, void* out, int B, int H, int kv_dtype,
-                    cudaStream_t st) {
+static int launch_q(const SplitLaunch& a, const PagedRows& rows,
+                    int kv_dtype) {
   switch (kv_dtype) {
-    case F32: return launch<TQ, float>(q, kp, vp, rows, out, B, H, st);
-    case BF16: return launch<TQ, __nv_bfloat16>(q, kp, vp, rows, out, B, H, st);
-    case I8: return launch<TQ, int8_t>(q, kp, vp, rows, out, B, H, st);
-    case FP8E4M3:
-      return launch<TQ, __nv_fp8_e4m3>(q, kp, vp, rows, out, B, H, st);
+    case F32: return launch_split_decode<TQ, float>(a, rows);
+    case BF16: return launch_split_decode<TQ, __nv_bfloat16>(a, rows);
+    case I8: return launch_split_decode<TQ, int8_t>(a, rows);
+    case FP8E4M3: return launch_split_decode<TQ, __nv_fp8_e4m3>(a, rows);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // q: (B, 1, H, hd) F32|BF16; k_pages/v_pages: (P, ps, Hkv, hd) of kv_dtype;
 // k_scale/v_scale: (P, ps, Hkv) fp32 or null; block_table: (B, n) int32;
-// lengths: (B,) int32; out like q. Returns cudaGetLastError().
+// lengths: (B,) int32; out like q; work: fp32 (B, Hkv, n_split, H / Hkv,
+// hd + 2), unused (may be null) when n_split is 1. The split plan comes
+// from ops.decode_splits over n * ps: rows_per_split a multiple of 16,
+// n_split * rows_per_split >= n * ps, n_split <= 64. Returns
+// cudaGetLastError().
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_table,
-    const void* lengths, void* out, int B, int H, int Hkv, int hd, int P,
-    int ps, int n, int q_dtype, int kv_dtype, void* stream) {
-  PagedRows rows{static_cast<const int32_t*>(block_table),
-                 static_cast<const int32_t*>(lengths),
-                 static_cast<const float*>(k_scale),
-                 static_cast<const float*>(v_scale), P, ps, n, Hkv, hd};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == F32)
-    return launch_q<float>(q, k_pages, v_pages, rows, out, B, H, kv_dtype,
-                           st);
-  if (q_dtype == BF16)
-    return launch_q<__nv_bfloat16>(q, k_pages, v_pages, rows, out, B, H,
-                                   kv_dtype, st);
+    const void* lengths, void* out, void* work, int B, int H, int Hkv,
+    int hd, int P, int ps, int n, int n_split, int rows_per_split,
+    int q_dtype, int kv_dtype, void* stream) {
+  const SplitLaunch a{q, k_pages, v_pages, out, static_cast<float*>(work),
+                      B, H, n_split, rows_per_split,
+                      static_cast<cudaStream_t>(stream)};
+  const PagedRows rows{static_cast<const int32_t*>(block_table),
+                       static_cast<const int32_t*>(lengths),
+                       static_cast<const float*>(k_scale),
+                       static_cast<const float*>(v_scale), P, ps, n, Hkv, hd};
+  if (q_dtype == F32) return launch_q<float>(a, rows, kv_dtype);
+  if (q_dtype == BF16) return launch_q<__nv_bfloat16>(a, rows, kv_dtype);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -109,7 +109,7 @@ def _check_decode_q(name: str, q, Hkv: int, hd: int) -> None:
 
 
 def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
-    """Split plan of the dense decode kernel on a card of ``sms`` SMs:
+    """Split plan of the decode kernels on a card of ``sms`` SMs:
     (n_split, rows_per_split).
 
     The cache axis of each (batch row, kv head) is cut into ``n_split``
@@ -124,6 +124,20 @@ def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
             -(-tiles // DEC_MIN_TILES), DEC_MAX_SPLIT)
     per = -(-tiles // max(1, n))
     return -(-tiles // per), per * DEC_TILE
+
+
+def _split_workspace(q, Hkv: int, n_split: int):
+    """The split kernels' fp32 partials (B, Hkv, n_split, H / Hkv, hd + 2),
+    merged by the combine kernel; none for one split."""
+    if n_split == 1:
+        return None
+    B, _, H, hd = q.shape
+    return torch.empty((B, Hkv, n_split, H // Hkv, hd + 2),
+                       dtype=torch.float32, device=q.device)
+
+
+def _sms(t) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def decode_attention(q, k, v, kv_mask):
@@ -142,18 +156,13 @@ def decode_attention(q, k, v, kv_mask):
            k.dtype == q.dtype and v.dtype == q.dtype,
            "decode_attention: k/v (B, S, Hkv, hd) in q's dtype, mask "
            "(B, S) bool")
-    H = q.shape[2]
-    n_split, rows = decode_splits(
-        B, Hkv, S, torch.cuda.get_device_properties(q.device)
-        .multi_processor_count)
+    n_split, rows = decode_splits(B, Hkv, S, _sms(q))
     out = torch.empty_like(q)
-    work = None if n_split == 1 else torch.empty(
-        (B, Hkv, n_split, H // Hkv, hd + 2), dtype=torch.float32,
-        device=q.device)
+    work = _split_workspace(q, Hkv, n_split)
     _launch("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), B, S, H, Hkv, hd,
-            n_split, rows, _DTYPE_CODES[q.dtype])
+            None if work is None else work.data_ptr(), B, S, q.shape[2],
+            Hkv, hd, n_split, rows, _DTYPE_CODES[q.dtype])
     return out
 
 
@@ -161,8 +170,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
                            k_scale=None, v_scale=None):
     """One query token vs KV pages. q: (B, 1, H, hd); pools (P, ps, Hkv,
     hd) fp32/bf16/int8/fp8-e4m3; block_table (B, n) int32 (ids clipped to
-    [0, P-1]); lengths (B,) int32. Quantized pools need both
-    ``k_scale``/``v_scale`` (P, ps, Hkv) fp32."""
+    [0, P-1]); lengths (B,) int32 (clipped to n * ps). Quantized pools
+    need both ``k_scale``/``v_scale`` (P, ps, Hkv) fp32. On the card each
+    row's n * ps slots are split across blocks and merged through an fp32
+    workspace as in ``decode_attention``."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
     if not q.is_cuda:
@@ -190,15 +201,20 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
     _check(q.shape[0] == B and block_table.dtype == torch.int32 and
            lengths.shape == (B,) and lengths.dtype == torch.int32,
            f"{name}: block_table (B, n) int32, lengths (B,) int32")
+    # planned from the block table's capacity, never from the lengths:
+    # reading them on the host would wait for the device at every decode
+    # step; splits past a row's length copy nothing and weigh nothing
+    n_split, rows = decode_splits(B, Hkv, n * ps, _sms(q))
     out = torch.empty_like(q)
+    work = _split_workspace(q, Hkv, n_split)
     _launch(name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, q.shape[2], Hkv, hd, P, ps, n, _DTYPE_CODES[q.dtype],
+            None if work is None else work.data_ptr(), B, q.shape[2], Hkv,
+            hd, P, ps, n, n_split, rows, _DTYPE_CODES[q.dtype],
             _DTYPE_CODES[k_pages.dtype])
     return out
-
 
 
 def _check_xmodal(name: str, rows, vis) -> None:

@@ -126,11 +126,17 @@ def test_decode_plain_matches_reference(dtype, S, H, Hkv, hd):
 @pytest.mark.parametrize("B,Hkv,S", [
     (8, 8, 288), (8, 8, 32768),       # must fill 132 SMs
     (8, 8, 16), (8, 8, 64), (8, 8, 4096), (2, 2, 300), (1, 1, 1),
-    (1, 8, 32768), (300, 8, 64), (8, 8, 1000), (8, 24, 288)])
+    (1, 8, 32768), (300, 8, 64), (8, 8, 1000), (8, 24, 288),
+    # paged capacities n * ps: llava's 54 x 16 (must fill 132 SMs), a
+    # ragged last split 63 x 16, pages of 8, 64 and 6 rows, n 4 x 16
+    (8, 32, 864), (4, 2, 1008), (3, 2, 320), (2, 8, 640), (3, 2, 300),
+    (3, 4, 64)])
 def test_decode_splits_cover_the_cache(B, Hkv, S):
-    """The split plan of the dense decode kernel cuts [0, S) into runs of
+    """The split plan of the decode kernels cuts [0, S) into runs of
     whole 16-row tiles (the last may be ragged) without overlap or empty
-    splits, and fills an H100's 132 SMs at the serving shapes."""
+    splits, and fills an H100's 132 SMs at the serving shapes. The paged
+    kernel plans over its block table's capacity n * ps, so a row shorter
+    than that has its live splits first and only empty ones after."""
     n, rows = ops.decode_splits(B, Hkv, S, 132)
     assert 1 <= n <= ops.DEC_MAX_SPLIT
     assert rows % ops.DEC_TILE == 0 and rows > 0
@@ -139,10 +145,54 @@ def test_decode_splits_cover_the_cache(B, Hkv, S):
     for (a0, a1), (b0, _) in zip(runs, runs[1:]):
         assert a1 == b0 and a1 - a0 == rows
     assert S <= 0 or runs[-1][1] > runs[-1][0]
-    if (B, Hkv) == (8, 8) and S in (288, 32768):
+    for length in (1, S // 2 + 1, S):
+        live = [s for s, (a0, _) in enumerate(runs) if a0 < length]
+        assert live == list(range(-(-length // rows)))
+    if (B, Hkv, S) in ((8, 8, 288), (8, 8, 32768), (8, 32, 864)):
         assert B * Hkv * n >= 132
     if S <= ops.DEC_TILE:
         assert n == 1
+
+
+@pytest.mark.parametrize("pool", [torch.float32, torch.int8])
+def test_paged_wrapper_reads_no_device_value(monkeypatch, pool):
+    """The card path of the K1 wrapper, driven with tensors that claim to
+    lie on the card but hold no data (meta tensors): it plans from shapes,
+    allocates the split workspace and hands the C entry point one argument
+    per declared parameter, without reading any value. Reading one, the
+    lengths' maximum say, would raise here; on the card it would wait for
+    the device at every decode step."""
+    from repro_torch.kernels import build
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.Tensor._make_subclass(
+            OnCard, torch.empty(shape, dtype=dtype, device="meta"))
+
+    launched = []
+    monkeypatch.setattr(ops, "_sms", lambda t: 132)
+    monkeypatch.setattr(ops, "_launch",
+                        lambda name, *args: launched.append((name, args)))
+    B, H, Hkv, hd, ps, n = 8, 16, 8, 128, 16, 18
+    P = B * n + 1
+    scales = {}
+    if pool == torch.int8:
+        scales = dict(k_scale=empty(P, ps, Hkv), v_scale=empty(P, ps, Hkv))
+    q = empty(B, 1, H, hd)
+    out = ops.paged_decode_attention(
+        q, empty(P, ps, Hkv, hd, dtype=pool), empty(P, ps, Hkv, hd,
+                                                    dtype=pool),
+        empty(B, n, dtype=torch.int32), empty(B, dtype=torch.int32),
+        **scales)
+    assert out.shape == q.shape and out.device.type == "meta"
+    (name, args), = launched
+    assert name == "paged_decode_attention"
+    assert len(args) == len(build.KERNELS[name][1]) - 1   # and the stream
+    assert args[-4:-2] == ops.decode_splits(B, Hkv, n * ps, 132)
 
 
 def _paged_inputs(rng, B, H, Hkv, hd, ps, n):

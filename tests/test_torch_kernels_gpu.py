@@ -140,6 +140,85 @@ def test_paged_decode_kernel_on_card(gen, pool):
     assert ops.LAUNCHES["paged_decode_attention"] == before + 1
 
 
+# (B, H, Hkv, hd, ps, n, lengths); None: lengths below the first split's end
+PAGED_SPLIT_CASES = {
+    "first split only": (8, 16, 8, 128, 16, 256, None),
+    "one split": (8, 16, 8, 128, 16, 1, [1, 2, 5, 8, 11, 13, 15, 16]),
+    "ragged last split": (4, 8, 2, 64, 16, 63, [1008, 1001, 977, 100]),
+    "lengths past n*ps": (3, 8, 4, 128, 16, 4, [69, 164, 64]),
+    "shared pages": (4, 16, 8, 128, 16, 18, [288, 200, 150, 30]),
+    "page ids out of range": (3, 16, 8, 128, 16, 18, [288, 250, 100]),
+    "no valid row": (3, 8, 4, 128, 16, 20, [300, 0, 77]),
+    "granite G 3": (8, 24, 8, 64, 16, 18, [257 + 4 * i for i in range(8)]),
+    "ps 8": (3, 8, 2, 128, 8, 40, [320, 171, 9]),
+    "ps 64": (2, 16, 8, 128, 64, 10, [640, 300]),
+    "ps 6": (3, 8, 2, 64, 6, 50, [300, 133, 7]),
+    "G 8": (2, 16, 2, 128, 16, 19, [300, 151]),
+    "hd 33": (3, 8, 4, 33, 16, 32, [500, 250, 17]),
+    "hd 36": (2, 6, 2, 36, 16, 13, [200, 101]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8,
+                                  torch.float8_e4m3fn])
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+def test_paged_decode_split_cases_on_card(gen, pool, case):
+    """K1 on the split-KV body at the plan's edges (only the first split
+    live, one split and no combine, a ragged last split, lengths past
+    n * ps, clipped), at block tables the engine makes or must survive
+    (two rows sharing pages, as copy-on-write seeding leaves them; page
+    ids out of range, clipped), at a batch row with no valid key (the
+    kernel gives 0 where the plain version gives the mean of V, as K3),
+    at granite's 24/8 heads of width 64, at pages of 8, 64 and 6 rows (6
+    is no multiple of 4: rows are looked up one by one), at eight query
+    heads per kv head, and at hd 33 and 36 (rows copied in 4-, 2- and
+    1-byte units). The wrapper plans from shapes alone: it runs under
+    CUDA's sync debug mode set to raise. Two runs give the same bits."""
+    B, H, Hkv, hd, ps, n, lens = PAGED_SPLIT_CASES[case]
+    n_split, rows = ops.decode_splits(
+        B, Hkv, n * ps,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    if lens is None:
+        assert n_split > 1
+        lens = torch.randint(1, rows, (B,), generator=gen,
+                             device="cuda").tolist()
+    P = B * n + 3
+    dtype = torch.bfloat16 if pool == torch.bfloat16 else torch.float32
+    q = _rand(gen, (B, 1, H, hd), dtype)
+    kf = _rand(gen, (P, ps, Hkv, hd))
+    vf = _rand(gen, (P, ps, Hkv, hd))
+    ks = vs = None
+    if pool in (torch.int8, torch.float8_e4m3fn):
+        kp, ks = kv_quantize(kf, pool)
+        vp, vs = kv_quantize(vf, pool)
+    else:
+        kp, vp = kf.to(pool), vf.to(pool)
+    bt = (torch.randperm(P - 1, generator=gen, device="cuda")[:B * n] + 1
+          ).reshape(B, n).to(torch.int32)
+    if case == "shared pages":
+        bt[1, :13] = bt[0, :13]
+    elif case == "page ids out of range":
+        bt[0, 1], bt[1, 0], bt[2, 5] = -5, P + 7, -1
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = ops.LAUNCHES["paged_decode_attention"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ops.paged_decode_attention(q, kp, vp, bt, ln, k_scale=ks,
+                                         v_scale=vs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    exp = ref.paged_decode_attention_ref(q, kp, vp, bt, ln, k_scale=ks,
+                                         v_scale=vs)
+    if case == "no valid row":
+        exp[1] = 0
+    _close(out, exp, dtype)
+    assert torch.equal(out, ops.paged_decode_attention(
+        q, kp, vp, bt, ln, k_scale=ks, v_scale=vs))
+    assert ops.LAUNCHES["paged_decode_attention"] == before + 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,Nv,Nt,d", [
