@@ -10,20 +10,25 @@ Run from the root of a checkout. It
   3. kernel phase: holds each kernel against its plain PyTorch version on
      the card (fp32 and bf16, head_dim 64 and 128, the serving shapes and
      ragged edges, granite's 24/8 heads of width 64 (GQA group 3) for the
-     attention kernels, key lengths for the flash kernel, the split
-     plan's edges for both decode kernels, int8/fp8 pools, shared and
+     attention kernels; for the flash kernel also head_dim 16 and 32,
+     llava's 832-token bucket, a 4096-token row, windows and key
+     lengths, each twice for the same bits; the split plan's edges and a
+     row with no valid key for both decode kernels, int8/fp8 pools, shared and
      out-of-range page ids and odd page sizes for the paged kernel,
      ragged row counts for the cross-modal score, granite's prefill and
      decode dispatch shapes and ragged ones for the MoE dispatch and
-     combine) and times kernel (both decode kernels also at cache lengths
+     combine) and times kernel (the flash kernel at the three served
+     prefill buckets; both decode kernels also at cache lengths
      16 to 32768, the paged one at llava's and granite's decode shapes
      too), plain version and —
      where one PyTorch call computes the same function —
      ``scaled_dot_product_attention``, beside a bound from bytes and
-     operations;
+     operations; it also counts the tensor-core (HMMA) instructions in
+     the flash kernel's SASS;
   4. serve phase: serves CAMD requests on full-width qwen3-0.6b through
      the port's serve entry point with ``--impl paged_cuda`` and checks
-     that the flash and paged decode kernels carried it;
+     that the flash and paged decode kernels carried it, the flash kernel
+     once a layer a bucketed prefill;
   5. profile: a shorter serve run of the same shapes under torch.profiler
      — device time by kernel and the device's idle share;
   6. dense check: at reduced depth, greedy streams of the plain (torch),
@@ -53,6 +58,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12,       # fp32 outside the tensor cores
+              "tf32": 495e12,         # dense TF32 tensor cores
               "bfloat16": 989e12}     # dense bf16 tensor cores
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
 
@@ -73,6 +79,16 @@ MM_CACHE_LEN = IMAGE_TOKENS + CACHE_LEN            # 864, a page multiple
 # one 16-row tile to 2048 of them
 DECODE_LONG = 32768
 DECODE_SWEEP = (16, 64, CACHE_LEN, 4096, DECODE_LONG)
+
+
+def sass_count(lib, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of a built library
+    (``cuobjdump -sass``)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def fail(msg: str) -> None:
@@ -187,18 +203,44 @@ def compare(torch, name, case, out, exp, dtype):
 # kernel phase
 # ---------------------------------------------------------------------------
 
+# keys of a timing kept under another shape's entry of the kernels line
+SUB_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
+FLASH_BOUNDS = ("bound_bytes_ms", "bound_simt_ms", "bound_tf32x3_ms")
+
+
+# K2's timed shapes: the bucketed prefills of the three served models
+FLASH_SHAPES = {  # (B, L, H, Hkv, hd)
+    "qwen3": (8, SERVE["prompt"], 16, 8, 128),
+    "granite": (8, SERVE["prompt"], 24, 8, 64),
+    "llava": (8, IMAGE_TOKENS + SERVE["prompt"], 32, 32, 128),
+}
+
+
 def flash_phase(torch, ops, ref, timer):
-    F = torch.nn.functional
+    """K2 against its plain version in fp32 (3xTF32 on the tensor cores)
+    and bf16 (one TF32 pass) at every head_dim it takes, at the served
+    buckets (qwen3's, granite's G 3, llava's L 832, no tile multiple), a
+    4096-token row (the 3xTF32 error over many keys), ragged last tiles,
+    sliding windows whose edge cuts diagonal tiles, a non-causal row and
+    key lengths, twice each for the same bits; then timed
+    (``flash_timing``) at the three served buckets."""
     g = torch.Generator(device="cuda").manual_seed(1)
     errs = []
     cases = [  # (B, L, H, Hkv, hd, causal, window, key lengths)
-        (8, 256, 16, 8, 128, True, 0, None),   # serving prefill bucket
+        (8, 256, 16, 8, 128, True, 0, None),   # qwen3 prefill bucket
+        (8, 256, 24, 8, 64, True, 0, None),    # granite bucket, G = 3
+        (2, 832, 32, 32, 128, True, 0, None),  # llava bucket, ragged tile
+        (1, 4096, 16, 8, 128, True, 0, None),  # long row
         (2, 200, 4, 2, 64, True, 0, None),     # L not a tile multiple
         (2, 300, 4, 4, 128, True, 96, None),   # causal + sliding window
+        (2, 200, 4, 2, 64, True, 40, None),    # window edge in the diagonal
         (1, 37, 2, 1, 64, False, 0, None),     # tiny, non-causal, MQA
-        (8, 256, 24, 8, 64, True, 0, None),    # granite bucket, G = 3
+        (2, 130, 4, 2, 16, True, 0, None),     # hd 16
+        (2, 170, 4, 1, 32, True, 24, None),    # hd 32, window
         (3, 200, 24, 8, 64, True, 0, [200, 37, 130]),  # padded rows, G = 3
         (2, 256, 16, 8, 128, True, 0, [1, 100]),       # padded rows, G = 2
+        (2, 150, 4, 2, 32, True, 0, [150, 3]),         # padded rows, hd 32
     ]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -212,25 +254,71 @@ def flash_phase(torch, ops, ref, timer):
                                       lengths=ln)
             exp = ref.flash_attention_ref(q, k, v, causal=causal,
                                           window=window, lengths=ln)
-            errs.append(compare(
-                torch, "flash_attention", f"{dtype} B{B} L{L} H{H}/{Hkv} "
-                f"hd{hd} causal={int(causal)} w={window} lens={lens}", out,
-                exp, dtype))
-    # timing at the serving shape (fp32, as the serve phase runs)
-    B, L, H, Hkv, hd = 8, SERVE["prompt"], 16, 8, 128
-    q = torch.randn(B, L, H, hd, generator=g, device="cuda")
-    k = torch.randn(B, L, Hkv, hd, generator=g, device="cuda")
-    v = torch.randn(B, L, Hkv, hd, generator=g, device="cuda")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    t = times(timer, lambda: ops.flash_attention(q, k, v), "flash_kernel",
-              lambda: ref.flash_attention_ref(q, k, v),
-              lambda: F.scaled_dot_product_attention(
-                  qt, kt, vt, is_causal=True, enable_gqa=True))
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+            case = f"{dtype} B{B} L{L} H{H}/{Hkv} hd{hd} " \
+                f"causal={int(causal)} w={window} lens={lens}"
+            errs.append(compare(torch, "flash_attention", case, out, exp,
+                                dtype))
+            check(torch.equal(out, ops.flash_attention(
+                q, k, v, causal=causal, window=window, lengths=ln)),
+                  f"flash_attention {case}: two runs differ")
+    t = flash_timing(torch, ops, ref, timer, g)
+    t["max_abs_err"] = max(errs + [t["max_abs_err"]])
+    return t
+
+
+def flash_bounds(B, L, H, Hkv, hd):
+    """K2's bounds in ms at a causal fp32 shape: q, k, v read once and o
+    written once over 3.35 TB/s; the causal pairs' 4 hd FLOPs each over
+    the fp32 rate outside the tensor cores (``simt``) and, three times
+    over, over the TF32 tensor-core rate (``tf32x3``, what the kernel
+    runs). ``bound_ms`` is the larger of the bytes and the 3xTF32 time."""
+    nbytes = 4 * (2 * B * L * H * hd + 2 * B * L * Hkv * hd)
     flops = 4 * B * H * hd * (L * (L + 1) // 2)
-    t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, "float32")
+    b = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+         "simt": flops / PEAK_FLOPS["float32"] * 1e3,
+         "tf32x3": 3 * flops / PEAK_FLOPS["tf32"] * 1e3}
+    bound, by = (b["bytes"], "bytes") if b["bytes"] >= b["tf32x3"] \
+        else (b["tf32x3"], "operations")
+    return bound, by, b
+
+
+def flash_timing(torch, ops, ref, timer, g):
+    """K2 timed in fp32 at the three served buckets (``FLASH_SHAPES``;
+    qwen3's is K2's row, granite's and llava's its entries of those
+    names): the kernel's device time (``flash_kernel``), the wrapper
+    call's CUDA-event window, the plain version's and SDPA's device
+    time, beside ``flash_bounds``. Takes any tree's ``ops``, so that one
+    call can time a parent's kernel too. Returns K2's row with its
+    max_abs_err over the timed inputs."""
+    F = torch.nn.functional
+    rows, errs = {}, []
+    for name, (B, L, H, Hkv, hd) in FLASH_SHAPES.items():
+        q = torch.randn(B, L, H, hd, generator=g, device="cuda")
+        k = torch.randn(B, L, Hkv, hd, generator=g, device="cuda")
+        v = torch.randn(B, L, Hkv, hd, generator=g, device="cuda")
+        shape = f"fp32 B{B} L{L} H{H} Hkv{Hkv} hd{hd} causal"
+        errs.append(compare(torch, "flash_attention", f"{shape} (timed)",
+                            ops.flash_attention(q, k, v),
+                            ref.flash_attention_ref(q, k, v), "float32"))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t = times(timer, lambda: ops.flash_attention(q, k, v),
+                  "flash_kernel", lambda: ref.flash_attention_ref(q, k, v),
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True, enable_gqa=True))
+        t["bound_ms"], t["bound_by"], b = flash_bounds(B, L, H, Hkv, hd)
+        t.update({f"bound_{key}_ms": val for key, val in b.items()})
+        t["shape"] = shape
+        print(f"  flash_attention {name}: kernel {t['ms']:.4f} ms (call "
+              f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
+              f"{t['library_ms']:.4f}; bounds: bytes {b['bytes']:.5f}, "
+              f"fp32 SIMT {b['simt']:.5f}, 3xTF32 {b['tf32x3']:.5f} ms "
+              f"({shape})")
+        rows[name] = t
+        del q, k, v, qt, kt, vt
+    t = rows["qwen3"]
+    for name in ("granite", "llava"):
+        t[name] = {key: rows[name][key] for key in SUB_KEYS + FLASH_BOUNDS}
     t["max_abs_err"] = max(errs)
-    t["shape"] = f"fp32 B{B} L{L} H{H} Hkv{Hkv} hd{hd} causal"
     return t
 
 
@@ -310,15 +398,11 @@ def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
     return t, err
 
 
-# keys of a timing kept under another shape's entry of the kernels line
-SUB_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")
-
-
 def decode_phase(torch, ops, ref, timer):
     """K3 against its plain version at the serving, granite and ragged
     shapes, at the split plan's edges (only the first split valid, one
-    split, a ragged last split) and at the launcher's other instantiations
+    split, a ragged last split), at a row with no valid key under several
+    splits and under one, and at the launcher's other instantiations
     (G 8; rows copied in 4- and 2-byte units), twice each for the same
     bits; then timed (``decode_timing``) at each cache length of
     ``DECODE_SWEEP``: the serving length is K3's row, the reference's
@@ -337,6 +421,8 @@ def decode_phase(torch, ops, ref, timer):
         (2, 300, 16, 2, 128, "ring"),          # G = 8
         (3, 500, 8, 4, 33, "random"),  # 4-byte units (fp32), 2-byte (bf16)
         (2, 200, 6, 2, 36, "ring"),    # 16-byte units (fp32), 4-byte (bf16)
+        (3, 300, 8, 4, 128, "empty row"),      # no valid key, splits
+        (3, 16, 8, 4, 128, "empty row"),       # no valid key, one split
     ]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -357,6 +443,8 @@ def decode_phase(torch, ops, ref, timer):
             else:
                 mask = torch.rand(B, S, generator=g, device="cuda") < 0.75
                 mask[:, :2] = True
+                if kind == "empty row":   # the mean of V over all S rows
+                    mask[1] = False
             out = ops.decode_attention(q, k, v, mask)
             exp = ref.decode_attention_ref(q, k, v, mask)
             case = f"{dtype} B{B} S{S} H{H}/{Hkv} hd{hd} {kind} " \
@@ -407,8 +495,9 @@ def paged_phase(torch, ops, ref, timer, kv_quantize):
     engine makes or must survive (two rows sharing pages, as copy-on-write
     seeding leaves them; page ids out of range, clipped), at page sizes 8,
     64 and 6 (no multiple of 4: rows are looked up one by one), at G 8,
-    and at hd 33 and 36 (copy units of 4, 2 and 1 bytes), twice each for
-    the same bits; then timed (``decode_timing``) at llava's and granite's
+    at hd 33 and 36 (copy units of 4, 2 and 1 bytes), and at a row with no
+    valid key under several splits and under one, twice each for the same
+    bits; then timed (``decode_timing``) at llava's and granite's
     decode shapes and at qwen3's heads over ``DECODE_SWEEP``
     (``paged_timing``)."""
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -433,6 +522,9 @@ def paged_phase(torch, ops, ref, timer, kv_quantize):
         ("G 8", 2, 16, 2, 128, 16, 19, [300, 151]),
         ("hd 33", 3, 8, 4, 33, 16, 32, [500, 250, 17]),
         ("hd 36", 2, 6, 2, 36, 16, 13, [200, 101]),
+        # no valid key: the mean of V over the row's n * ps slots
+        ("empty row", 3, 8, 4, 128, 16, 20, [300, 0, 77]),
+        ("empty row, one split", 3, 8, 4, 128, 16, 1, [16, 0, 5]),
     ]
     kinds = [("float32", torch.float32), ("bfloat16", torch.bfloat16),
              ("float32", torch.int8), ("bfloat16", torch.int8),
@@ -730,9 +822,14 @@ def serve_phase(torch, ops, serve, argv, kernels):
     check(eng.pool.in_use == 0, "serve: pages leaked")
     for name in kernels:
         check(launches[name] > 0, f"serve: {name} was never launched")
+    n_flash = eng.cfg.num_layers * eng.prefill_calls
+    check(launches["flash_attention"] == n_flash,
+          f"serve: flash_attention launched {launches['flash_attention']} "
+          f"times, not {n_flash} (one a layer a bucketed prefill)")
     print(f"serve phase: {out['tokens_per_s']:.1f} tok/s "
           f"({eng.total_tokens} tokens in {out['seconds']:.2f}s, "
           f"{eng.total_steps} decode steps, {eng.macro_launches} launches, "
+          f"{eng.prefill_calls} prefills, {eng.host_syncs} host syncs, "
           f"peak device memory {peak_gb:.1f} GB); launches {launches}")
     return launches, out
 
@@ -989,6 +1086,10 @@ def main() -> None:
               f"stack <= {max(stack, default=0)} bytes, spill stores "
               f"{sum(spills)} bytes")
         build.load(name)
+    hmma = sass_count(build.lib_path("flash_attention"), "HMMA")
+    print(f"  flash_attention: {hmma} HMMA (tensor-core) instructions in "
+          "its SASS")
+    check(hmma > 0, "flash_attention: no tensor-core instruction in SASS")
 
     timer = Timer(torch)
     print("kernel phase:")
@@ -1096,7 +1197,7 @@ def main() -> None:
             "shape": t["shape"],
             **{key: t[key] for key in ("sdpa_on_gathered_ms", "prefill",
                                        "long", "llava", "granite", "sweep",
-                                       "by_kernel")
+                                       "by_kernel") + FLASH_BOUNDS
                if key in t}})
     print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"kernels": kernels}))

@@ -58,7 +58,9 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """The library of source ``name``; its file name carries a hash of the
+    sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(src.read_bytes())
@@ -68,7 +70,7 @@ def _lib_path(name: str) -> Path:
 def _start(name: str):
     """Start nvcc for one source; returns (process, tmp path, out path, t0)
     or None when the library is already built."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -109,7 +111,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
 

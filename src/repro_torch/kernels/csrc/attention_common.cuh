@@ -85,8 +85,12 @@ inline bool aligned(const void* p, unsigned n) {
 // (B, Hkv, n_split, G, hd + 2) and split_combine_body merges the splits
 // in split order, so two runs give the same bits. A split (or a warp)
 // without a valid row has m = NEG_INF_F, l = 0 and acc = 0 and weighs
-// exp(NEG_INF_F - M) = 0 beside one that has; a batch row without a valid
-// row gets 0.
+// exp(NEG_INF_F - M) = 0 beside one that has. A batch row without a valid
+// row (l = 0 after the merge; any valid row makes l >= 1) gets what the
+// plain versions give it (write_empty_row): all query heads of a block
+// share their rows' validity, so one block-uniform test of head 0's l, in
+// the combine or in a one-split block, sends such a row there before the
+// merge.
 //
 // `Rows` says where a batch row's KV rows lie:
 //   num_rows(b)                rows [0, num_rows) may be valid;
@@ -100,6 +104,7 @@ inline bool aligned(const void* p, unsigned n) {
 //   offset(b, h, j, key)       element offset of row j's kv head h;
 //   k_scales(), v_scales()     dequantization scales, or null;
 //   scale_index(b, h, j, key)  row j's index into them.
+// A key of -1 makes offset and scale_index look row j up on its own.
 // --------------------------------------------------------------------------
 constexpr int DEC_TILE = 16;      // rows per tile
 constexpr int DEC_MAX_G = 8;      // query heads per kv head
@@ -190,6 +195,30 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
       v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
       reduce_scatter<1, O / 2>(v, lane);
     }
+  }
+}
+
+// The output of a batch row with no valid row, for the G query heads of
+// kv head h: the plain versions' softmax over scores that are all NEG_INF
+// weighs every row alike, so each head gets the mean over rows
+// [0, capacity()) of V's kv head h, dequantized. Not inlined: only an empty
+// row calls it, and the kernels' served path compiles as without it.
+template <typename TQ, typename TKV, typename Rows>
+__device__ __noinline__ void write_empty_row(const TKV* __restrict__ vc,
+                                             Rows rows, TQ* __restrict__ out,
+                                             size_t qbase, int b, int h,
+                                             int G, int hd) {
+  const int n = rows.capacity();
+  const float* vs = rows.v_scales();
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float sum = 0.f;
+    for (int j = 0; j < n; ++j) {
+      float x = to_float(vc[rows.offset(b, h, j, -1) + d]);
+      if (vs != nullptr) x *= vs[rows.scale_index(b, h, j, -1)];
+      sum += x;
+    }
+    const TQ mean = from_float<TQ>(sum / static_cast<float>(n));
+    for (int g = 0; g < G; ++g) out[qbase + (size_t)g * hd + d] = mean;
   }
 }
 
@@ -392,6 +421,15 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
       if (g < G && d < hd) mine[g * ld + d] = acc[g][i];
     }
   __syncthreads();
+  if (gridDim.z == 1) {   // block-uniform: does the row hold a valid row?
+    float l0 = 0.f;
+#pragma unroll
+    for (int w = 0; w < SPL_WARPS; ++w) l0 += mrg[w * G * ld + hd + 1];
+    if (l0 == 0.f) {
+      write_empty_row<TQ>(vc, rows, out, qbase, b, h, G, hd);
+      return;
+    }
+  }
   for (int idx = tid; idx < G * hd; idx += SPL_THREADS) {
     const int g = idx / hd, d = idx - g * hd;
     float M = NEG_INF_F;
@@ -422,11 +460,13 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
 
 // Merge the n_split partials of split_decode_body for one (kv head, batch
 // row) block, in split order: out = sum_s e_s acc_s / max(sum_s e_s l_s,
-// 1e-20) with e_s = exp(m_s - max_s m_s). Blocks of SPL_THREADS.
-template <typename TQ>
+// 1e-20) with e_s = exp(m_s - max_s m_s); a row whose sum is 0 (no valid
+// row in any split) goes to write_empty_row. Blocks of SPL_THREADS.
+template <typename TQ, typename TKV, typename Rows>
 __device__ void split_combine_body(const float* __restrict__ part,
-                                   TQ* __restrict__ out, int H, int Hkv,
-                                   int hd, int n_split) {
+                                   const TKV* __restrict__ vc,
+                                   TQ* __restrict__ out, const Rows& rows,
+                                   int H, int Hkv, int hd, int n_split) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int G = H / Hkv, ld = hd + 2;
   __shared__ float w_s[DEC_MAX_G][DEC_MAX_SPLIT];
@@ -447,6 +487,10 @@ __device__ void split_combine_body(const float* __restrict__ part,
   }
   __syncthreads();
   const size_t qbase = ((size_t)b * H + (size_t)h * G) * hd;
+  if (l_s[0] == 0.f) {   // block-uniform
+    write_empty_row<TQ>(vc, rows, out, qbase, b, h, G, hd);
+    return;
+  }
   for (int idx = threadIdx.x; idx < G * hd; idx += blockDim.x) {
     const int g = idx / hd, d = idx - g * hd;
     float A = 0.f;
@@ -467,11 +511,12 @@ split_decode_kernel(const TQ* q, const TKV* k, const TKV* v, TQ* out,
                                           scale);
 }
 
-template <typename TQ>
+template <typename TQ, typename TKV, typename Rows>
 __global__ void __launch_bounds__(SPL_THREADS)
-split_combine_kernel(const float* part, TQ* out, int H, int Hkv, int hd,
-                     int n_split) {
-  split_combine_body<TQ>(part, out, H, Hkv, hd, n_split);
+split_combine_kernel(const float* part, const TKV* v, TQ* out, Rows rows,
+                     int H, int n_split) {
+  split_combine_body<TQ, TKV, Rows>(part, v, out, rows, H, rows.Hkv, rows.hd,
+                                    n_split);
 }
 
 // --------------------------------------------------------------------------
@@ -534,7 +579,9 @@ int launch_split_decode(const SplitLaunch& a, const Rows& rows) {
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != 0 || a.n_split == 1) return err;
-  split_combine_kernel<TQ><<<dim3(Hkv, a.B), SPL_THREADS, 0, a.stream>>>(
-      a.part, static_cast<TQ*>(a.out), a.H, Hkv, hd, a.n_split);
+  split_combine_kernel<TQ, TKV, Rows>
+      <<<dim3(Hkv, a.B), SPL_THREADS, 0, a.stream>>>(
+          a.part, static_cast<const TKV*>(a.v), static_cast<TQ*>(a.out), rows,
+          a.H, a.n_split);
   return static_cast<int>(cudaGetLastError());
 }

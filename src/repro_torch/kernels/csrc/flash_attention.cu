@@ -1,4 +1,4 @@
-// Prefill (flash) attention for Hopper (sm_90a).
+// Prefill (flash) attention for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py
 // (`flash_attention`, pallas_call at :89, body `_flash_kernel` :24):
@@ -16,171 +16,395 @@
 //
 // What bounds it on an H100: operations. A 64-row query tile does
 // 4 * 64 * hd FLOPs per key row it reads, well above the card's
-// FLOP-per-byte balance at serving prompt lengths. This simple version
-// runs those FLOPs on the fp32 CUDA cores (67 TFLOP/s peak), not the
-// tensor cores; wgmma tiles fed by TMA are the next step.
+// FLOP-per-byte balance at serving prompt lengths. The products run on the
+// tensor cores through mma.sync.m16n8k8 in TF32. TF32 keeps 10 mantissa
+// bits, too few for the port's fp32 tolerance, so fp32 takes "3xTF32":
+// each operand x splits into hi = tf32(x) (rounded to nearest) and
+// lo = x - hi, and every product is lo*hi + hi*lo + hi*hi accumulated in
+// fp32 (lo*lo dropped; the tensor core truncates lo to TF32), which keeps
+// about 21 bits of each product, at three times the tensor work.
+// tests/test_torch_flash_tf32.py shows, with this arithmetic emulated on
+// the CPU, that one TF32 pass misses the fp32 tolerance and 3xTF32 meets
+// it. bf16 values are exact in TF32, so the bf16 instantiation runs the hi
+// pass alone (P rounded to TF32 for P V). The softmax runs in fp32 on the
+// CUDA cores. So the least time is the larger of the bytes over the
+// memory rate and 3 x FLOPs over the TF32 rate.
 //
-// Design: one block of 256 threads per (64-row query tile, head, batch
-// row). Key/value tiles of 64 rows stream through shared memory in fp32; a
-// 16 x 16 thread grid holds a 4 x 4 score micro-tile per thread and a
-// 4 x hd/16 slice of the output accumulator. Key tiles that the causal mask
-// or the window removes entirely are never loaded.
+// Design (FlashAttention-2 layout): one block of 4 warps per (64-row query
+// tile, head, batch row); each warp owns 16 query rows. Its scores, running
+// max, running sum and output accumulator stay in registers in the MMA
+// fragment layouts; row max and sum go through quad shuffles, and scores
+// never touch shared memory: the score fragment of keys 2t, 2t+1 feeds the
+// P V product as the A fragment of a key order permuted within each 8-key
+// step, and V's rows are read in that same order, so the sum is unchanged.
+// Head dims are permuted the same way for Q and K within each 16-wide
+// chunk, so a lane's Q and K fragments of two k-steps are one 16-byte
+// shared load each.
+// K/V tiles of 32 keys stream through a 2-stage shared-memory ring filled
+// by 16-byte cp.async copies (element copies where a base is not 16-byte
+// aligned): the next tile's copy is in flight while this tile's MMAs run,
+// with one block barrier per tile. Padded row strides make every fragment
+// load from shared memory free of bank conflicts (FlashSmem). Shared
+// memory is 107,520 bytes at fp32 hd 128, so two blocks fit on an SM.
+// Q stays in shared memory (fp32, unscaled; the scale goes into exp2) and
+// is split per fragment as it is loaded, since its hi and lo fragments
+// held whole would take 128 registers a thread at hd 128. fp32 Q comes by
+// cp.async with tile 0's copies; the output is staged through the warp's
+// Q rows and stored coalesced.
+// Key tiles that the causal mask, the window or kv_len remove entirely are
+// never loaded; a warp skips the tiles that hold no key for any of its
+// rows, and the per-element mask runs only on diagonal, window-edge and
+// kv_len-edge tiles. Query tiles launch heaviest first (the grid's slowest
+// axis runs the causal tiles from the last). A block serves one query
+// head: the G query heads of a kv head are separate blocks, which read the
+// same K/V tiles through the L2 cache (a K/V tile feeds 64 query rows
+// either way). Two runs give the same bits: no atomics, and every sum runs
+// in a fixed order.
+#include <type_traits>
+
 #include "attention_common.cuh"
 
-constexpr int FA_BQ = 64;
-constexpr int FA_BK = 64;
-constexpr int FA_THREADS = 256;
+constexpr int FA_BQ = 64;                  // query rows per block
+constexpr int FA_BK = 32;                  // keys per tile
+constexpr int FA_WARPS = FA_BQ / 16;       // 16 query rows per warp
+constexpr int FA_THREADS = 32 * FA_WARPS;
+constexpr int FA_STAGES = 2;
 
-template <int HD>
-constexpr size_t flash_smem_bytes() {
-  // Qs (BQ, HD+1) + Ks (BK, HD+1) + Vs (BK, HD) + Ps (BQ, BK), fp32
-  return sizeof(float) *
-         (FA_BQ * (HD + 1) + FA_BK * (HD + 1) + FA_BK * HD + FA_BQ * FA_BK);
+// the smallest row stride >= hd elements that is r modulo m
+__host__ __device__ constexpr int pad_to(int hd, int r, int m) {
+  return hd + ((r - hd) % m + m) % m;
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// Shared memory of one block: Q (BQ rows of QS floats), then the K and V
+// rings (STAGES x BK rows of KS and VS elements). The strides keep every
+// fragment load free of bank conflicts: Q and K rows are read 16 (fp32) or
+// 8 (bf16) bytes a lane, and QS, KS put the rows that one phase of such a
+// load reads on distinct banks; V is read 4 or 2 bytes a lane from rows
+// 2 t and 2 t + 1, which VS (HD + 16 bytes) spreads alike.
+template <typename T, int HD>
+struct FlashSmem {
+  static constexpr int QS = pad_to(HD, 16, 32);
+  static constexpr int KS =
+      sizeof(T) == 4 ? pad_to(HD, 16, 32) : pad_to(HD, 16, 64);
+  static constexpr int VS = HD + 16 / static_cast<int>(sizeof(T));
+  static constexpr size_t q_bytes = sizeof(float) * FA_BQ * QS;
+  static constexpr size_t k_elems = (size_t)FA_STAGES * FA_BK * KS;
+  static constexpr size_t v_elems = (size_t)FA_STAGES * FA_BK * VS;
+  static constexpr size_t bytes = q_bytes + sizeof(T) * (k_elems + v_elems);
+};
+// two blocks per SM at hd 128: the H100 gives an SM 228 KB, and takes
+// 1 KB of it for each block
+static_assert(2 * (FlashSmem<float, 128>::bytes + 1024) <= 228 * 1024,
+              "flash_kernel: two fp32 hd-128 blocks must fit on an SM");
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest,
+// ties away from zero), in two integer operations: cvt.rna compiles to
+// about four, with checks for infinities and NaN that finite scores and
+// inputs do not need
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// hi = tf32(x) and lo = x - hi (exact in fp32), which the tensor core reads
+// as TF32 by ignoring its low 13 bits; with SPLIT false (bf16 inputs, exact
+// in TF32) hi is x's own bits and lo is unused
+template <bool SPLIT>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (SPLIT) {
+    hi = to_tf32(x);
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+  }
+}
+
+// d += a b on one m16n8k8 tile: a (16 x 8, row) in 4 registers, b (8 x 8,
+// col) in 2, d (16 x 8) in 4 fp32 registers
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32 (small terms first), or in one pass without SPLIT
+template <bool SPLIT>
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  if constexpr (SPLIT) {
+    mma_tf32(d, al, bh);
+    mma_tf32(d, ah, bl);
+  }
+  mma_tf32(d, ah, bh);
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(u.x << 16);
+  x[1] = __uint_as_float(u.x & 0xffff0000u);
+  x[2] = __uint_as_float(u.y << 16);
+  x[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(FA_THREADS)
+__global__ void __launch_bounds__(FA_THREADS, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ kv_len,
-             T* __restrict__ o, int L, int H, int Hkv, float scale,
-             int causal, int window) {
-  constexpr int QS = HD + 1;       // padded row strides: no bank conflicts
-  constexpr int CW = HD / 16;      // output columns per thread
-  const int q0 = blockIdx.x * FA_BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+             T* __restrict__ o, int L, int H, int Hkv, float scale_log2,
+             int causal, int window, int vec) {
+  using SM = FlashSmem<T, HD>;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int QS = SM::QS, KS = SM::KS, VS = SM::VS, NK = FA_BK / 8,
+                ND = HD / 8;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * FA_BQ;   // heaviest first
   const int hk = h / (H / Hkv);
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;   // 16 lanes of a half-warp share ty
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;   // fragment row group, column pair
+  const int r0 = q0 + warp * 16;           // the warp's first query row
   const int klen = kv_len ? min(L, kv_len[b]) : L;   // keys [0, klen) valid
 
-  extern __shared__ float sm[];
-  float* Qs = sm;                    // (BQ, QS) pre-scaled
-  float* Ks = Qs + FA_BQ * QS;       // (BK, QS)
-  float* Vs = Ks + FA_BK * QS;       // (BK, HD)
-  float* Ps = Vs + FA_BK * HD;       // (BQ, BK)
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  float* Qw = reinterpret_cast<float*>(fa_smem) + warp * 16 * QS;
+  T* Kring = reinterpret_cast<T*>(fa_smem + SM::q_bytes);
+  T* Vring = Kring + SM::k_elems;
 
-  for (int i = tid; i < FA_BQ * HD; i += FA_THREADS) {
-    const int r = i / HD, d = i - r * HD;
-    const int qp = q0 + r;
-    Qs[r * QS + d] =
-        qp < L ? to_float(q[(((size_t)b * L + qp) * H + h) * HD + d]) * scale
-               : 0.f;
+  // the warp's 16 query rows (only this warp reads them): fp32 rows by
+  // cp.async, in flight with tile 0's copies; bf16 rows converted
+  if (SPLIT && vec) {
+    constexpr int CH = HD / 4;
+    for (int e = lane; e < 16 * CH; e += 32) {
+      const int r = e / CH, c = (e - r * CH) * 4;
+      const int qp = r0 + r;
+      copy_unit<16>(Qw + r * QS + c,
+                    q + (((size_t)b * L + min(qp, L - 1)) * H + h) * HD + c,
+                    qp < L);
+    }
+  } else {
+    for (int e = lane; e < 16 * HD; e += 32) {
+      const int r = e / HD, d = e - r * HD;
+      const int qp = r0 + r;
+      Qw[r * QS + d] =
+          qp < L ? to_float(q[(((size_t)b * L + qp) * H + h) * HD + d]) : 0.f;
+    }
   }
-
-  float m[4], l[4], acc[4][CW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
-  }
+  cp_async_commit();
 
   // key tiles that can hold an unmasked key for some query of this tile
   const int kend = causal ? min(klen, q0 + FA_BQ) : klen;
   const int kbeg = window > 0 ? max(0, q0 - window + 1) / FA_BK * FA_BK : 0;
+  const int ntiles = kend > kbeg ? (kend - kbeg + FA_BK - 1) / FA_BK : 0;
+  const size_t kv_row = (size_t)Hkv * HD;            // elements a key row
+  const size_t kv_base = ((size_t)b * L * Hkv + hk) * HD;
 
-  for (int k0 = kbeg; k0 < kend; k0 += FA_BK) {
-    __syncthreads();   // previous tile consumed (and Q stored on entry)
-    for (int i = tid; i < FA_BK * HD; i += FA_THREADS) {
-      const int r = i / HD, d = i - r * HD;
-      const int kp = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kp < klen) {
-        const size_t off = (((size_t)b * L + kp) * Hkv + hk) * HD + d;
-        kx = to_float(k[off]);
-        vx = to_float(v[off]);
+  // copy tile tt's K and V rows into stage tt % FA_STAGES; rows at or past
+  // klen are zero-filled (their weight is 0, and 0 * V must stay finite)
+  auto load_tile = [&](int tt) {
+    const int k0 = kbeg + tt * FA_BK;
+    T* Ks = Kring + (tt % FA_STAGES) * FA_BK * KS;
+    T* Vs = Vring + (tt % FA_STAGES) * FA_BK * VS;
+    if (vec) {
+      constexpr int EPC = 16 / static_cast<int>(sizeof(T));   // per chunk
+      constexpr int CH = HD / EPC;                             // chunks a row
+      for (int e = tid; e < FA_BK * CH; e += FA_THREADS) {
+        const int r = e / CH, c = (e - r * CH) * EPC;
+        const bool ok = k0 + r < klen;
+        const size_t off = kv_base + (ok ? (size_t)(k0 + r) * kv_row : 0) + c;
+        copy_unit<16>(Ks + r * KS + c, k + off, ok);
+        copy_unit<16>(Vs + r * VS + c, v + off, ok);
       }
-      Ks[r * QS + d] = kx;
-      Vs[r * HD + d] = vx;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx * 4 + j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      bool ok[4];
-      float m_t = NEG_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx * 4 + j;
-        ok[j] = kp < klen && (!causal || qp >= kp) &&
-                (window <= 0 || qp - kp < window);
-        if (ok[j]) m_t = fmaxf(m_t, s[i][j]);
+    } else {
+      for (int e = tid; e < FA_BK * HD; e += FA_THREADS) {
+        const int r = e / HD, d = e - r * HD;
+        const bool ok = k0 + r < klen;
+        const size_t off = kv_base + (size_t)(k0 + r) * kv_row + d;
+        Ks[r * KS + d] = ok ? k[off] : from_float<T>(0.f);
+        Vs[r * VS + d] = ok ? v[off] : from_float<T>(0.f);
       }
-      m_t = half_warp_max(m_t);
-      const float m_new = fmaxf(m[i], m_t);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty * 4 + i) * FA_BK + tx * 4 + j] = p;
-        psum += p;
-      }
-      psum = half_warp_sum(psum);
-      l[i] = l[i] * alpha + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // O += P V: thread owns rows ty*4..+3 and columns c*16 + tx
-#pragma unroll 4
-    for (int j = 0; j < FA_BK; ++j) {
-      float pv[4];
+  float acc[ND][4];   // rows g, g + 8; columns 8 j + 2 t, + 1
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * FA_BK + j];
+  for (int j = 0; j < ND; ++j)
 #pragma unroll
-      for (int c = 0; c < CW; ++c) {
-        const float vv = Vs[j * HD + c * 16 + tx];
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  float m_lo = NEG_INF_F, m_hi = NEG_INF_F;   // running max of rows g, g + 8
+  float l_lo = 0.f, l_hi = 0.f;               // this thread's share of the sum
+  const int qa = r0 + g, qb = r0 + g + 8;
+
+  if (ntiles > 0) load_tile(0);
+  for (int tt = 0; tt < ntiles; ++tt) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile tt landed; every warp is done with tile tt - 1
+    if (tt + 1 < ntiles) load_tile(tt + 1);
+    const int k0 = kbeg + tt * FA_BK;
+    // warp-uniform: no key of the tile is unmasked for any row of the warp
+    if (r0 >= L || (causal && k0 > r0 + 15) ||
+        (window > 0 && r0 - (k0 + FA_BK - 1) >= window))
+      continue;
+    const bool edge = (causal && k0 + FA_BK - 1 > r0) ||
+                      (window > 0 && r0 + 15 - k0 >= window) ||
+                      k0 + FA_BK > klen;
+    const T* Ks = Kring + (tt % FA_STAGES) * FA_BK * KS;
+    const T* Vs = Vring + (tt % FA_STAGES) * FA_BK * VS;
+
+    // S = Q K^T: s[n] holds rows g, g + 8 of keys k0 + 8 n + 2 t, + 1
+    float s[NK][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] += pv[i] * vv;
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+    // head dims permuted within each 16-wide chunk c, alike for Q and K:
+    // d = 16 c + 4 t + i holds column t (i = 0, 2) or t + 4 (i = 1, 3) of
+    // k-step 2 c (i < 2) or 2 c + 1, so a thread's four values of both
+    // k-steps are one 16-byte load
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) {
+      const float* qr = Qw + g * QS + 16 * c + 4 * t;
+      const float4 x0 = *reinterpret_cast<const float4*>(qr);
+      const float4 x8 = *reinterpret_cast<const float4*>(qr + 8 * QS);
+      uint32_t ah0[4], al0[4], ah1[4], al1[4];
+      split_tf32<SPLIT>(x0.x, ah0[0], al0[0]);
+      split_tf32<SPLIT>(x8.x, ah0[1], al0[1]);
+      split_tf32<SPLIT>(x0.y, ah0[2], al0[2]);
+      split_tf32<SPLIT>(x8.y, ah0[3], al0[3]);
+      split_tf32<SPLIT>(x0.z, ah1[0], al1[0]);
+      split_tf32<SPLIT>(x8.z, ah1[1], al1[1]);
+      split_tf32<SPLIT>(x0.w, ah1[2], al1[2]);
+      split_tf32<SPLIT>(x8.w, ah1[3], al1[3]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        float kx[4];
+        load4(Ks + (n * 8 + g) * KS + 16 * c + 4 * t, kx);
+        uint32_t bh0[2], bl0[2], bh1[2], bl1[2];
+        split_tf32<SPLIT>(kx[0], bh0[0], bl0[0]);
+        split_tf32<SPLIT>(kx[1], bh0[1], bl0[1]);
+        split_tf32<SPLIT>(kx[2], bh1[0], bl1[0]);
+        split_tf32<SPLIT>(kx[3], bh1[1], bl1[1]);
+        mma3<SPLIT>(s[n], ah0, al0, bh0, bl0);
+        mma3<SPLIT>(s[n], ah1, al1, bh1, bl1);
+      }
+    }
+
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kp = k0 + n * 8 + 2 * t + (i & 1);
+          const int qp = i < 2 ? qa : qb;
+          const bool ok = kp < klen && (!causal || kp <= qp) &&
+                          (window <= 0 || qp - kp < window);
+          if (!ok) s[n][i] = -INFINITY;
+        }
+    }
+
+    // online softmax on the unscaled scores: p = 2^((s - m) scale log2 e)
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+    }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    const float a_lo = exp2f((m_lo - mx_lo) * scale_log2);
+    const float a_hi = exp2f((m_hi - mx_hi) * scale_log2);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      s[n][0] = exp2f((s[n][0] - mx_lo) * scale_log2);
+      s[n][1] = exp2f((s[n][1] - mx_lo) * scale_log2);
+      s[n][2] = exp2f((s[n][2] - mx_hi) * scale_log2);
+      s[n][3] = exp2f((s[n][3] - mx_hi) * scale_log2);
+      ps_lo += s[n][0] + s[n][1];
+      ps_hi += s[n][2] + s[n][3];
+    }
+    l_lo = l_lo * a_lo + ps_lo;
+    l_hi = l_hi * a_hi + ps_hi;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][0] *= a_lo;
+      acc[j][1] *= a_lo;
+      acc[j][2] *= a_hi;
+      acc[j][3] *= a_hi;
+    }
+
+    // O += P V over each 8-key step kk: the A fragment's column t is key
+    // 2 t and column t + 4 key 2 t + 1, so it is s[kk] reordered, and V's
+    // rows are read in the same order
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (SPLIT) {
+        split_tf32<true>(s[kk][0], ah[0], al[0]);
+        split_tf32<true>(s[kk][2], ah[1], al[1]);
+        split_tf32<true>(s[kk][1], ah[2], al[2]);
+        split_tf32<true>(s[kk][3], ah[3], al[3]);
+      } else {
+        ah[0] = to_tf32(s[kk][0]);
+        ah[1] = to_tf32(s[kk][2]);
+        ah[2] = to_tf32(s[kk][1]);
+        ah[3] = to_tf32(s[kk][3]);
+      }
+      const T* vr = Vs + (kk * 8 + 2 * t) * VS + g;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        uint32_t bh[2], bl[2];
+        split_tf32<SPLIT>(to_float(vr[j * 8]), bh[0], bl[0]);
+        split_tf32<SPLIT>(to_float(vr[VS + j * 8]), bh[1], bl[1]);
+        mma3<SPLIT>(acc[j], ah, al, bh, bl);
       }
     }
   }
+  cp_async_wait<0>();
 
+  // out = acc / max(l, 1e-20), by one reciprocal a row, staged through
+  // the warp's own Q rows so that the stores to global memory coalesce
+  l_lo = quad_sum(l_lo);
+  l_hi = quad_sum(l_hi);
+  const float d_lo = fmaxf(l_lo, 1e-20f), d_hi = fmaxf(l_hi, 1e-20f);
+  __syncwarp(FULL);
+  const float i_lo = 1.f / d_lo, i_hi = 1.f / d_hi;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp >= L) continue;
-    const float denom = fmaxf(l[i], 1e-20f);
-    T* dst = o + (((size_t)b * L + qp) * H + h) * HD;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) dst[c * 16 + tx] = from_float<T>(acc[i][c] / denom);
+  for (int j = 0; j < ND; ++j) {
+    float* lo = Qw + g * QS + j * 8 + 2 * t;
+    lo[0] = acc[j][0] * i_lo;
+    lo[1] = acc[j][1] * i_lo;
+    lo[8 * QS] = acc[j][2] * i_hi;
+    lo[8 * QS + 1] = acc[j][3] * i_hi;
+  }
+  __syncwarp(FULL);
+  for (int e = lane; e < 16 * HD; e += 32) {
+    const int r = e / HD, d = e - r * HD;
+    const int qp = r0 + r;
+    if (qp < L)
+      o[(((size_t)b * L + qp) * H + h) * HD + d] =
+          from_float<T>(Qw[r * QS + d]);
   }
 }
 
@@ -188,16 +412,18 @@ template <typename T, int HD>
 static int launch(const void* q, const void* k, const void* v,
                   const int* kv_len, void* out, int B, int L, int H, int Hkv,
                   int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<HD>();
+  constexpr size_t smem = FlashSmem<T, HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + FA_BQ - 1) / FA_BQ, H, B);
+  const dim3 grid(H, B, (L + FA_BQ - 1) / FA_BQ);
+  const int vec = aligned(q, 16) && aligned(k, 16) && aligned(v, 16);
   flash_kernel<T, HD><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<T*>(out), L, H, Hkv,
-      1.0f / sqrtf(static_cast<float>(HD)), causal, window);
+      1.4426950408889634f / sqrtf(static_cast<float>(HD)), causal, window,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 

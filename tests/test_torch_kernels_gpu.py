@@ -7,7 +7,8 @@ a machine with only PyTorch; there, skip the JAX-importing conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: fp32 within atol/rtol 2e-5, bf16 within 2e-2 (the kernels
-accumulate in fp32 in another order than the plain versions). The
+accumulate in fp32 in another order than the plain versions; the flash
+kernel's fp32 products are 3xTF32, about 21 bits each). The
 cross-modal score kernels take fp32 tolerances at both input types: they
 and their plain versions compute in fp32 from the same bf16 values.
 """
@@ -38,16 +39,53 @@ def _close(out, exp, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_kernel_on_card(gen, dtype, hd):
-    for L, causal, window in ((256, True, 0), (200, True, 0),
-                              (300, True, 96), (37, False, 0)):
+    """K2 (3xTF32 tensor-core products in fp32, one TF32 pass in bf16)
+    at every head_dim it takes: causal prompts of a whole tile, a ragged
+    last tile (200, 37) and llava's 832, a 4096-token row (the 3xTF32
+    error over many keys), a sliding window whose edge cuts a diagonal
+    tile, a non-causal row, and key lengths. One launch a call; two runs
+    give the same bits."""
+    for L, causal, window, lens in ((256, True, 0, None),
+                                    (200, True, 0, None),
+                                    (832, True, 0, None),
+                                    (4096, True, 0, None),
+                                    (300, True, 96, None),
+                                    (37, False, 0, None),
+                                    (200, True, 0, [200, 37])):
         q = _rand(gen, (2, L, 8, hd), dtype)
         k = _rand(gen, (2, L, 4, hd), dtype)
         v = _rand(gen, (2, L, 4, hd), dtype)
-        _close(ops.flash_attention(q, k, v, causal=causal, window=window),
-               ref.flash_attention_ref(q, k, v, causal=causal,
-                                       window=window), dtype)
+        ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device="cuda")
+        before = ops.LAUNCHES["flash_attention"]
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  lengths=ln)
+        _close(out, ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, lengths=ln),
+               dtype)
+        assert torch.equal(out, ops.flash_attention(
+            q, k, v, causal=causal, window=window, lengths=ln))
+        assert ops.LAUNCHES["flash_attention"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_unaligned_on_card(gen, dtype):
+    """Contiguous q/k/v whose bases are not 16-byte aligned (views one
+    element into a buffer): K2 copies them element by element instead of
+    by 16-byte cp.async, with the same result."""
+    B, L, H, Hkv, hd = 2, 200, 8, 4, 64
+
+    def unaligned(shape):
+        n = B * L * shape * hd
+        return _rand(gen, (n + 1,), dtype)[1:].view(B, L, shape, hd)
+
+    q, k, v = unaligned(H), unaligned(Hkv), unaligned(Hkv)
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    _close(ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v),
+           dtype)
 
 
 @pytest.mark.gpu
@@ -67,13 +105,16 @@ def test_dense_decode_kernel_on_card(gen, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["first split only", "one split",
                                   "ragged last split", "granite G 3",
-                                  "no valid row", "G 8", "hd 33", "hd 36"])
+                                  "no valid row", "no valid row, one split",
+                                  "G 8", "hd 33", "hd 36"])
 def test_dense_decode_split_cases_on_card(gen, dtype, case):
     """The split-KV plan's edge cases: only the first split holds valid
     rows (the rest weigh exactly 0), a plan of one split (no combine), an
     S that is not a multiple of the split length, granite's 24/8 heads of
-    width 64, and a batch row with no valid row (output 0, as the kernel
-    had it before the split). Then the instantiations the serving shapes
+    width 64, and a batch row with no valid row under a plan of several
+    splits and under one split (the mean of V over all S rows, as the
+    plain version's softmax over scores that are all -1e30 gives it).
+    Then the instantiations the serving shapes
     do not reach: eight query heads per kv head, and rows whose byte
     length is no multiple of 16, copied in 4-byte units (fp32 hd 33, bf16
     hd 36) or 2-byte units (bf16 hd 33). Two runs give the same bits."""
@@ -82,6 +123,7 @@ def test_dense_decode_split_cases_on_card(gen, dtype, case):
                         "ragged last split": (4, 1000, 8, 2, 64),
                         "granite G 3": (8, 288, 24, 8, 64),
                         "no valid row": (3, 300, 8, 4, 128),
+                        "no valid row, one split": (3, 16, 8, 4, 128),
                         "G 8": (2, 300, 16, 2, 128),
                         "hd 33": (3, 500, 8, 4, 33),
                         "hd 36": (2, 200, 6, 2, 36)}[case]
@@ -99,16 +141,14 @@ def test_dense_decode_split_cases_on_card(gen, dtype, case):
         assert n_split == 1
     elif case == "ragged last split":
         assert S % rows != 0
-    elif case == "no valid row":
+    elif case.startswith("no valid row"):
+        assert (n_split == 1) == case.endswith("one split")
         mask[1] = False
     else:
         assert n_split > 1
     before = ops.LAUNCHES["decode_attention"]
     out = ops.decode_attention(q, k, v, mask)
-    exp = ref.decode_attention_ref(q, k, v, mask)
-    if case == "no valid row":
-        exp[1] = 0
-    _close(out, exp, dtype)
+    _close(out, ref.decode_attention_ref(q, k, v, mask), dtype)
     assert torch.equal(out, ops.decode_attention(q, k, v, mask))
     assert ops.LAUNCHES["decode_attention"] == before + 2
 
@@ -117,7 +157,7 @@ def test_dense_decode_split_cases_on_card(gen, dtype, case):
 @pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8,
                                   torch.float8_e4m3fn])
 def test_paged_decode_kernel_on_card(gen, pool):
-    B, H, Hkv, hd, ps, n = 4, 8, 4, 128, 16, 6
+    B, H, Hkv, hd, ps, n = 5, 8, 4, 128, 16, 6
     P = B * n + 1
     dtype = torch.bfloat16 if pool == torch.bfloat16 else torch.float32
     q = _rand(gen, (B, 1, H, hd), dtype)
@@ -131,7 +171,9 @@ def test_paged_decode_kernel_on_card(gen, pool):
         kp, vp = kf.to(pool), vf.to(pool)
     bt = (torch.randperm(P - 1, generator=gen, device="cuda") + 1
           ).reshape(B, n).to(torch.int32)
-    ln = torch.tensor([1, 17, 50, n * ps], dtype=torch.int32, device="cuda")
+    # row 2 has no valid key: the mean of V over its n * ps slots
+    ln = torch.tensor([1, 17, 0, 50, n * ps], dtype=torch.int32,
+                      device="cuda")
     before = ops.LAUNCHES["paged_decode_attention"]
     _close(ops.paged_decode_attention(q, kp, vp, bt, ln, k_scale=ks,
                                       v_scale=vs),
@@ -149,6 +191,7 @@ PAGED_SPLIT_CASES = {
     "shared pages": (4, 16, 8, 128, 16, 18, [288, 200, 150, 30]),
     "page ids out of range": (3, 16, 8, 128, 16, 18, [288, 250, 100]),
     "no valid row": (3, 8, 4, 128, 16, 20, [300, 0, 77]),
+    "no valid row, one split": (3, 8, 4, 128, 16, 1, [16, 0, 5]),
     "granite G 3": (8, 24, 8, 64, 16, 18, [257 + 4 * i for i in range(8)]),
     "ps 8": (3, 8, 2, 128, 8, 40, [320, 171, 9]),
     "ps 64": (2, 16, 8, 128, 64, 10, [640, 300]),
@@ -168,8 +211,9 @@ def test_paged_decode_split_cases_on_card(gen, pool, case):
     live, one split and no combine, a ragged last split, lengths past
     n * ps, clipped), at block tables the engine makes or must survive
     (two rows sharing pages, as copy-on-write seeding leaves them; page
-    ids out of range, clipped), at a batch row with no valid key (the
-    kernel gives 0 where the plain version gives the mean of V, as K3),
+    ids out of range, clipped), at a batch row with no valid key under
+    several splits and under one (the mean of V over the row's n * ps
+    gathered slots, dequantized, as the plain version gives it),
     at granite's 24/8 heads of width 64, at pages of 8, 64 and 6 rows (6
     is no multiple of 4: rows are looked up one by one), at eight query
     heads per kv head, and at hd 33 and 36 (rows copied in 4-, 2- and
@@ -211,8 +255,8 @@ def test_paged_decode_split_cases_on_card(gen, pool, case):
         torch.cuda.set_sync_debug_mode("default")
     exp = ref.paged_decode_attention_ref(q, kp, vp, bt, ln, k_scale=ks,
                                          v_scale=vs)
-    if case == "no valid row":
-        exp[1] = 0
+    if case.startswith("no valid row"):
+        assert (n_split == 1) == case.endswith("one split")
     _close(out, exp, dtype)
     assert torch.equal(out, ops.paged_decode_attention(
         q, kp, vp, bt, ln, k_scale=ks, v_scale=vs))
