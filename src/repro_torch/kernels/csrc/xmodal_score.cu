@@ -10,12 +10,24 @@
 //   S_align[b] = 0.5 * (sum1 / (max(sum_t mask, 1) * Nv) + sum2 / Nt).
 //
 // What bounds them on an H100, at the serving shape (B 1, L 32, Nv 576,
-// Nt 256, d 4096, fp32): K4a by bytes (its L + Nv rows are read once and
-// its 2 L Nv d = 0.15 GFLOP are few), K4b by fp32 operations (2 Nt Nv d =
-// 1.2 GFLOP on the CUDA cores; the tensor cores would need TF32, which
-// rounds the products to 10 mantissa bits).
+// Nt 256, d 4096, fp32): K4a by bytes (its L + Nv rows, 9.96 MB, read
+// once: 3.0 us at 3.35 TB/s), K4b by fp32 operations (2 Nt Nv d = 1.2
+// GFLOP on the CUDA cores; the tensor cores would need TF32, which rounds
+// the products to 10 mantissa bits).
 //
-// Design: one tile body for both kernels. A block of 128 threads computes
+// K4a's design: the sum factors exactly,
+//   sum1 = sum_t m_t inv_t (tok_t . u),  u = sum_j inv_j vis_j,
+//   inv_x = 1 / max(|x|, 1e-8),
+// so it needs no dot product between a token and a visual row. Pass 1
+// (`xmodal_mean_kernel_inv`) takes the inverse norms of all B (L + Nv)
+// rows, 128 threads a row with 16-byte loads; it is the pass that reads
+// the inputs from device memory. Pass 2 (`xmodal_mean_kernel_sum`) cuts d
+// into 32-column chunks, one block each (128 at the serving shape):
+// u's chunk from the visual rows, which pass 1 left in the 50 MB L2, then
+// every token's partial dot with it; the last block of a batch row folds
+// the chunks' sums in chunk order.
+//
+// K4b's design: a block of 128 threads computes
 // the 32 x 64 tile of dot products between rows [r0, r0 + 32) and visual
 // rows [v0, v0 + 64), each thread a 4 x 4 micro-tile in registers. The d
 // loop stages 64-wide chunks through shared memory, stored k-major so each
@@ -27,14 +39,16 @@
 // stride of 4 (mod 32) words also makes their transposing stores
 // conflict-free. The squared norms of the rows accumulate in the loaders'
 // registers on the way, so normalising costs no second pass. The grid
-// covers (row tiles, visual tiles, batch rows): at the serving shape K4b
-// runs 72 blocks, K4a 9. Each block reduces its tile to partials (K4a: the
-// masked sum of its cosines; K4b: each row's max over its visual rows) and
-// the last block of a batch row to finish, found by an integer atomic
-// ticket, folds all partials in a fixed order. There are no float atomics,
-// so repeated runs give bitwise equal scores and the same CAMD decisions.
-// Row counts and d need not be tile multiples: the ragged edge loads zeros
-// and is masked out of the results.
+// covers (text row tiles, visual tiles, batch rows), 72 blocks at the
+// serving shape. Each block reduces its tile to each row's max over its
+// visual rows, and the last block of a batch row to finish, found by an
+// integer atomic ticket, folds all partials in a fixed order.
+//
+// Neither kernel uses float atomics, so repeated runs give bitwise equal
+// scores and the same CAMD decisions. Row counts and d need not be tile
+// or chunk multiples: the ragged edge loads zeros and is masked out of
+// the results. A zero row has inv = 1e8 and adds exactly 0, and a masked
+// token adds 0 * (finite), as in the plain version.
 #include "attention_common.cuh"
 
 constexpr int XM_ROWS = 32;        // rows (tokens or text) per block
@@ -166,43 +180,173 @@ __device__ bool last_block(int* ticket, int b, int blocks, TileSmem& sm) {
   return sm.last;
 }
 
-// K4a. partial: (B, gridDim.y * gridDim.x) fp32; ticket: (B,) int32 zeros;
-// out: (B,) fp32 sum1.
-template <typename T>
-__global__ void __launch_bounds__(XM_THREADS)
-xmodal_mean_kernel(const T* __restrict__ tok, const float* __restrict__ mask,
-                   const T* __restrict__ vis, float* partial, int* ticket,
-                   float* out, int L, int Nv, int d) {
-  __shared__ __align__(16) TileSmem sm;
-  const int b = blockIdx.z;
-  const int r0 = blockIdx.x * XM_ROWS, v0 = blockIdx.y * XM_COLS;
-  tok += (size_t)b * L * d;
-  vis += (size_t)b * Nv * d;
-  mask += (size_t)b * L;
-  float acc[4][4] = {};
-  cos_tile(tok, L, r0, vis, Nv, v0, d, sm, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s = 0.f;
+// ---------------------------------------------------------------------------
+// K4a, factored. sum1 = sum_t m_t inv_t (tok_t . u) with u = sum_j inv_j
+// vis_j: two passes that read each input byte once from device memory
+// and form no (L x Nv) tile.
+
+// Vector loads of a row: V elements of T as one 16-byte load where the
+// launcher found every row 16-byte aligned, one element otherwise.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p,
+                                         float (&f)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (r0 + r >= L) continue;
-    float row = 0.f;
+    for (int i = 0; i < V; ++i) f[i] = to_float(e[i]);
+  } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = 4 * tx + j;
-      if (v0 + c < Nv) row += acc[i][j] * sm.inv_v[c];
-    }
-    s += mask[r0 + r] * (row * sm.inv_a[r]);
+    for (int i = 0; i < V; ++i) f[i] = to_float(p[i]);
   }
-  s = block_sum(s, sm);
-  const int blocks = gridDim.x * gridDim.y;
-  float* part = partial + (size_t)b * blocks;
-  if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = s;
-  if (!last_block(ticket, b, blocks, sm)) return;
+}
+
+constexpr int XA_ROW_THREADS = 128;  // threads that share a row in pass 1
+constexpr int XA_INV_ROWS = 2;       // rows a block of pass 1
+constexpr int XA_INV_THREADS = XA_ROW_THREADS * XA_INV_ROWS;
+constexpr int XA_INV_UNROLL = 8;     // vector loads in flight a thread
+constexpr int XA_COLS = 32;          // columns of d a block of pass 2 takes
+constexpr int XA_THREADS = 1024;
+constexpr int XA_WARPS = XA_THREADS / 32;
+constexpr int XA_UNROLL = 18;        // visual rows in flight a lane
+
+// Pass 1: inv[r] = 1 / max(|row r|, 1e-8) for the B L token rows, then
+// the B Nv visual rows. XA_ROW_THREADS threads share a row (16 KB at
+// d 4096 fp32: 8 vector loads a thread, all in flight at once); their
+// sums of squares fold by a butterfly in each warp, then in warp order.
+// Block 0 also zeroes the tickets of pass 2, which runs after it on the
+// same stream.
+template <typename T, int V>
+__global__ void __launch_bounds__(XA_INV_THREADS)
+xmodal_mean_kernel_inv(const T* __restrict__ tok, const T* __restrict__ vis,
+                       float* __restrict__ inv, int* __restrict__ ticket,
+                       int B, int L, int Nv, int d) {
+  __shared__ float red[XA_INV_THREADS / 32];
+  if (blockIdx.x == 0)
+    for (int b = threadIdx.x; b < B; b += XA_INV_THREADS) ticket[b] = 0;
+  const int rt = threadIdx.x % XA_ROW_THREADS;
+  const long r =
+      (long)blockIdx.x * XA_INV_ROWS + threadIdx.x / XA_ROW_THREADS;
+  const long n_tok = (long)B * L, rows = n_tok + (long)B * Nv;
+  float sq = 0.f;
+  if (r < rows) {
+    const T* row = r < n_tok ? tok + r * d : vis + (r - n_tok) * d;
+    for (int c0 = rt * V; c0 < d; c0 += XA_ROW_THREADS * V * XA_INV_UNROLL) {
+      float x[XA_INV_UNROLL][V];
+#pragma unroll
+      for (int u = 0; u < XA_INV_UNROLL; ++u) {
+        const int c = c0 + u * XA_ROW_THREADS * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i) x[u][i] = 0.f;
+        if (c < d) load_vec<T, V>(row + c, x[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < XA_INV_UNROLL; ++u)
+#pragma unroll
+        for (int i = 0; i < V; ++i) sq += x[u][i] * x[u][i];
+    }
+  }
+  sq = warp_sum(sq);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = sq;
+  __syncthreads();
+  if (rt == 0 && r < rows) {
+    constexpr int W = XA_ROW_THREADS / 32;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) t += red[threadIdx.x / 32 + w];
+    inv[r] = 1.f / fmaxf(sqrtf(t), XM_EPS);
+  }
+}
+
+struct MeanSmem {
+  float u[XA_WARPS][XA_COLS];        // each warp's share of u's columns
+  float red[XA_WARPS];
+  int last;
+};
+
+// Fixed-order sum over the block of one value a warp (valid in lane 0);
+// the result is valid in thread 0.
+__device__ float mean_block_sum(float v, MeanSmem& sm) {
+  if (threadIdx.x % 32 == 0) sm.red[threadIdx.x / 32] = v;
+  __syncthreads();
   float t = 0.f;
-  for (int i = threadIdx.x; i < blocks; i += XM_THREADS) t += __ldcg(&part[i]);
-  t = block_sum(t, sm);
+  if (threadIdx.x == 0)
+    for (int w = 0; w < XA_WARPS; ++w) t += sm.red[w];
+  __syncthreads();
+  return t;
+}
+
+// Pass 2, grid (column chunks of XA_COLS, B). Lane l of every warp owns
+// column c = chunk * XA_COLS + l: warp w sums inv_j vis[j][c] over the
+// visual rows j = w (mod XA_WARPS), XA_UNROLL loads in flight (the rows
+// come from the L2, where pass 1 left them), and after one barrier each
+// warp folds the XA_WARPS shares of u[c] in warp order itself. Warp w
+// then takes the token rows t = w (mod XA_WARPS): the chunk's dot
+// tok_t . u by a butterfly, weighted by m_t inv_t. The block's sum goes
+// to partial[b][chunk]; the last block of batch row b (integer ticket)
+// folds the row's partials in chunk order. No float atomics: two runs
+// give the same bits.
+template <typename T>
+__global__ void __launch_bounds__(XA_THREADS)
+xmodal_mean_kernel_sum(const T* __restrict__ tok,
+                       const float* __restrict__ mask,
+                       const T* __restrict__ vis,
+                       const float* __restrict__ inv, float* partial,
+                       int* ticket, float* __restrict__ out, int L, int Nv,
+                       int d) {
+  __shared__ MeanSmem sm;
+  const int b = blockIdx.y, B = gridDim.y, chunks = gridDim.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c = blockIdx.x * XA_COLS + lane;
+  const bool live = c < d;
+  const float* inv_t = inv + (size_t)b * L;
+  const float* inv_v = inv + (size_t)B * L + (size_t)b * Nv;
+  tok += (size_t)b * L * d + c;
+  vis += (size_t)b * Nv * d + c;
+  // the warp's first token (value, mask, inverse norm), in flight beside
+  // the visual rows
+  const bool t0 = warp < L;
+  const float x0 = (t0 && live) ? to_float(tok[(size_t)warp * d]) : 0.f;
+  const float m0 = t0 ? mask[(size_t)b * L + warp] : 0.f;
+  const float i0 = t0 ? inv_t[warp] : 0.f;
+  float acc = 0.f;
+  for (int j0 = warp; j0 < Nv; j0 += XA_WARPS * XA_UNROLL) {
+    float x[XA_UNROLL], w[XA_UNROLL];
+#pragma unroll
+    for (int i = 0; i < XA_UNROLL; ++i) {
+      const int j = j0 + i * XA_WARPS;
+      w[i] = j < Nv ? inv_v[j] : 0.f;
+      x[i] = (j < Nv && live) ? to_float(vis[(size_t)j * d]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < XA_UNROLL; ++i) acc += w[i] * x[i];
+  }
+  sm.u[warp][lane] = acc;
+  __syncthreads();
+  float u = 0.f;
+#pragma unroll
+  for (int w = 0; w < XA_WARPS; ++w) u += sm.u[w][lane];
+  float s = 0.f;
+  for (int t = warp; t < L; t += XA_WARPS) {
+    const bool first = t == warp;
+    const float x =
+        first ? x0 : (live ? to_float(tok[(size_t)t * d]) : 0.f);
+    const float dot = warp_sum(x * u);
+    s += (first ? m0 : mask[(size_t)b * L + t]) *
+         ((first ? i0 : inv_t[t]) * dot);
+  }
+  s = mean_block_sum(s, sm);
+  float* part = partial + (size_t)b * chunks;
+  if (threadIdx.x == 0) {             // publish, then take a ticket
+    part[blockIdx.x] = s;
+    __threadfence();
+    sm.last = atomicAdd(&ticket[b], 1) == chunks - 1;
+  }
+  __syncthreads();
+  if (!sm.last) return;
+  float t = 0.f;
+  for (int i = threadIdx.x; i < chunks; i += XA_THREADS) t += __ldcg(&part[i]);
+  t = mean_block_sum(warp_sum(t), sm);
   if (threadIdx.x == 0) out[b] = t;
 }
 
@@ -252,29 +396,48 @@ xmodal_max_kernel(const T* __restrict__ txt, const T* __restrict__ vis,
 
 static inline unsigned cdiv(int n, int m) { return (n + m - 1) / m; }
 
-// tok: (B, L, d); mask: (B, L) fp32; vis: (B, Nv, d); partial: (B,
-// ceil(L/32) * ceil(Nv/64)) fp32; ticket: (B,) int32 zeros; out: (B,) fp32.
-// dtype: F32 or BF16 (tok and vis alike). Returns cudaGetLastError().
+template <typename T, int V>
+static void launch_mean(const void* tok, const float* mask, const void* vis,
+                        float* work, int* ticket, float* out, int B, int L,
+                        int Nv, int d, cudaStream_t st) {
+  const T* t = static_cast<const T*>(tok);
+  const T* v = static_cast<const T*>(vis);
+  const int rows = B * (L + Nv);
+  xmodal_mean_kernel_inv<T, V><<<cdiv(rows, XA_INV_ROWS), XA_INV_THREADS,
+                                 0, st>>>(
+      t, v, work, ticket, B, L, Nv, d);
+  const dim3 grid(cdiv(d, XA_COLS), B);
+  xmodal_mean_kernel_sum<T><<<grid, XA_THREADS, 0, st>>>(
+      t, mask, v, work, work + rows, ticket, out, L, Nv, d);
+}
+
+// tok: (B, L, d); mask: (B, L) fp32; vis: (B, Nv, d); work: (B (L + Nv)
+// + B ceil(d/32)) fp32 (the rows' inverse norms, then the chunks'
+// partials); ticket: (B,) int32, zeroed by the first kernel; out: (B,)
+// fp32. dtype: F32 or BF16 (tok and vis alike). Returns
+// cudaGetLastError().
 extern "C" int xmodal_score_mean(const void* tok, const void* mask,
-                                 const void* vis, void* partial, void* ticket,
+                                 const void* vis, void* work, void* ticket,
                                  void* out, int B, int L, int Nv, int d,
                                  int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(cdiv(L, XM_ROWS), cdiv(Nv, XM_COLS), B);
   const float* m = static_cast<const float*>(mask);
-  float* p = static_cast<float*>(partial);
+  float* w = static_cast<float*>(work);
   int* tk = static_cast<int*>(ticket);
   float* o = static_cast<float*>(out);
-  if (dtype == F32)
-    xmodal_mean_kernel<float><<<grid, XM_THREADS, 0, st>>>(
-        static_cast<const float*>(tok), m, static_cast<const float*>(vis), p,
-        tk, o, L, Nv, d);
-  else if (dtype == BF16)
-    xmodal_mean_kernel<__nv_bfloat16><<<grid, XM_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(tok), m,
-        static_cast<const __nv_bfloat16*>(vis), p, tk, o, L, Nv, d);
-  else
+  if (dtype != F32 && dtype != BF16)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int elem = dtype == F32 ? 4 : 2;
+  const bool vec = (long)d * elem % 16 == 0 && aligned(tok, 16) &&
+                   aligned(vis, 16);
+  if (dtype == F32 && vec)
+    launch_mean<float, 4>(tok, m, vis, w, tk, o, B, L, Nv, d, st);
+  else if (dtype == F32)
+    launch_mean<float, 1>(tok, m, vis, w, tk, o, B, L, Nv, d, st);
+  else if (vec)
+    launch_mean<__nv_bfloat16, 8>(tok, m, vis, w, tk, o, B, L, Nv, d, st);
+  else
+    launch_mean<__nv_bfloat16, 1>(tok, m, vis, w, tk, o, B, L, Nv, d, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,8 +27,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 _FLASH_HD = (16, 32, 64, 128)
-# rows and visual rows per block of csrc/xmodal_score.cu (XM_ROWS, XM_COLS)
-_XMODAL_ROWS, _XMODAL_COLS = 32, 64
+# csrc/xmodal_score.cu: K4b's visual rows per block (XM_COLS); K4a's
+# columns of d per block of its second pass (XA_COLS)
+_XMODAL_COLS, _XMODAL_MEAN_COLS = 64, 32
 # the most choices per token csrc/moe_dispatch.cu takes (MC_MAX_K)
 _MOE_MAX_K = 32
 # split-KV decode plan (csrc/attention_common.cuh): rows per tile
@@ -229,7 +230,9 @@ def _check_xmodal(name: str, rows, vis) -> None:
 def xmodal_mean_sum(token_embs, mask, visual_feats):
     """K4a: (B,) fp32 sum_t mask[t] * sum_j cos(tok_t, vis_j). token_embs:
     (B, L, d); mask: (B, L) fp32; visual_feats: (B, Nv, d), fp32 or bf16
-    like token_embs."""
+    like token_embs. On the card two kernels compute it factored, as
+    sum_t mask[t] inv_t tok_t . (sum_j inv_j vis_j), through an fp32
+    workspace of the rows' inverse norms and the d chunks' partials."""
     if not token_embs.is_cuda:
         return ref.xmodal_mean_sum_ref(token_embs, mask, visual_feats)
     name = "xmodal_score_mean"
@@ -241,11 +244,11 @@ def xmodal_mean_sum(token_embs, mask, visual_feats):
            f"{name}: mask must be ({B}, {L}) fp32")
     dev = token_embs.device
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    ticket = torch.zeros(B, dtype=torch.int32, device=dev)
-    partial = torch.empty(B * -(-L // _XMODAL_ROWS) * -(-Nv // _XMODAL_COLS),
-                          dtype=torch.float32, device=dev)
+    ticket = torch.empty(B, dtype=torch.int32, device=dev)   # zeroed there
+    work = torch.empty(B * (L + Nv + -(-d // _XMODAL_MEAN_COLS)),
+                       dtype=torch.float32, device=dev)
     _launch(name, token_embs.data_ptr(), mask.data_ptr(),
-            visual_feats.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
+            visual_feats.data_ptr(), work.data_ptr(), ticket.data_ptr(),
             out.data_ptr(), B, L, Nv, d, _DTYPE_CODES[token_embs.dtype])
     return out
 

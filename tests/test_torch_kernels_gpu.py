@@ -271,12 +271,24 @@ def test_paged_decode_split_cases_on_card(gen, pool, case):
     (1, 32, 576, 256, 4096),     # the serving shape
 ])
 def test_xmodal_kernels_on_card(gen, dtype, B, L, Nv, Nt, d):
+    """K4a (factored: inverse norms, then u = sum_j inv_j vis_j and the
+    tokens' dots with it over chunks of d) and K4b, with a zero token row
+    and a zero visual row (inverse norm 1e8 on a zero row adds 0), a row
+    with no live token, and visual rows off a 16-byte boundary
+    (K4a's one-element loads)."""
     tok, vis, txt = (_rand(gen, (B, n, d), dtype) for n in (L, Nv, Nt))
     k = min(Nv, Nt)                      # some strong text-visual matches
     vis[:, :k] = (vis[:, :k].float() + 2 * txt[:, :k].float()).to(dtype)
+    tok[0, L // 2] = 0.0
+    vis[0, Nv // 2] = 0.0
     mask = (torch.rand(B, L, generator=gen, device="cuda") < 0.7).float()
     mask[-1] = 0.0                       # a row with no live token
     tol = TOLS[torch.float32]
+    shifted = torch.empty(vis.numel() + 2, dtype=dtype,
+                          device="cuda")[2:].view(vis.shape)
+    shifted.copy_(vis)
+    torch.testing.assert_close(ops.xmodal_mean_sum(tok, mask, shifted),
+                               ref.xmodal_mean_sum_ref(tok, mask, vis), **tol)
     before = dict(ops.LAUNCHES)
     torch.testing.assert_close(ops.xmodal_mean_sum(tok, mask, vis),
                                ref.xmodal_mean_sum_ref(tok, mask, vis), **tol)
@@ -361,6 +373,18 @@ def test_moe_kernels_on_card(gen, dtype, G, g, E, C, k, d):
     assert torch.equal(comb, ops.moe_combine(slot, gates, eo))
     for name in ("moe_dispatch", "moe_combine"):
         assert ops.LAUNCHES[name] == before[name] + 2
+    # ids outside [0, E * C) are dropped; tables and rows off a 16-byte
+    # boundary take K5b's shuffled ids (k = 8 too) and one-element loads
+    bad = torch.where(slot == slot.max(), E * C + 3, slot)
+    bad[..., 0] = torch.where(bad[..., 0] < 0, -7, bad[..., 0])
+
+    def shifted(x):
+        out = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device="cuda")[1:].view(x.shape)
+        return out.copy_(x)
+
+    _close(ops.moe_combine(shifted(bad), shifted(gates), shifted(eo)),
+           ref.moe_combine_ref(bad, gates, eo), dtype)
     # every slot empty, every choice dropped
     none = torch.full_like(idx, -1)
     assert torch.equal(ops.moe_dispatch(none, x), torch.zeros_like(out))

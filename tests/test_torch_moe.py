@@ -166,10 +166,12 @@ def test_dispatch_then_combine_roundtrip_identity():
 # moe_apply
 # ---------------------------------------------------------------------------
 
-def _moe_pair(jcfg, seed=0):
+def _moe_pair(jcfg, seed=0, dtype=torch.float32):
+    """The reference's fp32 MoE params and the port's module holding them
+    in ``dtype`` (the router stays fp32)."""
     p = jmoe.moe_init(jax.random.PRNGKey(seed), jcfg)
     cfg = port_cfg(jcfg)
-    m = tmoe.MoE(cfg, device="cpu")
+    m = tmoe.MoE(cfg, dtype=dtype, device="cpu")
     sd = {"router.kernel": p["router"]["kernel"], "w_gate": p["w_gate"],
           "w_up": p["w_up"], "w_down": p["w_down"]}
     if "shared" in p:
@@ -216,6 +218,46 @@ def test_moe_apply_matches_reference(case, impl):
     if drop == 0:
         np.testing.assert_allclose(dense.numpy(), out.reshape(T, -1).numpy(),
                                    **TOL)
+
+
+@pytest.mark.parametrize("case", ["dropless", "capacity_binds"])
+def test_bf16_moe_apply_matches_reference(case):
+    """Divergence D1, pinned: in bf16 the port's combine sums in fp32 with
+    fp32 gates and casts to bf16 once (K5b and its plain version), where
+    the reference's combine einsum runs in bf16. Same bf16 weights (router
+    fp32 on both sides) and inputs: outputs within the port's bf16
+    tolerance, 2e-2 + 2e-2 |ref|, the same tokens dropped, and the port's
+    output no farther from the fp32 output than the reference's."""
+    T, overrides = CASES[case]
+    jcfg = granite_cfg(**overrides)
+    p, cfg, m = _moe_pair(jcfg, dtype=torch.bfloat16)
+    assert m.w_down.dtype == torch.bfloat16
+    assert m.router.kernel.dtype == torch.float32
+    pb = {k: v if k == "router" else
+          jax.tree.map(lambda a: a.astype(jnp.bfloat16), v)
+          for k, v in p.items()}
+    x = np.random.default_rng(1).standard_normal(
+        (T, cfg.d_model)).astype(np.float32)
+    exp, jaux = jmoe.moe_apply(pb, jcfg, jnp.asarray(x, jnp.bfloat16))
+    assert exp.dtype == jnp.bfloat16
+    with torch.inference_mode():
+        out, routing = tmoe.moe_apply(m, cfg, t(x, torch.bfloat16),
+                                      impl="torch")
+        aux = tmoe.moe_aux(*routing)
+    assert out.dtype == torch.bfloat16
+    exp = np.asarray(exp, np.float32)
+    out = out.float().numpy()
+    np.testing.assert_allclose(exp, out, rtol=2e-2, atol=2e-2)
+    drop = float(jaux["moe_drop_frac"])
+    assert (drop > 0) == (case == "capacity_binds")
+    assert float(aux["moe_drop_frac"]) == drop
+    # the fp32 layer on the same bf16-rounded weights and inputs
+    f32 = {k: jax.tree.map(lambda a: a.astype(jnp.float32), v)
+           for k, v in pb.items()}
+    full, _ = jmoe.moe_apply(f32, jcfg, jnp.asarray(
+        jnp.asarray(x, jnp.bfloat16), jnp.float32))
+    full = np.asarray(full)
+    assert np.abs(out - full).mean() <= np.abs(exp - full).mean()
 
 
 def test_cuda_impl_hands_the_kernels_contiguous_tensors(monkeypatch):
