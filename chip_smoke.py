@@ -26,7 +26,9 @@ Run from the root of a checkout. It
      operations; the MoE combine also with the L2 warm (as serving finds
      its input) beside the device time of an empty kernel, the floor
      under any launch; it also counts the tensor-core (HMMA)
-     instructions in the flash kernel's SASS;
+     instructions in the SASS of the flash kernel and the cross-modal
+     score, checks K4b's split plan with one split and several, and times
+     K2 and K4b beside a bytes, an fp32 and a 3xTF32 bound;
   4. serve phase: serves CAMD requests on full-width qwen3-0.6b through
      the port's serve entry point with ``--impl paged_cuda`` and checks
      that the flash and paged decode kernels carried it, the flash kernel
@@ -86,11 +88,9 @@ DECODE_SWEEP = (16, 64, CACHE_LEN, 4096, DECODE_LONG)
 def sass_count(lib, opcode: str) -> int:
     """Instructions of ``opcode`` in the SASS of a built library
     (``cuobjdump -sass``)."""
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    return len(re.findall(rf"\b{opcode}\b", sass))
+    from repro_torch.kernels import sass
+    return sum(len(re.findall(rf"\b{opcode}\b", ins))
+               for code in sass.functions(str(lib)).values() for ins in code)
 
 
 def fail(msg: str) -> None:
@@ -220,7 +220,9 @@ def compare(torch, name, case, out, exp, dtype):
 # keys of a timing kept under another shape's entry of the kernels line
 SUB_KEYS = ("shape", "ms", "call_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")
-FLASH_BOUNDS = ("bound_bytes_ms", "bound_simt_ms", "bound_tf32x3_ms")
+# the bounds of the tensor-core kernels (K2, K4b): bytes, fp32 on the CUDA
+# cores, 3xTF32 on the tensor cores
+TF32_BOUNDS = ("bound_bytes_ms", "bound_simt_ms", "bound_tf32x3_ms")
 
 
 # K2's timed shapes: the bucketed prefills of the three served models
@@ -280,20 +282,25 @@ def flash_phase(torch, ops, ref, timer):
     return t
 
 
-def flash_bounds(B, L, H, Hkv, hd):
-    """K2's bounds in ms at a causal fp32 shape: q, k, v read once and o
-    written once over 3.35 TB/s; the causal pairs' 4 hd FLOPs each over
-    the fp32 rate outside the tensor cores (``simt``) and, three times
-    over, over the TF32 tensor-core rate (``tf32x3``, what the kernel
-    runs). ``bound_ms`` is the larger of the bytes and the 3xTF32 time."""
-    nbytes = 4 * (2 * B * L * H * hd + 2 * B * L * Hkv * hd)
-    flops = 4 * B * H * hd * (L * (L + 1) // 2)
+def tf32_bounds(nbytes, flops):
+    """Bounds in ms of a tensor-core kernel (K2, K4b) in fp32: its bytes
+    over 3.35 TB/s; its FLOPs over the fp32 rate outside the tensor cores
+    (``simt``) and, three times over, over the TF32 tensor-core rate
+    (``tf32x3``, what the kernel runs). ``bound_ms`` is the larger of the
+    bytes and the 3xTF32 time."""
     b = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
          "simt": flops / PEAK_FLOPS["float32"] * 1e3,
          "tf32x3": 3 * flops / PEAK_FLOPS["tf32"] * 1e3}
     bound, by = (b["bytes"], "bytes") if b["bytes"] >= b["tf32x3"] \
         else (b["tf32x3"], "operations")
     return bound, by, b
+
+
+def flash_bounds(B, L, H, Hkv, hd):
+    """K2's ``tf32_bounds`` at a causal fp32 shape: q, k, v read once and
+    o written once; 4 hd FLOPs per causal pair."""
+    return tf32_bounds(4 * (2 * B * L * H * hd + 2 * B * L * Hkv * hd),
+                       4 * B * H * hd * (L * (L + 1) // 2))
 
 
 def flash_timing(torch, ops, ref, timer, g):
@@ -331,7 +338,7 @@ def flash_timing(torch, ops, ref, timer, g):
         del q, k, v, qt, kt, vt
     t = rows["qwen3"]
     for name in ("granite", "llava"):
-        t[name] = {key: rows[name][key] for key in SUB_KEYS + FLASH_BOUNDS}
+        t[name] = {key: rows[name][key] for key in SUB_KEYS + TF32_BOUNDS}
     t["max_abs_err"] = max(errs)
     return t
 
@@ -608,17 +615,30 @@ def paged_timing(torch, ops, ref, timer, g):
     return t, max(errs)
 
 
+def xmodal_max_bounds(B, Nt, Nv, d):
+    """K4b's ``tf32_bounds`` at an fp32 shape: txt and vis read once and
+    the (B,) sums written once; 2 Nt Nv d FLOPs a batch row."""
+    return tf32_bounds(4 * (B * Nt * d + B * Nv * d + B),
+                       2 * B * Nt * Nv * d)
+
+
 def xmodal_phase(torch, ops, ref, timer):
     """K4a (masked token-visual cosine sum) and K4b (sum of each text row's
-    best visual cosine), each against its plain version, and the composed
-    score. Both compute in fp32 from the same input values, so bf16 inputs
-    take the fp32 tolerance."""
+    best visual cosine), each against its plain version and twice for the
+    same bits, and the composed score. Both compute in fp32 from the same
+    input values, so bf16 inputs take the fp32 tolerance. K4b's split plan
+    takes one split at the two short-d cases and several at the serving
+    shape and at d 1004 (whose bf16 rows lie off a 16-byte boundary:
+    element copies); both kinds must occur."""
     g = torch.Generator(device="cuda").manual_seed(4)
     serving = (1, SERVE["max_new"], IMAGE_TOKENS, SERVE["prompt"], 4096)
     cases = [serving,                      # (B, L, Nv, Nt, d)
              (3, 1, 7, 129, 48),           # ragged rows, d not a chunk multiple
-             (2, 33, 65, 31, 100)]
+             (2, 33, 65, 31, 100),
+             (2, 8, 100, 70, 1004)]        # ragged, split d
     errs = {"xmodal_score_mean": [], "xmodal_score_max": []}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = set()
 
     def inputs(B, L, Nv, Nt, d, dt):
         tok, vis, txt = (torch.randn(B, n, d, generator=g, device="cuda")
@@ -636,6 +656,9 @@ def xmodal_phase(torch, ops, ref, timer):
                 mask[-1] = 0.0             # a row with no live token
                 tok[0, -1] = 0.0           # zero rows: cos 0 by the
                 vis[0, 1] = 0.0            # 1e-8 floor of the norm
+                txt[0, 2] = 0.0
+            n_split, cols = ops.xmodal_max_splits(B, Nt, Nv, d, sms)
+            plans.add(n_split > 1)
             case = f"{dtype} B{B} L{L} Nv{Nv} Nt{Nt} d{d}"
             sum1 = ops.xmodal_mean_sum(tok, mask, vis)
             errs["xmodal_score_mean"].append(compare(
@@ -643,14 +666,19 @@ def xmodal_phase(torch, ops, ref, timer):
                 ref.xmodal_mean_sum_ref(tok, mask, vis), "float32"))
             check(torch.equal(sum1, ops.xmodal_mean_sum(tok, mask, vis)),
                   f"xmodal_score_mean {case}: two runs differ")
+            sum2 = ops.xmodal_max_sum(txt, vis)
             errs["xmodal_score_max"].append(compare(
-                torch, "xmodal_score_max", case, ops.xmodal_max_sum(txt, vis),
-                ref.xmodal_max_sum_ref(txt, vis), "float32"))
+                torch, "xmodal_score_max", f"{case} S{n_split}x{cols}",
+                sum2, ref.xmodal_max_sum_ref(txt, vis), "float32"))
+            check(torch.equal(sum2, ops.xmodal_max_sum(txt, vis)),
+                  f"xmodal_score_max {case}: two runs differ")
             out = ops.xmodal_score(tok, mask, vis, txt)
             compare(torch, "xmodal_score", case, out,
                     ref.xmodal_score_ref(tok, mask, vis, txt), "float32")
             check(torch.equal(out, ops.xmodal_score(tok, mask, vis, txt)),
                   f"xmodal_score {case}: two runs differ")
+    check(plans == {False, True},
+          "xmodal_score_max: the cases must take one split and several")
     # timing at the serving shape: one finished candidate's 32 tokens
     # (all live) against 576 image rows and a 256-token prompt, fp32
     B, L, Nv, Nt, d = serving
@@ -674,8 +702,14 @@ def xmodal_phase(torch, ops, ref, timer):
                   "xmodal_max_kernel",
                   lambda: ref.xmodal_max_sum_ref(txt, vis))
     t_max["shape"] = shape
-    t_max["bound_ms"], t_max["bound_by"] = bound_ms(
-        4 * (B * Nt * d + B * Nv * d + B), 2 * B * Nt * Nv * d, "float32")
+    t_max["splits"] = ops.xmodal_max_splits(B, Nt, Nv, d, sms)
+    t_max["by_kernel"] = timer.by_kernel(lambda: ops.xmodal_max_sum(txt, vis))
+    t_max["bound_ms"], t_max["bound_by"], b = xmodal_max_bounds(B, Nt, Nv, d)
+    t_max.update({f"bound_{key}_ms": val for key, val in b.items()})
+    print("  xmodal_score_max by kernel: " + ", ".join(
+        f"{k_[:40]} {ms:.5f} ms" for k_, ms in t_max["by_kernel"].items()) +
+        f"; splits {t_max['splits']}; bounds: bytes {b['bytes']:.5f}, fp32 "
+        f"SIMT {b['simt']:.5f}, 3xTF32 {b['tf32x3']:.5f} ms")
     t_mean["max_abs_err"] = max(errs["xmodal_score_mean"])
     t_max["max_abs_err"] = max(errs["xmodal_score_max"])
     return {"xmodal_score_mean": t_mean, "xmodal_score_max": t_max}
@@ -1117,10 +1151,10 @@ def main() -> None:
               f"stack <= {max(stack, default=0)} bytes, spill stores "
               f"{sum(spills)} bytes")
         build.load(name)
-    hmma = sass_count(build.lib_path("flash_attention"), "HMMA")
-    print(f"  flash_attention: {hmma} HMMA (tensor-core) instructions in "
-          "its SASS")
-    check(hmma > 0, "flash_attention: no tensor-core instruction in SASS")
+    for src in ("flash_attention", "xmodal_score"):
+        hmma = sass_count(build.lib_path(src), "HMMA")
+        print(f"  {src}: {hmma} HMMA (tensor-core) instructions in its SASS")
+        check(hmma > 0, f"{src}: no tensor-core instruction in SASS")
 
     timer = Timer(torch)
     print("kernel phase:")
@@ -1232,7 +1266,7 @@ def main() -> None:
             **{key: t[key] for key in ("sdpa_on_gathered_ms", "prefill",
                                        "warm_ms", "floor_ms",
                                        "long", "llava", "granite", "sweep",
-                                       "by_kernel") + FLASH_BOUNDS
+                                       "by_kernel", "splits") + TF32_BOUNDS
                if key in t}})
     print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"kernels": kernels}))

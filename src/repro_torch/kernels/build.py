@@ -37,7 +37,7 @@ KERNELS = {
     "paged_decode_attention": ("paged_decode_attention",
                                [_P] * 9 + [_I] * 11 + [_P]),
     "xmodal_score_mean": ("xmodal_score", [_P] * 6 + [_I] * 5 + [_P]),
-    "xmodal_score_max": ("xmodal_score", [_P] * 5 + [_I] * 5 + [_P]),
+    "xmodal_score_max": ("xmodal_score", [_P] * 5 + [_I] * 7 + [_P]),
     "moe_dispatch": ("moe_dispatch", [_P] * 3 + [_I] * 6 + [_P]),
     "moe_combine": ("moe_dispatch", [_P] * 4 + [_I] * 6 + [_P]),
 }

@@ -70,11 +70,6 @@ constexpr int FA_WARPS = FA_BQ / 16;       // 16 query rows per warp
 constexpr int FA_THREADS = 32 * FA_WARPS;
 constexpr int FA_STAGES = 2;
 
-// the smallest row stride >= hd elements that is r modulo m
-__host__ __device__ constexpr int pad_to(int hd, int r, int m) {
-  return hd + ((r - hd) % m + m) % m;
-}
-
 // Shared memory of one block: Q (BQ rows of QS floats), then the K and V
 // rings (STAGES x BK rows of KS and VS elements). The strides keep every
 // fragment load free of bank conflicts: Q and K rows are read 16 (fp32) or
@@ -96,74 +91,6 @@ struct FlashSmem {
 // 1 KB of it for each block
 static_assert(2 * (FlashSmem<float, 128>::bytes + 1024) <= 228 * 1024,
               "flash_kernel: two fp32 hd-128 blocks must fit on an SM");
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value (to nearest,
-// ties away from zero), in two integer operations: cvt.rna compiles to
-// about four, with checks for infinities and NaN that finite scores and
-// inputs do not need
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// hi = tf32(x) and lo = x - hi (exact in fp32), which the tensor core reads
-// as TF32 by ignoring its low 13 bits; with SPLIT false (bf16 inputs, exact
-// in TF32) hi is x's own bits and lo is unused
-template <bool SPLIT>
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  if constexpr (SPLIT) {
-    hi = to_tf32(x);
-    lo = __float_as_uint(x - __uint_as_float(hi));
-  } else {
-    hi = __float_as_uint(x);
-  }
-}
-
-// d += a b on one m16n8k8 tile: a (16 x 8, row) in 4 registers, b (8 x 8,
-// col) in 2, d (16 x 8) in 4 fp32 registers
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in 3xTF32 (small terms first), or in one pass without SPLIT
-template <bool SPLIT>
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  if constexpr (SPLIT) {
-    mma_tf32(d, al, bh);
-    mma_tf32(d, ah, bl);
-  }
-  mma_tf32(d, ah, bh);
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  x[0] = __uint_as_float(u.x << 16);
-  x[1] = __uint_as_float(u.x & 0xffff0000u);
-  x[2] = __uint_as_float(u.y << 16);
-  x[3] = __uint_as_float(u.y & 0xffff0000u);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(FA_THREADS, 2)

@@ -27,9 +27,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
 _FLASH_HD = (16, 32, 64, 128)
-# csrc/xmodal_score.cu: K4b's visual rows per block (XM_COLS); K4a's
-# columns of d per block of its second pass (XA_COLS)
-_XMODAL_COLS, _XMODAL_MEAN_COLS = 64, 32
+# csrc/xmodal_score.cu: K4b's tile (XM_ROWS text x XM_COLS visual rows,
+# a block each per split of d) and the columns of d a chunk of its ring
+# holds (XM_KC); K4a's columns of d per block of its second pass (XA_COLS)
+XM_ROWS, XM_COLS, XM_KC, _XMODAL_MEAN_COLS = 64, 64, 32, 32
+# K4b's split plan: the fewest chunks a split takes, and how full the last
+# wave of blocks (one an SM) must be
+XM_MIN_CHUNKS, XM_WAVE_FILL = 4, 0.9
 # the most choices per token csrc/moe_dispatch.cu takes (MC_MAX_K)
 _MOE_MAX_K = 32
 # split-KV decode plan (csrc/attention_common.cuh): rows per tile
@@ -253,9 +257,68 @@ def xmodal_mean_sum(token_embs, mask, visual_feats):
     return out
 
 
+def xmodal_max_splits(B: int, Nt: int, Nv: int, d: int,
+                      sms: int) -> Tuple[int, int]:
+    """Split plan of K4b on a card of ``sms`` SMs: (n_split,
+    cols_per_split).
+
+    d is cut into ``n_split`` runs of ``cols_per_split`` columns, a
+    multiple of ``XM_KC`` (the last run ragged), each of at least
+    ``XM_MIN_CHUNKS`` chunks and none empty. One block of the kernel keeps
+    an SM busy (a second block on it gains little), so the grid of
+    B * tiles * n_split blocks (tiles = ceil(Nt / XM_ROWS) *
+    ceil(Nv / XM_COLS)) takes about as long as its busiest SM's blocks, each
+    one split's work: the plan takes
+    the fewest splits whose last wave is at least ``XM_WAVE_FILL`` full,
+    else the fullest. One split where the tiles fill the card or d is
+    short.
+    """
+    tiles = B * -(-Nt // XM_ROWS) * -(-Nv // XM_COLS)
+    chunks = -(-d // XM_KC)
+    best = (0.0, 1, chunks)
+    for n in range(1, max(1, chunks // XM_MIN_CHUNKS) + 1):
+        per = -(-chunks // n)
+        n_split = -(-chunks // per)
+        blocks = tiles * n_split
+        fill = blocks / (-(-blocks // sms) * sms)
+        if fill >= XM_WAVE_FILL:
+            return n_split, per * XM_KC
+        if fill > best[0]:
+            best = (fill, n_split, per)
+    return best[1], best[2] * XM_KC
+
+
+def _xmodal_max_work(B: int, Nt: int, Nv: int, n_split: int) -> int:
+    """Floats of K4b's workspace: each split's partial dot tile and
+    squared norms (none for one split), then the rows' maxima per visual
+    tile."""
+    tiles_v = -(-Nv // XM_COLS)
+    parts = B * -(-Nt // XM_ROWS) * tiles_v * n_split if n_split > 1 else 0
+    return parts * (XM_ROWS * XM_COLS + XM_ROWS + XM_COLS) + B * tiles_v * Nt
+
+
+# K4b's tickets, per (device, stream): the kernel takes each from zero and
+# leaves it at zero (atomicInc wraps at its last block), so a buffer is
+# zeroed once, when it is made, and calls need no fill launch. Calls on one
+# stream run in order and never share a ticket at once.
+_XMODAL_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _xmodal_tickets(dev, n: int) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _XMODAL_TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        _XMODAL_TICKETS[key] = buf
+    return buf
+
+
 def xmodal_max_sum(text_feats, visual_feats):
     """K4b: (B,) fp32 sum_r max_j cos(txt_r, vis_j). text_feats:
-    (B, Nt, d); visual_feats: (B, Nv, d), fp32 or bf16 alike."""
+    (B, Nt, d); visual_feats: (B, Nv, d), fp32 or bf16 alike. On the card
+    one kernel computes it on the tensor cores over d cut by
+    ``xmodal_max_splits``; the splits' partials go to an fp32 workspace,
+    folded by the tile's last block."""
     if not text_feats.is_cuda:
         return ref.xmodal_max_sum_ref(text_feats, visual_feats)
     name = "xmodal_score_max"
@@ -264,13 +327,15 @@ def xmodal_max_sum(text_feats, visual_feats):
     B, Nt, d = text_feats.shape
     Nv = visual_feats.shape[1]
     dev = text_feats.device
+    n_split, cols = xmodal_max_splits(B, Nt, Nv, d, _sms(text_feats))
     out = torch.empty(B, dtype=torch.float32, device=dev)
-    ticket = torch.zeros(B, dtype=torch.int32, device=dev)
-    partial = torch.empty(B * -(-Nv // _XMODAL_COLS) * Nt,
-                          dtype=torch.float32, device=dev)
+    tiles = -(-Nt // XM_ROWS) * -(-Nv // XM_COLS)
+    ticket = _xmodal_tickets(dev, B * tiles + B)
+    work = torch.empty(_xmodal_max_work(B, Nt, Nv, n_split),
+                       dtype=torch.float32, device=dev)
     _launch(name, text_feats.data_ptr(), visual_feats.data_ptr(),
-            partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), B, Nt, Nv,
-            d, _DTYPE_CODES[text_feats.dtype])
+            work.data_ptr(), ticket.data_ptr(), out.data_ptr(), B, Nt, Nv, d,
+            n_split, cols, _DTYPE_CODES[text_feats.dtype])
     return out
 
 

@@ -268,37 +268,48 @@ def test_paged_decode_split_cases_on_card(gen, pool, case):
 @pytest.mark.parametrize("B,L,Nv,Nt,d", [
     (3, 1, 7, 129, 48),          # ragged everywhere, d not a chunk multiple
     (2, 33, 65, 31, 100),
+    (2, 8, 100, 70, 1004),       # K4b: several splits, Nv not a tile multiple
     (1, 32, 576, 256, 4096),     # the serving shape
 ])
 def test_xmodal_kernels_on_card(gen, dtype, B, L, Nv, Nt, d):
     """K4a (factored: inverse norms, then u = sum_j inv_j vis_j and the
-    tokens' dots with it over chunks of d) and K4b, with a zero token row
-    and a zero visual row (inverse norm 1e8 on a zero row adds 0), a row
-    with no live token, and visual rows off a 16-byte boundary
-    (K4a's one-element loads)."""
+    tokens' dots with it over chunks of d) and K4b (3xTF32 tensor-core
+    tiles over splits of d, or one split where d is short), with a zero
+    token, visual and text row (inverse norm 1e8 on a zero row adds 0),
+    a row with no live token, and rows off a 16-byte boundary (both
+    kernels' one-element loads). Two runs give the same bits."""
     tok, vis, txt = (_rand(gen, (B, n, d), dtype) for n in (L, Nv, Nt))
     k = min(Nv, Nt)                      # some strong text-visual matches
     vis[:, :k] = (vis[:, :k].float() + 2 * txt[:, :k].float()).to(dtype)
     tok[0, L // 2] = 0.0
     vis[0, Nv // 2] = 0.0
+    txt[0, Nt // 2] = 0.0
     mask = (torch.rand(B, L, generator=gen, device="cuda") < 0.7).float()
     mask[-1] = 0.0                       # a row with no live token
     tol = TOLS[torch.float32]
-    shifted = torch.empty(vis.numel() + 2, dtype=dtype,
-                          device="cuda")[2:].view(vis.shape)
-    shifted.copy_(vis)
-    torch.testing.assert_close(ops.xmodal_mean_sum(tok, mask, shifted),
-                               ref.xmodal_mean_sum_ref(tok, mask, vis), **tol)
+    n_split, _ = ops.xmodal_max_splits(
+        B, Nt, Nv, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert (n_split > 1) == (d >= 1004)
+
+    def shifted(x):
+        y = torch.empty(x.numel() + 2, dtype=dtype, device="cuda")[2:]
+        return y.view(x.shape).copy_(x)
+
     before = dict(ops.LAUNCHES)
+    torch.testing.assert_close(ops.xmodal_mean_sum(tok, mask, shifted(vis)),
+                               ref.xmodal_mean_sum_ref(tok, mask, vis), **tol)
+    torch.testing.assert_close(ops.xmodal_max_sum(shifted(txt), shifted(vis)),
+                               ref.xmodal_max_sum_ref(txt, vis), **tol)
     torch.testing.assert_close(ops.xmodal_mean_sum(tok, mask, vis),
                                ref.xmodal_mean_sum_ref(tok, mask, vis), **tol)
-    torch.testing.assert_close(ops.xmodal_max_sum(txt, vis),
-                               ref.xmodal_max_sum_ref(txt, vis), **tol)
+    sum2 = ops.xmodal_max_sum(txt, vis)
+    torch.testing.assert_close(sum2, ref.xmodal_max_sum_ref(txt, vis), **tol)
+    assert torch.equal(sum2, ops.xmodal_max_sum(txt, vis))
     out = ops.xmodal_score(tok, mask, vis, txt)
     torch.testing.assert_close(out, ref.xmodal_score_ref(tok, mask, vis, txt),
                                **tol)
-    for name in ("xmodal_score_mean", "xmodal_score_max"):
-        assert ops.LAUNCHES[name] == before[name] + 2
+    assert ops.LAUNCHES["xmodal_score_mean"] == before["xmodal_score_mean"] + 3
+    assert ops.LAUNCHES["xmodal_score_max"] == before["xmodal_score_max"] + 4
     # no float atomics: a second run gives the same bits
     assert torch.equal(out, ops.xmodal_score(tok, mask, vis, txt))
 
