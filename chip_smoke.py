@@ -47,6 +47,17 @@ Run from the root of a checkout. It
      experts, top-8): the serve phase checks that the flash, paged decode
      and both MoE kernels carried it, the MoE kernels once per layer per
      forward, and times one bucketed prefill and one decode forward;
+  13-14. qwen3-0.6b served again from int8 and from fp8 KV pools (paged
+     decode kernel's dequant path), with their bytes per page beside
+     fp32's, and at reduced depth the greedy streams of the plain and the
+     kernel paged engines on each quantized pool must agree.
+Every serve phase runs each macro launch as a replay of the engine's one
+captured CUDA graph: it checks that one graph was captured, prints the
+capture time, the steps the launches ran against the real ones (the
+masked share), the time of filling a launch's noise, and one macro
+launch's wall time against its device time, replayed and with the same
+body run eagerly; each dense check also holds the CAMD streams of the
+graph (8 steps a launch) against those of the eager per-token loop;
 and prints a JSON line describing every kernel, the card line again, and
 last ``{"ok": true, "device": {...}}``. Any failure exits nonzero. It
 exits with an error, printing no result, without a CUDA device or outside
@@ -865,7 +876,8 @@ LLAVA_ARGV = ["--arch", "llava-1.5-7b", "--no-reduced", "--impl",
 def serve_phase(torch, ops, serve, argv, kernels):
     """One serve run through the entry point, with the launch counts set
     to 0 just before and read just after; every kernel in ``kernels`` must
-    have carried it. Returns (launches, output of serve.main)."""
+    have carried it, every macro launch a replay of the engine's one
+    captured graph. Returns (launches, output of serve.main)."""
     s = SERVE
     print("serve phase: python -m repro_torch.launch.serve " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
@@ -885,6 +897,9 @@ def serve_phase(torch, ops, serve, argv, kernels):
               f"serve: request {r.uid} has a non-finite score")
     eng.pool.check()
     check(eng.pool.in_use == 0, "serve: pages leaked")
+    check(eng._graphs_captured == 1 and eng.macro_launches > 0,
+          f"serve: {eng._graphs_captured} graphs captured, "
+          f"{eng.macro_launches} macro launches")
     for name in kernels:
         check(launches[name] > 0, f"serve: {name} was never launched")
     n_flash = eng.cfg.num_layers * eng.prefill_calls
@@ -896,7 +911,61 @@ def serve_phase(torch, ops, serve, argv, kernels):
           f"{eng.total_steps} decode steps, {eng.macro_launches} launches, "
           f"{eng.prefill_calls} prefills, {eng.host_syncs} host syncs, "
           f"peak device memory {peak_gb:.1f} GB); launches {launches}")
+    kv = eng.kv_stats()
+    print(f"serve phase: kv pool [{kv['kv_dtype']}] {kv['bytes_per_page']} "
+          f"bytes a page, peak {kv['peak_kv_bytes'] / 1e6:.2f} MB")
     return launches, out
+
+
+def wall_event_ms(torch, fn, reps: int = 5):
+    """Mean host wall time (to a synchronize) and CUDA-event window of one
+    call, after one warm-up call."""
+    fn()
+    walls, events = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return sum(walls) / reps, sum(events) / reps
+
+
+def graph_phase(torch, name, out, timer):
+    """The served engine's CUDA graph: capture time, the device steps its
+    launches ran against the real ones, the noise fill a launch needs, and
+    one macro launch at the serve shape on the engine's idle slots (every
+    iteration masked; the same kernels and shapes as a real launch):
+    replayed against the same body run eagerly, each as host wall time,
+    CUDA-event window and device busy time (the profiler's kernel sum)."""
+    eng = out["engine"]
+    K = max(eng.macro_steps, 1)
+    masked = 1 - eng.total_steps / max(eng._steps_launched, 1)
+    print(f"graph [{name}]: {eng._graphs_captured} captured in "
+          f"{eng._capture_s:.3f} s (warm-up launch included); "
+          f"{eng.macro_launches} replays of K {K} ran {eng._steps_launched} "
+          f"steps for {eng.total_steps} real ones (masked share "
+          f"{masked:.3f}); a replay counts {eng._graph_launches}")
+    fill_wall, fill_ev = wall_event_ms(torch, lambda: eng._fill_noise(eng._t))
+    with torch.inference_mode():
+        rows = {}
+        for how, fn in (("replay", eng._graph.replay),
+                        ("eager body", eng._macro_step)):
+            wall, ev = wall_event_ms(torch, fn)
+            busy = sum(v for k, v in timer._kernel_times(
+                fn, 3, flush=False).items()
+                if k not in timer._flush_keys) / 3 / 1e3
+            rows[how] = (wall, ev, busy)
+    print(f"graph [{name}]: noise fill {fill_wall:.3f} ms wall, "
+          f"{fill_ev:.3f} ms CUDA events a launch; one macro launch "
+          + "; ".join(f"{how} {w:.3f} ms wall, {e:.3f} ms events, {b:.3f} "
+                      f"ms device busy (idle share {1 - b / w:.3f})"
+                      for how, (w, e, b) in rows.items()))
 
 
 def image_checks(torch, serve, argv, out):
@@ -962,7 +1031,18 @@ def free_memory(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_phase(torch, serve, argv):
+def check_released(torch, phase: str) -> None:
+    """After a serve phase's output is dropped: its model, KV pool and
+    CUDA graph (with the graph's private memory pool) are gone; what stays
+    is the timer's 256 MB flush buffer and small tables."""
+    free_memory(torch)
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"{phase}: {held:.2f} GB of device memory held after release")
+    check(held < 1.0, f"{phase}: {held:.2f} GB still held: the engine or "
+          "its graph was not released")
+
+
+def profile_phase(torch, ops, serve, argv):
     """Where the serve phase's time goes, on a shorter run of the same
     shapes (2 requests fill the 8 slots): device busy time by kernel under
     torch.profiler, and the device's idle share against the same run's
@@ -971,8 +1051,11 @@ def profile_phase(torch, serve, argv):
     from torch.profiler import ProfilerActivity, profile
     argv = list(argv)
     argv[argv.index("--requests") + 1] = "2"
-    wall_s = serve.main(argv)["seconds"]
+    first = serve.main(argv)               # the engine's capture included
+    wall_s, capture_s = first["seconds"], first["engine"]._capture_s
+    del first
     free_memory(torch)
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = serve.main(argv)
         torch.cuda.synchronize()
@@ -980,10 +1063,21 @@ def profile_phase(torch, serve, argv):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in rows)
     check(busy_us > 0, "profile: the profiler saw no device time")
+    # K1's split kernel runs once a launch: the records the profiler kept
+    # against the launches the run made, the graph's replays and its
+    # warm-up included
+    eng = out["engine"]
+    k1 = ops.LAUNCHES["paged_decode_attention"] + \
+        eng._warmup_launches.get("paged_decode_attention", 0)
+    seen = sum(e.count for e in rows if "split_decode_kernel" in e.key)
+    print(f"profile: {seen} split_decode_kernel records for {k1} paged "
+          f"decode launches ({eng.macro_launches} graph replays)")
     print(f"profile: device busy {busy_us / 1e3:.1f} ms; profiled wall "
           f"{out['seconds'] * 1e3:.1f} ms, unprofiled wall "
           f"{wall_s * 1e3:.1f} ms -> device idle share "
-          f"{1 - busy_us / 1e6 / wall_s:.3f} of the unprofiled run")
+          f"{1 - busy_us / 1e6 / wall_s:.3f} of the unprofiled run, whose "
+          f"graph capture (once an engine, warm-up launch included) took "
+          f"{capture_s * 1e3:.1f} ms")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
               f"{100 * e.self_device_time_total / busy_us:5.1f}% "
@@ -1113,7 +1207,50 @@ def dense_check(torch, ops, serve, argv, kernels):
     print("dense check: greedy streams of torch, cuda and paged_cuda agree "
           f"({sum(len(s) for s in streams['torch'])} tokens; {n_res} "
           "kernel-rescored S_align within 1e-4 of the plain engine's)")
+    camd = {}
+    for K in ("8", "0"):
+        print(f"dense check: --impl paged_cuda --mode camd --macro-steps {K}")
+        out = serve.main(argv + ["--impl", "paged_cuda", "--mode", "camd",
+                                 "--macro-steps", K])
+        eng = out["engine"]
+        check(eng._graphs_captured == (K != "0"),
+              f"dense check: K {K} captured {eng._graphs_captured} graphs")
+        camd[K] = [[c["tokens"].tolist() for c in r.candidates]
+                   for r in sorted(out["results"], key=lambda r: r.uid)]
+        del out, eng
+        free_memory(torch)
+    check(camd["8"] == camd["0"], "dense check: CAMD streams of the graph "
+          f"(K 8) differ from the eager loop's (K 0): {camd['8']} vs "
+          f"{camd['0']}")
+    print(f"dense check: CAMD streams of the graph (K 8) and the eager loop "
+          f"(K 0) agree ({sum(len(c) for r in camd['8'] for c in r)} tokens "
+          f"in {sum(len(r) for r in camd['8'])} candidates)")
     return launches["cuda"]
+
+
+def quant_dense_check(torch, ops, serve, argv, kv_dtype):
+    """At reduced depth, greedy streams of the plain (paged) and kernel
+    (paged_cuda) engines on one quantized pool must agree, and the kernel
+    engine's run must go through the paged decode kernel."""
+    streams = {}
+    for impl in ("paged", "paged_cuda"):
+        ops.reset_launches()
+        out = serve.main(argv + ["--impl", impl, "--kv-dtype", kv_dtype])
+        torch.cuda.synchronize()
+        check((ops.LAUNCHES["paged_decode_attention"] > 0) ==
+              (impl == "paged_cuda"),
+              f"quantized dense check: {impl} paged decode launches "
+              f"{ops.LAUNCHES['paged_decode_attention']}")
+        streams[impl] = [r.tokens.tolist() for r in
+                         sorted(out["results"], key=lambda r: r.uid)]
+        del out
+        free_memory(torch)
+    check(streams["paged"] == streams["paged_cuda"],
+          f"quantized dense check [{kv_dtype}]: paged_cuda greedy streams "
+          f"differ from paged: {streams['paged_cuda']} vs {streams['paged']}")
+    print(f"quantized dense check [{kv_dtype}]: greedy streams of paged and "
+          f"paged_cuda agree ({sum(len(s) for s in streams['paged'])} "
+          "tokens)")
 
 
 def main() -> None:
@@ -1186,11 +1323,14 @@ def main() -> None:
 
     # qwen3-0.6b, text requests
     runs = {}
-    runs["qwen3-0.6b serve"], _ = serve_phase(
+    runs["qwen3-0.6b serve"], out = serve_phase(
         torch, ops, serve, QWEN_ARGV,
         ("flash_attention", "paged_decode_attention"))
-    free_memory(torch)
-    profile_phase(torch, serve, QWEN_ARGV)
+    graph_phase(torch, "qwen3-0.6b", out, timer)
+    fp32_bpp = out["engine"].kv_stats()["bytes_per_page"]
+    del out
+    check_released(torch, "qwen3-0.6b serve")
+    profile_phase(torch, ops, serve, QWEN_ARGV)
     free_memory(torch)
     runs["qwen3-0.6b dense check"] = dense_check(
         torch, ops, serve, QWEN_DENSE_ARGV,
@@ -1202,10 +1342,11 @@ def main() -> None:
         ("flash_attention", "paged_decode_attention", "xmodal_score_mean",
          "xmodal_score_max"))
     image_checks(torch, serve, LLAVA_ARGV, out)
+    graph_phase(torch, "llava-1.5-7b", out, timer)
     image_prefill_timing(torch, out, timer)
     del out
-    free_memory(torch)
-    profile_phase(torch, serve, LLAVA_ARGV)
+    check_released(torch, "llava-1.5-7b serve")
+    profile_phase(torch, ops, serve, LLAVA_ARGV)
     free_memory(torch)
     runs["llava-1.5-7b dense check"] = dense_check(
         torch, ops, serve, LLAVA_DENSE_ARGV,
@@ -1218,15 +1359,32 @@ def main() -> None:
         ("flash_attention", "paged_decode_attention", "moe_dispatch",
          "moe_combine"))
     moe_launch_checks(out, runs["granite-moe-3b-a800m serve"])
+    graph_phase(torch, "granite-moe-3b-a800m", out, timer)
     granite_timing(torch, out, timer)
     del out
-    free_memory(torch)
-    profile_phase(torch, serve, GRANITE_ARGV)
+    check_released(torch, "granite-moe-3b-a800m serve")
+    profile_phase(torch, ops, serve, GRANITE_ARGV)
     free_memory(torch)
     runs["granite-moe-3b-a800m dense check"] = dense_check(
         torch, ops, serve, GRANITE_DENSE_ARGV,
         ("flash_attention", "decode_attention", "moe_dispatch",
          "moe_combine"))
+    free_memory(torch)
+    # qwen3-0.6b from int8 and fp8 KV pools, through K1's dequant path
+    quant = []
+    for kv_dtype in ("int8", "fp8"):
+        run = f"qwen3-0.6b serve {kv_dtype}"
+        quant.append(run)
+        runs[run], out = serve_phase(
+            torch, ops, serve, QWEN_ARGV + ["--kv-dtype", kv_dtype],
+            ("flash_attention", "paged_decode_attention"))
+        graph_phase(torch, f"qwen3-0.6b {kv_dtype}", out, timer)
+        bpp = out["engine"].kv_stats()["bytes_per_page"]
+        print(f"kv pool [{kv_dtype}]: {bpp} bytes a page against fp32's "
+              f"{fp32_bpp} ({bpp / fp32_bpp:.4f})")
+        del out
+        check_released(torch, run)
+        quant_dense_check(torch, ops, serve, QWEN_DENSE_ARGV, kv_dtype)
 
     # launches: the serve phases for the kernels the serving path runs,
     # the dense checks for the dense decode kernel (K3), which only the
@@ -1236,6 +1394,10 @@ def main() -> None:
                                   "granite-moe-3b-a800m dense check")}
     serves = ("qwen3-0.6b serve", "llava-1.5-7b serve",
               "granite-moe-3b-a800m serve")
+    # the quantized pools' serve runs go through the prefill and paged
+    # decode kernels too
+    paths.update({name: serves + tuple(quant) for name in
+                  ("flash_attention", "paged_decode_attention")})
     meta = {
         "flash_attention": ("flash_attention",
                             "kernels/flash_attention.py:89"),

@@ -4,6 +4,7 @@
         --impl paged_cuda --requests 8 --prompt-len 256 --max-new 32
     python -m repro_torch.launch.serve --arch llava-1.5-7b --no-reduced \
         --impl paged_cuda --xmodal-rescore --image-pool 2 --cache-len 864
+    python -m repro_torch.launch.serve --impl paged_cuda --kv-dtype int8
 
 Configs with a vision tower serve image requests: synthetic images drawn
 from a pool of ``--image-pool`` distinct ones, encoded at submit time and
@@ -17,7 +18,9 @@ repository), and the model runs in fp32, as in the reference CLI.
 ``--reduced`` (the default, as in the reference CLI) serves the
 CPU-smoke-size variant of the config; ``--no-reduced`` serves it at its
 published widths, and ``--num-layers`` cuts its depth. Runs on the CUDA
-device unless ``--device cpu``.
+device unless ``--device cpu``; there each macro launch (``--macro-steps``
+K > 0) replays one CUDA graph of the K-step body, and the legacy loop
+(``--macro-steps 0``) runs eagerly.
 """
 from __future__ import annotations
 
@@ -75,6 +78,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV pool size; 0 = dense-equivalent worst case")
+    ap.add_argument("--kv-dtype", default="auto",
+                    choices=["auto", "fp32", "bf16", "int8", "fp8"],
+                    help="paged KV pool storage: auto = the param dtype; "
+                         "int8/fp8 store quantized pages with per-(page, "
+                         "slot, kv-head) scales, dequantized inside the "
+                         "paged decode kernel")
     ap.add_argument("--macro-steps", type=int, default=8,
                     help="device decode steps per launch; 0 = legacy "
                          "per-token host loop")
@@ -146,7 +155,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         camd=CAMDConfig(), mode=args.mode, max_new_tokens=args.max_new,
         eos_id=args.eos_id, impl=args.impl,
         paged_kv=PagedKVConfig(page_size=args.page_size,
-                               num_pages=args.num_pages),
+                               num_pages=args.num_pages,
+                               kv_dtype=args.kv_dtype),
         macro_steps=args.macro_steps,
         bucket_prefill=not args.no_bucket_prefill,
         prefill_bucket_min=args.prefill_bucket_min,
@@ -170,7 +180,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
           f"{args.impl} on {model.device}]: {eng.total_steps} steps, "
           f"{eng.total_tokens} tokens in {secs:.3f}s "
           f"({eng.total_tokens / secs:.1f} tok/s, prefill included)")
-    print(f"macro-step: K={eng.macro_steps}, {eng.macro_launches} launches, "
+    print(f"macro-step: K={eng.macro_steps}, {eng.macro_launches} launches"
+          f"{' (CUDA graph replays)' if eng._graphs_captured else ''}, "
           f"{eng.host_syncs} host syncs")
     ss = eng.sched_stats()
     print(f"scheduler: {ss['policy']} admitted={ss['admitted_candidates']} "
@@ -178,7 +189,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
           f"declined={ss['declined_rounds']} starved={ss['starved']}")
     if eng.paged:
         s = eng.kv_stats()
-        print(f"paged kv: peak {s['max_in_use']}/{s['num_pages']} pages "
+        print(f"paged kv [{s['kv_dtype']}]: peak {s['max_in_use']}/"
+              f"{s['num_pages']} pages "
               f"({s['peak_kv_bytes'] / 1e6:.2f} MB resident at peak vs "
               f"{s['dense_equiv_bytes'] / 1e6:.2f} MB dense-equivalent)")
     if eng.image_encodes or eng.image_feat_hits:

@@ -6,7 +6,7 @@ the same product, and norms and RoPE compute in fp32 and cast back.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,11 +25,22 @@ def rmsnorm_headwise(scale, x, eps: float = 1e-6):
     return rmsnorm(scale, x, eps)
 
 
+# rope frequencies by (head_dim, theta, device): made once, so that a
+# decode step captured in a CUDA graph copies nothing from the host
+_ROPE_FREQS: Dict[Tuple[int, float, str], torch.Tensor] = {}
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None):
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    key = (head_dim, float(theta), str(torch.device(device or "cpu")))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        with torch.inference_mode(False):
+            exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                device=device) / head_dim
+            freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                                 device=device), exps)
+        _ROPE_FREQS[key] = freqs
+    return freqs
 
 
 def apply_rope(x, positions, theta: float):

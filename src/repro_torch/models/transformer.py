@@ -133,15 +133,16 @@ def transformer_prefill(model, tokens, cache, evidence=None, *,
     else:
         idx = (lengths.long() - 1)[:, None, None].expand(B, 1, x.shape[-1])
         x_last = x.gather(1, idx)
-        cache["pos"] = lengths.to(torch.int32)
+        cache["pos"] = lengths.clone()   # decode advances it in place
     logits, hidden = _logits(model, x_last)
     return logits[:, 0], hidden[:, 0], cache
 
 
 def transformer_decode(model, token, cache, *, impl: str = "torch"):
     """One decode step (``transformer.py:493``). token: (B,) or (B, 1).
-    Every row's KV is written at its ``pos`` and every ``pos`` advances,
-    idle rows included. Returns (logits (B, V), hidden (B, d), cache)."""
+    Every row's KV is written at its ``pos`` and every ``pos`` advances in
+    place, idle rows included. Returns (logits (B, V), hidden (B, d),
+    cache)."""
     cfg = model.cfg
     if token.dim() == 1:
         token = token[:, None]
@@ -162,5 +163,5 @@ def transformer_decode(model, token, cache, *, impl: str = "torch"):
                                      window=cfg.attn_window, impl=impl)
         x = _mlp_part(blk, cfg, x + y, impl)
     logits, hidden = _logits(model, x)
-    cache["pos"] = pos + 1
+    pos += 1        # in place: a captured decode step keeps its addresses
     return logits[:, 0], hidden[:, 0], cache

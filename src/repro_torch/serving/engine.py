@@ -7,13 +7,27 @@ free and refill from the queue, so CAMD's adaptive allocation falls out of
 slot scheduling.
 
 Decode runs either as the legacy per-token loop (``macro_steps=0``: one
-step, one host sync) or as macro-steps: a Python loop of K device steps
-with one host sync per launch. The loop keeps the reference
-``while_loop``'s exit rule (stop after the step in which any slot
-finishes, or when no slot is active) on the device: iterations past that
-point run masked — no slot state changes, no position advances, no
+step, one host sync, eager on every device) or as macro-steps: a body of
+K device steps with one host sync per launch. The body keeps the
+reference ``while_loop``'s exit rule (stop after the step in which any
+slot finishes, or when no slot is active) on the device: iterations past
+that point run masked — no slot state changes, no position advances, no
 frontier page consumed — so a launch ends in exactly the state the
 reference's loop exits with, without a host round trip per step.
+
+On a CUDA device each macro launch replays one CUDA graph of the body,
+the counterpart of the reference's one compiled ``while_loop``: all K
+decode + sample + CAMD-aggregate steps, frontier pulls included. The
+graph is captured once per engine, at its first macro launch, after one
+fully masked eager warm-up launch on a side stream (which loads every
+kernel and changes no state a later step does not rewrite alike); a
+failed capture raises. A replay reads and writes fixed addresses, so the
+body updates ``EngineState`` and its cache in place, reads its Gumbel
+noise from a static (K, B, V) buffer the host fills before each launch
+(``_fill_noise``), its frontier from a static (B, F) buffer and its
+evidence rows from a static (B, Ne, d) buffer. Kernel launch counts
+(``ops.LAUNCHES``) gain the capture's per-kernel counts at every replay.
+On the CPU the same body runs eagerly.
 
 Paged KV (impls ``paged``/``paged_cuda``) lives in a shared page pool
 (``PagePool``): candidates share their request's full prompt pages and copy
@@ -34,16 +48,23 @@ to ``align_sum``, the incremental S_align of the candidate score; with
 ``xmodal_rescore`` each finished candidate's S_align is recomputed
 instead by the cross-modal score (paper Eq. 8-9, kernel K4).
 
+Paged engines store KV in the param dtype (``kv_dtype`` "auto"), in
+fp32 or bf16, or quantized to int8 or fp8-e4m3 with one fp32 scale per
+(page, slot, kv head): prompt spans are quantized once at seeding and
+decode quantizes each new row on write; the ``paged_cuda`` impl
+dequantizes inside the paged decode kernel (K1).
+
 Impls: ``torch`` / ``paged`` run plain PyTorch attention and scoring,
 ``cuda`` / ``paged_cuda`` the hand-written kernels. Prefix caching,
-chunked prefill, speculation, mesh serving, quantized (int8/fp8) pools,
-cancellation and async pumping are later slices of the port: asking for
-any of them raises ``NotImplementedError``.
+chunked prefill, speculation, mesh serving, cancellation and async
+pumping are later slices of the port: asking for any of them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -105,6 +126,18 @@ class EngineState:
     limit: torch.Tensor        # (B,) int32 per-candidate token limit
 
 
+# one side stream per device for every engine's warm-up and capture, so
+# that the per-stream state libraries keep (cuBLAS's workspace) is made once
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device) -> torch.cuda.Stream:
+    index = torch.device(device).index or 0
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[index]
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
@@ -164,10 +197,8 @@ class ServeEngine:
         if not self.paged and self.kv_dtype != "auto":
             raise ValueError(f"kv_dtype={self.kv_dtype!r} needs a paged impl")
         if self.paged:
-            _, quantized = attn_lib.kv_storage_dtype(self.kv_dtype,
-                                                     model.param_dtype)
-            if quantized:
-                raise _unsupported(f"serving from a {self.kv_dtype} KV pool")
+            # fails fast on an unknown name
+            attn_lib.kv_storage_dtype(self.kv_dtype, model.param_dtype)
             ps = paged_kv.page_size
             if cache_len % ps:
                 raise ValueError(f"cache_len {cache_len} must be a multiple "
@@ -202,8 +233,10 @@ class ServeEngine:
         # score (Eq. 8-9) instead of the incremental aggregate
         self.xmodal_rescore = bool(xmodal_rescore) and self.has_evidence
         # (B, Ne, d) normalised evidence rows of each slot's request,
-        # refreshed whenever admissions change (``_gather_evid``)
-        self._evid: Optional[torch.Tensor] = None
+        # refreshed in place whenever admissions change (``_gather_evid``)
+        self._evid = torch.zeros(
+            (slots, self.cfg.num_evidence_tokens, self.d),
+            device=self.device) if self.has_evidence else None
 
         self._queue: List[Request] = []
         self._slot_req = np.full(slots, -1, np.int64)
@@ -227,12 +260,33 @@ class ServeEngine:
         self.state = self._blank_state()
         self._greedy_row = torch.tensor([mode == "greedy"],
                                         device=self.device)
+        # the macro body's static inputs: each iteration's Gumbel noise
+        # (none in greedy mode) and the paged slots' staged pages
+        K = max(macro_steps, 1)
+        self._noise_buf = None if mode == "greedy" else \
+            torch.zeros((K, slots, self.V), device=self.device)
+        self._frontier = torch.zeros((slots, self._frontier_width),
+                                     dtype=torch.int32, device=self.device) \
+            if self.paged else None
+        # the card's captured macro body: graph, its output tensors and
+        # the kernel launches one replay makes
+        self._graph = None
+        self._graph_out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._graph_launches: Dict[str, int] = {}
         # telemetry: device decode steps, macro launches, decode-loop host
         # synchronizations, tokens generated
         self.total_steps = 0
         self.total_tokens = 0
         self.macro_launches = 0
         self.host_syncs = 0
+        # graph telemetry: graphs captured, seconds spent warming up and
+        # capturing, the warm-up's kernel launches (kept out of
+        # ``ops.LAUNCHES``), and the device steps the macro launches ran,
+        # masked iterations included (K a launch, against ``total_steps``)
+        self._graphs_captured = 0
+        self._capture_s = 0.0
+        self._warmup_launches: Dict[str, int] = {}
+        self._steps_launched = 0
 
     # ------------------------------------------------------------------
     def _sync(self, tensors) -> List[np.ndarray]:
@@ -269,15 +323,16 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def _decode_step(self, noise, go=None) -> torch.Tensor:
         """One decode + sample + CAMD-aggregate step over all slots, in
-        place. ``go``: optional 0-dim bool tensor; when False the step is
-        masked (no slot state changes, positions stay). Returns the (B,)
-        bool mask of slots whose candidate finished in this step."""
+        place: every tensor of the state keeps its storage, as a graph
+        replay needs. ``go``: optional 0-dim bool tensor; when False the
+        step is masked (no slot state changes, positions stay). Returns
+        the (B,) bool mask of slots whose candidate finished in this
+        step."""
         st = self.state
-        pos0 = st.cache["pos"]
-        logits, hidden, cache = self.model.decode_step(
+        logits, hidden, _ = self.model.decode_step(
             st.last_token, st.cache, impl=self._model_impl)
-        if go is not None:
-            cache["pos"] = torch.where(go, cache["pos"], pos0)
+        if go is not None:               # a masked step keeps its position
+            st.cache["pos"].sub_((~go).to(torch.int32))
         tok, lp = sample_token(logits.float(), self.sampling,
                                st.token_counts, st.bias, greedy=st.greedy,
                                noise=noise)
@@ -299,19 +354,21 @@ class ServeEngine:
         st.token_counts[torch.arange(self.B, device=self.device), tok] += actf
         write = (torch.arange(self.max_new, device=self.device)[None, :] ==
                  st.n_tok[:, None]) & act[:, None]
-        st.out_buf = torch.where(write, tok[:, None], st.out_buf)
+        torch.where(write, tok[:, None], st.out_buf, out=st.out_buf)
         st.n_tok += act.to(torch.int32)
         done = act & ((tok == self.eos_id) | (st.n_tok >= st.limit))
-        st.last_token = torch.where(act, tok, st.last_token)
-        st.prev_h = torch.where(act[:, None], hn, st.prev_h)
-        st.active = st.active & ~done
+        torch.where(act, tok, st.last_token, out=st.last_token)
+        torch.where(act[:, None], hn, st.prev_h, out=st.prev_h)
+        st.active &= ~done
         return done
 
-    def _macro_step(self, frontier) -> Tuple[torch.Tensor, torch.Tensor]:
-        """K decode steps with the reference's early exit kept on the
-        device (see the module docstring). Paged slots pull their next
-        page from the staged ``frontier`` row when their write position
-        crosses a page boundary. Returns (done of the last real step,
+    def _macro_step(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The macro body: K decode steps with the reference's early exit
+        kept on the device (see the module docstring), iteration i
+        drawing ``_noise_buf[i]``. Paged slots pull their next page from
+        the staged ``_frontier`` row when their write position crosses a
+        page boundary. It makes no host sync and rebinds no state, so the
+        card captures it whole. Returns (done of the last real step,
         number of real steps) as device tensors."""
         K = max(self.macro_steps, 1)
         st, B, dev = self.state, self.B, self.device
@@ -320,6 +377,7 @@ class ServeEngine:
         done_out = torch.zeros(B, dtype=torch.bool, device=dev)
         rows = torch.arange(B, device=dev)
         if self.paged:
+            frontier = self._frontier
             fidx = torch.zeros(B, dtype=torch.long, device=dev)
             F = frontier.shape[1]
         for i in range(K):
@@ -331,11 +389,82 @@ class ServeEngine:
                 page = frontier.gather(1, fidx.clamp(0, F - 1)[:, None])[:, 0]
                 bt[rows, li] = torch.where(need, page, bt[rows, li])
                 fidx += need.long()
-            done = self._decode_step(self._step_noise(self._t + i), go)
+            noise = None if self._noise_buf is None else self._noise_buf[i]
+            done = self._decode_step(noise, go)
             steps += go.to(torch.int32)
-            done_out = torch.where(go, done, done_out)
+            torch.where(go, done, done_out, out=done_out)
             go = go & st.active.any() & ~done.any()
         return done_out, steps
+
+    def _fill_noise(self, t0: int) -> None:
+        """Stage the next launch's noise: ``_noise_buf[i]`` takes the draw
+        of global step t0 + i, masked iterations' included, as an eager
+        loop would draw them."""
+        if self._noise_buf is None:
+            return
+        for i in range(self._noise_buf.shape[0]):
+            self._noise_buf[i].copy_(self.noise.step(t0 + i, self.B, self.V))
+
+    def _macro_launch(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One macro launch of the staged body: eager on the CPU, a replay
+        of the captured graph on the card (captured at the first
+        launch). Returns ``_macro_step``'s outputs."""
+        self._fill_noise(self._t)
+        if self.device.type != "cuda":
+            return self._macro_step()
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        for name, n in self._graph_launches.items():
+            ops.LAUNCHES[name] += n
+        return self._graph_out
+
+    @torch.no_grad()
+    def _capture(self) -> None:
+        """Capture the macro body as one CUDA graph on a side stream,
+        after one eager warm-up launch there that loads every kernel
+        library and lets cuBLAS and the allocator set up, under
+        ``set_sync_debug_mode("error")`` so that a host sync in the body
+        raises. The warm-up runs with every slot inactive, so all its
+        iterations are masked: the only writes it makes are each row's
+        K/V at its current position, which the next real step writes
+        again with the same values. Its kernel launches go to
+        ``_warmup_launches``; the capture's, which launch nothing, become
+        the per-replay counts. Raises if the capture fails."""
+        t0 = time.perf_counter()
+        st = self.state
+        main = torch.cuda.current_stream(self.device)
+        side = _capture_stream(self.device)
+        active = st.active.clone()
+        st.active.zero_()
+        side.wait_stream(main)
+        before = dict(ops.LAUNCHES)
+        mode = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(side):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._macro_step()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        self._warmup_launches = self._launches_since(before)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = self._macro_step()
+        self._graph_launches = self._launches_since(before)
+        main.wait_stream(side)
+        st.active.copy_(active)
+        self._graph, self._graph_out = graph, out
+        self._graphs_captured += 1
+        self._capture_s += time.perf_counter() - t0
+
+    @staticmethod
+    def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+        """Take the kernel launches counted since ``before`` back out of
+        ``ops.LAUNCHES``; returns them by kernel."""
+        made = {k: ops.LAUNCHES[k] - n for k, n in before.items()
+                if ops.LAUNCHES[k] > n}
+        ops.LAUNCHES.update(before)
+        return made
 
     def _unit_embed(self, tok) -> torch.Tensor:
         """fp32 token embeddings over their norms (+1e-8)."""
@@ -343,6 +472,7 @@ class ServeEngine:
         return e / (torch.linalg.vector_norm(e, dim=-1, keepdim=True) + 1e-8)
 
     def _step_noise(self, t: int):
+        """The legacy loop's noise for global step ``t``."""
         if self.mode == "greedy":
             return None
         return self.noise.step(t, self.B, self.V)
@@ -402,19 +532,28 @@ class ServeEngine:
         """Copy prefill KV of a 1-row dense cache into pool pages, every
         layer at once: consecutive page-sized spans from ``start``, or with
         ``broadcast`` the one span at ``start`` into every page (the
-        identical CoW tail copies of a round's candidates)."""
+        identical CoW tail copies of a round's candidates). Quantized
+        pools take the span quantized once, values and scales, and then
+        broadcast, so the copies are bit-identical
+        (``repro/serving/engine.py:1268-1310``)."""
         if not pages:
             return
         n, ps = len(pages), self.page_size
         span = ps if broadcast else n * ps
         pg = torch.as_tensor(pages, device=self.device)
         cache = self.state.cache
-        for name, pool in (("k", cache["k_pages"]), ("v", cache["v_pages"])):
+        for name in ("k", "v"):
+            pool, spool = cache[f"{name}_pages"], cache.get(f"{name}_scale")
             seg = row[name][:, 0, start:start + span]    # (nL, span, Hkv, hd)
             seg = seg.reshape(pool.shape[0], -1, *pool.shape[2:])
+            if spool is not None:
+                seg, sseg = attn_lib.kv_quantize(seg, pool.dtype)
+                if broadcast:
+                    sseg = sseg.expand(spool.shape[0], n, *spool.shape[2:])
+                spool[:, pg] = sseg
             if broadcast:
                 seg = seg.expand(pool.shape[0], n, *pool.shape[2:])
-            pool[:, pg] = seg.to(pool.dtype)
+            attn_lib._raw(pool)[:, pg] = attn_lib._raw(seg.to(pool.dtype))
 
     def _seed_prompt_pages(self, info):
         """Allocate and write the request's full prompt pages once (one
@@ -485,8 +624,9 @@ class ServeEngine:
 
     def _stage_frontier(self):
         """Stage each live slot's next pages for one macro launch, out of
-        its admission-time reservation. Returns ({slot: (start_pos,
-        pages)}, (B, F) frontier tensor; idle rows hold page 0)."""
+        its admission-time reservation, into the static (B, F)
+        ``_frontier`` (idle rows hold page 0). Returns {slot: (start_pos,
+        pages)}."""
         fr = np.zeros((self.B, self._frontier_width), np.int32)
         staged: Dict[int, Tuple[int, List[int]]] = {}
         ps = self.page_size
@@ -507,7 +647,8 @@ class ServeEngine:
                 self._reserved -= need
                 fr[s, :need] = pages
             staged[s] = (p, pages)
-        return staged, torch.as_tensor(fr, device=self.device)
+        self._frontier.copy_(torch.from_numpy(fr))
+        return staged
 
     def _reclaim_frontier(self, staged, pos_np):
         """After a launch: the consumed frontier prefix becomes slot pages,
@@ -561,8 +702,11 @@ class ServeEngine:
             raise ValueError("kv_stats needs a paged impl")
         stats = self.pool.stats()
         cache = self.state.cache
+        # every pool leaf, values and int8/fp8 scales alike, has its page
+        # axis second (``repro/serving/engine.py:1444-1458``)
         bpp = sum(cache[k][:, 0].numel() * cache[k].element_size()
-                  for k in ("k_pages", "v_pages"))
+                  for k in ("k_pages", "v_pages", "k_scale", "v_scale")
+                  if k in cache)
         stats.update(kv_dtype=self.kv_dtype, bytes_per_page=bpp,
                      resident_kv_bytes=stats["in_use"] * bpp,
                      peak_kv_bytes=stats["max_in_use"] * bpp,
@@ -769,7 +913,8 @@ class ServeEngine:
         stage the slots' evidence rows for the next launches."""
         self._prefill_pending()
         self.scheduler.schedule(_EngineSchedContext(self))
-        self._evid = self._gather_evid()
+        if self.has_evidence:
+            self._evid.copy_(self._gather_evid())
 
     def _needed(self, info) -> int:
         if self.mode == "camd":
@@ -969,13 +1114,14 @@ class ServeEngine:
         return False
 
     # -- run loops -------------------------------------------------------
-    def _gather_evid(self) -> Optional[torch.Tensor]:
+    def _gather_evid(self) -> torch.Tensor:
         """(B, Ne, d) evidence rows of each slot's request (zero rows for
-        idle slots and text-only requests, padded to the longest), staged
-        for the next launches (``engine.py:2633``). Refreshed after every
-        scheduling pass, where the reference's launch loop refreshes it."""
-        if not self.has_evidence:
-            return None
+        idle slots and text-only requests, padded to the config's Ne),
+        staged for the next launches (``engine.py:2633``). Refreshed after
+        every scheduling pass, where the reference's launch loop refreshes
+        it. The reference pads to the longest row instead; the padding
+        rows are zero and the rows of a request with evidence are Ne long,
+        so each row's alignment mean is the same."""
         rows = []
         for s in range(self.B):
             uid = int(self._slot_req[s])
@@ -983,7 +1129,7 @@ class ServeEngine:
                 rows.append(self._reqs[uid]["evid_row"][0])
             else:
                 rows.append(torch.zeros((1, self.d), device=self.device))
-        ne = max(r.shape[0] for r in rows)
+        ne = self.cfg.num_evidence_tokens
         return torch.stack([torch.nn.functional.pad(
             r, (0, 0, 0, ne - r.shape[0])) for r in rows])
 
@@ -1001,10 +1147,10 @@ class ServeEngine:
         once all work is drained."""
         if not self._any_live():
             return not self._refill_idle()
-        staged, frontier = self._stage_frontier() if self.paged \
-            else (None, None)
-        done, steps = self._macro_step(frontier)
+        staged = self._stage_frontier() if self.paged else None
+        done, steps = self._macro_launch()
         self.macro_launches += 1
+        self._steps_launched += max(self.macro_steps, 1)
         done_np, pos_np, steps_np = self._sync(
             (done, self.state.cache["pos"], steps))
         self.total_steps += int(steps_np)

@@ -159,11 +159,12 @@ def test_page_pool_copy_invariants():
 def test_later_slices_raise(tiny):
     _, _, _, model = tiny
     for kw in (dict(prefix_cache=True), dict(spec_k=4), dict(mesh=object()),
-               dict(prefill_chunk=16), dict(impl="paged",
-                                            paged_kv=tconfig.PagedKVConfig(
-                                                kv_dtype="int8"))):
+               dict(prefill_chunk=16)):
         with pytest.raises(NotImplementedError):
             ServeEngine(model, cache_len=64, **kw)
+    # quantized pools are served now (tests/test_torch_engine_quantized.py)
+    ServeEngine(model, cache_len=64, impl="paged",
+                paged_kv=tconfig.PagedKVConfig(kv_dtype="int8"))
     eng = ServeEngine(model, cache_len=64)
     # multimodal requests are served now, but not by a text-only model
     with pytest.raises(ValueError, match="evidence"):

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card,
+and the serving engine's macro-step as one CUDA graph against the same
+body run eagerly.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA
 device. The module imports neither JAX nor the JAX package, so it runs on
@@ -15,8 +17,13 @@ and their plain versions compute in fp32 from the same bf16 values.
 import pytest
 import torch
 
+from repro_torch.config import PagedKVConfig, SamplingConfig
+from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import serve
 from repro_torch.models.attention import kv_quantize
+from repro_torch.models.model import build_model
+from repro_torch.serving.engine import ServeEngine
 
 TOLS = {torch.float32: dict(rtol=2e-5, atol=2e-5),
         torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -444,3 +451,112 @@ def test_moe_dispatch_decode_grid_on_card(gen, dtype):
     out = ops.moe_dispatch(idx, x)
     assert torch.equal(out, ref.moe_dispatch_ref(idx, x))
     assert torch.equal(out, ops.moe_dispatch(idx, x))
+
+
+# ---------------------------------------------------------------------------
+# the serving engine on the card: the macro-step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def _engine_on_card(arch, K, *, impl="paged_cuda", kv_dtype="auto",
+                    mode="camd", sampling=None):
+    """A reduced config with seeded random weights on the card, and the
+    serve CLI's synthetic requests (4 of 12 tokens; image requests for
+    llava). Returns (engine, requests)."""
+    cfg = get_config(arch).reduced().with_overrides(dtype="float32")
+    model = build_model(cfg, torch.float32, device="cuda", seed=0)
+    args = serve.parse_args(["--arch", arch, "--requests", "4",
+                             "--prompt-len", "12", "--seed", "0"])
+    eng = ServeEngine(model, slots=8, cache_len=64, mode=mode,
+                      sampling=sampling or SamplingConfig(max_new_tokens=8),
+                      max_new_tokens=8, eos_id=cfg.vocab_size, impl=impl,
+                      paged_kv=PagedKVConfig(page_size=16, kv_dtype=kv_dtype),
+                      macro_steps=K, seed=0)
+    return eng, serve.make_requests(cfg, args)
+
+
+def _serve_on_card(eng, reqs):
+    """Serve ``reqs``; returns (sorted results, launches of the run)."""
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_launches()
+    with torch.inference_mode():
+        res = sorted(eng.run(), key=lambda r: r.uid)
+    torch.cuda.synchronize()
+    return res, dict(ops.LAUNCHES)
+
+
+def _state_tensors(eng):
+    st = eng.state
+    out = {k: getattr(st, k) for k in vars(st) if k != "cache"}
+    out.update({f"cache.{k}": v for k, v in st.cache.items()})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m",
+                                  "llava-1.5-7b"])
+def test_graph_macro_step_equals_eager_on_card(gen, arch):
+    """``paged_cuda`` with K 8, every launch a replay of the one captured
+    graph, against the same body run eagerly on the card: equal streams,
+    the same kernel launch counts, and a bitwise equal final state (so
+    nothing, cuBLAS's choices included, computes otherwise under
+    capture). The eager legacy loop (K 0) gives the same CAMD streams."""
+    runs = {}
+    for name, K in (("graph", 8), ("eager body", 8), ("legacy", 0)):
+        eng, reqs = _engine_on_card(arch, K)
+        if name == "eager body":
+            def eager(eng=eng):
+                eng._fill_noise(eng._t)
+                return eng._macro_step()
+            eng._macro_launch = eager
+        res, launches = _serve_on_card(eng, reqs)
+        runs[name] = (eng, [[c["tokens"].tolist() for c in r.candidates]
+                            for r in res], launches)
+        eng.pool.check()
+        assert eng.pool.in_use == 0
+    eng, streams, launches = runs["graph"]
+    assert eng._graphs_captured == 1 and eng._capture_s > 0
+    assert eng.macro_launches > 1 and launches["paged_decode_attention"] > 0
+    assert sum(eng._warmup_launches.values()) == \
+        sum(eng._graph_launches.values()) > 0
+    eager, e_streams, e_launches = runs["eager body"]
+    assert eager._graphs_captured == 0
+    assert streams == e_streams == runs["legacy"][1]
+    assert launches == e_launches
+    a, b = _state_tensors(eng), _state_tensors(eager)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["torch", "cuda", "paged", "paged_cuda"])
+def test_graph_captures_every_impl_on_card(gen, impl):
+    """The body captures under every impl on the MoE config with the full
+    sampling-processor chain (top-k, top-p, min-p, repetition penalty):
+    no host sync in the warm-up (``set_sync_debug_mode("error")``) or the
+    capture, one graph an engine."""
+    chain = SamplingConfig(max_new_tokens=8, top_k=5, top_p=0.8, min_p=0.05,
+                           repetition_penalty=1.2)
+    eng, reqs = _engine_on_card("granite-moe-3b-a800m", 4, impl=impl,
+                                sampling=chain)
+    res, launches = _serve_on_card(eng, reqs)
+    assert len(res) == 4 and all(r.n_candidates > 0 for r in res)
+    assert eng._graphs_captured == 1
+    kernels = impl.endswith("cuda")
+    assert (launches["moe_dispatch"] > 0) == kernels
+    assert (sum(launches.values()) > 0) == kernels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_quantized_pool_engine_on_card(gen, kv_dtype):
+    """An int8/fp8-pool engine serves through the graph on K1's dequant
+    path and returns every page."""
+    eng, reqs = _engine_on_card("qwen3-0.6b", 8, kv_dtype=kv_dtype)
+    res, launches = _serve_on_card(eng, reqs)
+    assert len(res) == 4 and all(r.n_candidates > 0 for r in res)
+    assert "k_scale" in eng.state.cache and eng._graphs_captured == 1
+    assert launches["paged_decode_attention"] > 0
+    eng.pool.check()
+    assert eng.pool.in_use == 0 and eng._reserved == 0
+    assert eng.kv_stats()["kv_dtype"] == kv_dtype
