@@ -50,7 +50,26 @@ Run from the root of a checkout. It
   13-14. qwen3-0.6b served again from int8 and from fp8 KV pools (paged
      decode kernel's dequant path), with their bytes per page beside
      fp32's, and at reduced depth the greedy streams of the plain and the
-     kernel paged engines on each quantized pool must agree.
+     kernel paged engines on each quantized pool must agree;
+  15-17. llava-1.5-7b served with the cross-request prefix cache: each
+     request whose image an earlier one brought hits the 36 pages of its
+     576-token image span and prefills only its prompt (hits, prefill
+     tokens against the run without the cache, whole and suffix prefill
+     forwards checked), then the prefill of a hit against a miss (CUDA
+     events, the attention's share of each) and no page in use once the
+     cache drops its holds; served again with chunked prefill (chunks of
+     640: the image span and 64 prompt tokens, then the rest); at 4
+     layers the greedy streams with the cache on and off, plain and
+     kernel paged engines, must agree;
+  18-19. qwen3-0.6b served with chunked prefill (chunks of 64, at most 128
+     chunk tokens between two decode launches; chunk calls and tokens
+     checked, tokens/s beside the unchunked run's), and at 4 layers the
+     greedy streams of two waves of the same requests (the second hits
+     the cache) with the cache and chunks of 16 on and off, plain and
+     kernel paged engines, must agree.
+Every serve phase checks that the flash kernel ran once a layer a
+whole-prompt prefill forward and the paged decode kernel once a layer a
+step of every replay.
 Every serve phase runs each macro launch as a replay of the engine's one
 captured CUDA graph: it checks that one graph was captured, prints the
 capture time, the steps the launches ran against the real ones (the
@@ -63,6 +82,7 @@ last ``{"ok": true, "device": {...}}``. Any failure exits nonzero. It
 exits with an error, printing no result, without a CUDA device or outside
 a checkout of the repository.
 """
+import contextlib
 import json
 import re
 import subprocess
@@ -247,8 +267,10 @@ FLASH_SHAPES = {  # (B, L, H, Hkv, hd)
 def flash_phase(torch, ops, ref, timer):
     """K2 against its plain version in fp32 (3xTF32 on the tensor cores)
     and bf16 (one TF32 pass) at every head_dim it takes, at the served
-    buckets (qwen3's, granite's G 3, llava's L 832, no tile multiple), a
-    4096-token row (the 3xTF32 error over many keys), ragged last tiles,
+    buckets (qwen3's, granite's G 3, llava's L 832, no tile multiple), the
+    one-row prefills of a prefix-cache miss and of a first chunk (qwen3's
+    and llava's), a 4096-token row (the 3xTF32 error over many keys),
+    ragged last tiles,
     sliding windows whose edge cuts diagonal tiles, a non-causal row and
     key lengths, twice each for the same bits; then timed
     (``flash_timing``) at the three served buckets."""
@@ -268,6 +290,11 @@ def flash_phase(torch, ops, ref, timer):
         (3, 200, 24, 8, 64, True, 0, [200, 37, 130]),  # padded rows, G = 3
         (2, 256, 16, 8, 128, True, 0, [1, 100]),       # padded rows, G = 2
         (2, 150, 4, 2, 32, True, 0, [150, 3]),         # padded rows, hd 32
+        # one-row prefills of the prefix-cache and chunked serve runs
+        (1, 16, 16, 8, 128, True, 0, None),    # qwen3 first chunk, 4 layers
+        (1, 64, 16, 8, 128, True, 0, None),    # qwen3 first chunk
+        (1, 640, 32, 32, 128, True, 0, None),  # llava first chunk
+        (1, 832, 32, 32, 128, True, 0, None),  # llava prefix-cache miss
     ]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -873,21 +900,89 @@ LLAVA_ARGV = ["--arch", "llava-1.5-7b", "--no-reduced", "--impl",
               "--eos-id", "32000", "--device", "cuda", "--seed", "0"]
 
 
-def serve_phase(torch, ops, serve, argv, kernels):
+@contextlib.contextmanager
+def counting_prefills(torch, timed=False):
+    """Counts the served engine's prefill forwards while it is open:
+    whole-prompt ones (``Model.prefill``: the flash kernel once a layer on
+    the kernel impls) and suffix ones (``Model.prefill_suffix``: a prefix
+    hit or a later chunk, plain sdpa against the cached context). With
+    ``timed``, also each forward's CUDA-event span and the spans of the
+    prefill attention calls inside it (the flash kernel's wrapper, the
+    plain sdpa), under "spans": {name: [(forward, [attention])]}, read
+    once the device has synchronized."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models.model import Model
+    counts = {"prefill": 0, "prefill_suffix": 0}
+    spans = {name: [] for name in counts}
+    saved = {name: getattr(Model, name) for name in counts}
+    saved_attn = (attn_lib.sdpa, ops.flash_attention)
+    inner = None                  # the open forward's attention spans
+
+    def event_span(fn, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        return out, (start, end)
+
+    def counted(name, fn):
+        def call(self, *args, **kw):
+            nonlocal inner
+            counts[name] += 1
+            if not timed:
+                return fn(self, *args, **kw)
+            inner = []
+            out, span = event_span(fn, self, *args, **kw)
+            spans[name].append((span, inner))
+            inner = None
+            return out
+        return call
+
+    def attention(fn):
+        def call(*args, **kw):
+            if inner is None:
+                return fn(*args, **kw)
+            out, span = event_span(fn, *args, **kw)
+            inner.append(span)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(Model, name, counted(name, fn))
+    if timed:
+        attn_lib.sdpa, ops.flash_attention = map(attention, saved_attn)
+    try:
+        yield counts, spans
+    finally:
+        for name, fn in saved.items():
+            setattr(Model, name, fn)
+        attn_lib.sdpa, ops.flash_attention = saved_attn
+
+
+def serve_phase(torch, ops, serve, argv, kernels, timed=False):
     """One serve run through the entry point, with the launch counts set
     to 0 just before and read just after; every kernel in ``kernels`` must
     have carried it, every macro launch a replay of the engine's one
-    captured graph. Returns (launches, output of serve.main)."""
+    captured graph; the flash kernel runs once a layer a whole-prompt
+    prefill forward, the paged decode kernel once a layer a step of every
+    replay. Returns (launches, output of serve.main, with the prefill
+    forwards under "forwards" and, with ``timed``, their CUDA-event spans
+    under "spans", as ``counting_prefills`` gives them)."""
     s = SERVE
     print("serve phase: python -m repro_torch.launch.serve " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    out = serve.main(argv)
+    with counting_prefills(torch, timed) as (forwards, spans):
+        out = serve.main(argv)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    out["forwards"], out["spans"] = dict(forwards), spans
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     eng, results = out["engine"], out["results"]
-    check(len(results) == s["requests"], "serve: missing results")
+    check(len(results) == serve.parse_args(argv).requests,
+          "serve: missing results")
     for r in results:
         check(r.n_candidates > 0 and 0 < len(r.tokens) <= s["max_new"],
               f"serve: request {r.uid} has no usable candidate")
@@ -896,21 +991,32 @@ def serve_phase(torch, ops, serve, argv, kernels):
         check(bool(torch.isfinite(torch.tensor(r.best_score))),
               f"serve: request {r.uid} has a non-finite score")
     eng.pool.check()
-    check(eng.pool.in_use == 0, "serve: pages leaked")
+    cached = eng.pool.prefix.cached_pages if eng.pool.prefix else 0
+    check(eng.pool.in_use == cached, f"serve: {eng.pool.in_use} pages in "
+          f"use after the run, {cached} of them cached: pages leaked")
     check(eng._graphs_captured == 1 and eng.macro_launches > 0,
           f"serve: {eng._graphs_captured} graphs captured, "
           f"{eng.macro_launches} macro launches")
     for name in kernels:
         check(launches[name] > 0, f"serve: {name} was never launched")
-    n_flash = eng.cfg.num_layers * eng.prefill_calls
-    check(launches["flash_attention"] == n_flash,
-          f"serve: flash_attention launched {launches['flash_attention']} "
-          f"times, not {n_flash} (one a layer a bucketed prefill)")
+    L = eng.cfg.num_layers
+    want = {"flash_attention": L * forwards["prefill"],
+            "paged_decode_attention": L * eng.macro_launches *
+            eng.macro_steps}
+    for name, n in want.items():
+        check(launches[name] == n, f"serve: {name} launched "
+              f"{launches[name]} times, not {n} ({L} layers, "
+              f"{forwards['prefill']} whole-prompt prefills, "
+              f"{eng.macro_launches} replays of {eng.macro_steps} steps)")
     print(f"serve phase: {out['tokens_per_s']:.1f} tok/s "
           f"({eng.total_tokens} tokens in {out['seconds']:.2f}s, "
           f"{eng.total_steps} decode steps, {eng.macro_launches} launches, "
-          f"{eng.prefill_calls} prefills, {eng.host_syncs} host syncs, "
-          f"peak device memory {peak_gb:.1f} GB); launches {launches}")
+          f"{eng.prefill_calls} prefills over {eng.prefill_tokens} tokens "
+          f"({forwards['prefill']} whole-prompt and "
+          f"{forwards['prefill_suffix']} suffix forwards), "
+          f"{eng.chunk_calls} chunks over {eng.chunk_tokens} tokens, "
+          f"{eng.host_syncs} host syncs, peak device memory {peak_gb:.1f} "
+          f"GB); launches {launches}")
     kv = eng.kv_stats()
     print(f"serve phase: kv pool [{kv['kv_dtype']}] {kv['bytes_per_page']} "
           f"bytes a page, peak {kv['peak_kv_bytes'] / 1e6:.2f} MB")
@@ -1097,16 +1203,14 @@ GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--no-reduced", "--impl",
 
 def moe_launch_checks(out, launches):
     """Each forward of the served model (one per bucketed prefill, one per
-    iteration of every macro launch) runs the flash or the paged decode
-    kernel, and the MoE dispatch and combine, once per layer."""
+    iteration of every macro launch) runs the MoE dispatch and combine
+    once per layer (``serve_phase`` checks the attention kernels)."""
     eng = out["engine"]
     L = eng.cfg.num_layers
     steps = eng.macro_launches * eng.macro_steps
     forwards = eng.prefill_calls + steps
-    want = {"flash_attention": L * eng.prefill_calls,
-            "paged_decode_attention": L * steps,
-            "moe_dispatch": L * forwards, "moe_combine": L * forwards}
-    for name, n in want.items():
+    for name in ("moe_dispatch", "moe_combine"):
+        n = L * forwards
         check(launches[name] == n, f"serve: {name} launched "
               f"{launches[name]} times, not {n} ({L} layers)")
     print(f"moe path: {forwards} forwards ({eng.prefill_calls} prefill, "
@@ -1253,6 +1357,171 @@ def quant_dense_check(torch, ops, serve, argv, kv_dtype):
           "tokens)")
 
 
+# ---------------------------------------------------------------------------
+# prefix cache and chunked prefill
+# ---------------------------------------------------------------------------
+
+LLAVA_KERNELS = ("flash_attention", "paged_decode_attention",
+                 "xmodal_score_mean", "xmodal_score_max")
+TEXT_KERNELS = ("flash_attention", "paged_decode_attention")
+
+
+def with_arg(argv, flag, value):
+    """``argv`` with ``flag``'s value replaced."""
+    argv = list(argv)
+    argv[argv.index(flag) + 1] = str(value)
+    return argv
+
+
+def prefill_times(spans):
+    """{forward kind: (ms, attention ms)} from ``counting_prefills``'s
+    spans, the mean over the forwards of that kind after the first (which
+    warms the shape up), or the one forward there is."""
+    out = {}
+    for name, runs in spans.items():
+        runs = [(a.elapsed_time(b), sum(x.elapsed_time(y) for x, y in att))
+                for (a, b), att in runs]
+        check(bool(runs), f"prefix cache: no {name} forward was timed")
+        warm = runs[1:] or runs
+        out[name] = tuple(sum(x) / len(warm) for x in zip(*warm))
+        print(f"  {name} forwards (ms, attention ms): "
+              + ", ".join(f"({a:.2f}, {b:.2f})" for a, b in runs))
+    return out
+
+
+def prefix_phase(torch, ops, serve, plain_prefill_tokens):
+    """llava-1.5-7b image requests with the prefix cache on: every request
+    whose image an earlier one brought hits the 36 pages of its 576-token
+    image span and prefills only its 256 prompt tokens against them (the
+    first of each image prefills whole, through the flash kernel); the
+    prefill tokens fall by the hit tokens against the run without the
+    cache. Then a hit's prefill forward to its first-token logits against
+    a miss's, CUDA events in the same run (``prefill_times``), and no page
+    in use once the cache drops its holds."""
+    import hashlib
+    argv = LLAVA_ARGV + ["--prefix-cache"]
+    launches, out = serve_phase(torch, ops, serve, argv, LLAVA_KERNELS,
+                                timed=True)
+    image_checks(torch, serve, argv, out)
+    eng, fw = out["engine"], out["forwards"]
+    args = serve.parse_args(argv)
+    reqs = serve.make_requests(eng.cfg, args)
+    distinct = len({hashlib.sha256(r.image.tobytes()).digest()
+                    for r in reqs})
+    span_pages = IMAGE_TOKENS // SERVE["page"]
+    hits = len(reqs) - distinct
+    pc = eng.kv_stats()["prefix_cache"]
+    full = IMAGE_TOKENS + SERVE["prompt"]
+    want = {"suffix forwards": (fw["prefill_suffix"], hits),
+            "whole forwards": (fw["prefill"], distinct),
+            "page hits": (pc["hits"], hits * span_pages),
+            "hit tokens": (pc["hit_tokens"], hits * IMAGE_TOKENS),
+            "prefill tokens": (eng.prefill_tokens,
+                               distinct * full + hits * SERVE["prompt"]),
+            "prefill tokens saved": (plain_prefill_tokens -
+                                     eng.prefill_tokens, pc["hit_tokens"])}
+    for what, (got, exp) in want.items():
+        check(got == exp, f"prefix cache: {what} {got}, not {exp}")
+    print(f"prefix cache: {hits} of {len(reqs)} requests hit "
+          f"{span_pages} pages each ({pc['hits']} page hits, "
+          f"{pc['hit_tokens']} prefill tokens skipped, "
+          f"{pc['bytes_saved'] / 1e9:.2f} GB of KV writes saved); "
+          f"{eng.prefill_tokens} prefill tokens run against "
+          f"{plain_prefill_tokens} without the cache; {pc['cached_pages']} "
+          f"pages cached")
+    t = prefill_times(out["spans"])
+    (hit_ms, hit_attn), (miss_ms, miss_attn) = t["prefill_suffix"], \
+        t["prefill"]
+    print(f"prefix cache: prefill forward to first-token logits (CUDA "
+          f"events, mean of the warm ones): hit {hit_ms:.2f} ms (suffix "
+          f"attention, plain sdpa against 576 cached positions: "
+          f"{hit_attn:.2f} ms, {hit_attn / hit_ms:.3f}), miss {miss_ms:.2f} "
+          f"ms (flash kernel {miss_attn:.2f} ms, {miss_attn / miss_ms:.3f}); "
+          f"hit/miss {hit_ms / miss_ms:.3f}")
+    eng.pool.prefix.drop_all()
+    eng.pool.check()
+    check(eng.pool.in_use == 0 and eng._reserved == 0,
+          f"prefix cache: {eng.pool.in_use} pages in use after drop_all")
+    print("prefix cache: no page in use after drop_all; pool check passed")
+    return launches, out
+
+
+def chunk_phase(torch, ops, serve, argv, kernels, chunk, plain_tps=None):
+    """A serve run with chunked prefill: each prompt streams into the pool
+    in chunks of ``chunk`` (the first a whole-prompt forward through the
+    flash kernel, carrying an image span whole; the rest suffix forwards
+    against the pages before them), interleaved with decode launches. Its
+    chunk calls and tokens must be the prompt's. Returns serve_phase's
+    output."""
+    launches, out = serve_phase(torch, ops, serve, argv, kernels)
+    eng, fw = out["engine"], out["forwards"]
+    n = len(out["results"])
+    args = serve.parse_args(argv)
+    span = args.prompt_len + (IMAGE_TOKENS if eng.has_evidence else 0)
+    per_req = -(-span // chunk)
+    want = {"chunk size": (eng.chunk, chunk),
+            "chunk calls": (eng.chunk_calls, n * per_req),
+            "chunk tokens": (eng.chunk_tokens, n * span),
+            "whole forwards": (fw["prefill"], n),
+            "suffix forwards": (fw["prefill_suffix"], n * (per_req - 1)),
+            "prefill calls": (eng.prefill_calls, n)}
+    for what, (got, exp) in want.items():
+        check(got == exp, f"chunked prefill: {what} {got}, not {exp}")
+    print(f"chunked prefill: chunk {eng.chunk}, budget {eng.chunk_budget} "
+          f"tokens a turn; {eng.chunk_calls} chunk calls over "
+          f"{eng.chunk_tokens} tokens ({per_req} a request)"
+          + (f"; {out['tokens_per_s']:.1f} tok/s against the unchunked "
+             f"serve phase's {plain_tps:.1f}" if plain_tps else ""))
+    return launches, out
+
+
+def feature_check(torch, ops, serve, argv, flags, impls, waves):
+    """At 4 layers: greedy streams with ``flags`` (the prefix cache, chunked
+    prefill) on and off, over ``impls``, each engine serving ``waves``
+    submissions of the same requests (a later wave hits the pages the
+    first one cached), must agree; the runs with the flags must hit the
+    cache and, where asked, chunk; the kernel impls must launch the flash
+    and paged decode kernels."""
+    from repro_torch.serving.engine import Request
+    streams, stats = {}, {}
+    for impl in impls:
+        for on in (False, True):
+            run = f"{impl}{' ' + ' '.join(flags) if on else ''}"
+            args = serve.parse_args(argv + ["--impl", impl] +
+                                    (flags if on else []))
+            cfg, eng = serve.build_engine(args)
+            ops.reset_launches()
+            with torch.inference_mode():
+                for w in range(waves):
+                    for r in serve.make_requests(cfg, args):
+                        eng.submit(Request(uid=100 * w + r.uid,
+                                           prompt=r.prompt, image=r.image))
+                    res = sorted(eng.run(), key=lambda r: r.uid)
+            torch.cuda.synchronize()
+            check((ops.LAUNCHES["flash_attention"] > 0 and
+                   ops.LAUNCHES["paged_decode_attention"] > 0) ==
+                  impl.endswith("cuda"),
+                  f"feature check [{run}]: kernel launches {ops.LAUNCHES}")
+            streams[run] = [r.tokens.tolist() for r in res]
+            if on:
+                pc = eng.kv_stats()["prefix_cache"]
+                stats[run] = (pc["hits"], eng.chunk_calls)
+                check(pc["hits"] > 0, f"feature check [{run}]: no hit")
+                check((eng.chunk_calls > 0) == ("--prefill-chunk" in flags),
+                      f"feature check [{run}]: {eng.chunk_calls} chunks")
+            eng.pool.check()
+            del eng
+            free_memory(torch)
+    first = next(iter(streams.values()))
+    for run, st in streams.items():
+        check(st == first, f"feature check: greedy streams of [{run}] "
+              f"differ from [{next(iter(streams))}]: {st} vs {first}")
+    print(f"feature check [{argv[1]}, 4 layers, {waves} wave(s)]: greedy "
+          f"streams agree over {', '.join(streams)} "
+          f"({sum(len(s) for s in first)} tokens; page hits and chunk "
+          f"calls with the flags: {stats})")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("run from the root of a checkout: src/repro_torch not found")
@@ -1328,6 +1597,7 @@ def main() -> None:
         ("flash_attention", "paged_decode_attention"))
     graph_phase(torch, "qwen3-0.6b", out, timer)
     fp32_bpp = out["engine"].kv_stats()["bytes_per_page"]
+    qwen_tps = out["tokens_per_s"]
     del out
     check_released(torch, "qwen3-0.6b serve")
     profile_phase(torch, ops, serve, QWEN_ARGV)
@@ -1338,10 +1608,9 @@ def main() -> None:
     free_memory(torch)
     # llava-1.5-7b, image requests
     runs["llava-1.5-7b serve"], out = serve_phase(
-        torch, ops, serve, LLAVA_ARGV,
-        ("flash_attention", "paged_decode_attention", "xmodal_score_mean",
-         "xmodal_score_max"))
+        torch, ops, serve, LLAVA_ARGV, LLAVA_KERNELS)
     image_checks(torch, serve, LLAVA_ARGV, out)
+    llava_prefill_tokens = out["engine"].prefill_tokens
     graph_phase(torch, "llava-1.5-7b", out, timer)
     image_prefill_timing(torch, out, timer)
     del out
@@ -1352,6 +1621,22 @@ def main() -> None:
         torch, ops, serve, LLAVA_DENSE_ARGV,
         ("flash_attention", "decode_attention", "xmodal_score_mean",
          "xmodal_score_max"))
+    free_memory(torch)
+    # llava-1.5-7b with the prefix cache (repeated images hit), and with
+    # chunked prefill (the first chunk carries the image span)
+    new_runs = ("llava-1.5-7b serve prefix cache", "llava-1.5-7b serve chunked",
+                "qwen3-0.6b serve chunked")
+    runs[new_runs[0]], out = prefix_phase(torch, ops, serve,
+                                          llava_prefill_tokens)
+    del out
+    check_released(torch, new_runs[0])
+    runs[new_runs[1]], out = chunk_phase(
+        torch, ops, serve, with_arg(LLAVA_ARGV, "--requests", 4) +
+        ["--prefill-chunk", "640"], LLAVA_KERNELS, 640)
+    del out
+    check_released(torch, new_runs[1])
+    feature_check(torch, ops, serve, LLAVA_DENSE_ARGV, ["--prefix-cache"],
+                  ("paged", "paged_cuda"), 1)
     free_memory(torch)
     # granite-moe-3b-a800m, text requests through the MoE layers
     runs["granite-moe-3b-a800m serve"], out = serve_phase(
@@ -1385,6 +1670,17 @@ def main() -> None:
         del out
         check_released(torch, run)
         quant_dense_check(torch, ops, serve, QWEN_DENSE_ARGV, kv_dtype)
+    # qwen3-0.6b with chunked prefill: 256-token prompts in chunks of 64,
+    # at most 128 chunk tokens between two decode launches
+    runs[new_runs[2]], out = chunk_phase(
+        torch, ops, serve, QWEN_ARGV + ["--prefill-chunk", "64",
+                                        "--prefill-chunk-budget", "128"],
+        TEXT_KERNELS, 64, qwen_tps)
+    del out
+    check_released(torch, new_runs[2])
+    feature_check(torch, ops, serve, QWEN_DENSE_ARGV,
+                  ["--prefix-cache", "--prefill-chunk", "16"],
+                  ("paged", "paged_cuda"), 2)
 
     # launches: the serve phases for the kernels the serving path runs,
     # the dense checks for the dense decode kernel (K3), which only the
@@ -1394,9 +1690,9 @@ def main() -> None:
                                   "granite-moe-3b-a800m dense check")}
     serves = ("qwen3-0.6b serve", "llava-1.5-7b serve",
               "granite-moe-3b-a800m serve")
-    # the quantized pools' serve runs go through the prefill and paged
-    # decode kernels too
-    paths.update({name: serves + tuple(quant) for name in
+    # the quantized pools', the prefix cache's and the chunked serve runs
+    # go through the prefill and paged decode kernels too
+    paths.update({name: serves + tuple(quant) + new_runs for name in
                   ("flash_attention", "paged_decode_attention")})
     meta = {
         "flash_attention": ("flash_attention",

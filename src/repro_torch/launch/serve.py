@@ -5,6 +5,8 @@
     python -m repro_torch.launch.serve --arch llava-1.5-7b --no-reduced \
         --impl paged_cuda --xmodal-rescore --image-pool 2 --cache-len 864
     python -m repro_torch.launch.serve --impl paged_cuda --kv-dtype int8
+    python -m repro_torch.launch.serve --impl paged_cuda --prefix-cache \
+        --prefill-chunk 64 --prompt-len 256
 
 Configs with a vision tower serve image requests: synthetic images drawn
 from a pool of ``--image-pool`` distinct ones, encoded at submit time and
@@ -84,6 +86,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "int8/fp8 store quantized pages with per-(page, "
                          "slot, kv-head) scales, dequantized inside the "
                          "paged decode kernel")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request prompt-prefix KV reuse (paged "
+                         "impls on all-attention decoders)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: split long prompts into "
+                         "page-aligned chunks of this many tokens and "
+                         "interleave them with decode launches (0 = "
+                         "whole-prompt prefill; paged all-attention "
+                         "decoders only, others run unchunked)")
+    ap.add_argument("--prefill-chunk-budget", type=int, default=0,
+                    help="most chunk tokens prefilled between two decode "
+                         "launches (0 = one chunk)")
+    ap.add_argument("--kv-byte-budget", type=int, default=0,
+                    help="resident-KV byte ceiling for the prefix cache: "
+                         "cached-only pages are evicted until resident KV "
+                         "bytes (scales included) fit (0 = unbounded)")
     ap.add_argument("--macro-steps", type=int, default=8,
                     help="device decode steps per launch; 0 = legacy "
                          "per-token host loop")
@@ -127,11 +145,9 @@ def make_requests(cfg, args) -> List[Request]:
     return reqs
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
-    """Serve one batch of synthetic requests; prints results and
-    telemetry and returns them (``engine``, ``results``, ``seconds``,
-    ``tokens_per_s``)."""
-    args = parse_args(argv)
+def build_engine(args: argparse.Namespace):
+    """The served config and the engine that ``args`` ask for (model
+    weights made from seed 0). Returns (cfg, engine)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -156,12 +172,25 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         eos_id=args.eos_id, impl=args.impl,
         paged_kv=PagedKVConfig(page_size=args.page_size,
                                num_pages=args.num_pages,
-                               kv_dtype=args.kv_dtype),
+                               kv_dtype=args.kv_dtype,
+                               kv_byte_budget=args.kv_byte_budget),
         macro_steps=args.macro_steps,
         bucket_prefill=not args.no_bucket_prefill,
         prefill_bucket_min=args.prefill_bucket_min,
         sched_policy=args.sched_policy, global_budget=args.global_budget,
+        prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk,
+        prefill_chunk_budget=args.prefill_chunk_budget,
         xmodal_rescore=args.xmodal_rescore, seed=args.seed)
+    return cfg, eng
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Serve one batch of synthetic requests; prints results and
+    telemetry and returns them (``engine``, ``results``, ``seconds``,
+    ``tokens_per_s``)."""
+    args = parse_args(argv)
+    cfg, eng = build_engine(args)
+    model = eng.model
     for req in make_requests(cfg, args):
         eng.submit(req)
     sync = torch.cuda.synchronize if model.device.type == "cuda" \
@@ -187,12 +216,26 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     print(f"scheduler: {ss['policy']} admitted={ss['admitted_candidates']} "
           f"spent={ss['spent']}/{ss['global_budget'] or 'inf'} "
           f"declined={ss['declined_rounds']} starved={ss['starved']}")
+    print(f"prefill: {ss['prefill_calls']} calls over "
+          f"{ss['prefill_tokens']} tokens")
+    if eng.chunked:
+        print(f"chunked prefill: chunk={eng.chunk} budget="
+              f"{eng.chunk_budget} tok/turn, {ss['chunk_calls']} chunk "
+              f"calls over {ss['chunk_tokens']} tokens")
     if eng.paged:
         s = eng.kv_stats()
         print(f"paged kv [{s['kv_dtype']}]: peak {s['max_in_use']}/"
               f"{s['num_pages']} pages "
               f"({s['peak_kv_bytes'] / 1e6:.2f} MB resident at peak vs "
               f"{s['dense_equiv_bytes'] / 1e6:.2f} MB dense-equivalent)")
+        if "prefix_cache" in s:
+            pc = s["prefix_cache"]
+            print(f"prefix cache: {pc['hits']} page hits, "
+                  f"{pc['hit_tokens']} prefill tokens skipped, "
+                  f"{pc['bytes_saved'] / 1e6:.2f} MB KV writes saved")
+        if s.get("kv_byte_budget"):
+            print(f"kv byte budget: {s['kv_byte_budget'] / 1e6:.2f} MB "
+                  f"ceiling, {s['budget_evictions']} budget evictions")
     if eng.image_encodes or eng.image_feat_hits:
         print(f"vision frontend: {eng.image_encodes} tower encodes, "
               f"{eng.image_feat_hits} feature-memo hits")

@@ -61,15 +61,17 @@ def project_qkv(p: Attention, cfg: ModelConfig, x, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def sdpa(q, k, v, *, causal: bool, window: int = 0, kv_mask=None,
-         chunk: int = 512):
+def sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
+         kv_mask=None, chunk: int = 512):
     """Grouped GQA scaled-dot-product attention (``attention.py:65``).
 
     q: (B, Lq, Hq, hd); k/v: (B, Lk, Hkv, hd) with Hq % Hkv == 0. The G
     query heads of a kv head share it through the einsum's batch dims, so
     the expanded K/V never exist. Scores and the output product accumulate
-    in fp32. ``kv_mask``: optional (B, Lk) key-validity mask. Queries go
-    in chunks of ``chunk`` so the Lq x Lk scores stay bounded."""
+    in fp32. ``q_offset``: position of q[0] relative to k[0] (the suffix
+    of a prefix-cache hit, a later prefill chunk). ``kv_mask``: optional
+    (B, Lk) key-validity mask. Queries go in chunks of ``chunk`` so the
+    Lq x Lk scores stay bounded."""
     B, Lq, Hq, hd = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -82,7 +84,7 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, kv_mask=None,
         C = qc.shape[1]
         qg = qc.reshape(B, C, Hkv, G, hd).float()
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
-        q_pos = torch.arange(C, device=q.device) + c0
+        q_pos = torch.arange(C, device=q.device) + c0 + q_offset
         rel = q_pos[:, None] - kv_pos[None, :]
         mask = torch.ones_like(rel, dtype=torch.bool)
         if causal:
@@ -100,16 +102,29 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, kv_mask=None,
 
 
 def attn_prefill(p: Attention, cfg: ModelConfig, x, positions, *,
-                 window: int = 0, impl: str = "torch", lengths=None):
+                 window: int = 0, impl: str = "torch", lengths=None,
+                 ctx_kv=None, q_offset: int = 0):
     """Full-sequence causal attention. Returns (out (B, L, d), (k, v)) for
     cache seeding. ``lengths`` ((B,) int32, optional): the true lengths of
     right-padded rows in a bucketed prefill; keys past them are masked on
     both paths, as the reference's plain path masks them
     (``transformer.py:324``). Real positions never attend to pads anyway
     (causality); masking also pins the pad rows, whose hidden states an
-    MoE layer routes and counts against expert capacity."""
+    MoE layer routes and counts against expert capacity.
+
+    ``ctx_kv``: optional (k, v) of context already computed for positions
+    [0, q_offset) (a prefix-cache hit's cached pages, the earlier chunks
+    of a chunked prefill). The new queries attend causally over [context;
+    new] and only the new (k, v) is returned. This runs ``sdpa`` on every
+    impl, as the reference does (``attention.py:171-178``): its flash
+    kernel takes no context."""
     B, L, _ = x.shape
     q, k, v = project_qkv(p, cfg, x, positions)
+    if ctx_kv is not None:
+        kc = torch.cat([ctx_kv[0].to(k.dtype), k], dim=1)
+        vc = torch.cat([ctx_kv[1].to(v.dtype), v], dim=1)
+        out = sdpa(q, kc, vc, causal=True, window=window, q_offset=q_offset)
+        return p.wo(out.reshape(B, L, -1)), (k, v)
     if impl == "cuda":
         out = ops.flash_attention(q, k, v, causal=True, window=window,
                                   lengths=lengths)

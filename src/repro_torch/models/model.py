@@ -116,6 +116,24 @@ class Model(nn.Module):
         return tf_lib.transformer_prefill(self, tokens, cache, evidence,
                                           impl=impl, lengths=lengths)
 
+    def prefill_suffix(self, tokens, cache, ctx_kv, start: int, *,
+                       impl: str = "torch"):
+        """Continuation prefill for prefix-cache hits
+        (``repro/models/model.py:164``): only the suffix ``tokens`` (at
+        positions start..) run, attending to ``ctx_kv``, the cached K/V of
+        positions [0, start): {"k", "v": (num_layers, B, start, Hkv, hd)}.
+        Needs ``supports_prefix_cache``."""
+        return tf_lib.transformer_prefill_suffix(self, tokens, cache, ctx_kv,
+                                                 start, impl=impl)
+
+    def prefill_chunked(self, tokens, cache, chunk: int, *,
+                        impl: str = "torch"):
+        """The prompt in ``chunk``-token pieces through the suffix path,
+        equal to the whole-prompt ``prefill``; whole prefill when
+        ``chunk`` is 0 or covers the prompt."""
+        return tf_lib.transformer_prefill_chunked(self, tokens, cache, chunk,
+                                                  impl=impl)
+
     def encode_image(self, images):
         """Vision-tower encode (``repro/models/model.py:144``): images
         (B, H, W, C) float -> evidence (B, num_evidence_tokens,
@@ -140,6 +158,15 @@ class Model(nn.Module):
         """Right-padded bucketed prefill is exact for attention-only
         stacks (causality hides the pads from real positions)."""
         return True
+
+    @property
+    def supports_prefix_cache(self) -> bool:
+        """Prompt-prefix KV reuse needs every layer's prompt state in the
+        shared pages: all-attention, full-context, decoder-only
+        (``repro/models/model.py:186``)."""
+        return (not self.cfg.is_encoder_decoder and
+                self.cfg.attn_window == 0 and
+                all(k == ATTN for k in self.cfg.layer_kinds))
 
     @property
     def has_vision_tower(self) -> bool:

@@ -138,6 +138,72 @@ def transformer_prefill(model, tokens, cache, evidence=None, *,
     return logits[:, 0], hidden[:, 0], cache
 
 
+def transformer_prefill_suffix(model, tokens, cache, ctx_kv, start: int, *,
+                               impl: str = "torch"):
+    """Continuation prefill (``transformer.py:363``): run only the prompt
+    suffix whose first ``start`` positions' K/V already exist (a
+    prefix-cache hit, the earlier chunks of a chunked prefill), attending
+    to them as context.
+
+    ``tokens``: (B, s) at absolute positions [start, start + s).
+    ``ctx_kv``: {"k", "v": (num_layers, B, start, Hkv, hd)}. All-attention
+    full-context decoders only (``Model.supports_prefix_cache``). The
+    cache is seeded with the suffix K/V at row positions [0, s); callers
+    keep the ``start`` offset. Returns (logits_last (B, V), hidden_last
+    (B, d), cache)."""
+    if not model.supports_prefix_cache:
+        raise ValueError(f"{model.cfg.name}: continuation prefill needs an "
+                         "all-attention full-context decoder")
+    cfg = model.cfg
+    x = embed(model.embed.table, tokens)
+    B, s, _ = x.shape
+    positions = start + torch.arange(s, device=x.device).expand(B, s)
+    for i, blk in enumerate(model.layers):
+        h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
+        y, (k, v) = attn_lib.attn_prefill(
+            blk.attn, cfg, h, positions, impl=impl,
+            ctx_kv=(ctx_kv["k"][i], ctx_kv["v"][i]), q_offset=start)
+        x = _mlp_part(blk, cfg, x + y, impl)
+        attn_lib.prefill_into_cache(cache["k"][i], cache["v"][i], k, v)
+    cache["pos"] = torch.full((B,), start + s, dtype=torch.int32,
+                              device=x.device)
+    logits, hidden = _logits(model, x[:, -1:])
+    return logits[:, 0], hidden[:, 0], cache
+
+
+def transformer_prefill_chunked(model, tokens, cache, chunk: int, *,
+                                impl: str = "torch"):
+    """Fixed-size chunked prefill (``transformer.py:416``): the prompt in
+    ``chunk``-token pieces, each attending to the K/V of every earlier
+    piece through the suffix path, so that it equals a whole-prompt
+    ``transformer_prefill`` (causality hides the missing future keys in
+    both). ``chunk`` 0 or >= L takes the whole-prompt path. The engine has
+    its own paged form of this loop; this one pins the arithmetic.
+    Returns (logits_last (B, V), hidden_last (B, d), cache)."""
+    B, L = tokens.shape
+    if chunk <= 0 or chunk >= L:
+        return transformer_prefill(model, tokens, cache, impl=impl)
+    ks, vs = [], []
+    for pos in range(0, L, chunk):
+        s = min(chunk, L - pos)
+        piece = tokens[:, pos:pos + s]
+        if pos == 0:
+            logits, hidden, cache = transformer_prefill(model, piece, cache,
+                                                        impl=impl)
+        else:
+            ctx = {"k": torch.cat(ks, dim=2), "v": torch.cat(vs, dim=2)}
+            logits, hidden, cache = transformer_prefill_suffix(
+                model, piece, cache, ctx, pos, impl=impl)
+        # the next piece overwrites the cache's rows [0, s)
+        ks.append(cache["k"][:, :, :s].clone())
+        vs.append(cache["v"][:, :, :s].clone())
+    cache["k"][:, :, :L] = torch.cat(ks, dim=2)
+    cache["v"][:, :, :L] = torch.cat(vs, dim=2)
+    cache["pos"] = torch.full((B,), L, dtype=torch.int32,
+                              device=tokens.device)
+    return logits, hidden, cache
+
+
 def transformer_decode(model, token, cache, *, impl: str = "torch"):
     """One decode step (``transformer.py:493``). token: (B,) or (B, 1).
     Every row's KV is written at its ``pos`` and every ``pos`` advances in

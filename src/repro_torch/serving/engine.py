@@ -54,9 +54,29 @@ fp32 or bf16, or quantized to int8 or fp8-e4m3 with one fp32 scale per
 decode quantizes each new row on write; the ``paged_cuda`` impl
 dequantizes inside the paged decode kernel (K1).
 
+Paged engines on all-attention full-context decoders may keep a
+cross-request prefix cache (``prefix_cache``): each request's key stream
+(its prompt, or for an image request ``ne`` pseudo-tokens from the
+image's content hash ahead of the prompt) is hashed page by page, its
+full prompt pages are registered under those keys, and a later request
+whose stream starts with cached pages holds them and prefills only its
+suffix, attending to the cached K/V (dequantized for int8/fp8 pools) as
+context. A hit on an image request must cover the whole image span.
+Cached pages nobody else holds are evicted least-recently-used under
+pool pressure or a ``kv_byte_budget``. Chunked prefill (``prefill_chunk``)
+streams a long prompt into the pool in page-aligned chunks through the
+same suffix path, at most ``prefill_chunk_budget`` tokens between two
+decode launches, the jobs ordered by the policy's ``prefill_order``; the
+first chunk of an image request carries the whole image span. Other
+engines quietly run without both, as the reference does. Prefills,
+chunks and page writes all run between launches, outside the captured
+graph, and write the pools in place.
+
 Impls: ``torch`` / ``paged`` run plain PyTorch attention and scoring,
-``cuda`` / ``paged_cuda`` the hand-written kernels. Prefix caching,
-chunked prefill, speculation, mesh serving, cancellation and async
+``cuda`` / ``paged_cuda`` the hand-written kernels; the suffix attention
+of a prefix hit or a later chunk runs plain ``sdpa`` on every impl, as
+the reference's does (its flash kernel takes no context). Speculation,
+mesh serving, prefill/decode disaggregation, cancellation and async
 pumping are later slices of the port: asking for any of them raises
 ``NotImplementedError``.
 """
@@ -76,8 +96,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
 from repro_torch.sampling.samplers import (GumbelNoise, sample_token,
                                            sample_token_batch)
-from repro_torch.serving.page_pool import PagePool
-from repro_torch.serving.scheduler import (NewWork, RoundWork,
+from repro_torch.serving.page_pool import PagePool, prefix_page_keys
+from repro_torch.serving.scheduler import (NewWork, PrefillWork, RoundWork,
                                            SchedulerContext, make_scheduler)
 
 IMPLS = ("torch", "cuda", "paged", "paged_cuda")
@@ -157,7 +177,7 @@ class ServeEngine:
                  macro_steps: int = 8, bucket_prefill: bool = True,
                  prefill_bucket_min: int = 16, sched_policy="fifo",
                  global_budget: int = 0, prefix_cache: bool = False,
-                 prefill_chunk: int = 0,
+                 prefill_chunk: int = 0, prefill_chunk_budget: int = 0,
                  prefill_shards: int = 0, mesh=None, spec_k: int = 0,
                  xmodal_rescore: bool = False, seed: int = 0, noise=None):
         if mode not in ("camd", "best_of_n", "self_consistency", "greedy"):
@@ -166,9 +186,7 @@ class ServeEngine:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         if macro_steps < 0:
             raise ValueError("macro_steps must be >= 0")
-        for what, asked in (("the prefix cache", prefix_cache),
-                            ("chunked prefill", prefill_chunk),
-                            ("prefill/decode disaggregation", prefill_shards),
+        for what, asked in (("prefill/decode disaggregation", prefill_shards),
                             ("mesh serving", mesh is not None),
                             ("speculative decoding", spec_k > 1)):
             if asked:
@@ -193,6 +211,10 @@ class ServeEngine:
         if self.paged and not model.has_pageable_layers:
             raise ValueError(f"impl={impl!r} pages full-context attention "
                              f"KV, but {self.cfg.name} has none")
+        # the prefix cache and chunked prefill need paged KV on an
+        # all-attention full-context decoder; elsewhere they are off
+        self.prefix_cache = bool(prefix_cache) and self.paged and \
+            model.supports_prefix_cache
         self.kv_dtype = paged_kv.kv_dtype
         if not self.paged and self.kv_dtype != "auto":
             raise ValueError(f"kv_dtype={self.kv_dtype!r} needs a paged impl")
@@ -206,7 +228,8 @@ class ServeEngine:
             self.page_size = ps
             self.pages_per_slot = cache_len // ps
             num_pages = paged_kv.num_pages or slots * self.pages_per_slot + 1
-            self.pool = PagePool(num_pages, ps)
+            self.pool = PagePool(num_pages, ps, prefix_cache=self.prefix_cache,
+                                 kv_byte_budget=paged_kv.kv_byte_budget)
             self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
             self._slot_pos = np.zeros(slots, np.int64)
             self._slot_limit = np.zeros(slots, np.int64)
@@ -218,15 +241,24 @@ class ServeEngine:
             # the boundary the first step may land on
             self._frontier_width = min(max(1, -(-max(macro_steps, 1) // ps)
                                            + 1), self.pages_per_slot)
+            # chunk sizes round up to whole pages
+            self.chunked = prefill_chunk > 0 and model.supports_prefix_cache
+            self.chunk = -(-int(prefill_chunk) // ps) * ps \
+                if self.chunked else 0
+            self.chunk_budget = int(prefill_chunk_budget) or self.chunk
         else:
             self.pool = None
+            self.chunked = False
+            self.chunk = self.chunk_budget = 0
         self.noise = noise if noise is not None else \
             GumbelNoise(seed, self.device)
         self._t = 0                      # global decode step counter
         self.has_evidence = bool(self.cfg.num_evidence_tokens)
         # image frontend: submit-time tower encode, memoised by the
-        # sha256 of the image bytes in a FIFO of 64 entries
+        # sha256 of the image bytes in a FIFO of 64 entries; the digest
+        # also keys the request's pseudo-tokens in the prefix cache
         self._image_feats: Dict[bytes, np.ndarray] = {}
+        self._image_digest: Dict[int, bytes] = {}
         self.image_encodes = 0
         self.image_feat_hits = 0
         # recompute each finished candidate's S_align by the cross-modal
@@ -252,12 +284,24 @@ class ServeEngine:
         self.starved_uids: List[int] = []
         self.prefill_calls = 0
         self.prefill_tokens = 0
+        # chunked prefill: uid -> in-flight job {"req", "pos", "pages"}; a
+        # job's request stays queued until its final chunk makes it a
+        # request record. ``_chunk_left`` is the turn's chunk-token budget.
+        self._chunking: Dict[int, Dict[str, Any]] = {}
+        self._chunk_progress = False
+        self._chunk_left = self.chunk_budget
+        self.chunk_calls = 0
+        self.chunk_tokens = 0
         self.bucket_prefill = bool(bucket_prefill) and \
             model.supports_bucketed_prefill
         self.prefill_bucket_min = prefill_bucket_min
         self._min_ring = cache_len if self.cfg.attn_window == 0 else \
             min(cache_len, self.cfg.attn_window)
         self.state = self._blank_state()
+        if self.paged:
+            # the pool enforces the byte budget from the engine's bytes a
+            # page
+            self.pool.set_bytes_per_page(self._bytes_per_page())
         self._greedy_row = torch.tensor([mode == "greedy"],
                                         device=self.device)
         # the macro body's static inputs: each iteration's Gumbel noise
@@ -506,6 +550,7 @@ class ServeEngine:
                 "has no vision tower (cfg.vision is None)")
         img = np.ascontiguousarray(np.asarray(req.image, np.float32))
         digest = hashlib.sha256(img.tobytes()).digest()
+        self._image_digest[req.uid] = digest
         feats = self._image_feats.get(digest)
         if feats is None:
             with torch.inference_mode():
@@ -519,6 +564,21 @@ class ServeEngine:
         else:
             self.image_feat_hits += 1
         req.evidence = feats
+
+    def _prefix_token_stream(self, req: Request) -> Optional[np.ndarray]:
+        """The request's key stream for the prefix cache, one int64 per
+        cache position (``engine.py:992``): the prompt, or for an image
+        request ``ne`` pseudo-tokens from the image's digest ahead of it.
+        None for a request with raw evidence (no content key)."""
+        if req.evidence is None:
+            return np.asarray(req.prompt, np.int64)
+        digest = self._image_digest.get(req.uid)
+        if digest is None:
+            return None
+        ne = self.cfg.num_evidence_tokens
+        rep = (digest * (ne * 8 // len(digest) + 1))[:ne * 8]
+        pseudo = np.frombuffer(rep, np.int64).copy()
+        return np.concatenate([pseudo, np.asarray(req.prompt, np.int64)])
 
     def cancel(self, uid: int) -> bool:
         raise _unsupported("request cancellation")
@@ -557,24 +617,52 @@ class ServeEngine:
 
     def _seed_prompt_pages(self, info):
         """Allocate and write the request's full prompt pages once (one
-        pool hold each, released when the request finishes)."""
+        pool hold each, released when the request finishes) and register
+        them in the prefix cache. A prefix hit arrives holding the cached
+        pages; only the rest is written, from the suffix row, whose row
+        positions are prompt positions minus ``prefix_len``."""
         if info.get("prompt_seeded"):
             return
-        full = self.pool.alloc(info["prompt_len"] // self.page_size)
-        self._write_pages(info["cache_row"], full, 0)
-        info["prompt_pages"] = full
+        ps = self.page_size
+        held = info.setdefault("prompt_pages", [])
+        if len(held) * ps != info.get("prefix_len", 0):
+            raise RuntimeError(f"{len(held)} held prefix pages for a prefix "
+                               f"of {info.get('prefix_len', 0)} positions")
+        new_full = self.pool.alloc(info["prompt_len"] // ps - len(held))
+        self._write_pages(info["cache_row"], new_full, 0)
+        info["prompt_pages"] = held + new_full
+        if self.prefix_cache and info.get("cacheable"):
+            self.pool.prefix.insert(info["page_keys"], info["prompt_pages"])
         info["prompt_seeded"] = True
+
+    def _maybe_seed_early(self, req: Request):
+        """Prefix-cache mode: seed and register the prompt pages at prefill
+        time, so that same-prefix requests later in the same pass hit.
+        Skipped when the pool could then not fund one worst-case
+        candidate; seeding then happens at admission."""
+        info = self._reqs[req.uid]
+        if not info.get("cacheable") or info.get("prompt_seeded"):
+            return
+        L = info["prompt_len"]
+        need = L // self.page_size - len(info.get("prompt_pages", ()))
+        if self._headroom() - need < self._pages_per_candidate(L):
+            return
+        self._seed_prompt_pages(info)
+        # early seeding must not eat the pages backing live reservations
+        self._ensure_reserved_free()
 
     def _seed_paged_slots(self, info, slot_ids: List[int], lim: int):
         """Point ``slot_ids`` at the request's prompt pages: full pages are
         shared (refcounted), the partial tail page is copied per candidate
-        — the copy-on-write point."""
+        — the copy-on-write point. After a prefix hit the request's row
+        starts at ``prefix_len``, so the tail is read from there."""
         L = info["prompt_len"]
         ps = self.page_size
         if L + lim > self.cache_len:
             raise ValueError(f"prompt {L} + limit {lim} overflows the paged "
                              f"cache of {self.cache_len} (no ring wrap)")
         full, tail_len = divmod(L, ps)
+        row_off = info.get("prefix_len", 0)
         self._seed_prompt_pages(info)
         bt_rows = np.zeros((len(slot_ids), self.pages_per_slot), np.int32)
         tails = []
@@ -592,7 +680,12 @@ class ServeEngine:
             self._slot_reserved[s] = future
             self._reserved += future
             bt_rows[j, :len(pages)] = pages
-        self._write_pages(info["cache_row"], tails, full * ps, broadcast=True)
+        self._write_pages(info["cache_row"], tails, full * ps - row_off,
+                          broadcast=True)
+        if self.prefix_cache:
+            # admission counted evictable pages as headroom: make them free
+            # pages now, before a later hit can pin them again
+            self._ensure_reserved_free()
         idx = torch.as_tensor(slot_ids, device=self.device)
         cache = self.state.cache
         cache["block_table"][idx] = torch.as_tensor(bt_rows,
@@ -607,14 +700,25 @@ class ServeEngine:
         return -((prompt_len + lim) // -self.page_size) - \
             prompt_len // self.page_size
 
+    def _headroom(self) -> int:
+        """Pages the pool could fund right now: free and cache-evictable
+        pages minus live reservations."""
+        return self.pool.free_pages + self.pool.evictable() - self._reserved
+
+    def _ensure_reserved_free(self):
+        """Back every live reservation with free pages (evicting
+        cached-only prefix pages where needed)."""
+        self.pool.ensure_free(self._reserved)
+
     def _paged_affordable(self, info, want: int,
                           lim: Optional[int] = None) -> int:
-        """Candidates of this request the pool can fund right now (free
-        pages minus live reservations and the unseeded prompt hold)."""
+        """Candidates of this request the pool can fund right now (the
+        headroom minus the unseeded part of the prompt hold)."""
         L = info["prompt_len"]
         per_cand = self._pages_per_candidate(L, lim)
-        need_hold = 0 if info.get("prompt_seeded") else L // self.page_size
-        avail = self.pool.free_pages - self._reserved - need_hold
+        need_hold = 0 if info.get("prompt_seeded") else \
+            L // self.page_size - len(info.get("prompt_pages", ()))
+        avail = self._headroom() - need_hold
         return max(0, min(want, avail // max(per_cand, 1)))
 
     @staticmethod
@@ -695,22 +799,31 @@ class ServeEngine:
                torch.as_tensor(cols, device=self.device)] = \
                 torch.as_tensor(vals, dtype=torch.int32, device=self.device)
 
+    def _bytes_per_page(self) -> int:
+        """Resident bytes of one pool page over every layer, values and
+        int8/fp8 scales alike; every pool leaf has its page axis second
+        (``repro/serving/engine.py:1444-1458``)."""
+        cache = self.state.cache
+        return sum(cache[k][:, 0].numel() * cache[k].element_size()
+                   for k in ("k_pages", "v_pages", "k_scale", "v_scale")
+                   if k in cache)
+
     def kv_stats(self) -> Dict[str, Any]:
         """Pool accounting with resident KV bytes against the dense worst
-        case (slots x cache_len) the paged layout replaces."""
+        case (slots x cache_len) the paged layout replaces, and the prefix
+        cache's hits (``engine.py:1462``)."""
         if not self.paged:
             raise ValueError("kv_stats needs a paged impl")
         stats = self.pool.stats()
-        cache = self.state.cache
-        # every pool leaf, values and int8/fp8 scales alike, has its page
-        # axis second (``repro/serving/engine.py:1444-1458``)
-        bpp = sum(cache[k][:, 0].numel() * cache[k].element_size()
-                  for k in ("k_pages", "v_pages", "k_scale", "v_scale")
-                  if k in cache)
+        bpp = self._bytes_per_page()
         stats.update(kv_dtype=self.kv_dtype, bytes_per_page=bpp,
                      resident_kv_bytes=stats["in_use"] * bpp,
                      peak_kv_bytes=stats["max_in_use"] * bpp,
                      dense_equiv_bytes=self.B * self.pages_per_slot * bpp)
+        if self.pool.prefix is not None:
+            stats["prefix_cache"] = dict(self.pool.prefix.stats(),
+                                         bytes_saved=self.pool.prefix.hits
+                                         * bpp)
         return stats
 
     def sched_stats(self) -> Dict[str, Any]:
@@ -718,9 +831,25 @@ class ServeEngine:
         s.update(starved=len(self.starved_uids),
                  prefill_calls=self.prefill_calls,
                  prefill_tokens=self.prefill_tokens,
+                 chunk_calls=self.chunk_calls,
+                 chunk_tokens=self.chunk_tokens,
                  image_encodes=self.image_encodes,
                  image_feat_hits=self.image_feat_hits)
         return s
+
+    def reset_stats(self) -> None:
+        """Zero the telemetry for reuse of the engine across runs; serving
+        state (requests, budget ledgers, the prefix cache's chains, the
+        decode step ``_t``) stays."""
+        self.total_steps = self.total_tokens = 0
+        self.macro_launches = self.host_syncs = 0
+        self.prefill_calls = self.prefill_tokens = 0
+        self.chunk_calls = self.chunk_tokens = 0
+        self.image_encodes = self.image_feat_hits = 0
+        self.starved_uids.clear()
+        self.scheduler.reset_stats()
+        if self.paged:
+            self.pool.reset_stats()
 
     # -- admission -----------------------------------------------------
     def _admit(self, req: Request, slot_ids: List[int],
@@ -847,15 +976,214 @@ class ServeEngine:
         self.prefill_tokens += self._prompt_span(req)
         self._init_info(req, row, lg, h, self._prompt_span(req))
 
+    # -- cross-request prefix cache ------------------------------------
+    def _mark_cacheable(self, req: Request):
+        """Record the request's page keys, so that its prompt pages are
+        registered in the prefix cache when they are seeded."""
+        stream = self._prefix_token_stream(req)
+        if not self.prefix_cache or stream is None:
+            return
+        info = self._reqs[req.uid]
+        info["page_keys"] = prefix_page_keys(stream, self.page_size)
+        info["cacheable"] = True
+
+    def _probe(self, stream: np.ndarray, ne: int):
+        """Hold the cached pages of the longest cached prefix of
+        ``stream``, at most ``(len - 1) // page_size`` pages so that one
+        token is left to give the last logits. A hit that ends inside the
+        image span (``ne`` positions of embeddings, no tokens to resume
+        from) is released. Returns (pages held, the stream's page
+        keys)."""
+        keys = prefix_page_keys(stream, self.page_size)
+        usable = (len(stream) - 1) // self.page_size
+        if usable <= 0:
+            return [], keys
+        pages = self.pool.prefix.match_and_hold(keys[:usable])
+        if pages and len(pages) * self.page_size < ne:
+            self.pool.free(pages)
+            return [], keys
+        return pages, keys
+
+    def _try_prefill_suffix(self, req: Request) -> bool:
+        """Prefix-cache fast path (``engine.py:1745``): hold the cached
+        pages of the key stream's longest cached prefix and prefill only
+        the suffix against their K/V. Returns False on a miss."""
+        stream = self._prefix_token_stream(req)
+        if not self.prefix_cache or stream is None:
+            return False
+        pages, keys = self._probe(stream, len(stream) - len(req.prompt))
+        if not pages:
+            return False
+        start = len(pages) * self.page_size
+        suffix = torch.as_tensor(stream[start:], device=self.device)[None]
+        row = self.model.make_cache(1, self.cache_len, self._dtype)
+        lg, h, row = self.model.prefill_suffix(
+            suffix, row, self._gather_prefix_ctx(pages), start,
+            impl=self._model_impl)
+        self.prefill_calls += 1
+        self.prefill_tokens += len(stream) - start          # suffix only
+        self._init_info(req, row, lg, h, len(stream))
+        self._reqs[req.uid].update(prompt_pages=pages, prefix_len=start,
+                                   page_keys=keys, cacheable=True)
+        return True
+
+    def _gather_prefix_ctx(self, pages: List[int]) -> Dict[str, torch.Tensor]:
+        """The cached pages' K/V as context for a suffix prefill:
+        {"k", "v": (num_layers, 1, n * page_size, Hkv, hd)}, dequantized
+        for int8/fp8 pools (``engine.py:1787``)."""
+        pg = torch.as_tensor(pages, device=self.device)
+        cache = self.state.cache
+        ctx = {}
+        for name in ("k", "v"):
+            pool = cache[f"{name}_pages"]
+            x = attn_lib._raw(pool)[:, pg].view(pool.dtype)
+            x = x.reshape(pool.shape[0], 1, -1, *pool.shape[3:])
+            spool = cache.get(f"{name}_scale")
+            if spool is not None:
+                x = attn_lib.kv_dequantize(x, spool[:, pg].reshape(
+                    spool.shape[0], 1, -1, spool.shape[-1]))
+            ctx[name] = x
+        return ctx
+
+    # -- chunked prefill -------------------------------------------------
+    def _start_chunk_job(self, req: Request) -> None:
+        """Open a chunked-prefill job for a long prompt (``engine.py:1826``):
+        a prefix hit's pages are its first chunks, already resident. When
+        at most one chunk is left to run, the one-shot paths serve better
+        and no job is opened."""
+        stream = self._prefix_token_stream(req)
+        pages = self._probe(stream, len(stream) - len(req.prompt))[0] \
+            if self.prefix_cache else []
+        cur = len(pages) * self.page_size
+        if len(stream) - cur <= self.chunk:
+            if pages:
+                self.pool.free(pages)             # the probe's hold
+            return
+        self._chunking[req.uid] = {"req": req, "pos": cur, "pages": pages}
+
+    def _run_chunk(self, uid: int, job: Dict[str, Any]) -> int:
+        """Advance one job by one chunk (``engine.py:1860``); returns the
+        chunk's tokens, or 0 when the pool cannot fund its pages yet.
+
+        A non-final chunk writes its K/V into fresh pool pages. The final
+        chunk keeps its row and makes the job a request record as a
+        prefix hit's suffix prefill would (prompt pages = the chunks'
+        pages, prefix_len = the cursor)."""
+        req = job["req"]
+        stream = self._prefix_token_stream(req)
+        ne = len(stream) - len(req.prompt)
+        L, cur, ps = len(stream), job["pos"], self.page_size
+        final = L - cur <= self.chunk
+        take = L - cur if final else self.chunk
+        if not final:
+            # keep one worst-case candidate fundable after this chunk
+            need = take // ps
+            if self._headroom() - need < self._pages_per_candidate(L):
+                return 0
+        row = self.model.make_cache(1, self.cache_len, self._dtype)
+        if cur == 0:
+            # the first chunk carries the whole image span (jobs open only
+            # where a chunk exceeds it), as evidence rows through the
+            # normal prefill, and the rest as tokens
+            toks = torch.as_tensor(np.asarray(req.prompt[:take - ne],
+                                              np.int64), device=self.device)
+            lg, h, row = self.model.prefill(
+                toks[None], row, self._evidence([req], 1) if ne else None,
+                impl=self._model_impl)
+        else:
+            toks = torch.as_tensor(stream[cur:cur + take], device=self.device)
+            lg, h, row = self.model.prefill_suffix(
+                toks[None], row, self._gather_prefix_ctx(job["pages"]), cur,
+                impl=self._model_impl)
+        self.chunk_calls += 1
+        self.chunk_tokens += take
+        if not final:
+            new_pages = self.pool.alloc(need)
+            # the chunk's row holds positions [cur, cur + take) at [0, take)
+            self._write_pages(row, new_pages, 0)
+            job["pages"] = job["pages"] + new_pages
+            job["pos"] = cur + take
+            return take
+        del self._chunking[uid]
+        self.prefill_calls += 1
+        self.prefill_tokens += take
+        self._init_info(req, row, lg, h, L)
+        info = self._reqs[uid]
+        info["prompt_pages"] = job["pages"]      # the job's holds carry over
+        info["prefix_len"] = cur
+        if self.prefix_cache:
+            info["page_keys"] = prefix_page_keys(stream, ps)
+            info["cacheable"] = True
+            self._maybe_seed_early(req)
+        return take
+
+    def _prefill_chunks(self) -> None:
+        """One chunked-prefill pass (``engine.py:1930``): open jobs for the
+        long prompts in the admission window, then spend the turn's
+        chunk-token budget on the jobs in the policy's order. With no slot
+        decoding the budget is ignored, but the pass stops as soon as a
+        job completes, so that its request is admitted at once."""
+        if not self.chunked:
+            return
+        ne = self.cfg.num_evidence_tokens
+        for r in self._queue[:max(self.B, 4)]:
+            if r.uid in self._reqs or r.uid in self._chunking:
+                continue
+            stream = self._prefix_token_stream(r)
+            if stream is None or len(stream) <= self.chunk:
+                continue
+            if len(stream) > len(r.prompt) and self.chunk <= ne:
+                continue        # the image span fits no chunk: one shot
+            self._start_chunk_job(r)
+        if not self._chunking:
+            return
+        items = [PrefillWork(uid=uid, arrival=self._arrival[uid],
+                             prompt_len=len(job["req"].prompt),
+                             prefilled=job["pos"])
+                 for uid, job in self._chunking.items()]
+        idle = not self._any_live()
+        for w in self.scheduler.prefill_order(items):
+            while True:
+                job = self._chunking.get(w.uid)
+                if job is None:
+                    if idle:
+                        return       # a request just became admissible
+                    break
+                if not idle and self._chunk_left <= 0:
+                    return
+                took = self._run_chunk(w.uid, job)
+                if took == 0:
+                    break            # the pool cannot fund the chunk yet
+                self._chunk_left -= took
+                self._chunk_progress = True
+
     def _bucket_len(self, prompt_len: int) -> int:
         return _next_pow2(max(prompt_len, self.prefill_bucket_min))
 
     def _prefill_pending(self):
-        """Prefill the queued requests that have no cache yet (a bounded
-        queue prefix), batching same-bucket prompts — right-padded to a
-        power-of-two length — into one prefill call each."""
+        """Advance the chunk jobs, then prefill the queued requests that
+        have no cache yet (a bounded queue prefix), batching same-bucket
+        prompts — right-padded to a power-of-two length — into one
+        prefill call each. With the prefix cache, a hit prefills only its
+        suffix, and every cacheable miss is prefilled alone with its pages
+        seeded at once, so that later requests of the same pass hit too
+        (``engine.py:1975``)."""
+        self._prefill_chunks()
         ahead = max(self.B, 4)
-        pending = [r for r in self._queue[:ahead] if r.uid not in self._reqs]
+        pending = [r for r in self._queue[:ahead]
+                   if r.uid not in self._reqs and r.uid not in self._chunking]
+        if self.prefix_cache:
+            misses = []
+            for r in pending:
+                if self._try_prefill_suffix(r):
+                    self._maybe_seed_early(r)
+                elif self._prefix_token_stream(r) is not None:
+                    self._prefill_request(r)
+                    self._mark_cacheable(r)
+                    self._maybe_seed_early(r)
+                else:
+                    misses.append(r)
+            pending = misses
         if not pending:
             return
         if not self.bucket_prefill:
@@ -910,7 +1238,9 @@ class ServeEngine:
     def _schedule(self):
         """Prefill what is queued, then let the traffic policy fill the
         free slots (paged engines admit only what the pool can fund) and
-        stage the slots' evidence rows for the next launches."""
+        stage the slots' evidence rows for the next launches. They are
+        staged after every pass, also on a chunk turn, where the reference
+        leaves them stale until the next completion (R5 in ROADMAP)."""
         self._prefill_pending()
         self.scheduler.schedule(_EngineSchedContext(self))
         if self.has_evidence:
@@ -1083,7 +1413,12 @@ class ServeEngine:
 
     def _finalize_starved(self):
         """Terminal drain once the global token budget is spent: pending
-        work finalizes with whatever candidates it has."""
+        work finalizes with whatever candidates it has, and half-prefilled
+        chunk jobs return their pages."""
+        for job in self._chunking.values():
+            if job["pages"]:
+                self.pool.free(job["pages"])
+        self._chunking.clear()
         for req in self._queue:
             if req.uid not in self._reqs:
                 self._reqs[req.uid] = {
@@ -1104,11 +1439,14 @@ class ServeEngine:
         True when all work is complete."""
         if not self._has_pending():
             return True
+        self._chunk_progress = False
         self._schedule()
         if not self._any_live():
             if self.scheduler.exhausted():
                 self._finalize_starved()
                 return True
+            if self._chunk_progress:
+                return False        # a chunk job advanced: not a sizing error
             if self.paged:
                 self._raise_pool_sizing()
         return False
@@ -1145,6 +1483,7 @@ class ServeEngine:
         """One fused-loop iteration: refill when idle, else stage the
         frontier, run one macro launch and fold its results. Returns False
         once all work is drained."""
+        self._chunk_left = self.chunk_budget     # the turn's chunk budget
         if not self._any_live():
             return not self._refill_idle()
         staged = self._stage_frontier() if self.paged else None
@@ -1161,6 +1500,11 @@ class ServeEngine:
                       if self._slot_req[s] >= 0]
         if done_slots:
             self._finish_candidates(done_slots)
+            self._schedule()
+        elif self.chunked and (self._chunking or
+                               (self._queue and self._free_slots())):
+            # prefill work waits: spend the turn's chunk budget between
+            # two decode launches
             self._schedule()
         return True
 
@@ -1235,6 +1579,8 @@ class _EngineSchedContext(SchedulerContext):
         eng = self.eng
         out = []
         for r in eng._queue:
+            if r.uid in eng._chunking:
+                continue                 # mid chunked prefill
             if r.uid not in eng._reqs:
                 break                    # prefill covers a queue prefix
             info = eng._reqs[r.uid]

@@ -1,8 +1,8 @@
 """Traffic-level scheduling policies for the serving engine (numpy only).
 
-The port's copy of ``repro/serving/scheduler.py``, without the chunked-
-prefill ordering and the per-shard telemetry of mesh serving (later
-slices of the port).
+The port's copy of ``repro/serving/scheduler.py``, chunked-prefill
+ordering (``prefill_order``) included, without the per-shard telemetry of
+mesh serving (a later slice of the port).
 
 CAMD's compute-allocation logic (more samples for hard instances, fewer
 for easy) historically lived only *inside* a request — the round-based
@@ -61,6 +61,18 @@ class NewWork:
     want: int                    # candidates the mode wants per round
     prompt_len: int = 0          # tokens in the prompt (difficulty prior)
     evidence_entropy: float = 0.0  # normalized [0,1] alignment entropy
+
+
+@dataclasses.dataclass
+class PrefillWork:
+    """A queued request mid chunked prefill (or awaiting its first
+    chunk). The engine asks the policy to order these each turn; the
+    chunk-token budget goes to the top-ranked jobs first."""
+    uid: int
+    arrival: int                 # submit order (FIFO tiebreak)
+    prompt_len: int              # total prompt tokens
+    prefilled: int = 0           # chunk tokens already in the page pool
+    evidence_entropy: float = 0.0
 
 
 @dataclasses.dataclass
@@ -216,6 +228,13 @@ class Scheduler:
     # -- policy ---------------------------------------------------------
     def schedule(self, ctx: SchedulerContext) -> None:
         raise NotImplementedError
+
+    def prefill_order(self, items: List[PrefillWork]) -> List[PrefillWork]:
+        """Order chunked-prefill jobs for the per-turn chunk-token budget.
+        Base/fifo: arrival order, so the head-of-line request's prefill
+        completes first and fifo's admission order (and token streams)
+        match the unchunked engine's."""
+        return sorted(items, key=lambda w: w.arrival)
 
 
 class FifoScheduler(Scheduler):
@@ -396,6 +415,17 @@ class CoverageScheduler(Scheduler):
                 ctx.admit_new(w.uid, take, limit)
             else:
                 ctx.admit_round(w.uid, take, limit)
+
+    def prefill_order(self, items: List[PrefillWork]) -> List[PrefillWork]:
+        """Coverage ranking of partially prefilled work: the difficulty
+        prior plus prefill progress, so a nearly complete prefill finishes
+        ahead of a barely started one of equal difficulty. Arrival breaks
+        ties."""
+        def rank(w: PrefillWork) -> float:
+            progress = w.prefilled / w.prompt_len if w.prompt_len else 0.0
+            return self.difficulty_weight * self._difficulty(w) + progress
+
+        return sorted(items, key=lambda w: (-rank(w), w.arrival))
 
     def _bump(self, key):
         self._wait[key] = self._wait.get(key, 0) + 1

@@ -6,8 +6,9 @@ at admission (``engine.py:1590``), ``fold_in(decode_key, t)`` per fused
 step (``engine.py:333, :722``) and ``split(self.key)`` per legacy step —
 so CAMD-mode streams, candidate counts and round counts must equal the
 reference's token for token, dense and paged. Also: the port's page-pool
-copy keeps its invariants, features of later slices raise, and a
-text-only model refuses multimodal requests.
+copy keeps its invariants, features of later slices raise (the prefix
+cache and chunked prefill are off on dense impls, as in the reference),
+and a text-only model refuses multimodal requests.
 """
 import dataclasses
 
@@ -158,10 +159,19 @@ def test_page_pool_copy_invariants():
 
 def test_later_slices_raise(tiny):
     _, _, _, model = tiny
-    for kw in (dict(prefix_cache=True), dict(spec_k=4), dict(mesh=object()),
-               dict(prefill_chunk=16)):
+    for kw in (dict(spec_k=4), dict(mesh=object()), dict(prefill_shards=1),
+               dict(impl="paged", prefill_shards=1)):
         with pytest.raises(NotImplementedError):
             ServeEngine(model, cache_len=64, **kw)
+    # the prefix cache and chunked prefill are served now
+    # (tests/test_torch_prefix_cache.py, test_torch_prefill_chunked.py);
+    # on a dense impl they are quietly off, as in the reference
+    eng = ServeEngine(model, cache_len=64, prefix_cache=True,
+                      prefill_chunk=16)
+    assert eng.prefix_cache is False and eng.chunked is False
+    eng = ServeEngine(model, cache_len=64, impl="paged", prefix_cache=True,
+                      prefill_chunk=16)
+    assert eng.prefix_cache is True and eng.chunked is True
     # quantized pools are served now (tests/test_torch_engine_quantized.py)
     ServeEngine(model, cache_len=64, impl="paged",
                 paged_kv=tconfig.PagedKVConfig(kv_dtype="int8"))

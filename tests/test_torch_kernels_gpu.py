@@ -23,7 +23,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve
 from repro_torch.models.attention import kv_quantize
 from repro_torch.models.model import build_model
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import Request, ServeEngine
 
 TOLS = {torch.float32: dict(rtol=2e-5, atol=2e-5),
         torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -560,3 +560,53 @@ def test_quantized_pool_engine_on_card(gen, kv_dtype):
     eng.pool.check()
     assert eng.pool.in_use == 0 and eng._reserved == 0
     assert eng.kv_stats()["kv_dtype"] == kv_dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,flags", [
+    ("qwen3-0.6b", dict(prefix_cache=True, prefill_chunk=16)),
+    ("llava-1.5-7b", dict(prefix_cache=True)),
+])
+def test_prefix_cache_engine_on_card_equals_cpu(gen, arch, flags):
+    """The reduced config with the prefix cache (qwen3 also with chunks of
+    16) through ``paged_cuda`` on the card, every macro launch a replay of
+    the graph captured after a warm-up under
+    ``set_sync_debug_mode("error")``, against ``paged`` on the CPU with the
+    same weights, over two waves of the same requests (the second hits the
+    pages the first cached; llava's repeated images hit within a wave):
+    equal greedy streams, prefix-cache stats and chunk calls, and every
+    page back after ``drop_all``."""
+    cfg = get_config(arch).reduced().with_overrides(dtype="float32")
+    cpu = build_model(cfg, torch.float32, device="cpu", seed=0)
+    card = build_model(cfg, torch.float32, device="cuda", seed=0)
+    card.load_state_dict(cpu.state_dict())
+    args = serve.parse_args(["--arch", arch, "--requests", "4",
+                             "--prompt-len", "40", "--seed", "0"])
+    runs = {}
+    for model, impl in ((cpu, "paged"), (card, "paged_cuda")):
+        eng = ServeEngine(model, slots=8, cache_len=96, mode="greedy",
+                          sampling=SamplingConfig(max_new_tokens=8),
+                          max_new_tokens=8, eos_id=cfg.vocab_size,
+                          impl=impl, paged_kv=PagedKVConfig(page_size=8),
+                          macro_steps=8, seed=0, **flags)
+        ops.reset_launches()
+        with torch.inference_mode():
+            for w in range(2):
+                for r in serve.make_requests(cfg, args):
+                    eng.submit(Request(uid=100 * w + r.uid, prompt=r.prompt,
+                                       image=r.image))
+                res = sorted(eng.run(), key=lambda r: r.uid)
+        torch.cuda.synchronize()
+        runs[impl] = ([r.tokens.tolist() for r in res],
+                      eng.kv_stats()["prefix_cache"], eng.chunk_calls)
+        launches = dict(ops.LAUNCHES)
+        assert (launches["flash_attention"] > 0 and
+                launches["paged_decode_attention"] > 0) == (impl != "paged")
+        assert eng._graphs_captured == (impl != "paged")
+        eng.pool.prefix.drop_all()
+        eng.pool.check()
+        assert eng.pool.in_use == 0 and eng._reserved == 0
+    assert runs["paged_cuda"] == runs["paged"]
+    streams, pc, chunks = runs["paged"]
+    assert len(streams) == 8 and pc["hits"] > 0
+    assert (chunks > 0) == ("prefill_chunk" in flags)
