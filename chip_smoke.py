@@ -15,12 +15,13 @@ Run from the root of a checkout. It
      lengths, each twice for the same bits; the split plan's edges and a
      row with no valid key for both decode kernels, int8/fp8 pools, shared and
      out-of-range page ids and odd page sizes for the paged kernel,
-     ragged row counts for the cross-modal score, granite's prefill and
-     decode dispatch shapes and ragged ones for the MoE dispatch and
-     combine) and times kernel (the flash kernel at the three served
-     prefill buckets; both decode kernels also at cache lengths
-     16 to 32768, the paged one at llava's and granite's decode shapes
-     too), plain version and —
+     ragged row counts for the cross-modal score, granite's prefill,
+     decode and speculative-verify dispatch shapes and ragged ones for
+     the MoE dispatch and combine) and times kernel (the flash kernel at
+     the three served prefill buckets; both decode kernels also at cache
+     lengths 16 to 32768, the paged one at llava's and granite's decode
+     shapes too and on int8 and fp8 pools at qwen3's; the MoE kernels at
+     granite's prefill, decode and verify shapes), plain version and —
      where one PyTorch call computes the same function —
      ``scaled_dot_product_attention``, beside a bound from bytes and
      operations; the MoE combine also with the L2 warm (as serving finds
@@ -66,10 +67,20 @@ Run from the root of a checkout. It
      checked, tokens/s beside the unchunked run's), and at 4 layers the
      greedy streams of two waves of the same requests (the second hits
      the cache) with the cache and chunks of 16 on and off, plain and
-     kernel paged engines, must agree.
+     kernel paged engines, must agree;
+  20-22. the three models served again with speculative decoding
+     (``--spec-k 4``: n-gram drafts of up to 3 tokens verified in one
+     block forward an iteration, inside the captured graph): drafts
+     proposed and accepted, tokens/s beside the plain run's, peak memory,
+     the graph's capture, noise fill and one replay; the flash kernel
+     (and the cross-modal and MoE kernels) carried them, the paged decode
+     kernel never (the verify runs plain sdpa, as the reference's); and
+     at 4 layers the greedy streams with ``--spec-k 4`` on and off, plain
+     and kernel paged engines, must agree for qwen3-0.6b on fp32 and
+     int8 pools and for llava-1.5-7b.
 Every serve phase checks that the flash kernel ran once a layer a
 whole-prompt prefill forward and the paged decode kernel once a layer a
-step of every replay.
+step of every replay (none in a speculative run).
 Every serve phase runs each macro launch as a replay of the engine's one
 captured CUDA graph: it checks that one graph was captured, prints the
 capture time, the steps the launches ran against the real ones (the
@@ -106,6 +117,8 @@ CACHE_LEN = SERVE["prompt"] + SERVE["max_new"]     # 288, a page multiple
 GRANITE_MOE = dict(E=40, k=8, d=1536)
 GRANITE_PREFILL = dict(G=8, g=256, C=64)   # one 8 x 256 prefill bucket
 GRANITE_DECODE = dict(G=1, g=8, C=8)       # one decode step of 8 slots
+# one speculative verify forward: 8 slots' blocks of 4 tokens, one group
+GRANITE_VERIFY = dict(G=1, g=32, C=8)
 # the multimodal path: llava-1.5-7b's 576 image tokens ahead of the prompt
 IMAGE_TOKENS = 576
 MM_CACHE_LEN = IMAGE_TOKENS + CACHE_LEN            # 864, a page multiple
@@ -388,12 +401,15 @@ def ring_mask(torch, pos, S):
 
 
 def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
-                  Hkv=8, hd=128, lengths=None):
+                  Hkv=8, hd=128, lengths=None, pool=None):
     """K3 (dense cache) or, with ``paged``, K1 (a pool of 16-row pages,
     each row's S slots through its block table) timed in fp32 at B, H,
-    Hkv, hd (by default qwen3's heads) with S cache slots a row. The
-    valid rows are those at or below a position in the last 32 slots (K3:
-    a ring mask; K1: lengths = position + 1), or below ``lengths`` (K1).
+    Hkv, hd (by default qwen3's heads) with S cache slots a row; K1's
+    pool may instead hold int8 or fp8 values with fp32 scales (``pool``:
+    the storage dtype), the bound then counting 1-byte values and the
+    scales. The valid rows are those at or below a position in the last
+    32 slots (K3: a ring mask; K1: lengths = position + 1), or below
+    ``lengths`` (K1).
     Returns (times, max_abs_err against the plain version): the device
     time of every kernel the wrapper runs (split and combine; the
     breakdown under ``by_kernel``), the plain version's, SDPA's on the
@@ -405,22 +421,31 @@ def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
     if lengths is None:
         pos = torch.randint(max(0, S - 32), S, (B,), generator=g,
                             device="cuda")
+    value_bytes, scale_bytes = 4, 0
     if paged:
+        from repro_torch.models.attention import kv_quantize
         ps = SERVE["page"]
         n = S // ps
-        q, kp, vp, bt, ln, _, _ = paged_setup(
+        pool = pool or torch.float32
+        q, kp, vp, bt, ln, ks, vs = paged_setup(
             torch, g, B, H, Hkv, hd, ps, n,
             (pos + 1).tolist() if lengths is None else lengths,
-            torch.float32, torch.float32, None)
-        fn = lambda: ops.paged_decode_attention(q, kp, vp, bt, ln)  # noqa
+            pool, torch.float32, kv_quantize)
+        fn = lambda: ops.paged_decode_attention(  # noqa: E731
+            q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)
         plain = lambda: ref.paged_decode_attention_ref(  # noqa: E731
-            q, kp, vp, bt, ln)
-        k = kp[bt.long()].reshape(B, S, Hkv, hd)
-        v = vp[bt.long()].reshape(B, S, Hkv, hd)
+            q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)
+        k = kp[bt.long()].reshape(B, S, Hkv, hd).float()
+        v = vp[bt.long()].reshape(B, S, Hkv, hd).float()
+        if ks is not None:      # SDPA reads the view dequantized
+            k = k * ks[bt.long()].reshape(B, S, Hkv)[..., None]
+            v = v * vs[bt.long()].reshape(B, S, Hkv)[..., None]
+            value_bytes, scale_bytes = kp.element_size(), 4
         mask = torch.arange(S, device="cuda")[None, :] < ln[:, None]
         name, index_bytes = "paged_decode_attention", 4 * (bt.numel() + B)
-        shape = f"fp32 B{B} H{H} Hkv{Hkv} hd{hd} ps{ps} n{n} lengths " \
-            f"{int(ln.min())}..{int(ln.max())}"
+        pname = str(pool).replace("torch.", "")
+        shape = f"{pname} pool, fp32 q, B{B} H{H} Hkv{Hkv} hd{hd} ps{ps} " \
+            f"n{n} lengths {int(ln.min())}..{int(ln.max())}"
     else:
         q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
         k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
@@ -442,7 +467,8 @@ def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
         t["sdpa_on_gathered_ms"] = timer.device_ms(sdpa)
     t["by_kernel"] = timer.by_kernel(fn)
     live = int(mask.sum())
-    nbytes = 4 * 2 * q.numel() + index_bytes + 4 * 2 * live * Hkv * hd
+    nbytes = 4 * 2 * q.numel() + index_bytes + \
+        2 * live * Hkv * (value_bytes * hd + scale_bytes)
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 4 * H * hd * live,
                                             "float32")
     n_split, rows = ops.decode_splits(
@@ -624,9 +650,11 @@ def paged_phase(torch, ops, ref, timer, kv_quantize):
 def paged_timing(torch, ops, ref, timer, g):
     """K1 timed (``decode_timing``) at qwen3's heads over ``DECODE_SWEEP``
     (at the serving length with the serve phase's lengths: K1's row; the
-    reference's decode_32k length: its "long" entry) and at llava's and
-    granite's decode shapes. Takes any tree's ``ops``, so that one call can
-    time a parent's kernel too. Returns (times, max_abs_err)."""
+    reference's decode_32k length: its "long" entry), at llava's and
+    granite's decode shapes, and at qwen3's serving shape on int8 and fp8
+    pools (the quantized serve runs' shape; "int8", "fp8" entries). Takes
+    any tree's ``ops``, so that one call can time a parent's kernel too.
+    Returns (times, max_abs_err)."""
     serve_lens = [SERVE["prompt"] + 1 + 4 * i for i in range(8)]
     sweep, errs = {}, []
     for S in DECODE_SWEEP:
@@ -642,9 +670,15 @@ def paged_timing(torch, ops, ref, timer, g):
         torch, ops, ref, timer, g, CACHE_LEN, paged=True, H=24, Hkv=8, hd=64,
         lengths=serve_lens)
     errs.append(err)
+    quant = {}
+    for key, pool in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        quant[key], err = decode_timing(
+            torch, ops, ref, timer, g, CACHE_LEN, paged=True,
+            lengths=serve_lens, pool=pool)
+        errs.append(err)
     t = sweep[CACHE_LEN]
     for key, tt in (("llava", llava), ("granite", granite),
-                    ("long", sweep[DECODE_LONG])):
+                    ("long", sweep[DECODE_LONG]), *quant.items()):
         t[key] = {k_: tt[k_] for k_ in SUB_KEYS + ("sdpa_on_gathered_ms",
                                                    "by_kernel")}
     t["sweep"] = [{key: tt[key] for key in ("S", "ms", "sdpa_on_gathered_ms",
@@ -777,10 +811,11 @@ def moe_phase(torch, ops, ref, timer):
     Both must give the same bits on a second run."""
     g_ = torch.Generator(device="cuda").manual_seed(6)
     E, k, d = GRANITE_MOE["E"], GRANITE_MOE["k"], GRANITE_MOE["d"]
-    P, D = GRANITE_PREFILL, GRANITE_DECODE
+    P, D, Vf = GRANITE_PREFILL, GRANITE_DECODE, GRANITE_VERIFY
     cases = [  # (name, G, g, E, C, k, d, routing skew)
         ("granite prefill", P["G"], P["g"], E, P["C"], k, d, 1.0),
         ("granite decode", D["G"], D["g"], E, D["C"], k, d, 0.0),
+        ("granite verify", Vf["G"], Vf["g"], E, Vf["C"], k, d, 0.0),
         ("d % 4 != 0", 2, 37, 5, 8, 3, 1001, 0.0),
         ("k 1, d 130", 3, 24, 6, 8, 1, 130, 0.0),
         ("C binds hard", 1, 64, 4, 8, 4, 256, 2.0),
@@ -860,15 +895,19 @@ def moe_phase(torch, ops, ref, timer):
             t["shape"] = shape
         return tk, tc
 
-    # the decode shape carries nearly every launch of the serve phase; the
-    # prefill bucket moves the most bytes per launch
+    # the decode shape carries nearly every launch of the plain serve
+    # phase, the verify shape every decode launch of the speculative one;
+    # the prefill bucket moves the most bytes per launch
     out = {}
     dec = timed(D["G"], D["g"], D["C"])
     pre = timed(P["G"], P["g"], P["C"])
-    for name, td, tp in zip(("moe_dispatch", "moe_combine"), dec, pre):
+    ver = timed(Vf["G"], Vf["g"], Vf["C"])
+    for name, td, tp, tv in zip(("moe_dispatch", "moe_combine"), dec, pre,
+                                ver):
         td["max_abs_err"] = max(errs[name])
-        td["prefill"] = {key: tp[key] for key in SUB_KEYS + ("warm_ms",)
-                         if key in tp}
+        for key, tt in (("prefill", tp), ("verify", tv)):
+            td[key] = {k_: tt[k_] for k_ in SUB_KEYS + ("warm_ms",)
+                       if k_ in tt}
         out[name] = td
     # the floor under a launch-bound kernel: the device time of an empty
     # kernel, timed as the kernels are
@@ -1000,14 +1039,17 @@ def serve_phase(torch, ops, serve, argv, kernels, timed=False):
     for name in kernels:
         check(launches[name] > 0, f"serve: {name} was never launched")
     L = eng.cfg.num_layers
+    # a speculating engine verifies in plain sdpa on the gathered pages,
+    # as the reference does: no paged decode kernel in its decode path
     want = {"flash_attention": L * forwards["prefill"],
-            "paged_decode_attention": L * eng.macro_launches *
-            eng.macro_steps}
+            "paged_decode_attention": 0 if eng.spec else
+            L * eng.macro_launches * eng.macro_steps}
     for name, n in want.items():
         check(launches[name] == n, f"serve: {name} launched "
               f"{launches[name]} times, not {n} ({L} layers, "
               f"{forwards['prefill']} whole-prompt prefills, "
-              f"{eng.macro_launches} replays of {eng.macro_steps} steps)")
+              f"{eng.macro_launches} replays of {eng.macro_steps} steps"
+              f"{', speculative' if eng.spec else ''})")
     print(f"serve phase: {out['tokens_per_s']:.1f} tok/s "
           f"({eng.total_tokens} tokens in {out['seconds']:.2f}s, "
           f"{eng.total_steps} decode steps, {eng.macro_launches} launches, "
@@ -1020,7 +1062,26 @@ def serve_phase(torch, ops, serve, argv, kernels, timed=False):
     kv = eng.kv_stats()
     print(f"serve phase: kv pool [{kv['kv_dtype']}] {kv['bytes_per_page']} "
           f"bytes a page, peak {kv['peak_kv_bytes'] / 1e6:.2f} MB")
+    out["peak_gb"] = peak_gb
     return launches, out
+
+
+def spec_report(name, out, plain_tps):
+    """A speculative serve run against the plain one of the same shapes:
+    drafts proposed and accepted, tokens emitted per verify iteration and
+    slot, tokens/s beside the plain run's, peak device memory."""
+    eng = out["engine"]
+    check(eng.spec and eng.spec_drafted > 0,
+          f"{name}: {eng.spec_drafted} drafts proposed")
+    per_iter = eng.total_tokens / max(eng.total_steps * eng.B, 1)
+    print(f"speculative [{name}]: spec_k {eng.spec_k} ({eng.spec_mode}), "
+          f"{eng.spec_drafted} drafted, {eng.spec_accepted} accepted "
+          f"({eng.spec_accepted / eng.spec_drafted:.3f}); "
+          f"{eng.total_tokens} tokens in {eng.total_steps} verify "
+          f"iterations ({per_iter:.3f} a slot and iteration); "
+          f"{out['tokens_per_s']:.1f} tok/s against the plain run's "
+          f"{plain_tps:.1f} ({out['tokens_per_s'] / plain_tps:.3f}x); peak "
+          f"device memory {out['peak_gb']:.1f} GB")
 
 
 def wall_event_ms(torch, fn, reps: int = 5):
@@ -1475,13 +1536,14 @@ def chunk_phase(torch, ops, serve, argv, kernels, chunk, plain_tps=None):
     return launches, out
 
 
-def feature_check(torch, ops, serve, argv, flags, impls, waves):
+def feature_check(torch, ops, serve, argv, flags, impls, waves, label=None):
     """At 4 layers: greedy streams with ``flags`` (the prefix cache, chunked
-    prefill) on and off, over ``impls``, each engine serving ``waves``
-    submissions of the same requests (a later wave hits the pages the
-    first one cached), must agree; the runs with the flags must hit the
-    cache and, where asked, chunk; the kernel impls must launch the flash
-    and paged decode kernels."""
+    prefill, speculation) on and off, over ``impls``, each engine serving
+    ``waves`` submissions of the same requests (a later wave hits the
+    pages the first one cached), must agree; the runs with the flags must
+    hit the cache, chunk and draft where asked; the kernel impls must
+    launch the flash kernel, and the paged decode kernel unless they
+    speculate (the verify runs plain sdpa)."""
     from repro_torch.serving.engine import Request
     streams, stats = {}, {}
     for impl in impls:
@@ -1498,17 +1560,22 @@ def feature_check(torch, ops, serve, argv, flags, impls, waves):
                                            prompt=r.prompt, image=r.image))
                     res = sorted(eng.run(), key=lambda r: r.uid)
             torch.cuda.synchronize()
-            check((ops.LAUNCHES["flash_attention"] > 0 and
-                   ops.LAUNCHES["paged_decode_attention"] > 0) ==
-                  impl.endswith("cuda"),
+            kernels = impl.endswith("cuda")
+            check((ops.LAUNCHES["flash_attention"] > 0) == kernels and
+                  (ops.LAUNCHES["paged_decode_attention"] > 0) ==
+                  (kernels and not eng.spec),
                   f"feature check [{run}]: kernel launches {ops.LAUNCHES}")
             streams[run] = [r.tokens.tolist() for r in res]
-            if on:
+            if on and "--prefix-cache" in flags:
                 pc = eng.kv_stats()["prefix_cache"]
                 stats[run] = (pc["hits"], eng.chunk_calls)
                 check(pc["hits"] > 0, f"feature check [{run}]: no hit")
                 check((eng.chunk_calls > 0) == ("--prefill-chunk" in flags),
                       f"feature check [{run}]: {eng.chunk_calls} chunks")
+            if on and "--spec-k" in flags:
+                stats[run] = (eng.spec_drafted, eng.spec_accepted)
+                check(eng.spec_drafted > 0, f"feature check [{run}]: no "
+                      "draft proposed")
             eng.pool.check()
             del eng
             free_memory(torch)
@@ -1516,10 +1583,12 @@ def feature_check(torch, ops, serve, argv, flags, impls, waves):
     for run, st in streams.items():
         check(st == first, f"feature check: greedy streams of [{run}] "
               f"differ from [{next(iter(streams))}]: {st} vs {first}")
-    print(f"feature check [{argv[1]}, 4 layers, {waves} wave(s)]: greedy "
-          f"streams agree over {', '.join(streams)} "
-          f"({sum(len(s) for s in first)} tokens; page hits and chunk "
-          f"calls with the flags: {stats})")
+    what = "drafts proposed and accepted" if "--spec-k" in flags else \
+        "page hits and chunk calls"
+    print(f"feature check [{label or argv[1]}, 4 layers, "
+          f"{waves} wave(s)]: greedy streams agree over "
+          f"{', '.join(streams)} ({sum(len(s) for s in first)} tokens; "
+          f"{what} with the flags: {stats})")
 
 
 def main() -> None:
@@ -1579,7 +1648,8 @@ def main() -> None:
         if "floor_ms" in t:
             print(f"  {name}: L2 warm {t['warm_ms']:.5f} ms; an empty "
                   f"kernel {t['floor_ms']:.5f} ms (the floor)")
-        for key in ("prefill", "long", "llava", "granite"):
+        for key in ("prefill", "verify", "long", "llava", "granite", "int8",
+                    "fp8"):
             if key not in t:
                 continue
             tp = t[key]
@@ -1611,6 +1681,7 @@ def main() -> None:
         torch, ops, serve, LLAVA_ARGV, LLAVA_KERNELS)
     image_checks(torch, serve, LLAVA_ARGV, out)
     llava_prefill_tokens = out["engine"].prefill_tokens
+    llava_tps = out["tokens_per_s"]
     graph_phase(torch, "llava-1.5-7b", out, timer)
     image_prefill_timing(torch, out, timer)
     del out
@@ -1644,6 +1715,7 @@ def main() -> None:
         ("flash_attention", "paged_decode_attention", "moe_dispatch",
          "moe_combine"))
     moe_launch_checks(out, runs["granite-moe-3b-a800m serve"])
+    granite_tps = out["tokens_per_s"]
     graph_phase(torch, "granite-moe-3b-a800m", out, timer)
     granite_timing(torch, out, timer)
     del out
@@ -1682,6 +1754,36 @@ def main() -> None:
                   ["--prefix-cache", "--prefill-chunk", "16"],
                   ("paged", "paged_cuda"), 2)
 
+    # speculative decoding: n-gram drafts of 3 tokens verified in one block
+    # forward an iteration, inside the engine's one captured graph; the
+    # verify runs plain sdpa on the gathered pages, as the reference's, so
+    # the paged decode kernel leaves the decode path
+    spec = ["--spec-k", "4"]
+    spec_runs = ("qwen3-0.6b serve spec", "llava-1.5-7b serve spec",
+                 "granite-moe-3b-a800m serve spec")
+    for run, argv, kernels, plain_tps in (
+            (spec_runs[0], QWEN_ARGV, ("flash_attention",), qwen_tps),
+            (spec_runs[1], LLAVA_ARGV, ("flash_attention", "xmodal_score_mean",
+                                        "xmodal_score_max"), llava_tps),
+            (spec_runs[2], GRANITE_ARGV, ("flash_attention", "moe_dispatch",
+                                          "moe_combine"), granite_tps)):
+        runs[run], out = serve_phase(torch, ops, serve, argv + spec, kernels)
+        if "moe_dispatch" in kernels:
+            moe_launch_checks(out, runs[run])
+        if "xmodal_score_max" in kernels:
+            image_checks(torch, serve, argv + spec, out)
+        spec_report(run, out, plain_tps)
+        graph_phase(torch, run.replace(" serve", ""), out, timer)
+        del out
+        check_released(torch, run)
+    for argv, label in ((QWEN_DENSE_ARGV, None),
+                        (QWEN_DENSE_ARGV + ["--kv-dtype", "int8"],
+                         "qwen3-0.6b int8"),
+                        (LLAVA_DENSE_ARGV, None)):
+        feature_check(torch, ops, serve, argv, spec, ("paged", "paged_cuda"),
+                      1, label)
+        free_memory(torch)
+
     # launches: the serve phases for the kernels the serving path runs,
     # the dense checks for the dense decode kernel (K3), which only the
     # dense impls run
@@ -1690,10 +1792,15 @@ def main() -> None:
                                   "granite-moe-3b-a800m dense check")}
     serves = ("qwen3-0.6b serve", "llava-1.5-7b serve",
               "granite-moe-3b-a800m serve")
-    # the quantized pools', the prefix cache's and the chunked serve runs
-    # go through the prefill and paged decode kernels too
-    paths.update({name: serves + tuple(quant) + new_runs for name in
-                  ("flash_attention", "paged_decode_attention")})
+    # the quantized pools', the prefix cache's, the chunked and the
+    # speculative serve runs go through the prefill and paged decode
+    # kernels too (the speculative ones launch the latter 0 times)
+    paths.update({name: serves + tuple(quant) + new_runs + spec_runs
+                  for name in ("flash_attention", "paged_decode_attention")})
+    paths.update({name: serves + spec_runs[1:2] for name in
+                  ("xmodal_score_mean", "xmodal_score_max")})
+    paths.update({name: serves + spec_runs[2:] for name in
+                  ("moe_dispatch", "moe_combine")})
     meta = {
         "flash_attention": ("flash_attention",
                             "kernels/flash_attention.py:89"),
@@ -1722,9 +1829,10 @@ def main() -> None:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
             **{key: t[key] for key in ("sdpa_on_gathered_ms", "prefill",
-                                       "warm_ms", "floor_ms",
-                                       "long", "llava", "granite", "sweep",
-                                       "by_kernel", "splits") + TF32_BOUNDS
+                                       "verify", "warm_ms", "floor_ms",
+                                       "long", "llava", "granite", "int8",
+                                       "fp8", "sweep", "by_kernel",
+                                       "splits") + TF32_BOUNDS
                if key in t}})
     print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,7 @@
     python -m repro_torch.launch.serve --impl paged_cuda --kv-dtype int8
     python -m repro_torch.launch.serve --impl paged_cuda --prefix-cache \
         --prefill-chunk 64 --prompt-len 256
+    python -m repro_torch.launch.serve --impl paged_cuda --spec-k 4
 
 Configs with a vision tower serve image requests: synthetic images drawn
 from a pool of ``--image-pool`` distinct ones, encoded at submit time and
@@ -105,6 +106,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--macro-steps", type=int, default=8,
                     help="device decode steps per launch; 0 = legacy "
                          "per-token host loop")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative block length: draft up to K-1 "
+                         "tokens per slot from the n-gram table and "
+                         "verify them in one target forward (0/1 = off; "
+                         "requires --macro-steps >= 1 and an "
+                         "all-attention decoder)")
+    ap.add_argument("--spec-mode", default="coverage",
+                    choices=["coverage", "fixed"],
+                    help="coverage: per-slot draft length shrinks toward "
+                         "1 as the request's posterior coverage deficit "
+                         "closes; fixed: always draft spec-k - 1 tokens")
     ap.add_argument("--sched-policy", default="fifo",
                     choices=["fifo", "coverage"])
     ap.add_argument("--global-budget", type=int, default=0,
@@ -180,6 +192,7 @@ def build_engine(args: argparse.Namespace):
         sched_policy=args.sched_policy, global_budget=args.global_budget,
         prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk,
         prefill_chunk_budget=args.prefill_chunk_budget,
+        spec_k=args.spec_k, spec_mode=args.spec_mode,
         xmodal_rescore=args.xmodal_rescore, seed=args.seed)
     return cfg, eng
 
@@ -212,6 +225,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     print(f"macro-step: K={eng.macro_steps}, {eng.macro_launches} launches"
           f"{' (CUDA graph replays)' if eng._graphs_captured else ''}, "
           f"{eng.host_syncs} host syncs")
+    if eng.spec:
+        print(f"speculative: K={eng.spec_k} ({eng.spec_mode}), "
+              f"{eng.spec_drafted} drafted, {eng.spec_accepted} accepted "
+              f"({eng.spec_accepted / max(eng.spec_drafted, 1):.0%})")
     ss = eng.sched_stats()
     print(f"scheduler: {ss['policy']} admitted={ss['admitted_candidates']} "
           f"spent={ss['spent']}/{ss['global_budget'] or 'inf'} "

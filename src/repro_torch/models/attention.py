@@ -70,8 +70,10 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
     the expanded K/V never exist. Scores and the output product accumulate
     in fp32. ``q_offset``: position of q[0] relative to k[0] (the suffix
     of a prefix-cache hit, a later prefill chunk). ``kv_mask``: optional
-    (B, Lk) key-validity mask. Queries go in chunks of ``chunk`` so the
-    Lq x Lk scores stay bounded."""
+    key-validity mask, (B, Lk) shared by the queries or (B, Lq, Lk) per
+    query (a speculative verify block, whose query i sees its own
+    prefix). Queries go in chunks of ``chunk`` so the Lq x Lk scores stay
+    bounded."""
     B, Lq, Hq, hd = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -94,7 +96,9 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
         neg = torch.full_like(s, NEG_INF)
         s = torch.where(mask[None, None, None], s, neg)
         if kv_mask is not None:
-            s = torch.where(kv_mask[:, None, None, None, :], s, neg)
+            m = kv_mask[:, None, None, c0:c0 + C] if kv_mask.dim() == 3 \
+                else kv_mask[:, None, None, None, :]
+            s = torch.where(m, s, neg)
         probs = torch.softmax(s, dim=-1).to(v.dtype).float()
         out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
         outs.append(out.reshape(B, C, Hq, hd).to(q.dtype))
@@ -147,6 +151,32 @@ def cache_write(kc, vc, k_new, v_new, pos):
     idx = torch.remainder(pos.long(), S)
     kc[rows, idx] = k_new[:, 0].to(kc.dtype)
     vc[rows, idx] = v_new[:, 0].to(vc.dtype)
+
+
+def cache_write_block(kc, vc, k_new, v_new, pos, valid=None):
+    """Write a block of S consecutive tokens per row at ring slots
+    ``(pos + i) % S_ring`` (in place; ``attention.py:239``). k_new/v_new:
+    (B, S, Hkv, hd) for positions pos..pos+S-1, S <= S_ring, so the slots
+    are distinct. ``valid``: optional (B, S); an invalid position's slot
+    keeps its value (it is rewritten with what it holds)."""
+    B, S = k_new.shape[:2]
+    rows = torch.arange(B, device=kc.device)[:, None]
+    idx = torch.remainder(pos.long()[:, None] + torch.arange(
+        S, device=kc.device)[None, :], kc.shape[1])            # (B, S)
+    for c, new in ((kc, k_new), (vc, v_new)):
+        new = new.to(c.dtype)
+        if valid is not None:
+            new = torch.where(valid[:, :, None, None], new, c[rows, idx])
+        c[rows, idx] = new
+
+
+def block_ring_mask(pos, S: int, Sc: int):
+    """(B, S, Sc) ring-slot validity for the block's query i at position
+    ``pos + i`` (``ring_mask`` per query, full context)."""
+    slot = torch.arange(Sc, device=pos.device)
+    p = pos.long()[:, None, None] + torch.arange(
+        S, device=pos.device)[None, :, None]
+    return p - torch.remainder(p - slot[None, None, :], Sc) >= 0
 
 
 def ring_mask(pos, S: int, window: int = 0):
@@ -302,3 +332,63 @@ def attn_decode_paged(p: Attention, cfg: ModelConfig, x, kp, vp, pos,
             lengths[:, None]
         out = sdpa(q, k, v, causal=False, kv_mask=mask)
     return p.wo(out.reshape(B, 1, -1))
+
+
+def paged_cache_write_block(kp, vp, k_new, v_new, pos, block_table,
+                            valid=None, ks=None, vs=None, drop_page: int = 0):
+    """Write a block of S consecutive tokens per row through the block
+    table in one scatter (in place; ``attention.py:432``). k_new/v_new:
+    (B, S, Hkv, hd) for positions pos..pos+S-1, whose (page, offset)
+    targets are distinct. ``valid``: optional (B, S); the reference drops
+    an invalid position's write, here it goes to ``drop_page``: by default
+    the quarantine page 0, which no row reads unmasked, or a sink page no
+    row reads at all. Quantized pools store each row quantized with its
+    scale."""
+    P, ps = kp.shape[:2]
+    S = k_new.shape[1]
+    p = pos.long()[:, None] + torch.arange(S, device=kp.device)[None, :]
+    logical = torch.clamp(p // ps, 0, block_table.shape[1] - 1)
+    page = torch.clamp(block_table.long().gather(1, logical), 0, P - 1)
+    if valid is not None:
+        page = torch.where(valid, page, torch.full_like(page, drop_page))
+    off = torch.remainder(p, ps)
+    if ks is not None:
+        kq, kscale = kv_quantize(k_new, kp.dtype)
+        vq, vscale = kv_quantize(v_new, vp.dtype)
+        _raw(kp)[page, off] = _raw(kq)
+        _raw(vp)[page, off] = _raw(vq)
+        ks[page, off] = kscale
+        vs[page, off] = vscale
+        return
+    kp[page, off] = k_new.to(kp.dtype)
+    vp[page, off] = v_new.to(vp.dtype)
+
+
+def attn_decode_block(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
+                      pos, *, block_table=None, valid=None,
+                      ks: Optional[torch.Tensor] = None,
+                      vs: Optional[torch.Tensor] = None, drop_page: int = 0):
+    """Attention of a block of S tokens per row against a layer's cache,
+    for speculative verification (``attention.py:565``). x: (B, S, d);
+    block token i sits at position ``pos + i``; ``valid`` (B, S): invalid
+    positions write no KV (a page pool's go to ``drop_page``) and their
+    outputs are to be ignored. With a ``block_table``,
+    ``cache_k``/``cache_v`` are the layer's page pool, else its dense
+    ring. Query i sees positions <= pos + i, the mask a single-token step
+    there would use. Runs ``sdpa`` on every impl, as the reference does:
+    the decode kernels take one query a row."""
+    B, S, _ = x.shape
+    positions = pos.long()[:, None] + torch.arange(S, device=x.device)
+    q, k_new, v_new = project_qkv(p, cfg, x, positions)
+    if block_table is not None:
+        paged_cache_write_block(cache_k, cache_v, k_new, v_new, pos,
+                                block_table, valid, ks, vs, drop_page)
+        k, v = gather_paged_kv(cache_k, cache_v, block_table, ks, vs)
+        mask = torch.arange(k.shape[1], device=x.device)[None, None, :] < \
+            (positions + 1)[:, :, None]
+    else:
+        cache_write_block(cache_k, cache_v, k_new, v_new, pos, valid)
+        k, v = cache_k, cache_v
+        mask = block_ring_mask(pos, S, k.shape[1])
+    out = sdpa(q, k, v, causal=False, kv_mask=mask)
+    return p.wo(out.reshape(B, S, -1))

@@ -147,6 +147,17 @@ class Model(nn.Module):
     def decode_step(self, token, cache, *, impl: str = "torch"):
         return tf_lib.transformer_decode(self, token, cache, impl=impl)
 
+    def decode_block(self, tokens, cache, valid=None, *,
+                     impl: str = "torch", drop_page: int = 0):
+        """Speculative block verification (``repro/models/model.py:205``):
+        tokens (B, S) at positions ``cache["pos"] + [0..S)``; returns
+        (logits (B, S, V), hidden (B, S, d), cache) without advancing
+        ``cache["pos"]``. ``valid`` (B, S): positions that write KV; a page
+        pool takes the others' writes on page ``drop_page``. Needs
+        ``supports_speculative``."""
+        return tf_lib.transformer_decode_block(self, tokens, cache, valid,
+                                               impl=impl, drop_page=drop_page)
+
     # -- capability flags the engine reads ---------------------------------
     @property
     def has_pageable_layers(self) -> bool:
@@ -167,6 +178,13 @@ class Model(nn.Module):
         return (not self.cfg.is_encoder_decoder and
                 self.cfg.attn_window == 0 and
                 all(k == ATTN for k in self.cfg.layer_kinds))
+
+    @property
+    def supports_speculative(self) -> bool:
+        """Speculation rewinds a rejected position by not committing it,
+        which only stateless-per-position KV layers allow: the prefix
+        cache's predicate (``repro/models/model.py:216``)."""
+        return self.supports_prefix_cache
 
     @property
     def has_vision_tower(self) -> bool:

@@ -231,3 +231,41 @@ def transformer_decode(model, token, cache, *, impl: str = "torch"):
     logits, hidden = _logits(model, x)
     pos += 1        # in place: a captured decode step keeps its addresses
     return logits[:, 0], hidden[:, 0], cache
+
+
+def transformer_decode_block(model, tokens, cache, valid=None, *,
+                             impl: str = "torch", drop_page: int = 0):
+    """Speculative block verification (``transformer.py:535``): feed S
+    tokens a row at positions ``cache["pos"] + [0..S)`` and return every
+    position's next-token logits. tokens: (B, S), token 0 the pending last
+    token, 1..S-1 the draft; ``valid`` (B, S): invalid positions write no
+    KV (a page pool's go to page ``drop_page``). ``cache["pos"]`` is not
+    advanced: the caller commits the accepted prefix, and a rejected
+    position's stale KV is rewritten before anything attends to it. Every
+    layer's MLP part runs on all B x S tokens, so an MoE layer routes the
+    invalid ones too, in (B, S) row-major order, with its dispatch and
+    combine through ``impl``. All-attention full-context
+    decoders only (``Model.supports_speculative``). Returns (logits
+    (B, S, V), hidden (B, S, d), cache)."""
+    if not model.supports_speculative:
+        raise ValueError(f"{model.cfg.name}: speculative block decode needs "
+                         "an all-attention full-context decoder")
+    cfg = model.cfg
+    pos = cache["pos"]
+    bt = cache.get("block_table")
+    x = embed(model.embed.table, tokens)
+    for i, blk in enumerate(model.layers):
+        h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
+        if bt is not None:
+            y = attn_lib.attn_decode_block(
+                blk.attn, cfg, h, cache["k_pages"][i], cache["v_pages"][i],
+                pos, block_table=bt, valid=valid,
+                ks=cache["k_scale"][i] if "k_scale" in cache else None,
+                vs=cache["v_scale"][i] if "v_scale" in cache else None,
+                drop_page=drop_page)
+        else:
+            y = attn_lib.attn_decode_block(blk.attn, cfg, h, cache["k"][i],
+                                           cache["v"][i], pos, valid=valid)
+        x = _mlp_part(blk, cfg, x + y, impl)
+    logits, hidden = _logits(model, x)
+    return logits, hidden, cache

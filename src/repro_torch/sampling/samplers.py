@@ -120,6 +120,102 @@ def sample_token_batch(logits, cfg: SamplingConfig, bias=None, greedy=None,
     return tok, logp[tok]
 
 
+def speculative_accept(logits, draft, cfg: SamplingConfig, *, token_counts,
+                       bias, greedy, eos_id, n_tok, limit, active,
+                       noise=None, uniform=None,
+                       greedy_static: bool = False):
+    """Accept a prefix of a drafted token block, the target distribution
+    kept (Leviathan-style rejection against a deterministic draft;
+    ``repro/sampling/samplers.py:149``).
+
+    The verify forward fed ``[d_0, .., d_{K-1}]``: ``d_0`` the pending
+    last token, ``d_1..`` = ``draft``; ``logits[:, i]`` is the target's
+    next-token distribution after ``d_i``, and position i emits one token.
+    Greedy rows take the raw argmax and go on while it equals the next
+    draft. Sampled rows accept ``d_{i+1}`` when ``uniform[i] < p(d)``
+    under the processed distribution, else draw from the residual (p with
+    the draft masked) with the Gumbel row ``noise[i]``: the draws of
+    global decode steps ``step0 + i`` a plain step would read (the
+    all-greedy path takes neither). Emission stops after the first
+    rejection, a missing draft (-1), EOS or the per-slot ``limit``; the
+    repetition-penalty counts fold in the accepted prefix as it grows.
+
+    logits: (B, K, V) fp32; draft: (B, K-1) int, -1 = none; noise:
+    (K, B, V); uniform: (K, B). Returns (tokens (B, K), logps (B, K),
+    emit (B, K) bool, counts (B, V), n_tok' (B,), stopped (B,)); tokens
+    past the first non-emitting position are padding. ``greedy_static``
+    (every row greedy) takes the vectorised prefix scan, with the same
+    tokens and logprobs."""
+    B, K, V = logits.shape
+    if greedy_static:
+        return _speculative_accept_greedy(
+            logits, draft, cfg, token_counts=token_counts, bias=bias,
+            eos_id=eos_id, n_tok=n_tok, limit=limit, active=active)
+    cols = torch.arange(V, device=logits.device)
+    none = torch.full((B,), -1, dtype=draft.dtype, device=draft.device)
+    alive, counts, n = active, token_counts, n_tok
+    stopped = torch.zeros_like(active)
+    toks, lps, emits = [], [], []
+    for i in range(K):
+        lg = logits[:, i]
+        proc = process_logits(lg, cfg, counts, bias)
+        logp = torch.log_softmax(proc, dim=-1)
+        arg = torch.argmax(lg, dim=-1)
+        d = draft[:, i] if i < K - 1 else none
+        has_d = d >= 0
+        d_safe = d.clamp_min(0).long()
+        # the residual reduces to the processed distribution where there
+        # is no draft, which covers the block's last, free position too
+        p_d = torch.softmax(proc, dim=-1).gather(1, d_safe[:, None])[:, 0]
+        acc = has_d & (uniform[i] < p_d)
+        drop = (cols[None, :] == d_safe[:, None]) & has_d[:, None]
+        resampled = _draw(torch.where(drop, torch.full_like(proc, NEG_INF),
+                                      proc), noise[i])
+        tok = torch.where(greedy, arg, torch.where(acc, d_safe, resampled))
+        lps.append(logp.gather(1, tok[:, None])[:, 0])
+        cont = torch.where(greedy, has_d & (arg == d), acc)
+        emit = alive
+        n = n + emit.to(n.dtype)
+        stop = emit & ((tok == eos_id) | (n >= limit))
+        stopped = stopped | stop
+        alive = alive & cont & ~stop
+        counts = counts.scatter_add(1, tok[:, None],
+                                    emit.to(counts.dtype)[:, None])
+        toks.append(tok)
+        emits.append(emit)
+    return (torch.stack(toks, 1), torch.stack(lps, 1), torch.stack(emits, 1),
+            counts, n, stopped)
+
+
+def _speculative_accept_greedy(logits, draft, cfg: SamplingConfig, *,
+                               token_counts, bias, eos_id, n_tok, limit,
+                               active):
+    """All-greedy ``speculative_accept`` as one prefix scan
+    (``samplers.py:240``): greedy tokens are raw argmaxes, so the chain
+    only decides where emission stops, and the counts at position i are
+    ``counts0 + exclusive-cumsum(emitted one-hots)``."""
+    B, K, V = logits.shape
+    toks = torch.argmax(logits, dim=-1)                       # (B, K)
+    d = torch.cat([draft.long(), toks.new_full((B, 1), -1)], dim=1)
+    cont = (d >= 0) & (toks == d)
+    pos_i = torch.arange(K, device=logits.device)[None, :]
+    stop_cond = (toks == eos_id) | (n_tok[:, None] + pos_i + 1 >=
+                                    limit[:, None])
+    blocked = torch.cumsum((~(cont & ~stop_cond)).to(torch.int32), dim=1)
+    emit = active[:, None] & torch.cat(
+        [torch.ones_like(active)[:, None], blocked[:, :-1] == 0], dim=1)
+    emitf = emit.to(token_counts.dtype)
+    oh = torch.zeros((B, K, V), dtype=token_counts.dtype,
+                     device=logits.device).scatter_(2, toks[..., None],
+                                                    emitf[..., None])
+    pre = torch.cumsum(oh, dim=1) - oh                        # exclusive
+    proc = process_logits(logits, cfg, token_counts[:, None] + pre,
+                          None if bias is None else bias[:, None])
+    lps = torch.log_softmax(proc, dim=-1).gather(-1, toks[..., None])[..., 0]
+    return (toks, lps, emit, token_counts + oh.sum(1),
+            n_tok + emit.sum(1).to(n_tok.dtype), (emit & stop_cond).any(1))
+
+
 def gumbel(u):
     """Gumbel(0, 1) draws from uniforms in (0, 1)."""
     tiny = torch.finfo(u.dtype).tiny
@@ -129,7 +225,8 @@ def gumbel(u):
 class GumbelNoise:
     """Default noise source: Gumbel draws from ``torch.Generator``s seeded
     by (seed, stream, counter) on the target device. Decode noise for
-    global step t depends only on (seed, t) — the counterpart of
+    global step t (Gumbel rows, and a speculative step's acceptance
+    uniforms) depends only on (seed, t) — the counterpart of
     ``decode_step_key`` (``samplers.py:88``) — so token streams do not
     depend on how many steps each macro launch covers. Admission noise
     (the first token of each candidate) follows its own counter."""
@@ -153,3 +250,8 @@ class GumbelNoise:
     def step(self, t: int, batch: int, vocab: int):
         """(B, V) noise for global decode step ``t``."""
         return gumbel(self._uniform(1, t, (batch, vocab)))
+
+    def uniform(self, t: int, batch: int):
+        """(B,) uniforms for the acceptance draws of global decode step
+        ``t`` (speculative decoding), on a stream of their own."""
+        return self._uniform(2, t, (batch,))

@@ -39,6 +39,19 @@ Sampling noise comes from ``noise`` (default ``GumbelNoise``): decode
 noise for global step t depends on (seed, t) only, so token streams do not
 depend on ``macro_steps``.
 
+Speculative decoding (``spec_k`` > 1, macro-steps only, all-attention
+full-context decoders) replaces the macro body by the reference's
+speculative one (``_macro_step_spec``): each iteration drafts up to
+spec_k - 1 tokens a slot from a device-resident n-gram table of the
+slot's fed tokens (``EngineState.hist``), verifies the block in one
+``Model.decode_block`` forward (plain ``sdpa`` on every impl, as the
+reference verifies) and commits the accepted prefix through
+``speculative_accept``: greedy streams equal the plain loop's, sampled
+ones keep its distribution. An iteration consumes the noise of spec_k
+global steps. ``spec_mode`` "coverage" narrows a candidate's verify width
+as its request's posterior coverage deficit closes; "fixed" keeps it. On
+the card the speculative body is the engine's one captured graph.
+
 Multimodal requests (models with evidence tokens) carry precomputed
 ``evidence`` rows or an ``image``, which the model's vision tower encodes
 at submit time, memoised by the image's content hash. The evidence rows
@@ -75,9 +88,9 @@ graph, and write the pools in place.
 Impls: ``torch`` / ``paged`` run plain PyTorch attention and scoring,
 ``cuda`` / ``paged_cuda`` the hand-written kernels; the suffix attention
 of a prefix hit or a later chunk runs plain ``sdpa`` on every impl, as
-the reference's does (its flash kernel takes no context). Speculation,
-mesh serving, prefill/decode disaggregation, cancellation and async
-pumping are later slices of the port: asking for any of them raises
+the reference's does (its flash kernel takes no context). Mesh serving,
+prefill/decode disaggregation, cancellation and async pumping are later
+slices of the port: asking for any of them raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -95,7 +108,8 @@ from repro_torch.core import controller as ctrl
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
 from repro_torch.sampling.samplers import (GumbelNoise, sample_token,
-                                           sample_token_batch)
+                                           sample_token_batch,
+                                           speculative_accept)
 from repro_torch.serving.page_pool import PagePool, prefix_page_keys
 from repro_torch.serving.scheduler import (NewWork, PrefillWork, RoundWork,
                                            SchedulerContext, make_scheduler)
@@ -144,6 +158,11 @@ class EngineState:
     bias: torch.Tensor         # (B, V) CAMD mixture guidance
     greedy: torch.Tensor       # (B,) bool
     limit: torch.Tensor        # (B,) int32 per-candidate token limit
+    hist: torch.Tensor         # (B, H) int64 token fed at each cache
+                               # position (-1: none, or evidence), the
+                               # n-gram draft table; H = cache_len with
+                               # speculation, else 1
+    spec_k: torch.Tensor       # (B,) int32 per-slot verify width
 
 
 # one side stream per device for every engine's warm-up and capture, so
@@ -179,6 +198,7 @@ class ServeEngine:
                  global_budget: int = 0, prefix_cache: bool = False,
                  prefill_chunk: int = 0, prefill_chunk_budget: int = 0,
                  prefill_shards: int = 0, mesh=None, spec_k: int = 0,
+                 spec_mode: str = "coverage", spec_ngram: int = 2,
                  xmodal_rescore: bool = False, seed: int = 0, noise=None):
         if mode not in ("camd", "best_of_n", "self_consistency", "greedy"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -187,10 +207,24 @@ class ServeEngine:
         if macro_steps < 0:
             raise ValueError("macro_steps must be >= 0")
         for what, asked in (("prefill/decode disaggregation", prefill_shards),
-                            ("mesh serving", mesh is not None),
-                            ("speculative decoding", spec_k > 1)):
+                            ("mesh serving", mesh is not None)):
             if asked:
                 raise _unsupported(what)
+        if spec_mode not in ("coverage", "fixed"):
+            raise ValueError(f"unknown spec_mode {spec_mode!r}")
+        if spec_ngram < 1:
+            raise ValueError("spec_ngram must be >= 1")
+        # speculative decoding: spec_k <= 1 keeps the plain one-token step
+        self.spec = spec_k > 1
+        self.spec_k = spec_k if self.spec else 0
+        self.spec_mode = spec_mode
+        self.spec_ngram = spec_ngram
+        if self.spec and macro_steps < 1:
+            raise ValueError("speculative decoding runs inside the macro "
+                             "body (macro_steps >= 1)")
+        if self.spec and not model.supports_speculative:
+            raise ValueError(f"{model.cfg.name}: speculative verification "
+                             "needs an all-attention full-context decoder")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -237,10 +271,12 @@ class ServeEngine:
             # admission, so an admitted candidate can always finish
             self._slot_reserved = np.zeros(slots, np.int64)
             self._reserved = 0
-            # the most page boundaries one slot crosses in K steps, plus
-            # the boundary the first step may land on
-            self._frontier_width = min(max(1, -(-max(macro_steps, 1) // ps)
-                                           + 1), self.pages_per_slot)
+            # the most page boundaries one slot crosses in K steps (each
+            # committing up to spec_k tokens), plus the boundary the first
+            # step may land on
+            adv = max(macro_steps, 1) * max(self.spec_k, 1)
+            self._frontier_width = min(max(1, -(-adv // ps) + 1),
+                                       self.pages_per_slot)
             # chunk sizes round up to whole pages
             self.chunked = prefill_chunk > 0 and model.supports_prefix_cache
             self.chunk = -(-int(prefill_chunk) // ps) * ps \
@@ -274,6 +310,9 @@ class ServeEngine:
         self._slot_req = np.full(slots, -1, np.int64)
         self._slot_cand = np.full(slots, -1, np.int64)
         self._slot_lim = np.full(slots, max_new_tokens, np.int64)
+        # host mirror of each slot's verify width (frontier staging sizes a
+        # slot's worst-case advance with it)
+        self._slot_spec = np.ones(slots, np.int64)
         self._reqs: Dict[int, Dict[str, Any]] = {}
         self._next_cand = 0
         self._dtype = model.param_dtype
@@ -304,11 +343,14 @@ class ServeEngine:
             self.pool.set_bytes_per_page(self._bytes_per_page())
         self._greedy_row = torch.tensor([mode == "greedy"],
                                         device=self.device)
-        # the macro body's static inputs: each iteration's Gumbel noise
-        # (none in greedy mode) and the paged slots' staged pages
-        K = max(macro_steps, 1)
+        # the macro body's static inputs: each global step's Gumbel noise
+        # and, speculating, acceptance uniforms (none in greedy mode), and
+        # the paged slots' staged pages
+        n_noise = max(macro_steps, 1) * max(self.spec_k, 1)
         self._noise_buf = None if mode == "greedy" else \
-            torch.zeros((K, slots, self.V), device=self.device)
+            torch.zeros((n_noise, slots, self.V), device=self.device)
+        self._unif_buf = torch.zeros((n_noise, slots), device=self.device) \
+            if self.spec and mode != "greedy" else None
         self._frontier = torch.zeros((slots, self._frontier_width),
                                      dtype=torch.int32, device=self.device) \
             if self.paged else None
@@ -323,6 +365,9 @@ class ServeEngine:
         self.total_tokens = 0
         self.macro_launches = 0
         self.host_syncs = 0
+        # speculation telemetry: drafts proposed, drafts accepted
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         # graph telemetry: graphs captured, seconds spent warming up and
         # capturing, the warm-up's kernel launches (kept out of
         # ``ops.LAUNCHES``), and the device steps the macro launches ran,
@@ -344,9 +389,15 @@ class ServeEngine:
     def _blank_state(self) -> EngineState:
         B, V, d, dev = self.B, self.V, self.d, self.device
         if self.paged:
+            # a speculating engine's pool tensors hold one more page than
+            # the page pool hands out: the sink of the verify blocks'
+            # dropped writes, which no row reads (page 0 is read by idle
+            # rows, whose hidden states an MoE layer routes beside the
+            # live ones)
             cache = self.model.make_paged_cache(
                 B, self.cache_len, self._dtype, page_size=self.page_size,
-                num_pages=self.pool.num_pages, kv_dtype=self.kv_dtype)
+                num_pages=self.pool.num_pages + int(self.spec),
+                kv_dtype=self.kv_dtype)
         else:
             cache = self.model.make_cache(B, self.cache_len, self._dtype)
 
@@ -362,7 +413,10 @@ class ServeEngine:
             out_buf=zeros(B, self.max_new, dtype=torch.long),
             bias=zeros(B, V), greedy=zeros(B, dtype=torch.bool),
             limit=torch.full((B,), self.max_new, dtype=torch.int32,
-                             device=dev))
+                             device=dev),
+            hist=torch.full((B, self.cache_len if self.spec else 1), -1,
+                            dtype=torch.long, device=dev),
+            spec_k=torch.ones(B, dtype=torch.int32, device=dev))
 
     # ------------------------------------------------------------------
     def _decode_step(self, noise, go=None) -> torch.Tensor:
@@ -406,14 +460,17 @@ class ServeEngine:
         st.active &= ~done
         return done
 
-    def _macro_step(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _macro_step(self) -> Tuple[torch.Tensor, ...]:
         """The macro body: K decode steps with the reference's early exit
         kept on the device (see the module docstring), iteration i
         drawing ``_noise_buf[i]``. Paged slots pull their next page from
         the staged ``_frontier`` row when their write position crosses a
         page boundary. It makes no host sync and rebinds no state, so the
         card captures it whole. Returns (done of the last real step,
-        number of real steps) as device tensors."""
+        number of real steps) as device tensors; a speculating engine runs
+        ``_macro_step_spec`` instead."""
+        if self.spec:
+            return self._macro_step_spec()
         K = max(self.macro_steps, 1)
         st, B, dev = self.state, self.B, self.device
         go = st.active.any()
@@ -440,16 +497,173 @@ class ServeEngine:
             go = go & st.active.any() & ~done.any()
         return done_out, steps
 
+    def _macro_step_spec(self) -> Tuple[torch.Tensor, ...]:
+        """The speculative macro body (``engine.py:799-938``): K
+        iterations, each drafting up to spec_k - 1 tokens a slot
+        (``_ngram_draft``, cut to the slot's own width), feeding positions
+        up to ``limit - n_tok`` (``valid``), verifying the block in one
+        ``Model.decode_block`` forward, accepting a prefix
+        (``speculative_accept``, on the noise of global steps t0 + i *
+        spec_k ..), then folding the CAMD aggregates over the emitted
+        tokens, writing them to ``out_buf`` and the fed ones to ``hist``,
+        and advancing ``pos`` by the count emitted. The reference's exit
+        rule runs as masked iterations, as in the plain body: they change
+        no state and write no KV. A paged slot's logical pages [pos // ps,
+        (pos + spec_k - 1) // ps] map to ``_frontier[s, li - li0]``, li0
+        fixed at the launch's start: a pure function of pos, so a partial
+        acceptance maps the same entries again. In place and with no host
+        sync, as the graph needs. Returns (done of the last real
+        iteration, real iterations, drafts proposed, drafts accepted) as
+        device tensors."""
+        K, Kb = max(self.macro_steps, 1), self.spec_k
+        st, B, dev = self.state, self.B, self.device
+        go = st.active.any()
+        steps, drafted, accepted = (torch.zeros((), dtype=torch.int32,
+                                                device=dev) for _ in range(3))
+        done_out = torch.zeros(B, dtype=torch.bool, device=dev)
+        blk = torch.arange(Kb, device=dev)[None, :]
+        out_col = torch.arange(self.max_new, device=dev)[None, :]
+        hist_col = torch.arange(st.hist.shape[1], device=dev)[None, :]
+        if self.paged:
+            ps, bt = self.page_size, st.cache["block_table"]
+            li = torch.arange(bt.shape[1], device=dev)[None, :]
+            fr_idx = li - (-(-st.cache["pos"].long() // ps))[:, None]
+            F = self._frontier.shape[1]
+            in_frontier = (fr_idx >= 0) & (fr_idx < F)
+            fr_page = self._frontier.gather(1, fr_idx.clamp(0, F - 1))
+        for i in range(K):
+            act = st.active & go
+            pos = st.cache["pos"].long()
+            if self.paged:
+                need = act[:, None] & in_frontier & \
+                    (li >= (pos // ps)[:, None]) & \
+                    (li <= ((pos + Kb - 1) // ps)[:, None])
+                torch.where(need, fr_page, bt, out=bt)
+            draft = self._ngram_draft(st.hist, pos, st.last_token)
+            draft = torch.where(blk[:, :-1] < (st.spec_k - 1)[:, None],
+                                draft, -1)
+            tokens = torch.cat([st.last_token[:, None], draft.clamp_min(0)],
+                               dim=1)
+            valid = act[:, None] & (blk < (st.limit - st.n_tok)[:, None])
+            logits, hidden, _ = self.model.decode_block(
+                tokens, st.cache, valid, impl=self._model_impl,
+                drop_page=self.pool.num_pages if self.paged else 0)
+            gumbel, unif = (None if buf is None else buf[i * Kb:(i + 1) * Kb]
+                            for buf in (self._noise_buf, self._unif_buf))
+            toks, lps, emit, counts, n_tok, stopped = speculative_accept(
+                logits.float(), draft, self.sampling,
+                token_counts=st.token_counts, bias=st.bias,
+                greedy=st.greedy, eos_id=self.eos_id, n_tok=st.n_tok,
+                limit=st.limit, active=act, noise=gumbel, uniform=unif,
+                greedy_static=self.mode == "greedy")
+            emitf = emit.float()
+            n_emit = emit.sum(1)
+            last = (n_emit - 1).clamp_min(0)[:, None]
+            h32 = hidden.float()
+            hn = h32 / (torch.linalg.vector_norm(h32, dim=-1, keepdim=True)
+                        + 1e-8)
+            # the CAMD aggregates over the emitted prefix
+            st.sum_lp += (lps * emitf).sum(1)
+            prev = torch.cat([st.prev_h[:, None], hn[:, :-1]], dim=1)
+            coh_w = torch.cat([emitf[:, :1] * (st.n_tok > 0).float()[:, None],
+                               emitf[:, 1:]], dim=1)
+            st.sum_coh += ((hn * prev).sum(-1) * coh_w).sum(1)
+            st.sum_emb += (h32 * emitf[..., None]).sum(1)
+            if self.has_evidence:
+                st.align_sum += (torch.einsum(
+                    "bnd,bkd->bkn", self._evid, self._unit_embed(toks))
+                    .mean(-1) * emitf).sum(1)
+            # emitted tokens land at out_buf[n_tok, n_tok + n_emit), the
+            # fed ones [last, toks[:-1]] at hist[pos, pos + n_emit)
+            fed = torch.cat([st.last_token[:, None], toks[:, :-1]], dim=1)
+            for buf, col, start, vals in (
+                    (st.out_buf, out_col, st.n_tok.long(), toks),
+                    (st.hist, hist_col, pos, fed)):
+                j = col - start[:, None]
+                jc = j.clamp(0, Kb - 1)
+                hit = (j >= 0) & (j < Kb) & emit.gather(1, jc)
+                torch.where(hit, vals.gather(1, jc), buf, out=buf)
+            done = act & stopped
+            st.cache["pos"] += n_emit.to(torch.int32)   # 0 where inactive
+            torch.where(act, toks.gather(1, last)[:, 0], st.last_token,
+                        out=st.last_token)
+            torch.where(act[:, None], hn.gather(1, last[..., None].expand(
+                -1, 1, hn.shape[-1]))[:, 0], st.prev_h, out=st.prev_h)
+            st.token_counts.copy_(counts)
+            st.n_tok.copy_(n_tok)
+            st.active &= ~done
+            drafted += ((draft >= 0) & act[:, None]).sum().to(torch.int32)
+            accepted += (last[:, 0] * act).sum().to(torch.int32)
+            steps += go.to(torch.int32)
+            torch.where(go, done, done_out, out=done_out)
+            go = go & st.active.any() & ~done.any()
+        return done_out, steps, drafted, accepted
+
+    def _ngram_draft(self, hist, pos, last) -> torch.Tensor:
+        """Device-side n-gram draft (``engine.py:750``), vectorised over
+        slots. ``hist[b, p]`` is the token fed at cache position p (-1:
+        none, or evidence). Finds an earlier position j whose context
+        ending at ``hist[j]`` matches the suffix ending at the pending
+        token ``last``, deepest context (``spec_ngram`` tokens) first and
+        backing off to a 1-gram, and proposes the spec_k - 1 tokens that
+        followed it; within a depth the most recent match whose followers
+        are all known wins over a fresher partial one. Returns (B,
+        spec_k - 1) int64, -1 where there is no proposal. Gathers and
+        maxima only: capturable."""
+        B, H = hist.shape
+        n_draft = self.spec_k - 1
+        idx = torch.arange(H, device=hist.device)[None, :]
+        pos = pos.long()[:, None]
+        # j < pos - 1: the latest fed position has no known follower, and
+        # its match would shadow an older one that has
+        m = (hist == last[:, None]) & (idx < pos - 1)
+        full = idx + n_draft < pos
+
+        def pick(m):
+            j_full = torch.where(m & full, idx, -1).amax(1)
+            j_any = torch.where(m, idx, -1).amax(1)
+            return torch.where(j_full >= 0, j_full, j_any)
+
+        j = pick(m)                                   # the 1-gram match
+        for g in range(1, self.spec_ngram):
+            # the context token g steps before the pending one
+            ctx = hist.gather(1, (pos - g).clamp(0, H - 1))
+            prev = torch.nn.functional.pad(hist, (g, 0), value=-2)[:, :H]
+            m = m & (idx >= g) & (pos >= g) & (prev == ctx) & (ctx >= 0)
+            jg = pick(m)
+            j = torch.where(jg >= 0, jg, j)           # a deeper match wins
+        src = j[:, None] + torch.arange(1, n_draft + 1,
+                                        device=hist.device)[None, :]
+        ok = (j >= 0)[:, None] & (src < pos)
+        return torch.where(ok, hist.gather(1, src.clamp(0, H - 1)), -1)
+
+    def _coverage_k(self, p_star) -> int:
+        """A candidate's verify width, 1..spec_k (``engine.py:733``): in
+        "coverage" mode it narrows toward 1 as the request's posterior
+        coverage deficit closes (``p_star`` None before the first round:
+        the full width)."""
+        if not self.spec:
+            return 1
+        if self.spec_mode != "coverage":
+            return self.spec_k
+        deficit = max(0.0, (1.0 - self.camd.delta) - (p_star or 0.0))
+        frac = min(1.0, deficit / max(1e-9, 1.0 - self.camd.delta))
+        return 1 + int(round((self.spec_k - 1) * frac))
+
     def _fill_noise(self, t0: int) -> None:
         """Stage the next launch's noise: ``_noise_buf[i]`` takes the draw
         of global step t0 + i, masked iterations' included, as an eager
-        loop would draw them."""
+        loop would draw them; a speculating engine's launch spans K *
+        spec_k steps, each with its acceptance uniforms in
+        ``_unif_buf[i]``."""
         if self._noise_buf is None:
             return
         for i in range(self._noise_buf.shape[0]):
             self._noise_buf[i].copy_(self.noise.step(t0 + i, self.B, self.V))
+            if self._unif_buf is not None:
+                self._unif_buf[i].copy_(self.noise.uniform(t0 + i, self.B))
 
-    def _macro_launch(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _macro_launch(self) -> Tuple[torch.Tensor, ...]:
         """One macro launch of the staged body: eager on the CPU, a replay
         of the captured graph on the card (captured at the first
         launch). Returns ``_macro_step``'s outputs."""
@@ -472,8 +686,9 @@ class ServeEngine:
         raises. The warm-up runs with every slot inactive, so all its
         iterations are masked: the only writes it makes are each row's
         K/V at its current position, which the next real step writes
-        again with the same values. Its kernel launches go to
-        ``_warmup_launches``; the capture's, which launch nothing, become
+        again with the same values (the speculative body's go to its sink
+        page, or rewrite a dense ring's own values). Its kernel launches
+        go to ``_warmup_launches``; the capture's, which launch nothing, become
         the per-replay counts. Raises if the capture fails."""
         t0 = time.perf_counter()
         st = self.state
@@ -738,7 +953,9 @@ class ServeEngine:
             if self._slot_req[s] < 0:
                 continue
             p = int(self._slot_pos[s])
-            hi = min(p + max(self.macro_steps, 1), int(self._slot_limit[s]))
+            # worst-case advance: K iterations of the slot's verify width
+            adv = max(self.macro_steps, 1) * int(self._slot_spec[s])
+            hi = min(p + adv, int(self._slot_limit[s]))
             need = self._page_crossings(p, hi, ps)
             pages: List[int] = []
             if need > 0:
@@ -843,6 +1060,7 @@ class ServeEngine:
         decode step ``_t``) stays."""
         self.total_steps = self.total_tokens = 0
         self.macro_launches = self.host_syncs = 0
+        self.spec_drafted = self.spec_accepted = 0
         self.prefill_calls = self.prefill_tokens = 0
         self.chunk_calls = self.chunk_tokens = 0
         self.image_encodes = self.image_feat_hits = 0
@@ -861,6 +1079,12 @@ class ServeEngine:
                                                      self.max_new)
         info = self._reqs[req.uid]
         st = self.state
+        if self.spec and not self.paged and \
+                info["prompt_len"] + lim > self.cache_len:
+            # a verify block past cache_len would wrap onto a live position
+            raise ValueError(f"prompt {info['prompt_len']} + limit {lim} "
+                             f"overflows the cache of {self.cache_len} "
+                             "(speculation does not ring-wrap)")
         idx = torch.as_tensor(slot_ids, device=self.device)
         n = len(slot_ids)
         if self.paged:
@@ -898,10 +1122,23 @@ class ServeEngine:
         st.bias[idx] = 0.0 if bias is None else bias.expand(n, -1)
         st.greedy[idx] = self.mode == "greedy"
         st.limit[idx] = lim
+        k_eff = self._coverage_k(info.get("p_star"))
+        if self.spec:
+            # the n-gram table: the prompt at its cache positions (evidence
+            # rows stay -1 and never match); the first sampled token is
+            # pending, fed by the first verify block
+            ne = info["prompt_len"] - len(req.prompt)
+            row = torch.full((self.cache_len,), -1, dtype=torch.long,
+                             device=self.device)
+            row[ne:info["prompt_len"]] = torch.as_tensor(
+                np.asarray(req.prompt, np.int64), device=self.device)
+            st.hist[idx] = row
+            st.spec_k[idx] = k_eff
         for s in slot_ids:
             self._slot_req[s] = req.uid
             self._slot_cand[s] = self._next_cand
             self._slot_lim[s] = lim
+            self._slot_spec[s] = k_eff
             info["cand_slots"].append((self._next_cand, s))
             self._next_cand += 1
 
@@ -1304,6 +1541,7 @@ class ServeEngine:
             info["records"][cand] = rec
             self._slot_req[slot] = -1
             self._slot_cand[slot] = -1
+            self._slot_spec[slot] = 1
             self.total_tokens += n
             self.scheduler.on_finish(uid, n, int(self._slot_lim[slot]))
             self._slot_lim[slot] = self.max_new
@@ -1487,13 +1725,18 @@ class ServeEngine:
         if not self._any_live():
             return not self._refill_idle()
         staged = self._stage_frontier() if self.paged else None
-        done, steps = self._macro_launch()
+        done, *counts = self._macro_launch()
         self.macro_launches += 1
         self._steps_launched += max(self.macro_steps, 1)
-        done_np, pos_np, steps_np = self._sync(
-            (done, self.state.cache["pos"], steps))
+        # one host sync a launch; speculation's draft counts ride along
+        done_np, pos_np, steps_np, *spec_np = self._sync(
+            (done, self.state.cache["pos"], *counts))
         self.total_steps += int(steps_np)
-        self._t += int(steps_np)
+        if self.spec:
+            self.spec_drafted += int(spec_np[0])
+            self.spec_accepted += int(spec_np[1])
+        # a speculative iteration consumes the noise of spec_k steps
+        self._t += int(steps_np) * max(self.spec_k, 1)
         if self.paged:
             self._reclaim_frontier(staged, pos_np)
         done_slots = [int(s) for s in np.nonzero(done_np)[0]

@@ -7,8 +7,9 @@ step (``engine.py:333, :722``) and ``split(self.key)`` per legacy step —
 so CAMD-mode streams, candidate counts and round counts must equal the
 reference's token for token, dense and paged. Also: the port's page-pool
 copy keeps its invariants, features of later slices raise (the prefix
-cache and chunked prefill are off on dense impls, as in the reference),
-and a text-only model refuses multimodal requests.
+cache and chunked prefill are off on dense impls, as in the reference;
+speculation needs the macro body), and a text-only model refuses
+multimodal requests.
 """
 import dataclasses
 
@@ -64,6 +65,12 @@ class ReferenceNoise:
         else:
             k = jax.random.fold_in(self.decode_key, t)
         return self._gumbel(k, (batch, vocab))
+
+    def uniform(self, t, batch):
+        """A speculative step's acceptance draws: ``uniform(fold_in(key,
+        1))`` of step t's key (``repro/sampling/samplers.py:217``)."""
+        k = jax.random.fold_in(jax.random.fold_in(self.decode_key, t), 1)
+        return torch.from_numpy(np.array(jax.random.uniform(k, (batch,))))
 
 
 @pytest.fixture(scope="module")
@@ -159,10 +166,16 @@ def test_page_pool_copy_invariants():
 
 def test_later_slices_raise(tiny):
     _, _, _, model = tiny
-    for kw in (dict(spec_k=4), dict(mesh=object()), dict(prefill_shards=1),
+    for kw in (dict(mesh=object()), dict(prefill_shards=1),
                dict(impl="paged", prefill_shards=1)):
         with pytest.raises(NotImplementedError):
             ServeEngine(model, cache_len=64, **kw)
+    # speculative decoding is served now (tests/test_torch_engine_spec.py),
+    # inside the macro body only
+    assert ServeEngine(model, cache_len=64, impl="paged", spec_k=4).spec
+    with pytest.raises(ValueError, match="macro_steps"):
+        ServeEngine(model, cache_len=64, impl="paged", macro_steps=0,
+                    spec_k=4)
     # the prefix cache and chunked prefill are served now
     # (tests/test_torch_prefix_cache.py, test_torch_prefill_chunked.py);
     # on a dense impl they are quietly off, as in the reference

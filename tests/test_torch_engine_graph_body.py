@@ -15,7 +15,9 @@ body runs eagerly, and over runs with admissions, finishes and refills:
   of the legacy per-token loop, which draws each step's noise when it
   runs, under the reference's fold-in draws (``ReferenceNoise``) and the
   port's ``GumbelNoise``, for K 1, 4 and 8 (both sources are stateless in
-  the global step, so streams do not depend on K).
+  the global step, so streams do not depend on K);
+- the speculative body (spec_k 4) keeps every storage and makes no host
+  sync either, its acceptance uniforms staged in a static buffer too.
 """
 import contextlib
 import dataclasses
@@ -39,7 +41,7 @@ SYNCS = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
          "__float__")
 
 
-def _engine(model, impl, K, noise=None, mode="camd", max_new=8):
+def _engine(model, impl, K, noise=None, mode="camd", max_new=8, spec_k=0):
     # 6 slots take 3 requests' first rounds: the 4th request and later
     # rounds refill slots that finished
     return ServeEngine(model, slots=6, cache_len=64, impl=impl, mode=mode,
@@ -48,7 +50,8 @@ def _engine(model, impl, K, noise=None, mode="camd", max_new=8):
                        paged_kv=tconfig.PagedKVConfig(page_size=8),
                        sampling=tconfig.SamplingConfig(
                            max_new_tokens=max_new, temperature=0.8),
-                       camd=tconfig.CAMDConfig(**CAMD), noise=noise)
+                       camd=tconfig.CAMDConfig(**CAMD), noise=noise,
+                       spec_k=spec_k)
 
 
 def _submit(eng, evidence=None):
@@ -67,7 +70,7 @@ def _tensors(eng):
     out = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)
            if f.name != "cache"}
     out.update({f"cache.{k}": v for k, v in st.cache.items()})
-    for name in ("_noise_buf", "_frontier", "_evid"):
+    for name in ("_noise_buf", "_unif_buf", "_frontier", "_evid"):
         if getattr(eng, name) is not None:
             out[name] = getattr(eng, name)
     return out
@@ -100,11 +103,12 @@ def llava():
 
 
 @pytest.mark.parametrize("impl", ["torch", "paged", "paged_cuda"])
-@pytest.mark.parametrize("arch", ["tiny", "llava"])
+@pytest.mark.parametrize("arch,spec_k", [("tiny", 0), ("llava", 0),
+                                         ("tiny", 4), ("llava", 4)])
 def test_macro_body_keeps_storage_and_makes_no_sync(tiny, llava, arch,
-                                                    impl):
+                                                    spec_k, impl):
     model = tiny[3] if arch == "tiny" else llava
-    eng = _engine(model, impl, 4)
+    eng = _engine(model, impl, 4, spec_k=spec_k)
     ev = None if arch == "tiny" else \
         (model.cfg.num_evidence_tokens,
          model.cfg.evidence_dim or model.cfg.d_model)
@@ -129,6 +133,7 @@ def test_macro_body_keeps_storage_and_makes_no_sync(tiny, llava, arch,
     # admissions, finishes and refills happened between launches
     assert eng.scheduler.stats()["admitted_candidates"] > eng.B
     assert eng._steps_launched == 4 * eng.macro_launches >= eng.total_steps
+    assert (eng.spec_drafted > 0) == (spec_k > 0)
     if eng.paged:
         eng.pool.check()
         assert eng.pool.in_use == 0
