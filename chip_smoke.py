@@ -77,10 +77,22 @@ Run from the root of a checkout. It
      kernel never (the verify runs plain sdpa, as the reference's); and
      at 4 layers the greedy streams with ``--spec-k 4`` on and off, plain
      and kernel paged engines, must agree for qwen3-0.6b on fp32 and
-     int8 pools and for llava-1.5-7b.
-Every serve phase checks that the flash kernel ran once a layer a
-whole-prompt prefill forward and the paged decode kernel once a layer a
-step of every replay (none in a speculative run).
+     int8 pools and for llava-1.5-7b;
+  23-25. open-loop serving on full-width qwen3-0.6b: one greedy engine
+     serves 16 requests (twice its slots) in six waves, a warm-up that
+     captures its graph, a closed-loop wave (golden streams, capacity),
+     Poisson and bursty arrivals at 0.7x that capacity, saturation (all at
+     t = 0) and Poisson with every third client disconnecting after its
+     first streamed token, through the async front-end; every surviving
+     stream equals its closed-loop stream, nothing leaks after the
+     cancels, TTFT p50/p99, TPOT p50/p99, goodput at the adaptive TTFT SLO
+     and tokens/s are printed a cell; then CAMD requests through the serve
+     CLI's ``--open-loop``; and at 4 layers the plain and kernel paged
+     engines, pumped through one cancel plan, must deliver the same
+     streams and cancel the same requests in the same launches.
+Every serve phase and open-loop wave checks that the flash kernel ran
+once a layer a whole-prompt prefill forward and the paged decode kernel
+once a layer a step of every replay (none in a speculative run).
 Every serve phase runs each macro launch as a replay of the engine's one
 captured CUDA graph: it checks that one graph was captured, prints the
 capture time, the steps the launches ran against the real ones (the
@@ -93,6 +105,7 @@ last ``{"ok": true, "device": {...}}``. Any failure exits nonzero. It
 exits with an error, printing no result, without a CUDA device or outside
 a checkout of the repository.
 """
+import asyncio
 import contextlib
 import json
 import re
@@ -1591,6 +1604,298 @@ def feature_check(torch, ops, serve, argv, flags, impls, waves, label=None):
           f"{what} with the flags: {stats})")
 
 
+# ---------------------------------------------------------------------------
+# open-loop serving: arrivals on their own clock, streams and cancels
+# ---------------------------------------------------------------------------
+
+OPEN_LOOP = dict(requests=16, load=0.7, seed=11, cancel_seed=13,
+                 camd_requests=8)
+OPEN_ARGV = with_arg(with_arg(QWEN_ARGV, "--mode", "greedy"), "--requests",
+                     OPEN_LOOP["requests"])
+# pump -> uids: 0, 3, 9, 10 running (9 and 10 admitted at pump 1), 11
+# queued and never prefilled, 6 finished (16 tokens in two launches)
+CANCEL_PLAN = {0: [0, 3, 11], 1: [9], 2: [6, 10]}
+
+
+def assert_drained(eng, what):
+    """No page, slot, reservation or commitment outlives a drained
+    engine."""
+    eng.pool.check()
+    cached = eng.pool.prefix.cached_pages if eng.pool.prefix else 0
+    check(eng.pool.in_use == cached and eng._reserved == 0,
+          f"{what}: {eng.pool.in_use} pages in use ({cached} cached), "
+          f"{eng._reserved} reserved: leaked")
+    check(all(int(s) == -1 for s in eng._slot_req) and
+          not bool(eng.state.active.any()), f"{what}: a slot is still busy")
+    check(eng.scheduler.committed == 0,
+          f"{what}: {eng.scheduler.committed} tokens still committed")
+
+
+def drive_open(eng, reqs, arrivals, slo_ms, cancel_uids=()):
+    """One open-loop cell through the port's async front-end and traffic
+    loop (what ``run_open_loop`` does), also recording each request's
+    delivered stream and each ``pump``'s host wall time (its launch's sync
+    included; the event loop waits meanwhile) and whether it prefilled.
+    Returns (traces, metrics, delivered, pumps)."""
+    from repro_torch.serving import AsyncServeFrontend
+    from repro_torch.serving.traffic import drive_open_loop, slo_metrics
+    delivered = {r.uid: [] for r in reqs}
+    pumps = []
+    pump = eng.pump
+
+    def timed_pump():
+        calls, t0 = eng.prefill_calls, time.perf_counter()
+        more = pump()
+        pumps.append((time.perf_counter() - t0, eng.prefill_calls > calls))
+        return more
+
+    async def run():
+        async with AsyncServeFrontend(eng) as fe:
+            inner = fe.stream
+
+            async def stream(uid):
+                async for tok in inner(uid):
+                    delivered[uid].append(int(tok))
+                    yield tok
+            fe.stream = stream
+            return await drive_open_loop(fe, reqs, arrivals,
+                                         cancel_uids=cancel_uids,
+                                         cancel_after_tokens=1)
+
+    eng.pump = timed_pump
+    try:
+        traces = asyncio.run(run())
+    finally:
+        del eng.pump
+    return traces, slo_metrics(traces, slo_ttft_ms=slo_ms), delivered, \
+        pumps
+
+
+def open_loop_phase(torch, ops, serve, card):
+    """Greedy open-loop serving on full-width qwen3-0.6b (``--impl
+    paged_cuda``, eos outside the vocabulary: every request emits 32
+    tokens), one engine over six waves of the same 16 prompts, as the
+    reference bench's open-loop section runs them: warm-up (the capture),
+    closed loop (golden streams, capacity), Poisson and bursty arrivals at
+    0.7x capacity, saturation, Poisson with every third client cancelling
+    after its first token. Each wave's launches and prefill forwards are
+    counted from 0; one graph serves all six. Returns ({wave: launches},
+    summary for the CAMD phase)."""
+    import numpy as np
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.traffic import ARRIVALS, poisson_arrivals
+    n, load = OPEN_LOOP["requests"], OPEN_LOOP["load"]
+    args = serve.parse_args(OPEN_ARGV)
+    cfg, eng = serve.build_engine(args)
+    base = serve.make_requests(cfg, args)
+    L, K = eng.cfg.num_layers, eng.macro_steps
+    print(f"open loop: {cfg.name} {L}L d{cfg.d_model}, greedy, {eng.B} "
+          f"slots, {n} requests of {args.prompt_len} + {args.max_new} "
+          f"tokens, K {K}, --impl {args.impl} [{card}]")
+
+    def reqs(uid0):
+        return [Request(uid=uid0 + r.uid, prompt=r.prompt) for r in base]
+
+    runs = {}
+
+    def wave(name, fn):
+        eng.reset_stats()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with counting_prefills(torch) as (forwards, _):
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                got = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        want = {"flash_attention": L * forwards["prefill"],
+                "paged_decode_attention": L * eng.macro_launches * K}
+        for kernel, exp in want.items():
+            check(launches[kernel] == exp, f"open loop [{name}]: {kernel} "
+                  f"launched {launches[kernel]} times, not {exp} ({L} "
+                  f"layers, {forwards['prefill']} prefills, "
+                  f"{eng.macro_launches} replays of {K} steps)")
+        check(forwards["prefill_suffix"] == 0 and eng._graphs_captured == 1,
+              f"open loop [{name}]: {forwards['prefill_suffix']} suffix "
+              f"forwards, {eng._graphs_captured} graphs captured")
+        assert_drained(eng, f"open loop [{name}]")
+        runs[f"qwen3-0.6b open loop {name}"] = launches
+        print(f"open loop [{name}]: {wall:.3f} s, {eng.macro_launches} "
+              f"replays, {eng.host_syncs} host syncs, {forwards['prefill']} "
+              f"prefill forwards, {eng.total_tokens} tokens; launches "
+              f"{launches}")
+        return got, wall
+
+    def closed(uid0):
+        for r in reqs(uid0):
+            eng.submit(r)
+        return {r.uid - uid0: [int(t) for t in r.tokens]
+                for r in eng.run() if uid0 <= r.uid < uid0 + n}
+
+    _, warm = wave("warm-up", lambda: closed(10_000))
+    print(f"open loop [warm-up]: graph captured in {eng._capture_s:.3f} s "
+          f"of the wave's {warm:.3f} s")
+    ref, closed_wall = wave("closed", lambda: closed(0))
+    check(len(ref) == n and all(len(t) == args.max_new
+                                for t in ref.values()),
+          "open loop [closed]: a request did not emit max-new tokens")
+    capacity = n / closed_wall
+    closed_tps = n * args.max_new / closed_wall
+    slo_ms = max(250.0, 4e3 * closed_wall / n)
+    rate = load * capacity
+    print(f"open loop [closed]: capacity {capacity:.3f} requests/s, "
+          f"{closed_tps:.1f} tok/s; offered {rate:.3f} requests/s "
+          f"({load}x); TTFT SLO {slo_ms:.1f} ms [{card}]")
+    cells = {}
+    for i, name in enumerate(("poisson", "bursty", "saturation", "cancel")):
+        uid0 = 1000 * (i + 1)
+        arrivals = np.zeros(n) if name == "saturation" else \
+            poisson_arrivals(rate, n, seed=OPEN_LOOP["cancel_seed"]) \
+            if name == "cancel" else \
+            ARRIVALS[name](rate, n, seed=OPEN_LOOP["seed"])
+        cancels = tuple(uid0 + j for j in range(0, n, 3)) \
+            if name == "cancel" else ()
+        (traces, m, delivered, pumps), _ = wave(name, lambda: drive_open(
+            eng, reqs(uid0), arrivals, slo_ms, cancels))
+        for tr in traces:
+            want = ref[tr.uid - uid0]
+            got = delivered[tr.uid]
+            check(tr.t_done is not None and
+                  tr.cancelled == (tr.uid in cancels),
+                  f"open loop [{name}]: request {tr.uid} unresolved or "
+                  f"cancelled {tr.cancelled}")
+            if tr.cancelled:
+                check(0 < len(got) < len(want) and got == want[:len(got)],
+                      f"open loop [{name}]: cancelled stream {tr.uid} "
+                      f"{got} is not a prefix of {want}")
+            else:
+                check(got == want and [int(t) for t in eng.result(
+                    tr.uid).tokens] == want,
+                      f"open loop [{name}]: stream {tr.uid} differs from "
+                      f"the closed loop's: {got} vs {want}")
+        check(m["completed"] == n - len(cancels) and
+              m["cancelled"] == len(cancels) == eng.cancelled_requests,
+              f"open loop [{name}]: {m['completed']} completed, "
+              f"{m['cancelled']} cancelled, engine counted "
+              f"{eng.cancelled_requests}")
+        late = max(tr.t_submit - tr.t_arrival for tr in traces)
+        pre = sorted(t for t, p in pumps if p)
+        dec = sorted(t for t, p in pumps if not p)
+        m["pumps"] = {"n": len(pumps), "with_prefill": len(pre),
+                      "p50_ms": 1e3 * sorted(t for t, _ in pumps)[
+                          len(pumps) // 2],
+                      "max_ms": 1e3 * max(t for t, _ in pumps),
+                      "prefill_p50_ms": 1e3 * pre[len(pre) // 2]
+                      if pre else None,
+                      "launch_only_p50_ms": 1e3 * dec[len(dec) // 2]
+                      if dec else None}
+        m["generator_late_max_ms"] = late * 1e3
+        cells[name] = m
+        print(f"open loop [{name}]: TTFT p50 {m['ttft_p50_ms']:.1f} / p99 "
+              f"{m['ttft_p99_ms']:.1f} ms, TPOT p50 {m['tpot_p50_ms']:.2f} "
+              f"/ p99 {m['tpot_p99_ms']:.2f} ms, goodput "
+              f"{m['goodput_rps']:.3f} requests/s ({m['good_requests']}/"
+              f"{m['completed']} within {slo_ms:.1f} ms), "
+              f"{m['tokens_per_s']:.1f} tok/s over {m['span_s']:.3f} s; "
+              f"{m['cancelled']} cancelled; generator at most "
+              f"{late * 1e3:.1f} ms late; {len(pumps)} pumps, p50 "
+              f"{m['pumps']['p50_ms']:.1f} ms, max "
+              f"{m['pumps']['max_ms']:.1f} ms, {len(pre)} with a prefill "
+              f"[{card}]")
+    print("open loop: surviving streams equal the closed loop's in every "
+          "cell; no page, slot or commitment leaked; one graph over six "
+          "waves")
+    print("open loop json: " + json.dumps(
+        {"card": card, "capacity_rps": capacity, "closed_tokens_per_s":
+         closed_tps, "capture_s": eng._capture_s, "slo_ms": slo_ms,
+         "rate_rps": rate, "cells": cells}))
+    return runs, {"capacity": capacity, "slo_ms": slo_ms}
+
+
+def camd_open_loop_phase(torch, ops, serve, summary):
+    """CAMD requests through the serve CLI's ``--open-loop`` at the same
+    shapes (Poisson arrivals; a CAMD request runs rounds of 4 candidates,
+    so the offered rate is the greedy capacity's 0.7x over 4): streams
+    arrive at completion; every request resolves with a usable candidate,
+    one graph, no leak (``serve_phase``'s checks, K1 and K2 counts
+    included)."""
+    rate = OPEN_LOOP["load"] * summary["capacity"] / 4
+    argv = with_arg(QWEN_ARGV, "--requests", OPEN_LOOP["camd_requests"]) + \
+        ["--open-loop", "--arrival", "poisson", "--arrival-rate",
+         f"{rate:.4f}", "--slo-ms", f"{summary['slo_ms']:.1f}"]
+    launches, out = serve_phase(torch, ops, serve, argv, TEXT_KERNELS)
+    eng, m = out["engine"], out["metrics"]
+    check(len(out["traces"]) == OPEN_LOOP["camd_requests"] and
+          all(tr.t_done is not None and not tr.cancelled and
+              tr.n_tokens > 0 for tr in out["traces"]) and
+          m["completed"] == OPEN_LOOP["camd_requests"],
+          f"open loop [camd]: unresolved requests: {m}")
+    assert_drained(eng, "open loop [camd]")
+    check(not eng.stream_tokens and not eng.stream_events,
+          "open loop [camd]: the front-end left streaming on")
+    del out, eng
+    return launches
+
+
+def cancel_check(torch, ops, serve):
+    """At 4 layers: the plain (paged) and kernel (paged_cuda) greedy
+    engines, 12 requests on 8 slots with streaming on, pumped through one
+    cancel plan (queued and running requests, at fixed pump boundaries):
+    the delivered streams, the cancelled sets and (steps, launches, host
+    syncs) must agree, and nothing leaks."""
+    from repro_torch.serving.engine import Request
+    argv = with_arg(QWEN_DENSE_ARGV, "--requests", 12)
+    seen = {}
+    for impl in ("paged", "paged_cuda"):
+        args = serve.parse_args(argv + ["--impl", impl])
+        cfg, eng = serve.build_engine(args)
+        eng.stream_tokens = True
+        for r in serve.make_requests(cfg, args):
+            eng.submit(Request(uid=r.uid, prompt=r.prompt))
+        ops.reset_launches()
+        streams, i = {}, 0
+        with torch.inference_mode():
+            while True:
+                more = eng.pump()
+                for uid, _cand, toks in eng.drain_stream_events():
+                    streams.setdefault(uid, []).extend(int(t) for t in toks)
+                for uid in CANCEL_PLAN.get(i, ()):
+                    eng.cancel(uid)
+                i += 1
+                if not more:
+                    break
+        torch.cuda.synchronize()
+        kernels = impl == "paged_cuda"
+        check((ops.LAUNCHES["flash_attention"] > 0) == kernels and
+              (ops.LAUNCHES["paged_decode_attention"] > 0) == kernels,
+              f"cancel check [{impl}]: kernel launches {ops.LAUNCHES}")
+        assert_drained(eng, f"cancel check [{impl}]")
+        check(eng._graphs_captured == 1, f"cancel check [{impl}]: "
+              f"{eng._graphs_captured} graphs captured")
+        res = [eng.result(u) for u in range(args.requests)]
+        for r in res:
+            check(r.cancelled or streams.get(r.uid) ==
+                  [int(t) for t in r.tokens],
+                  f"cancel check [{impl}]: request {r.uid}'s stream "
+                  "differs from its result")
+        seen[impl] = (streams, [r.uid for r in res if r.cancelled],
+                      (eng.total_steps, eng.macro_launches, eng.host_syncs),
+                      eng.cancelled_requests)
+        del eng
+        free_memory(torch)
+    check(seen["paged_cuda"] == seen["paged"],
+          f"cancel check: paged_cuda {seen['paged_cuda'][1:]} differs from "
+          f"paged {seen['paged'][1:]} (or their streams differ)")
+    streams, cancelled, loop, _ = seen["paged"]
+    check(cancelled and len(cancelled) < len(streams),
+          f"cancel check: cancelled {cancelled}")
+    print(f"cancel check [qwen3-0.6b, 4 layers]: paged and paged_cuda agree "
+          f"under the cancel plan {CANCEL_PLAN}: {len(cancelled)} cancelled "
+          f"{cancelled}, {sum(len(s) for s in streams.values())} tokens "
+          f"streamed, (steps, launches, host syncs) {loop}")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("run from the root of a checkout: src/repro_torch not found")
@@ -1784,6 +2089,18 @@ def main() -> None:
                       1, label)
         free_memory(torch)
 
+    # open-loop serving: requests arrive on their own clock, stream their
+    # tokens and some cancel, through the async front-end
+    t0 = time.perf_counter()
+    open_runs, summary = open_loop_phase(torch, ops, serve, card)
+    runs.update(open_runs)
+    check_released(torch, "qwen3-0.6b open loop")
+    runs["qwen3-0.6b open loop camd"] = camd_open_loop_phase(
+        torch, ops, serve, summary)
+    check_released(torch, "qwen3-0.6b open loop camd")
+    cancel_check(torch, ops, serve)
+    print(f"open-loop phases: {time.perf_counter() - t0:.1f} s")
+
     # launches: the serve phases for the kernels the serving path runs,
     # the dense checks for the dense decode kernel (K3), which only the
     # dense impls run
@@ -1795,7 +2112,8 @@ def main() -> None:
     # the quantized pools', the prefix cache's, the chunked and the
     # speculative serve runs go through the prefill and paged decode
     # kernels too (the speculative ones launch the latter 0 times)
-    paths.update({name: serves + tuple(quant) + new_runs + spec_runs
+    paths.update({name: serves + tuple(quant) + new_runs + spec_runs +
+                  tuple(open_runs) + ("qwen3-0.6b open loop camd",)
                   for name in ("flash_attention", "paged_decode_attention")})
     paths.update({name: serves + spec_runs[1:2] for name in
                   ("xmodal_score_mean", "xmodal_score_max")})

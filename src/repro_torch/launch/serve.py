@@ -8,6 +8,8 @@
     python -m repro_torch.launch.serve --impl paged_cuda --prefix-cache \
         --prefill-chunk 64 --prompt-len 256
     python -m repro_torch.launch.serve --impl paged_cuda --spec-k 4
+    python -m repro_torch.launch.serve --impl paged_cuda --open-loop \
+        --arrival poisson --arrival-rate 8 --slo-ms 500
 
 Configs with a vision tower serve image requests: synthetic images drawn
 from a pool of ``--image-pool`` distinct ones, encoded at submit time and
@@ -23,7 +25,10 @@ CPU-smoke-size variant of the config; ``--no-reduced`` serves it at its
 published widths, and ``--num-layers`` cuts its depth. Runs on the CUDA
 device unless ``--device cpu``; there each macro launch (``--macro-steps``
 K > 0) replays one CUDA graph of the K-step body, and the legacy loop
-(``--macro-steps 0``) runs eagerly.
+(``--macro-steps 0``) runs eagerly. ``--open-loop`` serves the same
+requests through the async front-end, each submitted at its time in a
+seeded Poisson or bursty arrival process, and reports TTFT and TPOT
+percentiles and the goodput at a TTFT SLO.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.config import (CAMDConfig, PagedKVConfig, SamplingConfig,
 from repro_torch.configs import get_config
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import IMPLS, Request, ServeEngine
+from repro_torch.serving.traffic import ARRIVALS, run_open_loop
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -123,6 +129,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="hard token budget across the stream (0 = none)")
     ap.add_argument("--no-bucket-prefill", action="store_true")
     ap.add_argument("--prefill-bucket-min", type=int, default=16)
+    ap.add_argument("--open-loop", action="store_true",
+                    help="serve through the async streaming front-end "
+                         "with timed arrivals instead of a pre-staged "
+                         "batch, and report SLO metrics (TTFT/TPOT "
+                         "percentiles, goodput); needs --macro-steps >= 1")
+    ap.add_argument("--arrival", default="poisson",
+                    choices=["poisson", "bursty"],
+                    help="open-loop arrival process")
+    ap.add_argument("--arrival-rate", type=float, default=8.0,
+                    help="open-loop offered load, requests/s")
+    ap.add_argument("--slo-ms", type=float, default=500.0,
+                    help="TTFT SLO for the goodput metric, milliseconds")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     ap.add_argument("--seed", type=int, default=0,
@@ -198,26 +216,58 @@ def build_engine(args: argparse.Namespace):
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
-    """Serve one batch of synthetic requests; prints results and
-    telemetry and returns them (``engine``, ``results``, ``seconds``,
-    ``tokens_per_s``)."""
+    """Serve synthetic requests, as one pre-staged batch or (``--open-loop``)
+    arriving on their own clock; prints results and telemetry and returns
+    them (``engine``, ``results``, ``seconds``, ``tokens_per_s``, and with
+    ``--open-loop`` the per-request ``traces`` and their ``metrics``)."""
     args = parse_args(argv)
+    if args.open_loop and args.macro_steps < 1:
+        raise SystemExit("--open-loop drives the fused macro-step loop; "
+                         "use --macro-steps >= 1")
     cfg, eng = build_engine(args)
     model = eng.model
-    for req in make_requests(cfg, args):
-        eng.submit(req)
+    reqs = make_requests(cfg, args)
+    if not args.open_loop:
+        for req in reqs:
+            eng.submit(req)
     sync = torch.cuda.synchronize if model.device.type == "cuda" \
         else (lambda: None)
+    traces = metrics = None
     sync()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        results = eng.run()
+        if args.open_loop:
+            arrivals = ARRIVALS[args.arrival](args.arrival_rate,
+                                              args.requests, seed=args.seed)
+            traces, metrics = run_open_loop(eng, reqs, arrivals,
+                                            slo_ttft_ms=args.slo_ms)
+            results = [eng.result(tr.uid) for tr in traces]
+        else:
+            results = eng.run()
     sync()
     secs = time.perf_counter() - t0
-    for r in results:
-        print(f"req {r.uid}: candidates={r.n_candidates} rounds={r.rounds} "
-              f"tokens={r.tokens_spent} p*={r.p_star:.3f} "
-              f"early={r.stopped_early} out={r.tokens[:8].tolist()}")
+    if args.open_loop:
+        for tr in traces:
+            print(f"req {tr.uid}: arrival {tr.t_arrival * 1e3:7.1f}ms  "
+                  f"ttft {(tr.t_first - tr.t_arrival) * 1e3:7.1f}ms  "
+                  f"tokens={tr.n_tokens}")
+        print(f"open loop [{args.arrival} @ {args.arrival_rate:.1f} rps]: "
+              f"{metrics['completed']} completed over "
+              f"{metrics['span_s']:.2f}s")
+        print(f"  ttft p50/p99 {metrics['ttft_p50_ms']:.1f}/"
+              f"{metrics['ttft_p99_ms']:.1f} ms   "
+              f"tpot p50/p99 {metrics['tpot_p50_ms']:.1f}/"
+              f"{metrics['tpot_p99_ms']:.1f} ms")
+        print(f"  goodput {metrics['goodput_rps']:.2f} rps at "
+              f"{args.slo_ms:.0f}ms TTFT SLO "
+              f"({metrics['good_requests']}/{metrics['completed']}), "
+              f"{metrics['tokens_per_s']:.1f} tok/s")
+    else:
+        for r in results:
+            print(f"req {r.uid}: candidates={r.n_candidates} "
+                  f"rounds={r.rounds} tokens={r.tokens_spent} "
+                  f"p*={r.p_star:.3f} early={r.stopped_early} "
+                  f"out={r.tokens[:8].tolist()}")
     print(f"engine [{cfg.name}, {cfg.num_layers}L d{cfg.d_model}, "
           f"{args.impl} on {model.device}]: {eng.total_steps} steps, "
           f"{eng.total_tokens} tokens in {secs:.3f}s "
@@ -257,7 +307,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         print(f"vision frontend: {eng.image_encodes} tower encodes, "
               f"{eng.image_feat_hits} feature-memo hits")
     return {"engine": eng, "results": results, "seconds": secs,
-            "tokens_per_s": eng.total_tokens / secs}
+            "tokens_per_s": eng.total_tokens / secs, "traces": traces,
+            "metrics": metrics}
 
 
 if __name__ == "__main__":

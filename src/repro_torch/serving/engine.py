@@ -88,10 +88,17 @@ graph, and write the pools in place.
 Impls: ``torch`` / ``paged`` run plain PyTorch attention and scoring,
 ``cuda`` / ``paged_cuda`` the hand-written kernels; the suffix attention
 of a prefix hit or a later chunk runs plain ``sdpa`` on every impl, as
-the reference's does (its flash kernel takes no context). Mesh serving,
-prefill/decode disaggregation, cancellation and async pumping are later
-slices of the port: asking for any of them raises
-``NotImplementedError``.
+the reference's does (its flash kernel takes no context).
+
+Requests may arrive and leave mid-flight: ``pump`` drives one serving
+iteration at a time (an admission pass when work arrived, then one
+launch), ``cancel`` aborts a request (queued work at once, running slots
+at the next step boundary, deactivated and pointed at the quarantine page
+in place, so the captured graph keeps its addresses), and with
+``stream_tokens`` each launch's new tokens ride its one host sync into
+``stream_events``; ``serving/frontend.py`` builds the asyncio front-end
+on these hooks. Mesh serving and prefill/decode disaggregation are later
+slices of the port: asking for either raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -139,6 +146,7 @@ class Result:
     best_score: float
     stopped_early: bool
     candidates: List[Dict[str, Any]]        # per-candidate records
+    cancelled: bool = False                 # aborted via ServeEngine.cancel
 
 
 @dataclasses.dataclass
@@ -376,12 +384,26 @@ class ServeEngine:
         self._capture_s = 0.0
         self._warmup_launches: Dict[str, int] = {}
         self._steps_launched = 0
+        # async front-end plumbing: opt-in per-launch token streaming (its
+        # readbacks ride the launch's one sync), a completion feed drained
+        # between launches, cancellations applied at step boundaries, and
+        # whether the first admission pass ran (``pump``'s first call runs
+        # the one ``run`` starts with)
+        self.stream_tokens = False
+        self.stream_events: List[Tuple[int, int, np.ndarray]] = []
+        self._slot_streamed = np.zeros(slots, np.int64)
+        self._newly_done: List[int] = []
+        self._cancels: set = set()
+        self.cancelled_requests = 0
+        self._begun = False
 
     # ------------------------------------------------------------------
     def _sync(self, tensors) -> List[np.ndarray]:
-        """Decode-loop host readback: one counted synchronization."""
+        """Decode-loop host readback: one counted synchronization. The
+        arrays are copies, never views of the live state (which a CPU
+        tensor's ``numpy()`` would give)."""
         self.host_syncs += 1
-        return [t.cpu().numpy() for t in tensors]
+        return [t.to("cpu", copy=True).numpy() for t in tensors]
 
     def _any_live(self) -> bool:
         return bool((self._slot_req >= 0).any())
@@ -795,12 +817,6 @@ class ServeEngine:
         pseudo = np.frombuffer(rep, np.int64).copy()
         return np.concatenate([pseudo, np.asarray(req.prompt, np.int64)])
 
-    def cancel(self, uid: int) -> bool:
-        raise _unsupported("request cancellation")
-
-    def pump(self) -> bool:
-        raise _unsupported("async pumping")
-
     # -- paged cache plumbing ------------------------------------------
     def _write_pages(self, row, pages: List[int], start: int,
                      broadcast: bool = False):
@@ -1050,6 +1066,7 @@ class ServeEngine:
                  prefill_tokens=self.prefill_tokens,
                  chunk_calls=self.chunk_calls,
                  chunk_tokens=self.chunk_tokens,
+                 cancelled_requests=self.cancelled_requests,
                  image_encodes=self.image_encodes,
                  image_feat_hits=self.image_feat_hits)
         return s
@@ -1063,11 +1080,28 @@ class ServeEngine:
         self.spec_drafted = self.spec_accepted = 0
         self.prefill_calls = self.prefill_tokens = 0
         self.chunk_calls = self.chunk_tokens = 0
+        self.cancelled_requests = 0
         self.image_encodes = self.image_feat_hits = 0
         self.starved_uids.clear()
         self.scheduler.reset_stats()
         if self.paged:
             self.pool.reset_stats()
+
+    # -- async front-end hooks -------------------------------------------
+    def has_work(self) -> bool:
+        """Anything live, queued or pending a round."""
+        return self._any_live() or self._has_pending()
+
+    def drain_stream_events(self) -> List[Tuple[int, int, np.ndarray]]:
+        """Token deltas ``(uid, cand_uid, tokens)`` emitted since the last
+        drain (with ``stream_tokens`` on)."""
+        ev, self.stream_events = self.stream_events, []
+        return ev
+
+    def pop_finished(self) -> List[int]:
+        """Uids finalized since the last call (completion and cancel)."""
+        done, self._newly_done = self._newly_done, []
+        return done
 
     # -- admission -----------------------------------------------------
     def _admit(self, req: Request, slot_ids: List[int],
@@ -1139,6 +1173,7 @@ class ServeEngine:
             self._slot_cand[s] = self._next_cand
             self._slot_lim[s] = lim
             self._slot_spec[s] = k_eff
+            self._slot_streamed[s] = 0
             info["cand_slots"].append((self._next_cand, s))
             self._next_cand += 1
 
@@ -1542,6 +1577,7 @@ class ServeEngine:
             self._slot_req[slot] = -1
             self._slot_cand[slot] = -1
             self._slot_spec[slot] = 1
+            self._slot_streamed[slot] = 0
             self.total_tokens += n
             self.scheduler.on_finish(uid, n, int(self._slot_lim[slot]))
             self._slot_lim[slot] = self.max_new
@@ -1628,13 +1664,15 @@ class ServeEngine:
 
     def _finish_request(self, uid: int):
         """Finalize a request with the candidates it has: drop its prompt
-        cache row and its prompt-page holds."""
+        cache row and its prompt-page holds, and post it to the completion
+        feed (``pop_finished``)."""
         info = self._reqs[uid]
         info["done"] = True
         info["pending_round"] = False
         info["cache_row"] = None
         if self.paged and info.get("prompt_pages"):
             self.pool.free(info.pop("prompt_pages"))
+        self._newly_done.append(uid)
 
     def _has_pending(self) -> bool:
         return bool(self._queue) or any(
@@ -1659,18 +1697,22 @@ class ServeEngine:
         self._chunking.clear()
         for req in self._queue:
             if req.uid not in self._reqs:
-                self._reqs[req.uid] = {
-                    "req": req, "cache_row": None,
-                    "camd": ctrl.init_state(self.camd, 1, self.d, self.V,
-                                            self.device),
-                    "bias": None, "round": 0, "cand_slots": [],
-                    "records": {}, "align_const": 0.0, "done": False}
+                self._reqs[req.uid] = self._stub_info(req)
         self._queue.clear()
         for uid, info in self._reqs.items():
             if not info["done"]:
                 if not info["records"]:
                     self.starved_uids.append(uid)
                 self._finish_request(uid)
+
+    def _stub_info(self, req: Request, **extra) -> Dict[str, Any]:
+        """The record of a request that finalizes without a prefill (budget
+        starved, or cancelled while queued)."""
+        return {"req": req, "cache_row": None,
+                "camd": ctrl.init_state(self.camd, 1, self.d, self.V,
+                                        self.device),
+                "bias": None, "round": 0, "cand_slots": [], "records": {},
+                "align_const": 0.0, "done": False, **extra}
 
     def _refill_idle(self) -> bool:
         """No slot is live: admit queued work or pending rounds. Returns
@@ -1713,13 +1755,16 @@ class ServeEngine:
         if self.macro_steps <= 0:
             return self._run_legacy()
         self._schedule()
+        self._begun = True
         while self._step():
             pass
-        return [self._result(uid) for uid in self._reqs]
+        return [self.result(uid) for uid in self._reqs]
 
     def _step(self) -> bool:
         """One fused-loop iteration: refill when idle, else stage the
-        frontier, run one macro launch and fold its results. Returns False
+        frontier, run one macro launch and fold its results (cancels
+        first, then the token stream, the frontier reclaim and the
+        finished candidates, as ``engine.py:2403-2448``). Returns False
         once all work is drained."""
         self._chunk_left = self.chunk_budget     # the turn's chunk budget
         if not self._any_live():
@@ -1728,21 +1773,34 @@ class ServeEngine:
         done, *counts = self._macro_launch()
         self.macro_launches += 1
         self._steps_launched += max(self.macro_steps, 1)
-        # one host sync a launch; speculation's draft counts ride along
-        done_np, pos_np, steps_np, *spec_np = self._sync(
-            (done, self.state.cache["pos"], *counts))
-        self.total_steps += int(steps_np)
+        # one host sync a launch: speculation's draft counts, the emission
+        # counts a cancel or the stream needs and the stream's tokens ride
+        # along
+        want_ntok = self.stream_tokens or bool(self._cancels)
+        extra = ((self.state.n_tok,) if want_ntok else ()) + \
+            ((self.state.out_buf,) if self.stream_tokens else ())
+        vals = self._sync((done, self.state.cache["pos"], *counts, *extra))
+        done_np, pos_np, steps_np = vals[:3]
         if self.spec:
-            self.spec_drafted += int(spec_np[0])
-            self.spec_accepted += int(spec_np[1])
+            self.spec_drafted += int(vals[3])
+            self.spec_accepted += int(vals[4])
+        k = 2 + len(counts)              # the first extra
+        ntok_np = vals[k] if want_ntok else None
+        out_np = vals[k + 1] if self.stream_tokens else None
+        self.total_steps += int(steps_np)
         # a speculative iteration consumes the noise of spec_k steps
         self._t += int(steps_np) * max(self.spec_k, 1)
+        cancelled = self._apply_cancels(staged, ntok_np) \
+            if self._cancels else False
+        if self.stream_tokens:
+            self._emit_stream(ntok_np, out_np)
         if self.paged:
             self._reclaim_frontier(staged, pos_np)
         done_slots = [int(s) for s in np.nonzero(done_np)[0]
                       if self._slot_req[s] >= 0]
-        if done_slots:
-            self._finish_candidates(done_slots)
+        if done_slots or cancelled:
+            if done_slots:
+                self._finish_candidates(done_slots)
             self._schedule()
         elif self.chunked and (self._chunking or
                                (self._queue and self._free_slots())):
@@ -1766,14 +1824,136 @@ class ServeEngine:
             self.total_steps += 1
             self._t += 1
             (done_np,) = self._sync((done,))
-            if done_np.any():
+            # parity with the reference's loop (engine.py:2617-2622): no
+            # caller can cancel a live slot while this synchronous loop
+            # runs, so ``_cancels`` is empty here today
+            cancelled = self._apply_cancels(
+                None, self._sync((self.state.n_tok,))[0]) \
+                if self._cancels else False
+            if done_np.any() or cancelled:
                 for s in np.nonzero(done_np)[0]:
                     if self._slot_req[int(s)] >= 0:
                         self._finish_candidates([int(s)])
                 self._schedule()
-        return [self._result(uid) for uid in self._reqs]
+        return [self.result(uid) for uid in self._reqs]
 
-    def _result(self, uid: int) -> Result:
+    def pump(self) -> bool:
+        """Drive one serving iteration, the async front-end's hook
+        (``engine.py:2450``). Where ``run`` admits only at completions,
+        ``pump`` also runs an admission pass when work arrived between
+        launches and a slot is free, or chunk jobs wait. Returns False once
+        the engine is drained (call again after the next ``submit``)."""
+        if self.macro_steps <= 0:
+            raise RuntimeError(
+                "pump() drives the fused macro-step loop; construct the "
+                "engine with macro_steps >= 1 for async serving")
+        if not self._begun:
+            self._begun = True
+            self._schedule()
+        elif (self._queue and self._free_slots()) or self._chunking:
+            self._schedule()
+        return self._step()
+
+    def _emit_stream(self, ntok_np, out_np):
+        """Queue each live slot's new tokens for the front-end, before
+        finished slots fold, so that the deltas of one candidate
+        concatenate to its finished ``tokens``."""
+        for s in range(self.B):
+            uid = int(self._slot_req[s])
+            if uid < 0:
+                continue
+            n = int(ntok_np[s])
+            if n > self._slot_streamed[s]:
+                self.stream_events.append(
+                    (uid, int(self._slot_cand[s]),
+                     np.asarray(out_np[s][int(self._slot_streamed[s]):n])))
+                self._slot_streamed[s] = n
+
+    # -- cancellation ----------------------------------------------------
+    def cancel(self, uid: int) -> bool:
+        """Abort a request (``engine.py:2489``): queued or pending work is
+        dropped at once, running candidates are torn down at the next step
+        boundary (``_apply_cancels``). Returns False for an unknown or
+        finished uid. A cancelled request still yields a ``Result``
+        (``cancelled=True``) with the candidates it completed."""
+        info = self._reqs.get(uid)
+        if info is None:
+            # mid chunked prefill: the job's pages go back to the pool
+            job = self._chunking.pop(uid, None)
+            if job is not None and job["pages"]:
+                self.pool.free(job["pages"])
+            # queued and never prefilled: a stub record keeps results
+            # uniform
+            for i, r in enumerate(self._queue):
+                if r.uid == uid:
+                    self._queue.pop(i)
+                    self._reqs[uid] = self._stub_info(r, cancelled=True)
+                    self._finish_request(uid)
+                    self.cancelled_requests += 1
+                    return True
+            return False
+        if info["done"]:
+            return False
+        if (self._slot_req == uid).any():
+            # live candidates: torn down after the next launch, whose sync
+            # carries their emission counts
+            self._cancels.add(uid)
+            return True
+        # prefilled but not running (queued, or pending a round): its prompt
+        # row and page holds go now
+        self._queue = [r for r in self._queue if r.uid != uid]
+        info["cancelled"] = True
+        self._finish_request(uid)
+        self.cancelled_requests += 1
+        return True
+
+    def _apply_cancels(self, staged, ntok_np) -> bool:
+        """Tear down the live slots of cancel-marked requests after a launch
+        (``engine.py:2535``), before ``_reclaim_frontier``: a slot's staged
+        frontier pages return wholesale, its pages and reservation free,
+        and the scheduler refunds its commitment (the tokens it emitted
+        count as spent). The slot is deactivated on the device and its
+        block-table row pointed at the quarantine page in place, as
+        ``_finish_candidates`` does: the captured graph's tensors keep
+        their storage. Returns whether any slot was torn down."""
+        uids = set(self._cancels)
+        self._cancels.clear()
+        slots = [s for s in range(self.B) if int(self._slot_req[s]) in uids]
+        if not slots:
+            return False
+        for s in slots:
+            uid = int(self._slot_req[s])
+            n = int(ntok_np[s])
+            self.total_tokens += n
+            self.scheduler.on_cancel(uid, n, int(self._slot_lim[s]))
+            self._slot_req[s] = -1
+            self._slot_cand[s] = -1
+            self._slot_spec[s] = 1
+            self._slot_lim[s] = self.max_new
+            self._slot_streamed[s] = 0
+            if self.paged:
+                if staged is not None and s in staged:
+                    pages = staged.pop(s)[1]
+                    if pages:
+                        self.pool.return_frontier(pages)
+                self.pool.free(self._slot_pages[s])
+                self._slot_pages[s] = []
+                self._reserved -= int(self._slot_reserved[s])
+                self._slot_reserved[s] = 0
+        idx = torch.as_tensor(slots, device=self.device)
+        self.state.active[idx] = False
+        if self.paged:
+            self.state.cache["block_table"][idx] = self.pool.quarantine_page()
+        for uid in sorted(uids):
+            info = self._reqs.get(uid)
+            if info is not None and not info["done"]:
+                info["cancelled"] = True
+                self._finish_request(uid)
+                self.cancelled_requests += 1
+        return True
+
+    def result(self, uid: int) -> Result:
+        """One request's ``Result`` (``run`` returns them in bulk)."""
         info = self._reqs[uid]
         cs = info["camd"]
         p_star = float(cs.p_star[0])
@@ -1784,7 +1964,8 @@ class ServeEngine:
                           n_candidates=0, tokens_spent=0,
                           rounds=info["round"], p_star=p_star,
                           best_score=best_score, stopped_early=False,
-                          candidates=[])
+                          candidates=[],
+                          cancelled=info.get("cancelled", False))
         if self.mode == "self_consistency":
             # majority vote: the largest cluster's best-scoring member
             n_cl = int(cs.table.n_clusters[0])
@@ -1804,7 +1985,8 @@ class ServeEngine:
             stopped_early=(self.mode == "camd" and bool(cs.stopped[0]) and
                            p_star >= 1.0 - self.camd.delta),
             candidates=[{k: v for k, v in r.items()
-                         if k not in ("counts", "emb")} for r in recs])
+                         if k not in ("counts", "emb")} for r in recs],
+            cancelled=info.get("cancelled", False))
 
 
 class _EngineSchedContext(SchedulerContext):

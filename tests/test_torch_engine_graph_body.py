@@ -17,7 +17,12 @@ body runs eagerly, and over runs with admissions, finishes and refills:
   port's ``GumbelNoise``, for K 1, 4 and 8 (both sources are stateless in
   the global step, so streams do not depend on K);
 - the speculative body (spec_k 4) keeps every storage and makes no host
-  sync either, its acceptance uniforms staged in a static buffer too.
+  sync either, its acceptance uniforms staged in a static buffer too;
+- so does a run that streams tokens, cancels running requests at pump
+  boundaries (their slots deactivated and their block-table rows pointed
+  at the quarantine page in place) and admits requests that arrive
+  mid-flight through ``pump``: a cancel that rebound a state tensor would
+  leave a replay decoding the dead slot into pages the pool has handed on.
 """
 import contextlib
 import dataclasses
@@ -160,3 +165,65 @@ def test_static_noise_buffer_keeps_streams(tiny, source):
                           for r in res]
         for K in (1, 4, 8):
             assert streams[K] == streams[0], (impl, K)
+
+
+@pytest.mark.parametrize("impl", ["torch", "paged", "paged_cuda"])
+@pytest.mark.parametrize("arch,spec_k", [("tiny", 0), ("llava", 0),
+                                         ("tiny", 4)])
+def test_body_keeps_storage_across_cancels_and_pumps(tiny, llava, arch,
+                                                     spec_k, impl):
+    """Pumped launch by launch with streaming on: requests cancelled while
+    running, one cancelled while queued, one submitted mid-flight; every
+    tensor a replay touches keeps its storage at every launch and after
+    the drain, and the body makes no host sync."""
+    model = tiny[3] if arch == "tiny" else llava
+    eng = _engine(model, impl, 2, spec_k=spec_k)
+    eng.stream_tokens = True
+    ev = None if arch == "tiny" else \
+        (model.cfg.num_evidence_tokens,
+         model.cfg.evidence_dim or model.cfg.d_model)
+    _submit(eng, ev)
+    ptrs = {k: t.data_ptr() for k, t in _tensors(eng).items()}
+    body = eng._macro_step
+    calls = []
+
+    def checked():
+        with _no_host_sync():
+            out = body()
+        now = {k: t.data_ptr() for k, t in _tensors(eng).items()}
+        assert now == ptrs, {k for k in now if now[k] != ptrs[k]}
+        calls.append(1)
+        return out
+
+    eng._macro_step = checked
+    late = Request(uid=9, prompt=np.arange(2, 9, dtype=np.int32),
+                   evidence=None if ev is None else np.random.default_rng(
+                       9).standard_normal(ev).astype(np.float32))
+    assert eng.cancel(3)                         # queued: dropped at once
+    events, i = [], 0
+    with torch.inference_mode():
+        while True:
+            more = eng.pump()
+            events += eng.drain_stream_events()
+            if i == 0:
+                assert eng.cancel(0)             # running: at the boundary
+                eng.submit(late)                 # arrives mid-flight
+            if i == 2:
+                eng.cancel(1)
+            i += 1
+            if not more:
+                break
+    now = {k: t.data_ptr() for k, t in _tensors(eng).items()}
+    assert now == ptrs
+    res = {u: eng.result(u) for u in (0, 1, 2, 3, 9)}
+    assert res[0].cancelled and res[3].cancelled
+    assert not res[2].cancelled and res[9].n_candidates > 0
+    assert eng.cancelled_requests >= 2 and events
+    assert len(calls) == eng.macro_launches > 2
+    assert not bool(eng.state.active.any())
+    if eng.paged:
+        eng.pool.check()
+        assert eng.pool.in_use == 0 and eng._reserved == 0
+        # torn-down and finished slots write only the quarantine page
+        assert bool((eng.state.cache["block_table"] ==
+                     eng.pool.quarantine_page()).all())

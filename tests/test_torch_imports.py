@@ -2,8 +2,9 @@
 module of the JAX package ``repro``.
 
 A fresh interpreter installs an import hook that refuses those names,
-then imports every module of the port and runs its serve entry point on
-the CPU.
+then imports every module of the port (the async front-end and the
+traffic module among them) and runs its serve entry point on the CPU,
+closed-loop and open-loop.
 """
 import os
 import subprocess
@@ -31,6 +32,13 @@ for name in names:
 from repro_torch.launch import serve
 serve.main(["--device", "cpu", "--requests", "2", "--max-new", "4",
             "--impl", "paged_cuda", "--num-layers", "1"])
+# the async front-end and the open-loop traffic module
+out = serve.main(["--device", "cpu", "--requests", "2", "--max-new", "4",
+                  "--impl", "paged_cuda", "--num-layers", "1",
+                  "--open-loop", "--arrival-rate", "100"])
+assert out["metrics"]["completed"] == 2, out["metrics"]
+assert {"repro_torch.serving.frontend",
+        "repro_torch.serving.traffic"} <= set(names), names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked

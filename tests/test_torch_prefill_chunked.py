@@ -179,7 +179,7 @@ def test_finalize_starved_returns_chunk_pages(tiny):
     assert len(held) == 2 and eng.pool.in_use == 2
     eng._finalize_starved()
     assert not eng._chunking and eng.starved_uids == [7]
-    assert len(eng._result(7).tokens) == 0
+    assert len(eng.result(7).tokens) == 0
     eng.pool.check()
     assert eng.pool.in_use == 0
     assert all(eng.pool.refcount(p) == 0 for p in held)
