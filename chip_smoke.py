@@ -89,7 +89,19 @@ Run from the root of a checkout. It
      and tokens/s are printed a cell; then CAMD requests through the serve
      CLI's ``--open-loop``; and at 4 layers the plain and kernel paged
      engines, pumped through one cancel plan, must deliver the same
-     streams and cancel the same requests in the same launches.
+     streams and cancel the same requests in the same launches;
+  26-27. the remaining attention-only configs: at 4 layers in fp32 the
+     greedy streams of torch, cuda and paged_cuda must agree for
+     internvl2-2b (images, K4 rescoring), qwen2.5-32b, yi-34b and
+     granite-34b (K1 and K3 at 48 query heads over one kv head), then
+     each is served at full depth: internvl2-2b in fp32 through the CLI,
+     the 32-34B ones in bf16 through ``build_engine(...,
+     param_dtype=torch.bfloat16)``, one at a time, each released before
+     the next, with its prefill forward (CUDA events), graph, peak memory
+     against the card's and launch counts. The kernel phase holds and
+     times K1 and K3 at 5, 7, 12 and 48 query heads a kv head (K1 also on
+     int8/fp8 pools at 48), K2 in bf16 at the 32-34B models' buckets and
+     K4 at internvl2-2b's shape.
 Every serve phase and open-loop wave checks that the flash kernel ran
 once a layer a whole-prompt prefill forward and the paged decode kernel
 once a layer a step of every replay (none in a speculative run).
@@ -120,6 +132,7 @@ PEAK_FLOPS = {"float32": 67e12,       # fp32 outside the tensor cores
               "tf32": 495e12,         # dense TF32 tensor cores
               "bfloat16": 989e12}     # dense bf16 tensor cores
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}   # (atol, rtol)
+DT_NAMES = {"float32": "fp32", "bfloat16": "bf16"}
 
 # serving configuration of the main path
 SERVE = dict(slots=8, page=16, requests=8, prompt=256, max_new=32)
@@ -135,6 +148,16 @@ GRANITE_VERIFY = dict(G=1, g=32, C=8)
 # the multimodal path: llava-1.5-7b's 576 image tokens ahead of the prompt
 IMAGE_TOKENS = 576
 MM_CACHE_LEN = IMAGE_TOKENS + CACHE_LEN            # 864, a page multiple
+# the configs served in bf16 on one card (query heads, kv heads; head_dim
+# 128): G 5, 7 and 48 query heads a kv head
+LARGE_HEADS = {"qwen2.5-32b": (40, 8), "yi-34b": (56, 8),
+               "granite-34b": (48, 1)}
+# internvl2-2b: 256 image tokens (448 / 28 squared) of width 2048
+INTERNVL_TOKENS, INTERNVL_D = 256, 2048
+INTERNVL_CACHE_LEN = INTERNVL_TOKENS + CACHE_LEN   # 544, a page multiple
+# the kernels' JSON entries at the shapes of the remaining configs
+NEW_ENTRIES = tuple(LARGE_HEADS) + ("granite-34b int8", "granite-34b fp8",
+                                    "internvl2-2b")
 # K3's second timing shape: the reference's decode_32k cache length
 # (repro/config.py:263); K3 is timed at each length of the sweep, from
 # one 16-row tile to 2048 of them
@@ -150,6 +173,14 @@ def sass_count(lib, opcode: str) -> int:
                for code in sass.functions(str(lib)).values() for ins in code)
 
 
+T_START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The script's seconds so far, as a phase begins."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {phase}")
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -158,6 +189,24 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def device_records(torch, prof):
+    """({kernel name: summed device microseconds}, {name: records}) of a
+    finished torch.profiler run, read from its raw device records.
+    ``key_averages()`` gives the same sums, but first builds the
+    profiler's Python event tree, about 0.3 ms a record on the card's
+    host: minutes over the graph replays of the 60-88 layer models."""
+    cuda = torch.autograd.DeviceType.CUDA
+    times, counts = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or \
+                getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        times[name] = times.get(name, 0.0) + e.duration_ns() / 1e3
+        counts[name] = counts.get(name, 0) + 1
+    return times, counts
 
 
 class Timer:
@@ -188,10 +237,8 @@ class Timer:
                     self._flush()
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        self.counts = {e.key: e.count for e in rows}
-        return {e.key: e.self_device_time_total for e in rows}
+        times, self.counts = device_records(torch, prof)
+        return times
 
     def device_ms(self, fn, kernel: str = None, reps: int = 20,
                   warmup: int = 3, flush: bool = True) -> float:
@@ -343,7 +390,42 @@ def flash_phase(torch, ops, ref, timer):
                   f"flash_attention {case}: two runs differ")
     t = flash_timing(torch, ops, ref, timer, g)
     t["max_abs_err"] = max(errs + [t["max_abs_err"]])
+    for name, (H, Hkv) in LARGE_HEADS.items():
+        t[name], err = flash_bf16_timing(torch, ops, ref, timer, g, H, Hkv)
+        t["max_abs_err"] = max(t["max_abs_err"], err)
     return t
+
+
+def flash_bf16_timing(torch, ops, ref, timer, g, H, Hkv):
+    """K2 in bf16 (one TF32 pass on the tensor cores) at a bf16-served
+    config's 8 x 256 bucket: held against its plain version and twice for
+    the same bits, then timed beside SDPA and the bound (bf16 bytes; the
+    causal pairs' FLOPs over the bf16 tensor-core rate). Returns (times,
+    max_abs_err)."""
+    F = torch.nn.functional
+    B, L, hd = SERVE["slots"], SERVE["prompt"], 128
+    q, k, v = (torch.randn(B, L, h, hd, generator=g, device="cuda").to(
+        torch.bfloat16) for h in (H, Hkv, Hkv))
+    shape = f"bf16 B{B} L{L} H{H} Hkv{Hkv} hd{hd} causal"
+    out = ops.flash_attention(q, k, v)
+    err = compare(torch, "flash_attention", f"{shape} (timed)", out,
+                  ref.flash_attention_ref(q, k, v), "bfloat16")
+    check(torch.equal(out, ops.flash_attention(q, k, v)),
+          f"flash_attention {shape}: two runs differ")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = times(timer, lambda: ops.flash_attention(q, k, v), "flash_kernel",
+              lambda: ref.flash_attention_ref(q, k, v),
+              lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True, enable_gqa=True))
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        2 * (2 * B * L * H * hd + 2 * B * L * Hkv * hd),
+        4 * B * H * hd * (L * (L + 1) // 2), "bfloat16")
+    t["shape"] = shape
+    print(f"  flash_attention bf16 H{H}/{Hkv}: kernel {t['ms']:.4f} ms (call "
+          f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
+          f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} ms "
+          f"({t['bound_by']})")
+    return t, err
 
 
 def tf32_bounds(nbytes, flops):
@@ -414,13 +496,13 @@ def ring_mask(torch, pos, S):
 
 
 def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
-                  Hkv=8, hd=128, lengths=None, pool=None):
+                  Hkv=8, hd=128, lengths=None, pool=None, dtype="float32"):
     """K3 (dense cache) or, with ``paged``, K1 (a pool of 16-row pages,
-    each row's S slots through its block table) timed in fp32 at B, H,
-    Hkv, hd (by default qwen3's heads) with S cache slots a row; K1's
-    pool may instead hold int8 or fp8 values with fp32 scales (``pool``:
-    the storage dtype), the bound then counting 1-byte values and the
-    scales. The valid rows are those at or below a position in the last
+    each row's S slots through its block table) timed in ``dtype`` (fp32
+    or bf16: q and the cache) at B, H, Hkv, hd (by default qwen3's heads)
+    with S cache slots a row; K1's pool may instead hold int8 or fp8
+    values with fp32 scales (``pool``: the storage dtype), the bound then
+    counting 1-byte values and the scales. The valid rows are those at or below a position in the last
     32 slots (K3: a ring mask; K1: lengths = position + 1), or below
     ``lengths`` (K1).
     Returns (times, max_abs_err against the plain version): the device
@@ -434,16 +516,17 @@ def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
     if lengths is None:
         pos = torch.randint(max(0, S - 32), S, (B,), generator=g,
                             device="cuda")
-    value_bytes, scale_bytes = 4, 0
+    dt = getattr(torch, dtype)
+    value_bytes, scale_bytes = dt.itemsize, 0
     if paged:
         from repro_torch.models.attention import kv_quantize
         ps = SERVE["page"]
         n = S // ps
-        pool = pool or torch.float32
+        pool = pool or dt
         q, kp, vp, bt, ln, ks, vs = paged_setup(
             torch, g, B, H, Hkv, hd, ps, n,
             (pos + 1).tolist() if lengths is None else lengths,
-            pool, torch.float32, kv_quantize)
+            pool, dt, kv_quantize)
         fn = lambda: ops.paged_decode_attention(  # noqa: E731
             q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)
         plain = lambda: ref.paged_decode_attention_ref(  # noqa: E731
@@ -454,23 +537,24 @@ def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
             k = k * ks[bt.long()].reshape(B, S, Hkv)[..., None]
             v = v * vs[bt.long()].reshape(B, S, Hkv)[..., None]
             value_bytes, scale_bytes = kp.element_size(), 4
+        k, v = k.to(q.dtype), v.to(q.dtype)
         mask = torch.arange(S, device="cuda")[None, :] < ln[:, None]
         name, index_bytes = "paged_decode_attention", 4 * (bt.numel() + B)
         pname = str(pool).replace("torch.", "")
-        shape = f"{pname} pool, fp32 q, B{B} H{H} Hkv{Hkv} hd{hd} ps{ps} " \
-            f"n{n} lengths {int(ln.min())}..{int(ln.max())}"
+        shape = f"{pname} pool, {DT_NAMES[dtype]} q, B{B} H{H} Hkv{Hkv} " \
+            f"hd{hd} ps{ps} n{n} lengths {int(ln.min())}..{int(ln.max())}"
     else:
-        q = torch.randn(B, 1, H, hd, generator=g, device="cuda")
-        k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
-        v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda")
+        q, k, v = (torch.randn(B, n_, H_, hd, generator=g,
+                               device="cuda").to(dt)
+                   for n_, H_ in ((1, H), (S, Hkv), (S, Hkv)))
         mask = ring_mask(torch, pos, S)
         fn = lambda: ops.decode_attention(q, k, v, mask)   # noqa: E731
         plain = lambda: ref.decode_attention_ref(  # noqa: E731
             q, k, v, mask)
         name, index_bytes = "decode_attention", mask.numel()
-        shape = f"fp32 B{B} S{S} H{H} Hkv{Hkv} hd{hd} ring mask"
-    err = compare(torch, name, f"float32 B{B} S{S} H{H}/{Hkv} hd{hd} "
-                  "(timed)", fn(), plain(), "float32")
+        shape = f"{DT_NAMES[dtype]} B{B} S{S} H{H} Hkv{Hkv} hd{hd} ring mask"
+    err = compare(torch, name, f"{dtype} B{B} S{S} H{H}/{Hkv} hd{hd} "
+                  "(timed)", fn(), plain(), dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     am = mask[:, None, None, :]
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -480,14 +564,18 @@ def decode_timing(torch, ops, ref, timer, g, S, paged=False, B=8, H=16,
         t["sdpa_on_gathered_ms"] = timer.device_ms(sdpa)
     t["by_kernel"] = timer.by_kernel(fn)
     live = int(mask.sum())
-    nbytes = 4 * 2 * q.numel() + index_bytes + \
+    nbytes = 2 * q.element_size() * q.numel() + index_bytes + \
         2 * live * Hkv * (value_bytes * hd + scale_bytes)
     t["bound_ms"], t["bound_by"] = bound_ms(nbytes, 4 * H * hd * live,
-                                            "float32")
+                                            dtype)
+    # another tree's ops (an A/B's parent) may not group heads
+    groups = getattr(ops, "decode_groups", lambda G: 1)(H // Hkv)
     n_split, rows = ops.decode_splits(
-        B, Hkv, S, torch.cuda.get_device_properties(0).multi_processor_count)
+        B, Hkv * groups, S,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     t["S"] = S
-    t["shape"] = f"{shape}, {n_split} splits of {rows} rows"
+    t["shape"] = f"{shape}, {n_split} splits of {rows} rows" + (
+        f", {groups} head groups" if groups > 1 else "")
     sdpa_ms = t["sdpa_on_gathered_ms"] if paged else t["library_ms"]
     print(f"  {name} S {S}: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound "
@@ -700,6 +788,90 @@ def paged_timing(torch, ops, ref, timer, g):
     return t, max(errs)
 
 
+def any_g_phase(torch, ops, ref, timer, kv_quantize):
+    """K3 and K1 at any number of query heads a kv head: G 5, 7, 12 and 48
+    (H 40/8, 56/8, 24/2, 48/1; hd 128, B 8, S 288 and 4096), fp32 and
+    bf16, K1 also on int8 and fp8 pools at G 48, with a batch row without
+    a valid key at S 4096, each against its plain version and twice for
+    the same bits; then both timed (``decode_timing``) at the bf16-served
+    configs' decode shapes (B 8, S 288, the serve phase's lengths), K1
+    also on int8 and fp8 pools at G 48. A G above 8 runs in groups of at
+    most 8 query heads, a block each (``ops.decode_groups``). Returns
+    ({kernel: {entry: times}}, {kernel: max_abs_err})."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, hd, ps = SERVE["slots"], 128, SERVE["page"]
+    serve_lens = [SERVE["prompt"] + 1 + 4 * i for i in range(B)]
+    errs = {"decode_attention": [], "paged_decode_attention": []}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for H, Hkv in ((40, 8), (56, 8), (24, 2), (48, 1)):
+            G = H // Hkv
+            for S in (CACHE_LEN, 4096):
+                n_split, rows = ops.decode_splits(
+                    B, Hkv * ops.decode_groups(G), S, sms)
+                plan = f"{n_split}x{rows}, {ops.decode_groups(G)} groups"
+                q, k, v = (torch.randn(B, n_, h, hd, generator=g,
+                                       device="cuda").to(dt)
+                           for n_, h in ((1, H), (S, Hkv), (S, Hkv)))
+                pos = torch.randint(0, S, (B,), generator=g, device="cuda")
+                mask = ring_mask(torch, pos, S)
+                lens = serve_lens if S == CACHE_LEN else \
+                    torch.randint(1, S + 1, (B,), generator=g,
+                                  device="cuda").tolist()
+                if S > CACHE_LEN:          # a row with no valid key
+                    mask[1] = False
+                    lens[1] = 0
+                case = f"{dtype} B{B} S{S} H{H}/{Hkv} (G {G}) hd{hd} {plan}"
+                out = ops.decode_attention(q, k, v, mask)
+                errs["decode_attention"].append(compare(
+                    torch, "decode_attention", case, out,
+                    ref.decode_attention_ref(q, k, v, mask), dtype))
+                check(torch.equal(out, ops.decode_attention(q, k, v, mask)),
+                      f"decode_attention {case}: two runs differ")
+                pools = [dt] + ([torch.int8, torch.float8_e4m3fn]
+                                if G == 48 else [])
+                for pool in pools:
+                    q, kp, vp, bt, ln, ks, vs = paged_setup(
+                        torch, g, B, H, Hkv, hd, ps, S // ps, lens, pool,
+                        dt, kv_quantize)
+                    pname = str(pool).replace("torch.", "")
+                    pcase = f"q {dtype} pool {pname} B{B} n*ps {S} " \
+                        f"H{H}/{Hkv} (G {G}) {plan}"
+                    out = ops.paged_decode_attention(
+                        q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)
+                    errs["paged_decode_attention"].append(compare(
+                        torch, "paged_decode_attention", pcase, out,
+                        ref.paged_decode_attention_ref(
+                            q, kp, vp, bt, ln, k_scale=ks, v_scale=vs),
+                        dtype))
+                    check(torch.equal(out, ops.paged_decode_attention(
+                        q, kp, vp, bt, ln, k_scale=ks, v_scale=vs)),
+                          f"paged_decode_attention {pcase}: two runs differ")
+                del q, k, v, kp, vp
+    timed = {"decode_attention": {}, "paged_decode_attention": {}}
+    for name, (H, Hkv) in LARGE_HEADS.items():
+        for paged, kernel in ((False, "decode_attention"),
+                              (True, "paged_decode_attention")):
+            t, err = decode_timing(torch, ops, ref, timer, g, CACHE_LEN,
+                                   paged=paged, H=H, Hkv=Hkv,
+                                   lengths=serve_lens if paged else None,
+                                   dtype="bfloat16")
+            errs[kernel].append(err)
+            timed[kernel][name] = t
+    for key, pool in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        t, err = decode_timing(torch, ops, ref, timer, g, CACHE_LEN,
+                               paged=True, H=48, Hkv=1, lengths=serve_lens,
+                               pool=pool, dtype="bfloat16")
+        errs["paged_decode_attention"].append(err)
+        timed["paged_decode_attention"][f"granite-34b {key}"] = t
+    for kernel, entries in timed.items():
+        for key, t in entries.items():
+            entries[key] = {k_: t[k_] for k_ in SUB_KEYS + (
+                "by_kernel", "sdpa_on_gathered_ms") if k_ in t}
+    return timed, {k_: max(v_) for k_, v_ in errs.items()}
+
+
 def xmodal_max_bounds(B, Nt, Nv, d):
     """K4b's ``tf32_bounds`` at an fp32 shape: txt and vis read once and
     the (B,) sums written once; 2 Nt Nv d FLOPs a batch row."""
@@ -714,10 +886,13 @@ def xmodal_phase(torch, ops, ref, timer):
     input values, so bf16 inputs take the fp32 tolerance. K4b's split plan
     takes one split at the two short-d cases and several at the serving
     shape and at d 1004 (whose bf16 rows lie off a 16-byte boundary:
-    element copies); both kinds must occur."""
+    element copies); both kinds must occur. Timed at llava's serving shape
+    and at internvl2-2b's (256 image rows of width 2048)."""
     g = torch.Generator(device="cuda").manual_seed(4)
     serving = (1, SERVE["max_new"], IMAGE_TOKENS, SERVE["prompt"], 4096)
-    cases = [serving,                      # (B, L, Nv, Nt, d)
+    internvl = (1, SERVE["max_new"], INTERNVL_TOKENS, SERVE["prompt"],
+                INTERNVL_D)
+    cases = [serving, internvl,            # (B, L, Nv, Nt, d)
              (3, 1, 7, 129, 48),           # ragged rows, d not a chunk multiple
              (2, 33, 65, 31, 100),
              (2, 8, 100, 70, 1004)]        # ragged, split d
@@ -764,37 +939,52 @@ def xmodal_phase(torch, ops, ref, timer):
                   f"xmodal_score {case}: two runs differ")
     check(plans == {False, True},
           "xmodal_score_max: the cases must take one split and several")
-    # timing at the serving shape: one finished candidate's 32 tokens
-    # (all live) against 576 image rows and a 256-token prompt, fp32
-    B, L, Nv, Nt, d = serving
-    tok, mask, vis, txt = inputs(B, L, Nv, Nt, d, torch.float32)
-    mask.fill_(1.0)
-    shape = f"fp32 B{B} L{L} Nv{Nv} Nt{Nt} d{d}"
-    t_mean = times(timer, lambda: ops.xmodal_mean_sum(tok, mask, vis),
-                   "xmodal_mean_kernel",
-                   lambda: ref.xmodal_mean_sum_ref(tok, mask, vis))
-    t_mean["shape"] = shape
-    t_mean["by_kernel"] = timer.by_kernel(
-        lambda: ops.xmodal_mean_sum(tok, mask, vis))
-    print("  xmodal_score_mean by kernel: " + ", ".join(
-        f"{k_[:40]} {ms:.5f} ms" for k_, ms in t_mean["by_kernel"].items()))
-    # operations of the factored sum, 4 an element: its square, and its
-    # term of u (visual rows) or of a dot with u (token rows)
-    t_mean["bound_ms"], t_mean["bound_by"] = bound_ms(
-        4 * (B * L * d + B * L + B * Nv * d + B), 4 * B * (L + Nv) * d,
-        "float32")
-    t_max = times(timer, lambda: ops.xmodal_max_sum(txt, vis),
-                  "xmodal_max_kernel",
-                  lambda: ref.xmodal_max_sum_ref(txt, vis))
-    t_max["shape"] = shape
-    t_max["splits"] = ops.xmodal_max_splits(B, Nt, Nv, d, sms)
-    t_max["by_kernel"] = timer.by_kernel(lambda: ops.xmodal_max_sum(txt, vis))
-    t_max["bound_ms"], t_max["bound_by"], b = xmodal_max_bounds(B, Nt, Nv, d)
-    t_max.update({f"bound_{key}_ms": val for key, val in b.items()})
-    print("  xmodal_score_max by kernel: " + ", ".join(
-        f"{k_[:40]} {ms:.5f} ms" for k_, ms in t_max["by_kernel"].items()) +
-        f"; splits {t_max['splits']}; bounds: bytes {b['bytes']:.5f}, fp32 "
-        f"SIMT {b['simt']:.5f}, 3xTF32 {b['tf32x3']:.5f} ms")
+    # timing at the serving shapes: one finished candidate's 32 tokens
+    # (all live) against llava's 576 image rows and a 256-token prompt
+    # (the kernels' rows), and against internvl2-2b's 256 of width 2048
+    # (their "internvl2-2b" entries), fp32
+    timed = {}
+    for key, (B, L, Nv, Nt, d) in (("llava", serving),
+                                   ("internvl2-2b", internvl)):
+        tok, mask, vis, txt = inputs(B, L, Nv, Nt, d, torch.float32)
+        mask.fill_(1.0)
+        shape = f"fp32 B{B} L{L} Nv{Nv} Nt{Nt} d{d}"
+        t_mean = times(timer, lambda: ops.xmodal_mean_sum(tok, mask, vis),
+                       "xmodal_mean_kernel",
+                       lambda: ref.xmodal_mean_sum_ref(tok, mask, vis))
+        t_mean["shape"] = shape
+        t_mean["by_kernel"] = timer.by_kernel(
+            lambda: ops.xmodal_mean_sum(tok, mask, vis))
+        print(f"  xmodal_score_mean {key} by kernel: " + ", ".join(
+            f"{k_[:40]} {ms:.5f} ms"
+            for k_, ms in t_mean["by_kernel"].items()))
+        # operations of the factored sum, 4 an element: its square, and
+        # its term of u (visual rows) or of a dot with u (token rows)
+        t_mean["bound_ms"], t_mean["bound_by"] = bound_ms(
+            4 * (B * L * d + B * L + B * Nv * d + B), 4 * B * (L + Nv) * d,
+            "float32")
+        t_max = times(timer, lambda: ops.xmodal_max_sum(txt, vis),
+                      "xmodal_max_kernel",
+                      lambda: ref.xmodal_max_sum_ref(txt, vis))
+        t_max["shape"] = shape
+        t_max["splits"] = ops.xmodal_max_splits(B, Nt, Nv, d, sms)
+        t_max["by_kernel"] = timer.by_kernel(
+            lambda: ops.xmodal_max_sum(txt, vis))
+        t_max["bound_ms"], t_max["bound_by"], b = xmodal_max_bounds(
+            B, Nt, Nv, d)
+        t_max.update({f"bound_{k_}_ms": val for k_, val in b.items()})
+        print(f"  xmodal_score_max {key} by kernel: " + ", ".join(
+            f"{k_[:40]} {ms:.5f} ms"
+            for k_, ms in t_max["by_kernel"].items()) +
+            f"; splits {t_max['splits']}; bounds: bytes {b['bytes']:.5f}, "
+            f"fp32 SIMT {b['simt']:.5f}, 3xTF32 {b['tf32x3']:.5f} ms")
+        timed[key] = (t_mean, t_max)
+    t_mean, t_max = timed["llava"]
+    sub_mean, sub_max = timed["internvl2-2b"]
+    t_mean["internvl2-2b"] = {k_: sub_mean[k_]
+                              for k_ in SUB_KEYS + ("by_kernel",)}
+    t_max["internvl2-2b"] = {k_: sub_max[k_] for k_ in
+                             SUB_KEYS + ("by_kernel", "splits") + TF32_BOUNDS}
     t_mean["max_abs_err"] = max(errs["xmodal_score_mean"])
     t_max["max_abs_err"] = max(errs["xmodal_score_max"])
     return {"xmodal_score_mean": t_mean, "xmodal_score_max": t_max}
@@ -933,23 +1123,31 @@ def moe_phase(torch, ops, ref, timer):
 # serve phases and dense checks
 # ---------------------------------------------------------------------------
 
-QWEN_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced", "--impl", "paged_cuda",
-             "--mode", "camd", "--slots", str(SERVE["slots"]),
-             "--page-size", str(SERVE["page"]),
-             "--requests", str(SERVE["requests"]),
-             "--prompt-len", str(SERVE["prompt"]),
-             "--max-new", str(SERVE["max_new"]),
-             "--cache-len", str(CACHE_LEN), "--eos-id", "151936",
-             "--device", "cuda", "--seed", "0"]
-LLAVA_ARGV = ["--arch", "llava-1.5-7b", "--no-reduced", "--impl",
-              "paged_cuda", "--mode", "camd", "--xmodal-rescore",
-              "--slots", str(SERVE["slots"]),
-              "--page-size", str(SERVE["page"]),
-              "--requests", str(SERVE["requests"]),
-              "--prompt-len", str(SERVE["prompt"]),
-              "--max-new", str(SERVE["max_new"]),
-              "--cache-len", str(MM_CACHE_LEN), "--image-pool", "2",
-              "--eos-id", "32000", "--device", "cuda", "--seed", "0"]
+def serve_argv(arch, cache_len, eos_id, extra=()):
+    """A full-width serve run of the serve phases' shapes (8 slots, 8
+    requests of 256 + 32 tokens, CAMD, K 8, ``paged_cuda``)."""
+    return ["--arch", arch, "--no-reduced", "--impl", "paged_cuda",
+            "--mode", "camd", "--slots", str(SERVE["slots"]),
+            "--page-size", str(SERVE["page"]),
+            "--requests", str(SERVE["requests"]),
+            "--prompt-len", str(SERVE["prompt"]),
+            "--max-new", str(SERVE["max_new"]),
+            "--cache-len", str(cache_len), "--eos-id", str(eos_id),
+            "--device", "cuda", "--seed", "0", *extra]
+
+
+def dense_argv(arch, cache_len, eos_id, extra=()):
+    """A 4-layer greedy run of the dense checks' shapes (4 requests of 64
+    + 16 tokens), fp32."""
+    return ["--arch", arch, "--no-reduced", "--num-layers", "4", "--mode",
+            "greedy", "--requests", "4", "--prompt-len", "64", "--max-new",
+            "16", "--cache-len", str(cache_len), "--eos-id", str(eos_id),
+            "--device", "cuda", "--seed", "1", *extra]
+
+
+IMAGE_EXTRA = ("--xmodal-rescore", "--image-pool", "2")
+QWEN_ARGV = serve_argv("qwen3-0.6b", CACHE_LEN, 151936)
+LLAVA_ARGV = serve_argv("llava-1.5-7b", MM_CACHE_LEN, 32000, IMAGE_EXTRA)
 
 
 @contextlib.contextmanager
@@ -1013,25 +1211,31 @@ def counting_prefills(torch, timed=False):
         attn_lib.sdpa, ops.flash_attention = saved_attn
 
 
-def serve_phase(torch, ops, serve, argv, kernels, timed=False):
+def serve_phase(torch, ops, serve, argv, kernels, timed=False,
+                param_dtype=None):
     """One serve run through the entry point, with the launch counts set
     to 0 just before and read just after; every kernel in ``kernels`` must
     have carried it, every macro launch a replay of the engine's one
     captured graph; the flash kernel runs once a layer a whole-prompt
     prefill forward, the paged decode kernel once a layer a step of every
-    replay. Returns (launches, output of serve.main, with the prefill
-    forwards under "forwards" and, with ``timed``, their CUDA-event spans
-    under "spans", as ``counting_prefills`` gives them)."""
+    replay. ``param_dtype`` (fp32 when None, as the CLI) goes to
+    ``serve.main`` and on to ``build_engine``. Returns (launches, output
+    of serve.main, with the prefill forwards under "forwards" and, with
+    ``timed``, their CUDA-event spans under "spans", as
+    ``counting_prefills`` gives them)."""
     s = SERVE
-    print("serve phase: python -m repro_torch.launch.serve " + " ".join(argv))
+    print("serve phase: python -m repro_torch.launch.serve " + " ".join(argv)
+          + ("" if param_dtype is None else
+             f"  [build_engine(..., param_dtype={param_dtype})]"))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     with counting_prefills(torch, timed) as (forwards, spans):
-        out = serve.main(argv)
+        out = serve.main(argv, param_dtype or torch.float32)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     out["forwards"], out["spans"] = dict(forwards), spans
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
     eng, results = out["engine"], out["results"]
     check(len(results) == serve.parse_args(argv).requests,
           "serve: missing results")
@@ -1071,7 +1275,7 @@ def serve_phase(torch, ops, serve, argv, kernels, timed=False):
           f"{forwards['prefill_suffix']} suffix forwards), "
           f"{eng.chunk_calls} chunks over {eng.chunk_tokens} tokens, "
           f"{eng.host_syncs} host syncs, peak device memory {peak_gb:.1f} "
-          f"GB); launches {launches}")
+          f"GB of the card's {total_gb:.1f}); launches {launches}")
     kv = eng.kv_stats()
     print(f"serve phase: kv pool [{kv['kv_dtype']}] {kv['bytes_per_page']} "
           f"bytes a page, peak {kv['peak_kv_bytes'] / 1e6:.2f} MB")
@@ -1239,9 +1443,8 @@ def profile_phase(torch, ops, serve, argv):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = serve.main(argv)
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in rows)
+    times, counts = device_records(torch, prof)
+    busy_us = sum(times.values())
     check(busy_us > 0, "profile: the profiler saw no device time")
     # K1's split kernel runs once a launch: the records the profiler kept
     # against the launches the run made, the graph's replays and its
@@ -1249,7 +1452,7 @@ def profile_phase(torch, ops, serve, argv):
     eng = out["engine"]
     k1 = ops.LAUNCHES["paged_decode_attention"] + \
         eng._warmup_launches.get("paged_decode_attention", 0)
-    seen = sum(e.count for e in rows if "split_decode_kernel" in e.key)
+    seen = sum(n for k, n in counts.items() if "split_decode_kernel" in k)
     print(f"profile: {seen} split_decode_kernel records for {k1} paged "
           f"decode launches ({eng.macro_launches} graph replays)")
     print(f"profile: device busy {busy_us / 1e3:.1f} ms; profiled wall "
@@ -1258,21 +1461,12 @@ def profile_phase(torch, ops, serve, argv):
           f"{1 - busy_us / 1e6 / wall_s:.3f} of the unprofiled run, whose "
           f"graph capture (once an engine, warm-up launch included) took "
           f"{capture_s * 1e3:.1f} ms")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{100 * e.self_device_time_total / busy_us:5.1f}% "
-              f"x{e.count:<6d} {e.key[:90]}")
+    for k, us in sorted(times.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {us / 1e3:9.2f} ms {100 * us / busy_us:5.1f}% "
+              f"x{counts[k]:<6d} {k[:90]}")
 
 
-GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--no-reduced", "--impl",
-                "paged_cuda", "--mode", "camd",
-                "--slots", str(SERVE["slots"]),
-                "--page-size", str(SERVE["page"]),
-                "--requests", str(SERVE["requests"]),
-                "--prompt-len", str(SERVE["prompt"]),
-                "--max-new", str(SERVE["max_new"]),
-                "--cache-len", str(CACHE_LEN), "--eos-id", "49155",
-                "--device", "cuda", "--seed", "0"]
+GRANITE_ARGV = serve_argv("granite-moe-3b-a800m", CACHE_LEN, 49155)
 
 
 def moe_launch_checks(out, launches):
@@ -1331,22 +1525,68 @@ def granite_timing(torch, out, timer):
               f"{k[:90]}")
 
 
-QWEN_DENSE_ARGV = ["--arch", "qwen3-0.6b", "--no-reduced", "--num-layers",
-                   "4", "--mode", "greedy", "--requests", "4",
-                   "--prompt-len", "64", "--max-new", "16", "--cache-len",
-                   "96", "--eos-id", "151936", "--device", "cuda",
-                   "--seed", "1"]
-GRANITE_DENSE_ARGV = ["--arch", "granite-moe-3b-a800m", "--no-reduced",
-                      "--num-layers", "4", "--mode", "greedy", "--requests",
-                      "4", "--prompt-len", "64", "--max-new", "16",
-                      "--cache-len", "96", "--eos-id", "49155",
-                      "--device", "cuda", "--seed", "1"]
-LLAVA_DENSE_ARGV = ["--arch", "llava-1.5-7b", "--no-reduced", "--num-layers",
-                    "4", "--mode", "greedy", "--xmodal-rescore",
-                    "--requests", "4", "--prompt-len", "64", "--max-new",
-                    "16", "--cache-len", str(IMAGE_TOKENS + 80),
-                    "--image-pool", "2", "--eos-id", "32000",
-                    "--device", "cuda", "--seed", "1"]
+QWEN_DENSE_ARGV = dense_argv("qwen3-0.6b", 96, 151936)
+GRANITE_DENSE_ARGV = dense_argv("granite-moe-3b-a800m", 96, 49155)
+LLAVA_DENSE_ARGV = dense_argv("llava-1.5-7b", IMAGE_TOKENS + 80, 32000,
+                              IMAGE_EXTRA)
+
+
+# the remaining attention-only configs: internvl2-2b's image requests in
+# fp32, rescored (K4 at d 2048); the 32-34B ones in bf16 (eos outside each
+# vocabulary)
+INTERNVL_ARGV = serve_argv("internvl2-2b", INTERNVL_CACHE_LEN, 92553,
+                           IMAGE_EXTRA)
+LARGE_EOS = {"qwen2.5-32b": 152064, "yi-34b": 64000, "granite-34b": 49152}
+DENSE_ARGVS = {
+    "internvl2-2b": dense_argv("internvl2-2b", INTERNVL_TOKENS + 80, 92553,
+                               IMAGE_EXTRA),
+    **{name: dense_argv(name, 96, eos) for name, eos in LARGE_EOS.items()}}
+
+
+def remaining_configs_phase(torch, ops, serve, timer):
+    """The remaining attention-only configs at published widths: the
+    4-layer fp32 dense checks of all four (granite-34b's through K1 and K3
+    at 48 query heads over one kv head, internvl2-2b's with K4's
+    rescoring), then each served at full depth (internvl2-2b in fp32 with
+    image requests and ``--xmodal-rescore`` through the CLI, the others in
+    bf16 through ``build_engine(..., param_dtype=torch.bfloat16)``), one
+    model at a time, each released before the next: tokens/s, the
+    whole-prompt prefill forward by CUDA events, the graph's capture and
+    one replay's wall against its device busy time, peak device memory
+    against the card's. Returns {run: launches}."""
+    runs = {}
+    for name, argv in DENSE_ARGVS.items():
+        stamp(f"{name} dense check")
+        kernels = ("flash_attention", "decode_attention") + (
+            ("xmodal_score_mean", "xmodal_score_max")
+            if name == "internvl2-2b" else ())
+        runs[f"{name} dense check"] = dense_check(torch, ops, serve, argv,
+                                                  kernels)
+        free_memory(torch)
+    for name, argv, dtype, kernels in (
+            ("internvl2-2b", INTERNVL_ARGV, None, LLAVA_KERNELS),
+            *((name, serve_argv(name, CACHE_LEN, eos), torch.bfloat16,
+               TEXT_KERNELS) for name, eos in LARGE_EOS.items())):
+        run = f"{name} serve"
+        t0 = time.perf_counter()
+        stamp(run)
+        runs[run], out = serve_phase(torch, ops, serve, argv, kernels,
+                                     timed=True, param_dtype=dtype)
+        stamp(f"{run}: served")
+        if name == "internvl2-2b":
+            image_checks(torch, serve, argv, out)
+        eng = out["engine"]
+        ms, att_ms = prefill_times(
+            {"prefill": out["spans"]["prefill"]})["prefill"]
+        print(f"prefill [{name}, {eng.model.param_dtype}]: one whole-prompt "
+              f"forward of {eng.prefill_tokens} tokens {ms:.2f} ms (CUDA "
+              f"events), {att_ms:.2f} ms of it the flash kernel")
+        graph_phase(torch, name, out, timer)
+        stamp(f"{run}: graph timed")
+        del out, eng
+        check_released(torch, run)
+        print(f"{run}: {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def dense_check(torch, ops, serve, argv, kernels):
@@ -1373,6 +1613,8 @@ def dense_check(torch, ops, serve, argv, kernels):
     for name in kernels:
         check(launches["cuda"][name] > 0,
               f"dense check: {name} was never launched")
+    check(launches["paged_cuda"]["paged_decode_attention"] > 0,
+          "dense check: paged_decode_attention was never launched")
     for impl in ("cuda", "paged_cuda"):
         check(streams[impl] == streams["torch"],
               f"dense check: {impl} greedy streams differ from torch: "
@@ -1944,6 +2186,13 @@ def main() -> None:
                                                      kv_quantize),
                **xmodal_phase(torch, ops, ref, timer),
                **moe_phase(torch, ops, ref, timer)}
+    any_g, any_g_errs = any_g_phase(torch, ops, ref, timer, kv_quantize)
+    for name, entries in any_g.items():
+        timings[name].update(entries)
+        timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"],
+                                           any_g_errs[name])
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s since the build "
+          "began")
     for name, t in timings.items():
         lib = "null" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"  {name}: {t['shape']}: kernel {t['ms']:.4f} ms (call "
@@ -1954,7 +2203,7 @@ def main() -> None:
             print(f"  {name}: L2 warm {t['warm_ms']:.5f} ms; an empty "
                   f"kernel {t['floor_ms']:.5f} ms (the floor)")
         for key in ("prefill", "verify", "long", "llava", "granite", "int8",
-                    "fp8"):
+                    "fp8") + NEW_ENTRIES:
             if key not in t:
                 continue
             tp = t[key]
@@ -1965,6 +2214,7 @@ def main() -> None:
                   f"{tp['plain_ms']:.4f} ms, library {lib} ms, bound "
                   f"{tp['bound_ms']:.4f} ms ({tp['bound_by']})")
 
+    stamp("qwen3-0.6b")
     # qwen3-0.6b, text requests
     runs = {}
     runs["qwen3-0.6b serve"], out = serve_phase(
@@ -1981,6 +2231,7 @@ def main() -> None:
         torch, ops, serve, QWEN_DENSE_ARGV,
         ("flash_attention", "decode_attention"))
     free_memory(torch)
+    stamp("llava-1.5-7b")
     # llava-1.5-7b, image requests
     runs["llava-1.5-7b serve"], out = serve_phase(
         torch, ops, serve, LLAVA_ARGV, LLAVA_KERNELS)
@@ -1998,6 +2249,7 @@ def main() -> None:
         ("flash_attention", "decode_attention", "xmodal_score_mean",
          "xmodal_score_max"))
     free_memory(torch)
+    stamp("llava-1.5-7b prefix cache and chunks")
     # llava-1.5-7b with the prefix cache (repeated images hit), and with
     # chunked prefill (the first chunk carries the image span)
     new_runs = ("llava-1.5-7b serve prefix cache", "llava-1.5-7b serve chunked",
@@ -2014,6 +2266,7 @@ def main() -> None:
     feature_check(torch, ops, serve, LLAVA_DENSE_ARGV, ["--prefix-cache"],
                   ("paged", "paged_cuda"), 1)
     free_memory(torch)
+    stamp("granite-moe-3b-a800m")
     # granite-moe-3b-a800m, text requests through the MoE layers
     runs["granite-moe-3b-a800m serve"], out = serve_phase(
         torch, ops, serve, GRANITE_ARGV,
@@ -2032,6 +2285,7 @@ def main() -> None:
         ("flash_attention", "decode_attention", "moe_dispatch",
          "moe_combine"))
     free_memory(torch)
+    stamp("qwen3-0.6b int8/fp8")
     # qwen3-0.6b from int8 and fp8 KV pools, through K1's dequant path
     quant = []
     for kv_dtype in ("int8", "fp8"):
@@ -2047,6 +2301,7 @@ def main() -> None:
         del out
         check_released(torch, run)
         quant_dense_check(torch, ops, serve, QWEN_DENSE_ARGV, kv_dtype)
+    stamp("qwen3-0.6b chunked")
     # qwen3-0.6b with chunked prefill: 256-token prompts in chunks of 64,
     # at most 128 chunk tokens between two decode launches
     runs[new_runs[2]], out = chunk_phase(
@@ -2059,6 +2314,7 @@ def main() -> None:
                   ["--prefix-cache", "--prefill-chunk", "16"],
                   ("paged", "paged_cuda"), 2)
 
+    stamp("speculative")
     # speculative decoding: n-gram drafts of 3 tokens verified in one block
     # forward an iteration, inside the engine's one captured graph; the
     # verify runs plain sdpa on the gathered pages, as the reference's, so
@@ -2089,6 +2345,7 @@ def main() -> None:
                       1, label)
         free_memory(torch)
 
+    stamp("open loop")
     # open-loop serving: requests arrive on their own clock, stream their
     # tokens and some cancel, through the async front-end
     t0 = time.perf_counter()
@@ -2101,22 +2358,35 @@ def main() -> None:
     cancel_check(torch, ops, serve)
     print(f"open-loop phases: {time.perf_counter() - t0:.1f} s")
 
+    stamp("remaining configs")
+    # the remaining attention-only configs: internvl2-2b (fp32, images),
+    # qwen2.5-32b, yi-34b and granite-34b (bf16) at published widths
+    t0 = time.perf_counter()
+    new_cfg_runs = remaining_configs_phase(torch, ops, serve, timer)
+    runs.update(new_cfg_runs)
+    print(f"remaining-config phases: {time.perf_counter() - t0:.1f} s")
+    new_serves = tuple(r for r in new_cfg_runs if r.endswith(" serve"))
+    new_dense = tuple(r for r in new_cfg_runs if r.endswith("dense check"))
+
+    stamp("launches")
     # launches: the serve phases for the kernels the serving path runs,
     # the dense checks for the dense decode kernel (K3), which only the
     # dense impls run
     paths = {"decode_attention": ("qwen3-0.6b dense check",
                                   "llava-1.5-7b dense check",
-                                  "granite-moe-3b-a800m dense check")}
+                                  "granite-moe-3b-a800m dense check") +
+             new_dense}
     serves = ("qwen3-0.6b serve", "llava-1.5-7b serve",
               "granite-moe-3b-a800m serve")
     # the quantized pools', the prefix cache's, the chunked and the
     # speculative serve runs go through the prefill and paged decode
     # kernels too (the speculative ones launch the latter 0 times)
     paths.update({name: serves + tuple(quant) + new_runs + spec_runs +
-                  tuple(open_runs) + ("qwen3-0.6b open loop camd",)
+                  tuple(open_runs) + ("qwen3-0.6b open loop camd",) +
+                  new_serves
                   for name in ("flash_attention", "paged_decode_attention")})
-    paths.update({name: serves + spec_runs[1:2] for name in
-                  ("xmodal_score_mean", "xmodal_score_max")})
+    paths.update({name: serves + spec_runs[1:2] + ("internvl2-2b serve",)
+                  for name in ("xmodal_score_mean", "xmodal_score_max")})
     paths.update({name: serves + spec_runs[2:] for name in
                   ("moe_dispatch", "moe_combine")})
     meta = {
@@ -2150,7 +2420,7 @@ def main() -> None:
                                        "verify", "warm_ms", "floor_ms",
                                        "long", "llava", "granite", "int8",
                                        "fp8", "sweep", "by_kernel",
-                                       "splits") + TF32_BOUNDS
+                                       "splits") + TF32_BOUNDS + NEW_ENTRIES
                if key in t}})
     print("kernels: " + ", ".join(k["name"] for k in kernels))
     print(json.dumps({"kernels": kernels}))

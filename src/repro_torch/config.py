@@ -110,6 +110,28 @@ class ModelConfig:
         pat = self.block_pattern
         return tuple(pat[i % len(pat)] for i in range(self.num_layers))
 
+    def num_params(self) -> int:
+        """Analytic parameter count, embeddings and per-layer blocks, as
+        ``repro.config.ModelConfig.num_params`` counts it for the
+        attention-only configs this port serves (the vision tower and the
+        evidence projection are not counted there either)."""
+        if any(k != ATTN for k in self.layer_kinds) or \
+                self.is_encoder_decoder:
+            raise NotImplementedError(f"{self.name}: num_params counts "
+                                      "attention-only decoders")
+        d, v = self.d_model, self.vocab_size
+        n = v * d if self.tie_embeddings else 2 * v * d
+        q = self.num_heads * self.resolved_head_dim
+        kv = self.num_kv_heads * self.resolved_head_dim
+        per = 3 if self.mlp_activation == "swiglu" else 2
+        if self.moe is None:
+            mlp = per * d * self.d_ff
+        else:
+            e = self.moe
+            mlp = (e.num_experts + e.num_shared_experts) * per * d * \
+                e.expert_d_ff + d * e.num_experts
+        return n + self.num_layers * (2 * d + 2 * d * q + 2 * d * kv + mlp)
+
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -2,7 +2,9 @@
 
 ``get_config`` accepts the arch id ("llava-1.5-7b") or the module name
 ("llava_1_5_7b"), as the reference's registry does. Only the configs this
-port serves are registered.
+port serves are registered: every attention-only config of the reference
+that fits on one card (kimi-k2-1t-a32b does not; recurrent, hybrid and
+encoder-decoder configs are not ported yet).
 """
 from __future__ import annotations
 
@@ -15,6 +17,10 @@ _MODULES = {
     "qwen3_0_6b": "qwen3-0.6b",
     "llava_1_5_7b": "llava-1.5-7b",
     "granite_moe_3b_a800m": "granite-moe-3b-a800m",
+    "internvl2_2b": "internvl2-2b",
+    "qwen2_5_32b": "qwen2.5-32b",
+    "yi_34b": "yi-34b",
+    "granite_34b": "granite-34b",
 }
 
 _BY_NAME: Dict[str, ModelConfig] = {}

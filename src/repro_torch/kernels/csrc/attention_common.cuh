@@ -133,7 +133,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // --------------------------------------------------------------------------
 // Split-KV decode ("flash-decoding"): one query token against one split of
-// a batch row's KV rows, for the G query heads of one kv head.
+// a batch row's KV rows, for the G query heads of one kv head (G <= 8;
+// launch_decode cuts a larger G into groups, GroupedRows).
 //
 // Grid (kv head, batch row, split). Split s takes rows [s * rows_per_split,
 // min(num_rows, (s + 1) * rows_per_split)), whole DEC_TILE-row tiles but
@@ -624,6 +625,50 @@ int launch_split_kernel(const SplitLaunch& a, const Rows& rows) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// One kv head's G query heads cut into `groups` equal groups of at most
+// DEC_MAX_G (launch_decode, for G > DEC_MAX_G): the split and combine
+// kernels run each group as a kv head of its own, Hkv = rows.Hkv * groups
+// of them with G / groups query heads each, so that virtual head
+// h * groups + i holds query heads h * G + i * G / groups + [0, G /
+// groups), and every row lookup maps it back to kv head h. Each group's
+// blocks read their kv head's rows themselves, the first group from
+// device memory and the others mostly from the L2.
+template <typename Rows>
+struct GroupedRows {
+  Rows rows;
+  int groups, Hkv, hd;
+  static constexpr bool TILE_KEYS = Rows::TILE_KEYS;
+  __host__ __device__ int capacity() const { return rows.capacity(); }
+  __device__ int num_rows(int b) const { return rows.num_rows(b); }
+  __device__ unsigned valid4(int b, int j, int jend) const {
+    return rows.valid4(b, j, jend);
+  }
+  __device__ int tile_key(int b, int j) const { return rows.tile_key(b, j); }
+  __device__ size_t offset(int b, int h, int j, int key) const {
+    return rows.offset(b, h / groups, j, key);
+  }
+  __device__ const float* k_scales() const { return rows.k_scales(); }
+  __device__ const float* v_scales() const { return rows.v_scales(); }
+  __device__ size_t scale_index(int b, int h, int j, int key) const {
+    return rows.scale_index(b, h / groups, j, key);
+  }
+};
+
+// the fewest groups of at most DEC_MAX_G query heads that divide G
+// (ops.decode_groups plans the same)
+inline int dec_groups(int G) {
+  int n = (G + DEC_MAX_G - 1) / DEC_MAX_G;
+  while (G % n != 0) ++n;
+  return n;
+}
+
+// a group of G / groups <= DEC_MAX_G heads takes the GP 8 body: one
+// instantiation for every group size
+template <typename TQ, typename TKV, int U, typename Rows>
+int launch_split_g(const SplitLaunch& a, const GroupedRows<Rows>& rows) {
+  return launch_split_kernel<TQ, TKV, DEC_MAX_G, U>(a, rows);
+}
+
 template <typename TQ, typename TKV, int U, typename Rows>
 int launch_split_g(const SplitLaunch& a, const Rows& rows) {
   const int G = a.H / rows.Hkv;
@@ -663,4 +708,17 @@ int launch_split_decode(const SplitLaunch& a, const Rows& rows) {
           a.part, static_cast<const TKV*>(a.v), static_cast<TQ*>(a.out), rows,
           a.H, a.n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The entry of both decode kernels: any G = H / Hkv; above DEC_MAX_G the
+// kv heads' query heads run in groups (GroupedRows), each a block of its
+// own, and the plan (n_split) must then count Hkv * dec_groups(G) heads.
+template <typename TQ, typename TKV, typename Rows>
+int launch_decode(const SplitLaunch& a, const Rows& rows) {
+  if (rows.Hkv < 1 || a.H < rows.Hkv || a.H % rows.Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = dec_groups(a.H / rows.Hkv);
+  if (groups == 1) return launch_split_decode<TQ, TKV>(a, rows);
+  return launch_split_decode<TQ, TKV>(
+      a, GroupedRows<Rows>{rows, groups, rows.Hkv * groups, rows.hd});
 }

@@ -11,7 +11,10 @@
 // limited by fp32 arithmetic, so the floor is the valid K/V rows over
 // 3.35 TB/s. Tensor cores do not help: G <= 8 query rows per kv head
 // would fill 8 of a wgmma tile's 64 rows, and the products are not what
-// takes the time.
+// takes the time. A kv head with more query heads than that (granite-34b:
+// 48 over one) runs them in groups of at most 8, a block each
+// (GroupedRows, launch_decode): its rows are read once a group, all but
+// the first group's mostly from the L2.
 //
 // Design: split-KV ("flash-decoding", split_decode_body and its launcher
 // launch_split_decode in attention_common.cuh, which the paged kernel
@@ -59,11 +62,13 @@ struct DenseRows {
 };
 
 // q: (B, 1, H, hd); k/v: (B, S, Hkv, hd); mask: (B, S) uint8; out like q;
-// work: fp32 (B, Hkv, n_split, H / Hkv, hd + 2), unused (may be null) when
-// n_split is 1. The split plan (n_split, rows_per_split) comes from
-// ops.decode_splits: rows_per_split a multiple of 16, n_split *
-// rows_per_split >= S, n_split <= 64. dtype: F32 or BF16 (q, k, v and out
-// alike). Returns cudaGetLastError().
+// work: fp32 (B, Hkv, n_split, H / Hkv, hd + 2) floats, unused (may be
+// null) when n_split is 1 (grouped heads lay them out as (B, Hkv, groups,
+// n_split, G / groups, hd + 2)). The split plan (n_split, rows_per_split)
+// comes from ops.decode_splits over Hkv * ops.decode_groups(H / Hkv)
+// heads: rows_per_split a multiple of 16, n_split * rows_per_split >= S,
+// n_split <= 64. dtype: F32 or BF16 (q, k, v and out alike). Returns
+// cudaGetLastError().
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* mask, void* out, void* work,
                                 int B, int S, int H, int Hkv, int hd,
@@ -73,8 +78,8 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                       n_split, rows_per_split,
                       static_cast<cudaStream_t>(stream)};
   const DenseRows rows{static_cast<const uint8_t*>(mask), S, Hkv, hd};
-  if (dtype == F32) return launch_split_decode<float, float>(a, rows);
+  if (dtype == F32) return launch_decode<float, float>(a, rows);
   if (dtype == BF16)
-    return launch_split_decode<__nv_bfloat16, __nv_bfloat16>(a, rows);
+    return launch_decode<__nv_bfloat16, __nv_bfloat16>(a, rows);
   return static_cast<int>(cudaErrorInvalidValue);
 }

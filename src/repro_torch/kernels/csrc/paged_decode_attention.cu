@@ -20,10 +20,12 @@
 // the host would wait for the device at every decode step. Splits past a
 // row's length copy nothing and weigh nothing in the combine; lengths past
 // n * ps are clipped. Every block serves the G query heads of its kv head
-// from each row it reads. With pages of a multiple of 16 rows a 16-row
-// tile lies in one page, so the body loads each tile's page id from the
-// block table a chunk of 32 tiles ahead, beside the validity words, and no
-// copy waits on the table; other page sizes look the page up per row.
+// from each row it reads, or, where G > 8 (granite-34b: 48 over one kv
+// head), a group of at most 8 of them (GroupedRows, launch_decode). With
+// pages of a multiple of 16 rows a 16-row tile lies in one page, so the
+// body loads each tile's page id from the block table a chunk of 32 tiles
+// ahead, beside the validity words, and no copy waits on the table; other
+// page sizes look the page up per row.
 // int8/fp8 rows are hd bytes, copied in 16-, 4- or 1-byte units; their
 // scales ride in the rows' cp.async group.
 #include "attention_common.cuh"
@@ -68,10 +70,10 @@ template <typename TQ>
 static int launch_q(const SplitLaunch& a, const PagedRows& rows,
                     int kv_dtype) {
   switch (kv_dtype) {
-    case F32: return launch_split_decode<TQ, float>(a, rows);
-    case BF16: return launch_split_decode<TQ, __nv_bfloat16>(a, rows);
-    case I8: return launch_split_decode<TQ, int8_t>(a, rows);
-    case FP8E4M3: return launch_split_decode<TQ, __nv_fp8_e4m3>(a, rows);
+    case F32: return launch_decode<TQ, float>(a, rows);
+    case BF16: return launch_decode<TQ, __nv_bfloat16>(a, rows);
+    case I8: return launch_decode<TQ, int8_t>(a, rows);
+    case FP8E4M3: return launch_decode<TQ, __nv_fp8_e4m3>(a, rows);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -79,10 +81,11 @@ static int launch_q(const SplitLaunch& a, const PagedRows& rows,
 // q: (B, 1, H, hd) F32|BF16; k_pages/v_pages: (P, ps, Hkv, hd) of kv_dtype;
 // k_scale/v_scale: (P, ps, Hkv) fp32 or null; block_table: (B, n) int32;
 // lengths: (B,) int32; out like q; work: fp32 (B, Hkv, n_split, H / Hkv,
-// hd + 2), unused (may be null) when n_split is 1. The split plan comes
-// from ops.decode_splits over n * ps: rows_per_split a multiple of 16,
-// n_split * rows_per_split >= n * ps, n_split <= 64. Returns
-// cudaGetLastError().
+// hd + 2) floats, unused (may be null) when n_split is 1 (laid out as in
+// decode_attention.cu). The split plan comes from ops.decode_splits over
+// n * ps and Hkv * ops.decode_groups(H / Hkv) heads: rows_per_split a
+// multiple of 16, n_split * rows_per_split >= n * ps, n_split <= 64.
+// Returns cudaGetLastError().
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_table,

@@ -40,6 +40,9 @@ _MOE_MAX_K = 32
 # (DEC_TILE), the most splits (DEC_MAX_SPLIT), the fewest tiles a split
 # takes, and the blocks per SM the plan aims for
 DEC_TILE, DEC_MAX_SPLIT, DEC_MIN_TILES, DEC_BLOCKS_PER_SM = 16, 64, 4, 16
+# the most query heads a decode block serves (a kv head's G above it runs
+# in groups, ``decode_groups``) and the largest head_dim
+DEC_MAX_G, DEC_MAX_HD = 8, 128
 
 
 def reset_launches() -> None:
@@ -106,11 +109,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _check_decode_q(name: str, q, Hkv: int, hd: int) -> None:
     B, one, H, qd = q.shape
-    _check(one == 1 and qd == hd and H % Hkv == 0 and
-           H // Hkv <= 8 and hd <= 128,
+    _check(one == 1 and qd == hd and H % Hkv == 0 and hd <= DEC_MAX_HD,
            f"{name}: q {tuple(q.shape)} vs Hkv={Hkv}, hd={hd} (needs "
-           "H/Hkv <= 8, head_dim <= 128)")
+           f"Hkv | H, head_dim <= {DEC_MAX_HD})")
     _check(q.dtype in _ACT_DTYPES, f"{name}: q must be fp32 or bf16")
+
+
+def decode_groups(G: int) -> int:
+    """Groups the decode kernels cut a kv head's ``G`` query heads into:
+    the fewest, of at most ``DEC_MAX_G`` heads each, that divide G (1 for
+    G <= 8). Each group runs as a kv head of its own, so the split plan
+    counts ``Hkv * decode_groups(G)`` heads."""
+    n = -(-G // DEC_MAX_G)
+    while G % n:
+        n += 1
+    return n
 
 
 def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
@@ -122,7 +135,8 @@ def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
     run ragged), so that the grid of B * Hkv * n_split blocks reaches
     ``DEC_BLOCKS_PER_SM * sms``, each split keeps at least
     ``DEC_MIN_TILES`` tiles, and no split is empty. One split for large
-    B * Hkv or short S.
+    B * Hkv or short S. ``Hkv`` counts the blocks a batch row's split
+    takes: the kv heads times their ``decode_groups``.
     """
     tiles = max(1, -(-S // DEC_TILE))
     n = min(-(-DEC_BLOCKS_PER_SM * sms // max(1, B * Hkv)),
@@ -133,7 +147,8 @@ def decode_splits(B: int, Hkv: int, S: int, sms: int) -> Tuple[int, int]:
 
 def _split_workspace(q, Hkv: int, n_split: int):
     """The split kernels' fp32 partials (B, Hkv, n_split, H / Hkv, hd + 2),
-    merged by the combine kernel; none for one split."""
+    merged by the combine kernel; none for one split. (Grouped heads lay
+    the same floats out as (B, Hkv, groups, n_split, G / groups, hd + 2).)"""
     if n_split == 1:
         return None
     B, _, H, hd = q.shape
@@ -161,7 +176,8 @@ def decode_attention(q, k, v, kv_mask):
            k.dtype == q.dtype and v.dtype == q.dtype,
            "decode_attention: k/v (B, S, Hkv, hd) in q's dtype, mask "
            "(B, S) bool")
-    n_split, rows = decode_splits(B, Hkv, S, _sms(q))
+    n_split, rows = decode_splits(B, Hkv * decode_groups(q.shape[2] // Hkv),
+                                  S, _sms(q))
     out = torch.empty_like(q)
     work = _split_workspace(q, Hkv, n_split)
     _launch("decode_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -209,7 +225,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
     # planned from the block table's capacity, never from the lengths:
     # reading them on the host would wait for the device at every decode
     # step; splits past a row's length copy nothing and weigh nothing
-    n_split, rows = decode_splits(B, Hkv, n * ps, _sms(q))
+    n_split, rows = decode_splits(B, Hkv * decode_groups(q.shape[2] // Hkv),
+                                  n * ps, _sms(q))
     out = torch.empty_like(q)
     work = _split_workspace(q, Hkv, n_split)
     _launch(name, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

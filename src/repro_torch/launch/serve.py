@@ -19,7 +19,11 @@ CLI's order (``repro/launch/serve.py:197-216``), so one seed makes the
 same requests in both packages.
 
 Weights are random, made from seed 0 (no checkpoint is in the
-repository), and the model runs in fp32, as in the reference CLI.
+repository), and the model runs in fp32, as in the reference CLI; a
+caller of ``build_engine`` or ``main`` may pass another ``param_dtype``
+(bf16 serves the 32-34B configs on one 80 GB card, as the reference's
+``build_model(cfg, param_dtype)`` takes one). A config whose weights
+exceed the device's memory is refused before anything is allocated.
 ``--reduced`` (the default, as in the reference CLI) serves the
 CPU-smoke-size variant of the config; ``--no-reduced`` serves it at its
 published widths, and ``--num-layers`` cuts its depth. Runs on the CUDA
@@ -39,6 +43,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.config import (CAMDConfig, PagedKVConfig, SamplingConfig,
                                 VisionConfig)
 from repro_torch.configs import get_config
@@ -175,15 +180,26 @@ def make_requests(cfg, args) -> List[Request]:
     return reqs
 
 
-def build_engine(args: argparse.Namespace):
+def device_memory_bytes(device: torch.device) -> Optional[int]:
+    """Total memory of a CUDA device; None for the CPU (not checked)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def build_engine(args: argparse.Namespace, param_dtype=torch.float32):
     """The served config and the engine that ``args`` ask for (model
-    weights made from seed 0). Returns (cfg, engine)."""
+    weights made from seed 0, in ``param_dtype``: fp32 as the reference
+    CLI serves; not a CLI flag). Raises ``SystemExit`` before allocating
+    when the weights alone exceed the device's memory. Returns (cfg,
+    engine)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.num_layers:
         cfg = cfg.with_overrides(num_layers=args.num_layers)
-    cfg = cfg.with_overrides(dtype="float32")      # fp32, as the reference
+    # fp32 by default, as the reference CLI
+    cfg = cfg.with_overrides(dtype=str(param_dtype).replace("torch.", ""))
     if args.image_tokens:
         if cfg.vision is None:
             raise SystemExit(f"--image-tokens needs a vision config; "
@@ -194,7 +210,16 @@ def build_engine(args: argparse.Namespace):
             vision=VisionConfig.for_tokens(
                 args.image_tokens, patch=v.patch, num_layers=v.num_layers,
                 d_model=v.d_model, num_heads=v.num_heads, d_ff=v.d_ff))
-    model = build_model(cfg, torch.float32, device=args.device, seed=0)
+    device = resolve_device(args.device)
+    total = device_memory_bytes(device)
+    need = cfg.num_params() * torch.finfo(param_dtype).bits // 8
+    if total is not None and need > total:
+        raise SystemExit(
+            f"{cfg.name}: {cfg.num_params() / 1e9:.2f}B parameters need "
+            f"{need / 1e9:.1f} GB of {param_dtype} weights, more than the "
+            f"{total / 1e9:.1f} GB of {device}; serve it reduced "
+            "(--reduced or --num-layers) or in a smaller param dtype")
+    model = build_model(cfg, param_dtype, device=device, seed=0)
     eng = ServeEngine(
         model, slots=args.slots, cache_len=args.cache_len,
         sampling=SamplingConfig(max_new_tokens=args.max_new),
@@ -215,17 +240,25 @@ def build_engine(args: argparse.Namespace):
     return cfg, eng
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+def main(argv: Optional[List[str]] = None,
+         param_dtype=torch.float32) -> Dict[str, object]:
     """Serve synthetic requests, as one pre-staged batch or (``--open-loop``)
     arriving on their own clock; prints results and telemetry and returns
     them (``engine``, ``results``, ``seconds``, ``tokens_per_s``, and with
-    ``--open-loop`` the per-request ``traces`` and their ``metrics``)."""
+    ``--open-loop`` the per-request ``traces`` and their ``metrics``).
+    ``param_dtype`` goes to ``build_engine``."""
     args = parse_args(argv)
     if args.open_loop and args.macro_steps < 1:
         raise SystemExit("--open-loop drives the fused macro-step loop; "
                          "use --macro-steps >= 1")
-    cfg, eng = build_engine(args)
+    t_build = time.perf_counter()
+    cfg, eng = build_engine(args, param_dtype)
     model = eng.model
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"model [{cfg.name}]: {cfg.num_params() / 1e6:.1f}M parameters "
+          f"in {str(param_dtype).replace('torch.', '')}, built with the "
+          f"engine in {time.perf_counter() - t_build:.2f}s")
     reqs = make_requests(cfg, args)
     if not args.open_loop:
         for req in reqs:
@@ -269,6 +302,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
                   f"p*={r.p_star:.3f} early={r.stopped_early} "
                   f"out={r.tokens[:8].tolist()}")
     print(f"engine [{cfg.name}, {cfg.num_layers}L d{cfg.d_model}, "
+          f"{str(model.param_dtype).replace('torch.', '')}, "
           f"{args.impl} on {model.device}]: {eng.total_steps} steps, "
           f"{eng.total_tokens} tokens in {secs:.3f}s "
           f"({eng.total_tokens / secs:.1f} tok/s, prefill included)")

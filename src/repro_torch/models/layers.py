@@ -61,11 +61,13 @@ def dense(kernel, x, bias: Optional[torch.Tensor] = None):
 
 
 def mlp(p, x):
-    """p is an ``MLP`` module: SwiGLU (w_gate, w_up, w_down) or the
-    non-gated gelu MLP (w_in, w_out). ``jax.nn.gelu`` defaults to the tanh
-    approximation, so the gelu here is the tanh form too."""
+    """p is an ``MLP`` module: SwiGLU (w_gate, w_up, w_down) or a
+    non-gated gelu or relu MLP (w_in, w_out). ``jax.nn.gelu`` defaults to
+    the tanh approximation, so the gelu here is the tanh form too."""
     if p.activation == "gelu":
         return p.w_out(F.gelu(p.w_in(x), approximate="tanh"))
+    if p.activation == "relu":
+        return p.w_out(F.relu(p.w_in(x)))
     return p.w_down(F.silu(p.w_gate(x)) * p.w_up(x))
 
 
@@ -102,13 +104,14 @@ class Norm(nn.Module):
 
 class MLP(nn.Module):
     """MLP weights as the reference's ``mlp_init``: "swiglu" (w_gate, w_up,
-    w_down) or "gelu" (w_in, w_out)."""
+    w_down), "gelu" or "relu" (w_in, w_out)."""
 
     def __init__(self, d_model: int, d_ff: int, activation: str = "swiglu",
                  *, dtype=torch.float32, device=None, gen=None):
         super().__init__()
-        if activation not in ("swiglu", "gelu"):
-            raise NotImplementedError(f"{activation} MLPs are not ported")
+        if activation not in ("swiglu", "gelu", "relu"):
+            raise ValueError(f"unknown MLP activation {activation!r} "
+                             "(swiglu, gelu or relu)")
         self.activation = activation
         kw = dict(dtype=dtype, device=device, gen=gen)
         if activation == "swiglu":

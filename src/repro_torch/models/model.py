@@ -37,7 +37,8 @@ def _check_supported(cfg: ModelConfig) -> None:
         ("evidence tokens / vision towers outside the vlm family",
          cfg.family != "vlm" and (cfg.vision is not None or
                                   cfg.num_evidence_tokens > 0)),
-        (f"{cfg.mlp_activation} LM MLPs", cfg.mlp_activation != "swiglu"),
+        (f"{cfg.mlp_activation} MoE experts",
+         cfg.moe is not None and cfg.mlp_activation != "swiglu"),
     ]
     for what, present in unsupported:
         if present:
@@ -62,8 +63,8 @@ class Block(nn.Module):
         has_mlp = cfg.d_ff > 0 or cfg.moe is not None   # transformer.py:37
         self.ln2 = Norm(cfg.d_model, **kw) if has_mlp else None
         self.moe = MoE(cfg, gen=gen, **kw) if cfg.moe is not None else None
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, gen=gen, **kw) \
-            if has_mlp and self.moe is None else None
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, gen=gen,
+                       **kw) if has_mlp and self.moe is None else None
 
 
 class Model(nn.Module):

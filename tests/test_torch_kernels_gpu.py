@@ -271,6 +271,56 @@ def test_paged_decode_split_cases_on_card(gen, pool, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8,
+                                  torch.float8_e4m3fn])
+@pytest.mark.parametrize("G,Hkv", [(48, 1), (12, 2), (5, 8), (7, 8)])
+def test_decode_kernels_any_g_on_card(gen, pool, G, Hkv):
+    """K3 (dense cache, fp32 and bf16 only) and K1 at granite-34b's 48
+    query heads over one kv head, at 12 over each of 2 (groups of 6, no
+    multiple of 8), and at qwen2.5-32b's 5 and yi-34b's 7 over 8, with a
+    batch row that has no valid key, under several splits (S 4096) and
+    one (S 16): a kv head's G > 8 query heads run in groups of at most 8,
+    a block each. Two runs give the same bits."""
+    B, hd = 4, 128
+    H = G * Hkv
+    dtype = torch.bfloat16 if pool == torch.bfloat16 else torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for S in (4096, 16):
+        q = _rand(gen, (B, 1, H, hd), dtype)
+        n_split, _ = ops.decode_splits(B, Hkv * ops.decode_groups(G), S, sms)
+        assert (n_split > 1) == (S > 16)
+        if pool in (torch.float32, torch.bfloat16):
+            k = _rand(gen, (B, S, Hkv, hd), pool)
+            v = _rand(gen, (B, S, Hkv, hd), pool)
+            mask = torch.rand(B, S, generator=gen, device="cuda") < 0.7
+            mask[:, 0] = True
+            mask[2] = False
+            out = ops.decode_attention(q, k, v, mask)
+            _close(out, ref.decode_attention_ref(q, k, v, mask), dtype)
+            assert torch.equal(out, ops.decode_attention(q, k, v, mask))
+        ps, n = 16, S // 16
+        P = B * n + 1
+        kf = _rand(gen, (P, ps, Hkv, hd))
+        vf = _rand(gen, (P, ps, Hkv, hd))
+        ks = vs = None
+        if pool in (torch.int8, torch.float8_e4m3fn):
+            kp, ks = kv_quantize(kf, pool)
+            vp, vs = kv_quantize(vf, pool)
+        else:
+            kp, vp = kf.to(pool), vf.to(pool)
+        bt = (torch.randperm(P - 1, generator=gen, device="cuda") + 1
+              ).reshape(B, n).to(torch.int32)
+        ln = torch.tensor([S, S // 2 + 3, 0, 1], dtype=torch.int32,
+                          device="cuda")
+        out = ops.paged_decode_attention(q, kp, vp, bt, ln, k_scale=ks,
+                                         v_scale=vs)
+        _close(out, ref.paged_decode_attention_ref(
+            q, kp, vp, bt, ln, k_scale=ks, v_scale=vs), dtype)
+        assert torch.equal(out, ops.paged_decode_attention(
+            q, kp, vp, bt, ln, k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,Nv,Nt,d", [
     (3, 1, 7, 129, 48),          # ragged everywhere, d not a chunk multiple

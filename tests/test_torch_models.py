@@ -253,11 +253,35 @@ def test_unsupported_families_raise():
     from repro_torch.configs import get_config
     base = get_config("qwen3_0_6b").reduced()
     assert get_config("qwen3-0.6b") is get_config("qwen3_0_6b")
-    for kw in (dict(block_pattern=("ssm",)),
-               dict(is_encoder_decoder=True), dict(num_evidence_tokens=4),
-               dict(mlp_activation="gelu")):
+    moe = get_config("granite-moe-3b-a800m").reduced()
+    for cfg in (base.with_overrides(block_pattern=("ssm",)),
+                base.with_overrides(is_encoder_decoder=True),
+                base.with_overrides(num_evidence_tokens=4),
+                moe.with_overrides(mlp_activation="gelu")):
         with pytest.raises(NotImplementedError):
-            build_model(base.with_overrides(**kw), device="cpu")
+            build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+def test_gelu_relu_mlps_match_reference(activation):
+    """The non-gated LM MLPs build ``w_in``/``w_out`` under the reference's
+    names (so ``params_from_jax`` carries them as they are) and compute
+    the reference's ``mlp``; a model of that config builds."""
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(9)
+    h = rng.standard_normal((2, 5, 8)).astype(np.float32)
+    p = jlayers.mlp_init(jax.random.PRNGKey(2), 8, 12, activation)
+    mlp = tlayers.MLP(8, 12, activation, device="cpu")
+    assert sorted(n for n, _ in mlp.named_parameters()) == \
+        ["w_in.kernel", "w_out.kernel"]
+    for name in ("w_in", "w_out"):
+        getattr(mlp, name).kernel.copy_(t(p[name]["kernel"]))
+    close(jlayers.mlp(p, h, activation), tlayers.mlp(mlp, t(h)))
+    cfg = get_config("qwen3_0_6b").reduced().with_overrides(
+        mlp_activation=activation)
+    model = build_model(cfg, device="cpu")
+    assert model.layers[0].mlp.activation == activation
+    assert hasattr(model.layers[0].mlp, "w_in")
 
 
 def test_entry_points_need_a_device_or_cpu():
