@@ -102,6 +102,21 @@ Run from the root of a checkout. It
      times K1 and K3 at 5, 7, 12 and 48 query heads a kv head (K1 also on
      int8/fp8 pools at 48), K2 in bf16 at the 32-34B models' buckets and
      K4 at internvl2-2b's shape.
+  28-30. training and rescoring, the full-sequence forward: full-width
+     qwen3-0.6b (50 steps of 8 x 128 tokens, the reference CLI's
+     defaults) and granite-moe-3b-a800m (10 steps) trained in fp32
+     through the training launcher on the plain impl (no kernel
+     launches; losses finite, qwen3's falling, peak memory, median step,
+     tokens/s, the AdamW update's time, granite's router losses); at 4
+     layers three train steps of each on the card against the same three
+     on the CPU (losses, and granite's router losses), and a checkpoint
+     round trip on the card; then ``camd_wrap``
+     rescores 8 candidates of 32 tokens on full-width llava-1.5-7b (with
+     one image's 576 rows as evidence) and granite-moe-3b-a800m with both
+     impls: the cuda one launches K2 once a layer, K4a/K4b once, K5a/K5b
+     once a layer, agrees with the plain one, and each kernel's first
+     call is held against its plain version at the shape it got; last,
+     every kernel of that path raises on inputs that require grad.
 Every serve phase and open-loop wave checks that the flash kernel ran
 once a layer a whole-prompt prefill forward and the paged decode kernel
 once a layer a step of every replay (none in a speculative run).
@@ -120,7 +135,9 @@ a checkout of the repository.
 import asyncio
 import contextlib
 import json
+import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -2138,6 +2155,391 @@ def cancel_check(torch, ops, serve):
           f"streamed, (steps, launches, host syncs) {loop}")
 
 
+# ---------------------------------------------------------------------------
+# training and rescoring: the full-sequence forward
+# ---------------------------------------------------------------------------
+
+# the reference CLI's defaults (repro/launch/train.py:18-30); granite-moe
+# for 10 steps (3.30 B params: fp32 weights, grads, m and v ~53 GB)
+TRAIN_QWEN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "50", "--batch", "8",
+                   "--seq", "128", "--lr", "1e-3", "--device", "cuda"]
+TRAIN_GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--steps", "10",
+                      "--batch", "8", "--seq", "128", "--lr", "1e-3",
+                      "--device", "cuda"]
+# three steps of 4-layer qwen3-0.6b and granite-moe-3b-a800m on the card
+# and on the host's CPU; the losses (and the MoE's aux terms) must agree
+# within this relative tolerance (fp32, TF32 off: the two sum in other
+# orders, and AdamW's normalised step turns a near-cancelling gradient's
+# rounding into a visible share of lr)
+TRAIN_CHECK = dict(archs=("qwen3-0.6b", "granite-moe-3b-a800m"), layers=4,
+                   batch=2, seq=64, steps=3)
+TRAIN_CHECK_KEYS = ("loss", "moe_lb_loss", "moe_drop_frac")
+TRAIN_CHECK_RTOL = 1e-4
+# a round of candidates rescored by camd_wrap: 8 candidates of 32 tokens
+# after a 32-token prompt (llava: behind its 576 image rows)
+RESCORE = dict(K=8, prompt=32, cand=32)
+# rescoring's cuda impl against its torch impl: scores and terms within
+# atol + rtol * |value| (fp32: K2's 3xTF32 and K4/K5 against plain sdpa,
+# einsums and gathers, through every layer); p_star within 1e-5
+RESCORE_TOL = TOL["float32"]
+RESCORE_P_STAR_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def timing_adamw(torch):
+    """The CUDA-event span of every AdamW update the train step runs,
+    under "spans", read once the device has synchronized."""
+    from repro_torch.training import train_loop
+    saved = train_loop.adamw_update
+    spans = []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = saved(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    train_loop.adamw_update = timed
+    try:
+        yield spans
+    finally:
+        train_loop.adamw_update = saved
+
+
+def train_phase(torch, ops, card):
+    """Trains full-width qwen3-0.6b (50 steps) and granite-moe-3b-a800m
+    (10 steps) in fp32 through ``repro_torch.launch.train.main``, remat on
+    as the reference's TrainConfig has it, on the plain ``torch`` impl
+    (the counterpart of the reference's ``xla`` training path: no kernel
+    launches). Every loss finite, qwen3's last logged loss below its
+    first, the peak device memory under the card's. Prints the median
+    step after two warm-up steps, tokens/s, the AdamW update's median
+    (CUDA events) and, for granite, the MoE router's load-balance loss and
+    dropped share. Returns {run: launches}."""
+    from repro_torch.launch import train
+    runs = {}
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for argv in (TRAIN_QWEN_ARGV, TRAIN_GRANITE_ARGV):
+        args = train.parse_args(argv)
+        run = f"{args.arch} train"
+        print("train phase: python -m repro_torch.launch.train " +
+              " ".join(argv))
+        free_memory(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with timing_adamw(torch) as spans:
+            hist = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[run] = dict(ops.LAUNCHES)
+        check(not any(runs[run].values()), f"{run}: kernels launched in "
+              f"training: {runs[run]}")
+        check(len(hist) == args.steps, f"{run}: {len(hist)} steps")
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(x) for x in losses), f"{run}: loss not "
+              f"finite: {losses}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(peak_gb < total_gb, f"{run}: peak {peak_gb:.1f} GB")
+        step_s = statistics.median(h["seconds"] for h in hist[2:])
+        adamw_ms = statistics.median(a.elapsed_time(b)
+                                     for a, b in spans[2:])
+        tokens = args.batch * args.seq
+        moe = ""
+        if "moe_lb_loss" in hist[-1]:
+            moe = (f"; moe_lb_loss {hist[0]['moe_lb_loss']:.4f} -> "
+                   f"{hist[-1]['moe_lb_loss']:.4f}, moe_drop_frac "
+                   f"{hist[0]['moe_drop_frac']:.4f} -> "
+                   f"{hist[-1]['moe_drop_frac']:.4f}")
+        print(f"train [{run}]: {args.steps} steps in {wall:.1f} s; loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, accuracy "
+              f"{hist[0]['accuracy']:.3f} -> {hist[-1]['accuracy']:.3f}; "
+              f"median step {step_s * 1e3:.1f} ms after two warm-up steps "
+              f"({tokens / step_s:.0f} tokens/s), AdamW update "
+              f"{adamw_ms:.2f} ms; peak device memory {peak_gb:.1f} GB of "
+              f"the card's {total_gb:.1f}{moe}  [{card}]")
+        if args.arch == "qwen3-0.6b":
+            check(losses[-1] < losses[0], f"{run}: loss did not fall "
+                  f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+        del hist, spans
+        free_memory(torch)
+    return runs
+
+
+def train_check(torch):
+    """4-layer full-width qwen3-0.6b and granite-moe-3b-a800m: three
+    ``training.train`` steps on the card against the same three on the
+    host's CPU, from the same weights and batches; the loss and, for the
+    MoE, its load-balance loss and dropped share agree within
+    ``TRAIN_CHECK_RTOL`` at every step. Then a checkpoint round trip on the
+    card: qwen3's trained weights saved, loaded into a fresh model, the
+    same logits bit for bit."""
+    import itertools
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train
+    from repro_torch.training.train_loop import batch_to
+    c = TRAIN_CHECK
+    tc = TrainConfig(total_steps=c["steps"], warmup_steps=1,
+                     learning_rate=1e-3)
+    for arch in c["archs"]:
+        cfg = get_config(arch).with_overrides(num_layers=c["layers"],
+                                              dtype="float32")
+        data = list(itertools.islice(lm_batches(cfg.vocab_size, c["batch"],
+                                                c["seq"], seed=0),
+                                     c["steps"]))
+        gpu = build_model(cfg, torch.float32, device="cuda", seed=0)
+        cpu = build_model(cfg, torch.float32, device="cpu", seed=0)
+        cpu.load_state_dict(gpu.state_dict())
+        t0 = time.perf_counter()
+        hist = {name: train(model, tc, iter(data), steps=c["steps"],
+                            log_every=1)[2]
+                for name, model in (("cuda", gpu), ("cpu", cpu))}
+        keys = [k for k in TRAIN_CHECK_KEYS if k in hist["cpu"][0]]
+        vals = {name: {k: [h[k] for h in hs] for k in keys}
+                for name, hs in hist.items()}
+        rel = max(abs(a - b) / max(abs(b), 1e-30)
+                  for k in keys
+                  for a, b in zip(vals["cuda"][k], vals["cpu"][k]))
+        print(f"train check [{c['layers']}-layer {arch}, B {c['batch']}, L "
+              f"{c['seq']}]: card {vals['cuda']}, CPU {vals['cpu']}; "
+              f"max rel diff {rel:.2e} (tol {TRAIN_CHECK_RTOL:g}); "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(rel <= TRAIN_CHECK_RTOL, f"train check [{arch}]: card and "
+              f"CPU {'/'.join(keys)} differ by {rel:.2e}")
+        del cpu
+        if arch == "qwen3-0.6b":
+            checkpoint_check(torch, cfg, gpu, batch_to(data[0], "cuda"),
+                             c["steps"])
+        del gpu
+        free_memory(torch)
+
+
+def checkpoint_check(torch, cfg, trained, batch, steps):
+    """Saves ``trained``'s weights, loads them into a model made from
+    another seed, and holds the two models' logits equal bit for bit."""
+    from repro_torch.models.model import build_model
+    from repro_torch.training import load_checkpoint, save_checkpoint
+    path = str(ROOT / "build" / "ckpt" / "qwen3-4l")
+    t0 = time.perf_counter()
+    save_checkpoint(path, trained.state_dict(), step=steps)
+    fresh = build_model(cfg, torch.float32, device="cuda", seed=1)
+    sd, step_n = load_checkpoint(path, fresh.state_dict())
+    fresh.load_state_dict(sd)
+    with torch.no_grad():
+        same = torch.equal(trained.forward(batch["tokens"])[0],
+                           fresh.forward(batch["tokens"])[0])
+    for ext in (".npz", ".json"):
+        Path(path + ext).unlink()
+    print(f"checkpoint: {step_n} steps, {len(sd)} tensors saved and "
+          f"loaded on the card in {time.perf_counter() - t0:.1f} s; "
+          f"logits of the loaded model {'equal' if same else 'DIFFER'}")
+    check(step_n == steps and same, "checkpoint round trip differs")
+
+
+@contextlib.contextmanager
+def recording_kernels(ops):
+    """The inputs of the first call of each kernel wrapper while open
+    (cloned), to hold each kernel against its plain version afterwards at
+    the shapes the run gave it."""
+    names = ("flash_attention", "xmodal_mean_sum", "xmodal_max_sum",
+             "moe_dispatch", "moe_combine")
+    saved = {name: getattr(ops, name) for name in names}
+    seen = {}
+
+    def recorded(name, fn):
+        def call(*args, **kw):
+            if name not in seen:
+                seen[name] = ([a.clone() for a in args], dict(kw))
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, recorded(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def rescore_phase(torch, ops, ref, card):
+    """``core.rescore.camd_wrap`` at full width, fp32, a round of
+    ``RESCORE`` candidates: llava-1.5-7b with the vision tower's 576 rows
+    of one seeded image as evidence, granite-moe-3b-a800m without. Each
+    impl runs once with the launch counts set to 0 just before: ``torch``
+    launches nothing; ``cuda`` launches K2 once a layer, K4a and K4b once
+    each (llava), K5a and K5b once a layer (granite). Their scores and
+    terms agree within ``RESCORE_TOL``, ``stop`` and ``best_uid`` are
+    equal, ``p_star`` within ``RESCORE_P_STAR_ATOL``; so are the decisions
+    of a second call of both impls at cluster threshold 1.0, where every
+    candidate is a cluster of its own (random weights leave the
+    candidates' mean hidden states nearly parallel: one cluster at the
+    default 0.85, p_star 1 on both). Each kernel's first
+    call is held against its plain version on the same inputs; the
+    teacher-forced forward is timed by CUDA events on both impls. Returns
+    {run: launches of the cuda run}."""
+    from repro_torch.config import CAMDConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import rescore
+    from repro_torch.models.model import build_model
+    r = RESCORE
+    runs = {}
+    camd, camd_split = CAMDConfig(), CAMDConfig(cluster_threshold=1.0)
+    for arch in ("llava-1.5-7b", "granite-moe-3b-a800m"):
+        free_memory(torch)
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch).with_overrides(dtype="float32")
+        model = build_model(cfg, torch.float32, device="cuda", seed=0)
+        g = torch.Generator(device="cuda").manual_seed(7)
+        V, L = cfg.vocab_size, cfg.num_layers
+        prompt = torch.randint(2, V, (r["prompt"],), generator=g,
+                               device="cuda", dtype=torch.int32)
+        cands = torch.randint(2, V, (r["K"], r["cand"]), generator=g,
+                              device="cuda", dtype=torch.int32)
+        mask = torch.ones(r["K"], r["cand"], device="cuda")
+        mask[-1, r["cand"] // 2:] = 0          # a shorter candidate
+        evidence = None
+        if model.has_vision_tower:
+            v = cfg.vision
+            image = torch.rand((1, v.image_h, v.image_w, v.channels),
+                               generator=g, device="cuda")
+            with torch.no_grad():
+                evidence = model.encode_image(image)[0]
+        dec, launches, clusters, split = {}, {}, {}, {}
+        for impl in ("torch", "cuda"):
+            ops.reset_launches()
+            with recording_kernels(ops) as seen:
+                state, dec[impl] = rescore.camd_wrap(
+                    model, camd, prompt, cands, mask, evidence, impl=impl)
+                torch.cuda.synchronize()
+            launches[impl] = dict(ops.LAUNCHES)
+            clusters[impl] = int(state.table.n_clusters[0])
+            # every candidate a cluster of its own: p_star is the largest
+            # posterior weight, a smooth function of the scores
+            split[impl] = rescore.camd_wrap(model, camd_split, prompt, cands,
+                                            mask, evidence, impl=impl)[1]
+        run = f"{arch} rescore"
+        runs[run] = launches["cuda"]
+        check(not any(launches["torch"].values()),
+              f"{run}: the torch impl launched {launches['torch']}")
+        want = {"flash_attention": L}
+        if evidence is not None:
+            want.update(xmodal_score_mean=1, xmodal_score_max=1)
+        if cfg.moe is not None:
+            want.update(moe_dispatch=L, moe_combine=L)
+        for name, n in launches["cuda"].items():
+            check(n == want.get(name, 0), f"{run}: {name} launched {n} "
+                  f"times, not {want.get(name, 0)}")
+        a, b = dec["cuda"], dec["torch"]
+        errs = {}
+        for key in ("scores", "s_gen", "s_align", "s_coh"):
+            x = a["scores"] if key == "scores" else a["terms"][key]
+            y = b["scores"] if key == "scores" else b["terms"][key]
+            check(bool(torch.isfinite(x).all()), f"{run}: {key} not finite")
+            atol, rtol = RESCORE_TOL
+            err = (x - y).abs()
+            errs[key] = float(err.max())
+            check(bool((err <= atol + rtol * y.abs()).all()),
+                  f"{run}: {key} cuda vs torch {errs[key]:.3e}")
+        dps = []
+        for a_, b_ in ((a, b), (split["cuda"], split["torch"])):
+            dps.append(abs(float(a_["p_star"]) - float(b_["p_star"])))
+            check(bool(a_["stop"]) == bool(b_["stop"]) and
+                  int(a_["best_uid"]) == int(b_["best_uid"]) and
+                  dps[-1] <= RESCORE_P_STAR_ATOL,
+                  f"{run}: decisions differ: stop {bool(a_['stop'])}/"
+                  f"{bool(b_['stop'])}, best {int(a_['best_uid'])}/"
+                  f"{int(b_['best_uid'])}, p_star diff {dps[-1]:.2e}")
+        # each kernel's first call against its plain version
+        for name, (args, kw) in seen.items():
+            out = getattr(ops, name)(*args, **kw)
+            exp = getattr(ref, name + "_ref")(*args, **kw)
+            shape = "x".join(str(d) for d in args[
+                -1 if name == "moe_combine" else 0].shape)
+            if name == "moe_dispatch":
+                check(torch.equal(out, exp), f"{run}: moe_dispatch differs "
+                      "from its plain version")
+                print(f"  {name:24s} {run} {shape}: bit for bit")
+            else:
+                compare(torch, name, f"{run} {shape}", out, exp, "float32")
+        check(clusters["cuda"] == clusters["torch"],
+              f"{run}: {clusters} clusters")
+        hm = rescore.rescore_candidates(model, camd, prompt, cands, mask,
+                                        evidence)["hidden_mean"]
+        hm = hm / hm.norm(dim=-1, keepdim=True)
+        cos = (hm @ hm.T)[~torch.eye(r["K"], dtype=torch.bool,
+                                     device="cuda")]
+        print(f"rescore [{arch}]: {clusters['cuda']} clusters at threshold "
+              f"{camd.cluster_threshold}; candidates' mean hidden states "
+              f"cos {float(cos.min()):.6f} .. {float(cos.max()):.6f}; a "
+              f"cluster each (threshold 1.0): p_star "
+              f"{float(split['cuda']['p_star']):.7f} (torch "
+              f"{float(split['torch']['p_star']):.7f}, diff {dps[1]:.2e}), "
+              f"best uid {int(split['cuda']['best_uid'])}")
+        fwd = {}
+        for impl in ("torch", "cuda"):
+            fwd[impl] = wall_event_ms(torch, lambda: rescore.
+                                      teacher_forced_stats(
+                                          model, prompt, cands, mask,
+                                          evidence, impl=impl), reps=3)[1]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"rescore [{arch}, {L}L]: {r['K']} candidates x {r['cand']} "
+              f"tokens after a {r['prompt']}-token prompt"
+              f"{' and 576 image rows' if evidence is not None else ''}; "
+              f"stop {bool(a['stop'])}, p_star {float(a['p_star']):.6f} "
+              f"(torch {float(b['p_star']):.6f}), best uid "
+              f"{int(a['best_uid'])}; cuda vs torch max err "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) +
+              f"; teacher-forced forward {fwd['cuda']:.2f} ms (cuda) / "
+              f"{fwd['torch']:.2f} ms (torch), CUDA events; peak "
+              f"{peak_gb:.1f} GB; launches {launches['cuda']}  [{card}]")
+        del model, evidence, dec
+        free_memory(torch)
+    return runs
+
+
+def grad_guard_check(torch, ops):
+    """No kernel has a backward: each kernel of the rescore path, called
+    on the card with an input that requires grad under grad mode, raises
+    and launches nothing."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    q, k, v = rand(1, 64, 4, 64), rand(1, 64, 2, 64), rand(1, 64, 2, 64)
+    tok, vis, txt = rand(1, 8, 64), rand(1, 16, 64), rand(1, 4, 64)
+    idx = torch.zeros((1, 2, 8), dtype=torch.int32, device="cuda")
+    x = rand(1, 4, 64)
+    slot = torch.zeros((1, 4, 2), dtype=torch.int32, device="cuda")
+    gates, eo = rand(1, 4, 2), rand(1, 2, 8, 64)
+    calls = {
+        "flash_attention": lambda t: ops.flash_attention(t(q), k, v),
+        "xmodal_score": lambda t: ops.xmodal_score(
+            t(tok), torch.ones(1, 8, device="cuda"), vis, txt),
+        "moe_dispatch": lambda t: ops.moe_dispatch(idx, t(x)),
+        "moe_combine": lambda t: ops.moe_combine(slot, t(gates), eo),
+    }
+    ops.reset_launches()
+    for name, call in calls.items():
+        try:
+            call(lambda t: t.detach().requires_grad_(True))
+        except RuntimeError as e:
+            check("requires grad" in str(e), f"{name}: {e}")
+        else:
+            fail(f"grad guard: {name} ran on an input that requires grad")
+    check(not any(ops.LAUNCHES.values()), f"grad guard: launched "
+          f"{ops.LAUNCHES}")
+    print(f"grad guard: {', '.join(calls)} raise on inputs that require "
+          "grad, with nothing launched")
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("run from the root of a checkout: src/repro_torch not found")
@@ -2368,6 +2770,22 @@ def main() -> None:
     new_serves = tuple(r for r in new_cfg_runs if r.endswith(" serve"))
     new_dense = tuple(r for r in new_cfg_runs if r.endswith("dense check"))
 
+    stamp("training")
+    # training at full width on the plain impl, the card against the CPU
+    # at 4 layers, a checkpoint round trip; then plug-and-play rescoring
+    # through K2, K4 and K5; kernels refuse inputs that require grad
+    t0 = time.perf_counter()
+    free_memory(torch)
+    train_runs = train_phase(torch, ops, card)
+    train_check(torch)
+    stamp("rescoring")
+    rescore_runs = rescore_phase(torch, ops, ref, card)
+    runs.update(rescore_runs)
+    grad_guard_check(torch, ops)
+    launched = sum(sum(r.values()) for r in train_runs.values())
+    print(f"training and rescoring phases: {time.perf_counter() - t0:.1f} s "
+          f"(training launched {launched} kernels)")
+
     stamp("launches")
     # launches: the serve phases for the kernels the serving path runs,
     # the dense checks for the dense decode kernel (K3), which only the
@@ -2385,10 +2803,13 @@ def main() -> None:
                   tuple(open_runs) + ("qwen3-0.6b open loop camd",) +
                   new_serves
                   for name in ("flash_attention", "paged_decode_attention")})
-    paths.update({name: serves + spec_runs[1:2] + ("internvl2-2b serve",)
+    paths["flash_attention"] += tuple(rescore_runs)
+    paths.update({name: serves + spec_runs[1:2] + ("internvl2-2b serve",
+                                                   "llava-1.5-7b rescore")
                   for name in ("xmodal_score_mean", "xmodal_score_max")})
-    paths.update({name: serves + spec_runs[2:] for name in
-                  ("moe_dispatch", "moe_combine")})
+    paths.update({name: serves + spec_runs[2:] +
+                  ("granite-moe-3b-a800m rescore",)
+                  for name in ("moe_dispatch", "moe_combine")})
     meta = {
         "flash_attention": ("flash_attention",
                             "kernels/flash_attention.py:89"),

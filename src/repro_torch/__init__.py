@@ -21,3 +21,10 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_memory_bytes(device: torch.device):
+    """Total memory of a CUDA device; None for the CPU (not checked)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory

@@ -1,9 +1,10 @@
 """Configuration dataclasses of the port.
 
 Copies of ``ModelConfig``, ``MoEConfig``, ``VisionConfig``,
-``SamplingConfig``, ``CAMDConfig`` and ``PagedKVConfig`` from the JAX
-package's ``repro/config.py``, field for field, so a config built for one
-package describes the same model and serving setup in the other.
+``SamplingConfig``, ``CAMDConfig``, ``PagedKVConfig`` and ``TrainConfig``
+from the JAX package's ``repro/config.py``, field for field, so a config
+built for one package describes the same model, serving and training
+setup in the other.
 """
 from __future__ import annotations
 
@@ -202,3 +203,23 @@ class SamplingConfig:
     min_p: float = 0.0             # 0 = off
     repetition_penalty: float = 1.05
     max_new_tokens: int = 64
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "cosine"       # cosine | linear | constant
+    remat: bool = True             # activation checkpointing over layers
+    unroll: bool = False           # the reference's dry-run cost model
+                                   # unrolls its layer scan; the port's
+                                   # layers are a Python loop already
+    microbatches: int = 1          # gradient-accumulation splits of the
+                                   # global batch (bounds activation memory)
+    seed: int = 0

@@ -12,6 +12,7 @@ down). Other subtrees flatten by name; a
 sequence inside them, such as the vision tower's tuple of blocks
 (``repro/models/vision.py:62``), by index: ``vision.blocks.<i>.wq.kernel``.
 The evidence projection carries over as ``evidence_proj.kernel``.
+``opt_state_from_jax`` carries an optimizer state's moments the same way.
 """
 from __future__ import annotations
 
@@ -57,6 +58,18 @@ def params_from_jax(np_tree: Mapping[str, Any],
         for name, arr in per_layer.items():
             flat[f"layers.{n_super * len(pat) + j}.{name}"] = arr
     return {k: _to_tensor(v) for k, v in flat.items()}
+
+
+def opt_state_from_jax(opt_np, cfg: ModelConfig):
+    """The reference's ``OptState`` with numpy leaves (``jax.tree.map(
+    np.asarray, opt)``) as the port's: the step counter, and ``m``, ``v``
+    keyed as ``params_from_jax`` keys the parameters (CPU tensors, the
+    moments' dtypes)."""
+    from repro_torch.training.optimizer import OptState
+    return OptState(step=torch.tensor(int(np.asarray(opt_np.step)),
+                                      dtype=torch.int32),
+                    m=params_from_jax(opt_np.m, cfg),
+                    v=params_from_jax(opt_np.v, cfg))
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:

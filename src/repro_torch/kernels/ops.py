@@ -4,7 +4,9 @@ cross-modal score (K4) and the MoE dispatch and combine (K5).
 Dispatch follows the tensor: on a CPU tensor each wrapper runs the plain
 PyTorch version (``ref.py``); on a CUDA tensor it launches its hand-written
 kernel (``csrc/*.cu``) or raises. There is no switch that runs the plain
-path on the card. Every wrapper checks device, dtype, shape and
+path on the card. No kernel has a backward: a wrapper raises on the card
+when grad mode is on and an input requires grad (training runs the plain
+impl). Every wrapper checks device, dtype, shape and
 contiguity, allocates its output with ``torch.empty``, launches on the
 current stream, raises on a nonzero ``cudaGetLastError()``, and adds one to
 its entry in ``LAUNCHES``.
@@ -56,6 +58,14 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _check_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    # no kernel has a backward: its output, written through a raw pointer,
+    # would carry no grad_fn and the gradients upstream would go missing
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad and the kernel has no "
+            "backward; call it under torch.no_grad() or train through "
+            "the plain impl (impl='torch')")
     dev = tensors[0].device
     for t in tensors:
         if t is None:

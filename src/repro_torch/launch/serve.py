@@ -43,7 +43,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import device_memory_bytes, resolve_device
 from repro_torch.config import (CAMDConfig, PagedKVConfig, SamplingConfig,
                                 VisionConfig)
 from repro_torch.configs import get_config
@@ -178,13 +178,6 @@ def make_requests(cfg, args) -> List[Request]:
                                       cfg.evidence_dim)).astype(np.float32)
         reqs.append(Request(uid=i, prompt=prompt, evidence=ev))
     return reqs
-
-
-def device_memory_bytes(device: torch.device) -> Optional[int]:
-    """Total memory of a CUDA device; None for the CPU (not checked)."""
-    if device.type != "cuda":
-        return None
-    return torch.cuda.get_device_properties(device).total_memory
 
 
 def build_engine(args: argparse.Namespace, param_dtype=torch.float32):

@@ -1,5 +1,6 @@
-"""Model facade of the port: parameters as ``nn.Module``s plus the serving
-API the engine calls (``repro/models/model.py:94-223``).
+"""Model facade of the port: parameters as ``nn.Module``s plus the
+full-sequence forward and the serving API the engine calls
+(``repro/models/model.py:38-223``).
 
 Parameter names mirror the reference's param tree: ``embed.table``,
 ``layers.<i>.ln1.scale``, ``layers.<i>.attn.wq.kernel``,
@@ -7,10 +8,12 @@ Parameter names mirror the reference's param tree: ``embed.table``,
 ``layers.<i>.moe.router.kernel`` and ``layers.<i>.moe.w_gate``),
 ``final_norm.scale``, untied ``unembed.kernel`` and, for the vlm family,
 ``evidence_proj.kernel`` and the vision tower's ``vision.*`` —
-``convert.params_from_jax`` produces exactly these keys. The port serves
-decoder-only attention stacks with dense or MoE MLPs, with evidence
-tokens and a vision tower in the vlm family; other families raise
-``NotImplementedError``.
+``convert.params_from_jax`` produces exactly these keys. The port runs
+the full-sequence forward (training, rescoring) and serves decoder-only
+attention stacks with dense or MoE MLPs, with evidence tokens and a
+vision tower in the vlm family; other families raise
+``NotImplementedError``. Parameters are made with ``requires_grad``
+off; ``training.train_loop.train`` turns it on.
 """
 from __future__ import annotations
 
@@ -94,6 +97,18 @@ class Model(nn.Module):
             else None
         self.vision = VisionTower(cfg, **kw) if cfg.vision is not None \
             else None
+
+    # -- full-sequence forward (training / scoring) ----------------------
+    def forward(self, tokens, evidence=None, *, impl: str = "torch",
+                remat: bool = False):
+        """Every position's logits (``repro/models/model.py:38``): tokens
+        (B, L), optional evidence (B, Ne, De) ahead of them. Returns
+        (logits (B, Ne + L, V), hidden (B, Ne + L, d), aux), ``aux`` the
+        MoE layers' ``moe_lb_loss``, ``moe_z_loss`` and ``moe_drop_frac``
+        (empty for a dense model). ``remat`` recomputes each layer in the
+        backward pass."""
+        return tf_lib.transformer_forward(self, tokens, evidence, impl=impl,
+                                          remat=remat)
 
     # -- serving ---------------------------------------------------------
     def make_cache(self, batch: int, cache_len: int, dtype=None):

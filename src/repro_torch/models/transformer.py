@@ -1,4 +1,5 @@
-"""Decoder-only attention stacks: cache layouts, prefill and decode.
+"""Decoder-only attention stacks: the full-sequence forward, cache
+layouts, prefill and decode.
 
 Follows ``repro/models/transformer.py`` for attention-only stacks, with a
 Python loop over layers where the reference scans over stacked
@@ -16,11 +17,12 @@ update the cache tensors in place and return the same dict.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import dense, embed, mlp, rmsnorm, unembed
-from repro_torch.models.moe import moe_apply
+from repro_torch.models.moe import moe_apply, moe_aux
 
 
 def _ring_len(cfg: ModelConfig, cache_len: int) -> int:
@@ -63,16 +65,23 @@ def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     return cache
 
 
-def _mlp_part(blk, cfg: ModelConfig, x, impl: str):
+def _mlp_routed(blk, cfg: ModelConfig, x, impl: str):
     """The MLP sub-block (``transformer.py:61``): dense, or MoE with its
-    dispatch and combine through ``impl``. Serving drops the MoE's router
-    losses, as the reference's prefill and decode do."""
+    dispatch and combine through ``impl``. Returns (x + its output, the
+    MoE's routing for ``moe_aux``, None in a dense block)."""
     if blk.ln2 is None:                 # d_ff == 0: attention-only block
-        return x
+        return x, None
     h = rmsnorm(blk.ln2.scale, x, cfg.norm_eps)
     if blk.moe is not None:
-        return x + moe_apply(blk.moe, cfg, h, impl=impl)[0]
-    return x + mlp(blk.mlp, h)
+        y, routing = moe_apply(blk.moe, cfg, h, impl=impl)
+        return x + y, routing
+    return x + mlp(blk.mlp, h), None
+
+
+def _mlp_part(blk, cfg: ModelConfig, x, impl: str):
+    """``_mlp_routed`` without the routing: serving drops the MoE's router
+    losses, as the reference's prefill and decode do."""
+    return _mlp_routed(blk, cfg, x, impl)[0]
 
 
 def _logits(model, h):
@@ -98,6 +107,69 @@ def embed_inputs(model, tokens, evidence=None):
         dt = torch.promote_types(evidence.dtype, kernel.dtype)
         ev = dense(kernel.to(dt), evidence.to(dt)).to(x.dtype)
     return torch.cat([ev, x], dim=1)
+
+
+def _add_aux(acc, aux):
+    """acc[k] += aux[k], for keys new to ``acc`` too."""
+    for k, v in aux.items():
+        acc[k] = acc[k] + v if k in acc else v
+
+
+def _superblock(model, blocks, x, positions, impl: str):
+    """One tile of ``cfg.block_pattern`` over the whole sequence, without
+    a cache (``transformer.py:220``). Returns (x, aux): each MoE layer's
+    router losses and dropped share (``moe_aux``), summed over the tile's
+    layers as the reference's ``_sum_aux`` sums them."""
+    cfg = model.cfg
+    aux = {}
+    for blk in blocks:
+        h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
+        y, _ = attn_lib.attn_prefill(blk.attn, cfg, h, positions,
+                                     window=cfg.attn_window, impl=impl)
+        x, routing = _mlp_routed(blk, cfg, x + y, impl)
+        if routing is not None:
+            _add_aux(aux, moe_aux(*routing))
+    return x, aux
+
+
+def transformer_forward(model, tokens, evidence=None, *, impl: str = "torch",
+                        remat: bool = False):
+    """Full-sequence forward for training and scoring
+    (``transformer.py:203``): evidence rows (optional) ahead of the
+    tokens, positions 0..L-1 over both, every layer's attention through
+    ``attn_prefill`` with no cache. Returns (logits (B, L, V), hidden
+    (B, L, d) after the final norm, aux).
+
+    ``aux`` reduces the MoE layers' values as the reference does: the sum
+    over each super-block's pattern positions, the mean of that over the
+    super-blocks, plus each tail layer's value (for a one-kind pattern,
+    the mean over layers). ``remat`` recomputes each super-block in the
+    backward pass (``torch.utils.checkpoint``, the counterpart of
+    ``jax.checkpoint(superblock)``)."""
+    cfg = model.cfg
+    x = embed_inputs(model, tokens, evidence)
+    B, L, _ = x.shape
+    positions = torch.arange(L, device=x.device).expand(B, L)
+    n_pat = len(cfg.block_pattern)
+    n_super = cfg.num_layers // n_pat
+    layers = list(model.layers)
+
+    def run(x, blocks):
+        if remat:
+            return checkpoint(_superblock, model, blocks, x, positions, impl,
+                              use_reentrant=False)
+        return _superblock(model, blocks, x, positions, impl)
+
+    sums = {}
+    for s in range(n_super):
+        x, aux = run(x, layers[s * n_pat:(s + 1) * n_pat])
+        _add_aux(sums, aux)
+    aux_out = {k: v / n_super for k, v in sums.items()}
+    for blk in layers[n_super * n_pat:]:
+        x, aux = run(x, [blk])
+        _add_aux(aux_out, aux)
+    logits, hidden = _logits(model, x)
+    return logits, hidden, aux_out
 
 
 def transformer_prefill(model, tokens, cache, evidence=None, *,

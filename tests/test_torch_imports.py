@@ -2,9 +2,10 @@
 module of the JAX package ``repro``.
 
 A fresh interpreter installs an import hook that refuses those names,
-then imports every module of the port (the async front-end and the
-traffic module among them) and runs its serve entry point on the CPU,
-closed-loop and open-loop.
+then imports every module of the port (the async front-end, the traffic
+module, training and rescoring among them), runs its serve entry point
+on the CPU, closed-loop and open-loop, and its training launcher for two
+reduced steps.
 """
 import os
 import subprocess
@@ -39,6 +40,13 @@ out = serve.main(["--device", "cpu", "--requests", "2", "--max-new", "4",
 assert out["metrics"]["completed"] == 2, out["metrics"]
 assert {"repro_torch.serving.frontend",
         "repro_torch.serving.traffic"} <= set(names), names
+# the training launcher: two reduced steps
+from repro_torch.launch import train
+hist = train.main(["--device", "cpu", "--reduced", "--steps", "2",
+                   "--batch", "2", "--seq", "16"])
+assert len(hist) == 2, hist
+assert {"repro_torch.training.train_loop", "repro_torch.core.rescore",
+        "repro_torch.data.tasks"} <= set(names), names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked

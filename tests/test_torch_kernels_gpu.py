@@ -78,6 +78,25 @@ def test_flash_kernel_on_card(gen, dtype, hd):
 
 
 @pytest.mark.gpu
+def test_kernel_refuses_inputs_that_require_grad(gen):
+    """No kernel has a backward: K2 on a q that requires grad raises under
+    grad mode (its output would carry no grad_fn, and q's gradient would
+    go missing) and launches, equal to its plain version, under
+    ``no_grad``."""
+    q = _rand(gen, (2, 64, 4, 64)).requires_grad_(True)
+    k, v = _rand(gen, (2, 64, 2, 64)), _rand(gen, (2, 64, 2, 64))
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.flash_attention(q, k, v)
+    assert ops.LAUNCHES["flash_attention"] == 0
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+        exp = ref.flash_attention_ref(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention"] == 1 and out.grad_fn is None
+    _close(out, exp, torch.float32)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_unaligned_on_card(gen, dtype):
     """Contiguous q/k/v whose bases are not 16-byte aligned (views one
