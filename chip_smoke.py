@@ -107,7 +107,7 @@ Run from the root of a checkout. It
      defaults) and granite-moe-3b-a800m (10 steps) trained in fp32
      through the training launcher on the plain impl (no kernel
      launches; losses finite, qwen3's falling, peak memory, median step,
-     tokens/s, the AdamW update's time, granite's router losses); at 4
+     tokens/s, the AdamW update's time, granite's router losses); at 2
      layers three train steps of each on the card against the same three
      on the CPU (losses, and granite's router losses), and a checkpoint
      round trip on the card; then ``camd_wrap``
@@ -117,6 +117,20 @@ Run from the root of a checkout. It
      once a layer, agrees with the plain one, and each kernel's first
      call is held against its plain version at the shape it got; last,
      every kernel of that path raises on inputs that require grad.
+  31-32. the recurrent and hybrid models: at 3 layers, full widths, fp32,
+     the greedy streams of torch (K 8), cuda (K 8, the graph) and cuda
+     (K 0) must agree for mamba2-780m (SSD blocks) and recurrentgemma-2b
+     (RG-LRU blocks and local attention); then each is served at full
+     width in fp32 through ``--impl cuda`` (8 requests arriving at once
+     through the front-end, for TTFT), with exact launch counts (mamba2
+     none; recurrentgemma K2 once a local layer a prefill, K3 once a
+     local layer a replayed step, nothing else), one graph, the state
+     arena empty and audited at the end, tokens/s, TTFT, the arena's
+     stats, the capture and a replay's device time a step against the
+     byte bound of one step. The kernel phase holds and times K2 and K3
+     at head_dim 256 (``hd256_phase``: recurrentgemma's 10 query heads
+     over one kv head, the window binding at L 3072 and on a wrapped
+     2048-slot ring).
 Every serve phase and open-loop wave checks that the flash kernel ran
 once a layer a whole-prompt prefill forward and the paged decode kernel
 once a layer a step of every replay (none in a speculative run).
@@ -172,9 +186,17 @@ LARGE_HEADS = {"qwen2.5-32b": (40, 8), "yi-34b": (56, 8),
 # internvl2-2b: 256 image tokens (448 / 28 squared) of width 2048
 INTERNVL_TOKENS, INTERNVL_D = 256, 2048
 INTERNVL_CACHE_LEN = INTERNVL_TOKENS + CACHE_LEN   # 544, a page multiple
-# the kernels' JSON entries at the shapes of the remaining configs
+# recurrentgemma-2b's local attention, which K2 and K3 serve at head_dim
+# 256: 10 query heads over one kv head, a window of 2048
+RG_ATTN = dict(H=10, Hkv=1, hd=256, window=2048)
+# the kernels' JSON entries at the shapes of the remaining configs, and of
+# recurrentgemma-2b's local attention (K2 in fp32 and bf16 at the served
+# prefill and in fp32 at 3072 tokens, where the window binds; K3 at the
+# served decode)
+HD256_ENTRIES = ("recurrentgemma-2b", "recurrentgemma-2b bf16",
+                 "recurrentgemma-2b L3072")
 NEW_ENTRIES = tuple(LARGE_HEADS) + ("granite-34b int8", "granite-34b fp8",
-                                    "internvl2-2b")
+                                    "internvl2-2b") + HD256_ENTRIES
 # K3's second timing shape: the reference's decode_32k cache length
 # (repro/config.py:263); K3 is timed at each length of the sweep, from
 # one 16-row tile to 2048 of them
@@ -889,6 +911,123 @@ def any_g_phase(torch, ops, ref, timer, kv_quantize):
     return timed, {k_: max(v_) for k_, v_ in errs.items()}
 
 
+def window_pairs(L, window):
+    """(query, key) pairs of a causal prefill of L tokens under a sliding
+    window (a key at most ``window - 1`` positions back)."""
+    return sum(min(i + 1, window) for i in range(L))
+
+
+def hd256_phase(torch, ops, ref, timer):
+    """K2 and K3 at recurrentgemma-2b's local attention (``RG_ATTN``: H 10
+    over one kv head, head_dim 256, window 2048), fp32 and bf16, each
+    against its plain version and twice for the same bits: K2 at the
+    served one-row prefill (L 256), at L 3072 (the window binds), at a
+    ragged L 200 and with key lengths; K3 at the served decode (B 8,
+    S 288, a ring mask), on a 2048-slot ring whose positions wrapped past
+    it under ``ring_mask``'s window term (window 2048, and 1536, which
+    excludes rows), and at a row with no valid key under several splits
+    and one. Then timed: K2 at the served prefill in fp32 and bf16 and at
+    L 3072 in fp32 beside SDPA and its bounds (bytes; the window's causal
+    pairs over the 3xTF32 or bf16 tensor-core rate), K3 at the served
+    decode (``decode_timing``). Returns ({kernel: {entry: times}},
+    {kernel: max_abs_err})."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(9)
+    H, Hkv, hd, W = (RG_ATTN[k] for k in ("H", "Hkv", "hd", "window"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {"flash_attention": [], "decode_attention": []}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for B, L, lens in ((1, SERVE["prompt"], None), (1, 3072, None),
+                           (1, 200, None), (2, 200, [200, 77])):
+            q, k, v = (torch.randn(B, L, h, hd, generator=g,
+                                   device="cuda").to(dt)
+                       for h in (H, Hkv, Hkv))
+            ln = None if lens is None else torch.tensor(
+                lens, dtype=torch.int32, device="cuda")
+            out = ops.flash_attention(q, k, v, window=W, lengths=ln)
+            case = f"{dtype} B{B} L{L} H{H}/{Hkv} hd{hd} w={W} lens={lens}"
+            errs["flash_attention"].append(compare(
+                torch, "flash_attention", case, out,
+                ref.flash_attention_ref(q, k, v, window=W, lengths=ln),
+                dtype))
+            check(torch.equal(out, ops.flash_attention(q, k, v, window=W,
+                                                       lengths=ln)),
+                  f"flash_attention {case}: two runs differ")
+            del q, k, v
+        for B, S, kind, win in ((8, CACHE_LEN, "ring", W),
+                                (8, 2048, "wrapped", W),
+                                (8, 2048, "wrapped", 1536),
+                                (3, CACHE_LEN, "empty row", W),
+                                (3, 16, "empty row", W)):
+            q, k, v = (torch.randn(B, n_, h, hd, generator=g,
+                                   device="cuda").to(dt)
+                       for n_, h in ((1, H), (S, Hkv), (S, Hkv)))
+            pos = torch.randint(0, S, (B,), generator=g, device="cuda")
+            if kind == "wrapped":
+                pos = pos + S + 1
+            slot = torch.arange(S, device="cuda")
+            slot_pos = pos[:, None] - torch.remainder(
+                pos[:, None] - slot[None, :], S)
+            mask = (slot_pos >= 0) & (slot_pos > pos[:, None] - win)
+            if kind == "empty row":
+                mask[1] = False
+            n_split, rows = ops.decode_splits(
+                B, Hkv * ops.decode_groups(H // Hkv), S, sms)
+            case = f"{dtype} B{B} S{S} H{H}/{Hkv} hd{hd} {kind} w={win} " \
+                f"{n_split}x{rows}, {ops.decode_groups(H // Hkv)} groups"
+            out = ops.decode_attention(q, k, v, mask)
+            errs["decode_attention"].append(compare(
+                torch, "decode_attention", case, out,
+                ref.decode_attention_ref(q, k, v, mask), dtype))
+            check(torch.equal(out, ops.decode_attention(q, k, v, mask)),
+                  f"decode_attention {case}: two runs differ")
+            del q, k, v
+    timed = {"flash_attention": {}, "decode_attention": {}}
+    for key, L, dtype in (("recurrentgemma-2b", SERVE["prompt"], "float32"),
+                          ("recurrentgemma-2b bf16", SERVE["prompt"],
+                           "bfloat16"),
+                          ("recurrentgemma-2b L3072", 3072, "float32")):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(1, L, h, hd, generator=g,
+                               device="cuda").to(dt) for h in (H, Hkv, Hkv))
+        shape = f"{DT_NAMES[dtype]} B1 L{L} H{H} Hkv{Hkv} hd{hd} causal " \
+            f"window {W}"
+        errs["flash_attention"].append(compare(
+            torch, "flash_attention", f"{shape} (timed)",
+            ops.flash_attention(q, k, v, window=W),
+            ref.flash_attention_ref(q, k, v, window=W), dtype))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        band = torch.ones(L, L, dtype=torch.bool, device="cuda").tril() & \
+            ~torch.ones(L, L, dtype=torch.bool, device="cuda").tril(-W)
+        t = times(timer, lambda: ops.flash_attention(q, k, v, window=W),
+                  "flash_kernel",
+                  lambda: ref.flash_attention_ref(q, k, v, window=W),
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, attn_mask=band, enable_gqa=True))
+        nbytes = dt.itemsize * (2 * L * H * hd + 2 * L * Hkv * hd)
+        flops = 4 * H * hd * window_pairs(L, W)
+        if dtype == "float32":
+            t["bound_ms"], t["bound_by"], b = tf32_bounds(nbytes, flops)
+            t.update({f"bound_{k_}_ms": val for k_, val in b.items()})
+        else:
+            t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, dtype)
+        t["shape"] = shape
+        print(f"  flash_attention {key}: kernel {t['ms']:.4f} ms (call "
+              f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
+              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} ms "
+              f"({t['bound_by']}; {shape})")
+        timed["flash_attention"][key] = {
+            k_: t[k_] for k_ in SUB_KEYS + TF32_BOUNDS if k_ in t}
+        del q, k, v, qt, kt, vt
+    t, err = decode_timing(torch, ops, ref, timer, g, CACHE_LEN, H=H,
+                           Hkv=Hkv, hd=hd)
+    errs["decode_attention"].append(err)
+    timed["decode_attention"]["recurrentgemma-2b"] = {
+        k_: t[k_] for k_ in SUB_KEYS + ("by_kernel",)}
+    return timed, {k_: max(v_) for k_, v_ in errs.items()}
+
+
 def xmodal_max_bounds(B, Nt, Nv, d):
     """K4b's ``tf32_bounds`` at an fp32 shape: txt and vis read once and
     the (B,) sums written once; 2 Nt Nv d FLOPs a batch row."""
@@ -1343,7 +1482,9 @@ def graph_phase(torch, name, out, timer):
     one macro launch at the serve shape on the engine's idle slots (every
     iteration masked; the same kernels and shapes as a real launch):
     replayed against the same body run eagerly, each as host wall time,
-    CUDA-event window and device busy time (the profiler's kernel sum)."""
+    CUDA-event window and device busy time (the profiler's kernel sum):
+    the replay over 5 calls (3 profiled), the eager body, which takes up to
+    1.2 s a call on the 32-34B models, over 2 (1 profiled)."""
     eng = out["engine"]
     K = max(eng.macro_steps, 1)
     masked = 1 - eng.total_steps / max(eng._steps_launched, 1)
@@ -1355,18 +1496,20 @@ def graph_phase(torch, name, out, timer):
     fill_wall, fill_ev = wall_event_ms(torch, lambda: eng._fill_noise(eng._t))
     with torch.inference_mode():
         rows = {}
-        for how, fn in (("replay", eng._graph.replay),
-                        ("eager body", eng._macro_step)):
-            wall, ev = wall_event_ms(torch, fn)
+        for how, fn, reps, prof_reps in (
+                ("replay", eng._graph.replay, 5, 3),
+                ("eager body", eng._macro_step, 2, 1)):
+            wall, ev = wall_event_ms(torch, fn, reps)
             busy = sum(v for k, v in timer._kernel_times(
-                fn, 3, flush=False).items()
-                if k not in timer._flush_keys) / 3 / 1e3
+                fn, prof_reps, flush=False).items()
+                if k not in timer._flush_keys) / prof_reps / 1e3
             rows[how] = (wall, ev, busy)
     print(f"graph [{name}]: noise fill {fill_wall:.3f} ms wall, "
           f"{fill_ev:.3f} ms CUDA events a launch; one macro launch "
           + "; ".join(f"{how} {w:.3f} ms wall, {e:.3f} ms events, {b:.3f} "
                       f"ms device busy (idle share {1 - b / w:.3f})"
                       for how, (w, e, b) in rows.items()))
+    return rows
 
 
 def image_checks(torch, serve, argv, out):
@@ -1603,6 +1746,173 @@ def remaining_configs_phase(torch, ops, serve, timer):
         del out, eng
         check_released(torch, run)
         print(f"{run}: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# the recurrent (SSD) and hybrid (RG-LRU + local attention) models: eos
+# outside each vocabulary; the dense check at 3 layers (recurrentgemma's
+# one tile of RG-LRU, RG-LRU, local attention), full widths
+RECURRENT_EOS = {"mamba2-780m": 50280, "recurrentgemma-2b": 256000}
+RECURRENT_DENSE_LAYERS = 3
+
+
+def recurrent_argv(name):
+    """The serve phases' shapes (8 slots, 8 requests of 256 + 32 tokens,
+    CAMD, K 8) through ``--impl cuda`` (a recurrent or hybrid model has no
+    layer to page), the 8 requests arriving at once through the
+    front-end (``--open-loop`` at 1000 requests/s), which times their
+    first tokens."""
+    return with_arg(serve_argv(name, CACHE_LEN, RECURRENT_EOS[name]),
+                    "--impl", "cuda") + [
+        "--open-loop", "--arrival", "poisson", "--arrival-rate", "1000"]
+
+
+def step_bytes(eng):
+    """Bytes one decode step of all slots must move at least: every
+    weight read once (the tied table once, for the logits), every slot's
+    recurrent state (SSD state and conv tails, RG-LRU h and conv tails)
+    read and written once, and the local layers' rings read once."""
+    weights = sum(p.numel() * p.element_size()
+                  for p in eng.model.parameters())
+    cache = eng.state.cache
+    state = sum(cache[k].numel() * cache[k].element_size()
+                for k in ("ssd", "ssm_conv", "h", "rglru_conv") if k in cache)
+    rings = sum(cache[k].numel() * cache[k].element_size()
+                for k in ("k", "v") if k in cache)
+    return weights + 2 * state + rings, weights, state
+
+
+def recurrent_serve_phase(torch, ops, serve, timer, name, card):
+    """One model served at full width in fp32 through the serve entry
+    point (``recurrent_argv``), launch counts set to 0 just before and
+    read just after: mamba2-780m launches no kernel (its SSD path has
+    none in the reference either), recurrentgemma-2b launches K2 once a
+    local layer a prefill forward and K3 once a local layer a step of
+    every replay, nothing else. One graph; every request resolved; the
+    arena ends empty and audits clean. Prints tokens/s, TTFT, the arena's
+    stats, the graph's capture and a replay's device time a step against
+    the byte bound of one step. Returns (launches, seconds)."""
+    t0 = time.perf_counter()
+    argv = recurrent_argv(name)
+    print(f"recurrent phase [{name}]: python -m repro_torch.launch.serve "
+          + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with counting_prefills(torch) as (forwards, _):
+        out = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    eng, m = out["engine"], out["metrics"]
+    check(len(out["results"]) == SERVE["requests"] and
+          m["completed"] == SERVE["requests"],
+          f"recurrent [{name}]: unresolved requests: {m}")
+    for r in out["results"]:
+        check(r.n_candidates > 0 and 0 < len(r.tokens) <= SERVE["max_new"]
+              and all(0 <= int(t) < eng.V for t in r.tokens) and
+              math.isfinite(r.best_score),
+              f"recurrent [{name}]: request {r.uid} has no usable candidate")
+    check(eng._graphs_captured == 1 and eng.macro_launches > 0,
+          f"recurrent [{name}]: {eng._graphs_captured} graphs captured")
+    n_local = sum(k == "local" for k in eng.cfg.layer_kinds)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = n_local * forwards["prefill"]
+    want["decode_attention"] = n_local * eng.macro_launches * eng.macro_steps
+    check(launches == want, f"recurrent [{name}]: launches {launches}, not "
+          f"{want} ({n_local} local layers, {forwards['prefill']} prefill "
+          f"forwards, {eng.macro_launches} replays of {eng.macro_steps})")
+    check(forwards["prefill"] == SERVE["requests"] and
+          eng.prefill_calls == SERVE["requests"],
+          f"recurrent [{name}]: {forwards['prefill']} prefill forwards")
+    eng.arena.check()
+    a = eng.arena_stats()
+    check(a["in_use"] == 0 and a["alloc_count"] == a["free_count"] ==
+          SERVE["requests"], f"recurrent [{name}]: arena {a}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"recurrent [{name}]: {out['tokens_per_s']:.1f} tok/s "
+          f"({eng.total_tokens} tokens in {out['seconds']:.2f} s, "
+          f"{eng.total_steps} decode steps, {eng.macro_launches} launches, "
+          f"{eng.prefill_calls} prefills); TTFT p50 {m['ttft_p50_ms']:.1f} "
+          f"ms, p99 {m['ttft_p99_ms']:.1f} ms; peak device memory "
+          f"{peak_gb:.1f} GB; launches {launches} [{card}]")
+    print(f"recurrent [{name}]: state arena [{a['state_kind']}] peak "
+          f"{a['max_in_use']}/{a['num_rows']} rows of {a['bytes_per_row']} "
+          f"bytes, resident_state_bytes {a['resident_state_bytes']}, "
+          f"{a['sizing_stalls']} stalls")
+    rows = graph_phase(torch, name, out, timer)
+    K = eng.macro_steps
+    total, weights, state = step_bytes(eng)
+    bound = total / PEAK_BYTES_PER_S * 1e3
+    busy = rows["replay"][2] / K
+    print(f"recurrent [{name}]: graph captured in {eng._capture_s:.3f} s; "
+          f"a replay's device time {busy:.4f} ms a step against the byte "
+          f"bound {bound:.4f} ms ({weights / 1e9:.3f} GB of weights, "
+          f"{state / 1e6:.1f} MB of {eng.B} slots' recurrent state read and "
+          f"written, {(total - weights - 2 * state) / 1e6:.1f} MB of rings; "
+          f"{bound / busy:.3f} of the bound) [{card}]")
+    del out, eng
+    check_released(torch, f"{name} serve")
+    return launches, time.perf_counter() - t0
+
+
+def recurrent_dense_check(torch, ops, serve, name):
+    """At 3 layers, full widths, fp32: greedy streams of the plain (torch,
+    K 8), kernel (cuda, K 8, the captured graph) and kernel legacy-loop
+    (cuda, K 0) engines agree; the kernel runs launch K2 and K3 on
+    recurrentgemma-2b's local layer and nothing on mamba2-780m. Returns
+    the kernel graph run's launches."""
+    argv = ["--arch", name, "--no-reduced", "--num-layers",
+            str(RECURRENT_DENSE_LAYERS), "--mode", "greedy", "--requests",
+            "4", "--prompt-len", "64", "--max-new", "16", "--cache-len",
+            "96", "--eos-id", str(RECURRENT_EOS[name]), "--device", "cuda",
+            "--seed", "1"]
+    streams, launches = {}, {}
+    for impl, K in (("torch", 8), ("cuda", 8), ("cuda", 0)):
+        ops.reset_launches()
+        out = serve.main(argv + ["--impl", impl, "--macro-steps", str(K)])
+        torch.cuda.synchronize()
+        eng = out["engine"]
+        check(eng._graphs_captured == (K > 0) and eng.arena.in_use == 0,
+              f"recurrent dense check [{name}]: {impl} K {K}: "
+              f"{eng._graphs_captured} graphs, {eng.arena.in_use} rows held")
+        launches[impl, K] = dict(ops.LAUNCHES)
+        streams[impl, K] = [r.tokens.tolist() for r in
+                            sorted(out["results"], key=lambda r: r.uid)]
+        del out, eng
+        free_memory(torch)
+    local = name == "recurrentgemma-2b"
+    check(sum(launches["torch", 8].values()) == 0, "recurrent dense check: "
+          "the plain engine launched a kernel")
+    for key in (("cuda", 8), ("cuda", 0)):
+        check((launches[key]["flash_attention"] > 0 and
+               launches[key]["decode_attention"] > 0) == local and
+              sum(launches[key].values()) == launches[key]["flash_attention"]
+              + launches[key]["decode_attention"],
+              f"recurrent dense check [{name}]: {key} launches "
+              f"{launches[key]}")
+        check(streams[key] == streams["torch", 8],
+              f"recurrent dense check [{name}]: {key} greedy streams differ "
+              f"from torch's: {streams[key]} vs {streams['torch', 8]}")
+    print(f"recurrent dense check [{name}]: greedy streams of torch (K 8), "
+          f"cuda (K 8, graph) and cuda (K 0) agree "
+          f"({sum(map(len, streams['torch', 8]))} tokens, "
+          f"{RECURRENT_DENSE_LAYERS} layers); cuda launches "
+          f"{launches['cuda', 8]}")
+    return launches["cuda", 8]
+
+
+def recurrent_phase(torch, ops, serve, timer, card):
+    """The recurrent and hybrid models: each one's 3-layer dense check,
+    then its full-width serve (``recurrent_serve_phase``), one model at a
+    time, each released before the next. Returns {run: launches}."""
+    runs = {}
+    for name in RECURRENT_EOS:
+        stamp(f"{name} dense check")
+        runs[f"{name} dense check"] = recurrent_dense_check(
+            torch, ops, serve, name)
+        stamp(f"{name} serve")
+        runs[f"{name} serve"], secs = recurrent_serve_phase(
+            torch, ops, serve, timer, name, card)
+        print(f"{name} serve: {secs:.1f} s")
     return runs
 
 
@@ -2166,12 +2476,12 @@ TRAIN_QWEN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "50", "--batch", "8",
 TRAIN_GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--steps", "10",
                       "--batch", "8", "--seq", "128", "--lr", "1e-3",
                       "--device", "cuda"]
-# three steps of 4-layer qwen3-0.6b and granite-moe-3b-a800m on the card
+# three steps of 2-layer qwen3-0.6b and granite-moe-3b-a800m on the card
 # and on the host's CPU; the losses (and the MoE's aux terms) must agree
 # within this relative tolerance (fp32, TF32 off: the two sum in other
 # orders, and AdamW's normalised step turns a near-cancelling gradient's
 # rounding into a visible share of lr)
-TRAIN_CHECK = dict(archs=("qwen3-0.6b", "granite-moe-3b-a800m"), layers=4,
+TRAIN_CHECK = dict(archs=("qwen3-0.6b", "granite-moe-3b-a800m"), layers=2,
                    batch=2, seq=64, steps=3)
 TRAIN_CHECK_KEYS = ("loss", "moe_lb_loss", "moe_drop_frac")
 TRAIN_CHECK_RTOL = 1e-4
@@ -2270,7 +2580,7 @@ def train_phase(torch, ops, card):
 
 
 def train_check(torch):
-    """4-layer full-width qwen3-0.6b and granite-moe-3b-a800m: three
+    """2-layer full-width qwen3-0.6b and granite-moe-3b-a800m: three
     ``training.train`` steps on the card against the same three on the
     host's CPU, from the same weights and batches; the loss and, for the
     MoE, its load-balance loss and dropped share agree within
@@ -2325,7 +2635,7 @@ def checkpoint_check(torch, cfg, trained, batch, steps):
     another seed, and holds the two models' logits equal bit for bit."""
     from repro_torch.models.model import build_model
     from repro_torch.training import load_checkpoint, save_checkpoint
-    path = str(ROOT / "build" / "ckpt" / "qwen3-4l")
+    path = str(ROOT / "build" / "ckpt" / "qwen3-2l")
     t0 = time.perf_counter()
     save_checkpoint(path, trained.state_dict(), step=steps)
     fresh = build_model(cfg, torch.float32, device="cuda", seed=1)
@@ -2588,11 +2898,12 @@ def main() -> None:
                                                      kv_quantize),
                **xmodal_phase(torch, ops, ref, timer),
                **moe_phase(torch, ops, ref, timer)}
-    any_g, any_g_errs = any_g_phase(torch, ops, ref, timer, kv_quantize)
-    for name, entries in any_g.items():
-        timings[name].update(entries)
-        timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"],
-                                           any_g_errs[name])
+    for entries, errs in (any_g_phase(torch, ops, ref, timer, kv_quantize),
+                          hd256_phase(torch, ops, ref, timer)):
+        for name, by_key in entries.items():
+            timings[name].update(by_key)
+            timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"],
+                                               errs[name])
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s since the build "
           "began")
     for name, t in timings.items():
@@ -2770,9 +3081,17 @@ def main() -> None:
     new_serves = tuple(r for r in new_cfg_runs if r.endswith(" serve"))
     new_dense = tuple(r for r in new_cfg_runs if r.endswith("dense check"))
 
+    stamp("recurrent and hybrid")
+    # mamba2-780m (SSD, no kernel on its path) and recurrentgemma-2b (K2
+    # and K3 at head_dim 256 in its local layers) through the state arena
+    t0 = time.perf_counter()
+    runs.update(recurrent_phase(torch, ops, serve, timer, card))
+    print(f"recurrent phases: {time.perf_counter() - t0:.1f} s")
+    rg_runs = ("recurrentgemma-2b serve", "recurrentgemma-2b dense check")
+
     stamp("training")
     # training at full width on the plain impl, the card against the CPU
-    # at 4 layers, a checkpoint round trip; then plug-and-play rescoring
+    # at 2 layers, a checkpoint round trip; then plug-and-play rescoring
     # through K2, K4 and K5; kernels refuse inputs that require grad
     t0 = time.perf_counter()
     free_memory(torch)
@@ -2793,7 +3112,7 @@ def main() -> None:
     paths = {"decode_attention": ("qwen3-0.6b dense check",
                                   "llava-1.5-7b dense check",
                                   "granite-moe-3b-a800m dense check") +
-             new_dense}
+             new_dense + rg_runs}
     serves = ("qwen3-0.6b serve", "llava-1.5-7b serve",
               "granite-moe-3b-a800m serve")
     # the quantized pools', the prefix cache's, the chunked and the
@@ -2803,7 +3122,7 @@ def main() -> None:
                   tuple(open_runs) + ("qwen3-0.6b open loop camd",) +
                   new_serves
                   for name in ("flash_attention", "paged_decode_attention")})
-    paths["flash_attention"] += tuple(rescore_runs)
+    paths["flash_attention"] += tuple(rescore_runs) + rg_runs
     paths.update({name: serves + spec_runs[1:2] + ("internvl2-2b serve",
                                                    "llava-1.5-7b rescore")
                   for name in ("xmodal_score_mean", "xmodal_score_max")})

@@ -1,7 +1,7 @@
 """Configuration dataclasses of the port.
 
-Copies of ``ModelConfig``, ``MoEConfig``, ``VisionConfig``,
-``SamplingConfig``, ``CAMDConfig``, ``PagedKVConfig`` and ``TrainConfig``
+Copies of ``ModelConfig``, ``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``,
+``VisionConfig``, ``SamplingConfig``, ``CAMDConfig``, ``PagedKVConfig`` and ``TrainConfig``
 from the JAX package's ``repro/config.py``, field for field, so a config
 built for one package describes the same model, serving and training
 setup in the other.
@@ -12,9 +12,11 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-# The block kind this slice serves; configs naming others ("local",
-# "ssm", "rglru") are rejected by ``models.model.Model``.
-ATTN = "attn"
+# Block kinds of ``block_pattern`` (``repro/config.py:17-20``).
+ATTN = "attn"            # full (optionally windowed) self-attention block
+LOCAL_ATTN = "local"     # sliding-window-only self-attention block
+SSM = "ssm"              # Mamba2 SSD block
+RGLRU = "rglru"          # RecurrentGemma RG-LRU recurrent block
 
 
 @dataclass(frozen=True)
@@ -34,6 +36,24 @@ class MoEConfig:
     router_noise: float = 0.0
     # number of shared (always-on) experts, e.g. DeepSeek/Kimi style.
     num_shared_experts: int = 0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) settings."""
+    state_dim: int = 128          # N: SSM state size
+    head_dim: int = 64            # P: channels per SSD head
+    expand: int = 2               # inner dim = expand * d_model
+    chunk_size: int = 64          # SSD block-diagonal chunk length
+    conv_width: int = 4           # depthwise causal conv width
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU settings."""
+    lru_width: int = 0            # 0 => same as d_model
+    conv_width: int = 4
+    block_pattern: Tuple[str, ...] = (RGLRU, RGLRU, LOCAL_ATTN)  # 1:2 attn:rglru
 
 
 @dataclass(frozen=True)
@@ -66,14 +86,14 @@ class VisionConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture (the attention-only subset of the reference's
-    fields; families this port does not serve yet are rejected by
+    """One architecture (the reference's fields; the encoder-decoder
+    family, which this port does not serve yet, is rejected by
     ``models.model.Model``)."""
     name: str
     family: str                   # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
-    num_heads: int                # query heads
+    num_heads: int                # query heads (0 for attn-free archs)
     num_kv_heads: int             # kv heads (GQA); 1 => MQA
     d_ff: int
     vocab_size: int
@@ -82,13 +102,13 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     attn_window: int = 0          # 0 => full causal; >0 => sliding window
-    local_window: int = 2048
-    block_pattern: Tuple[str, ...] = (ATTN,)
+    local_window: int = 2048      # window of LOCAL_ATTN blocks (hybrids)
+    block_pattern: Tuple[str, ...] = (ATTN,)   # tiled over num_layers
     mlp_activation: str = "swiglu"             # the LM's; the tower's is gelu
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
-    ssm: object = None
-    rglru: object = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     is_encoder_decoder: bool = False
     num_encoder_layers: int = 0
     num_evidence_tokens: int = 0
@@ -113,17 +133,16 @@ class ModelConfig:
 
     def num_params(self) -> int:
         """Analytic parameter count, embeddings and per-layer blocks, as
-        ``repro.config.ModelConfig.num_params`` counts it for the
-        attention-only configs this port serves (the vision tower and the
-        evidence projection are not counted there either)."""
-        if any(k != ATTN for k in self.layer_kinds) or \
-                self.is_encoder_decoder:
+        ``repro.config.ModelConfig.num_params`` counts it (the vision
+        tower and the evidence projection are not counted there either;
+        the SSD block's A_log, D and dt_bias and the RG-LRU's conv bias
+        and lambda are not counted alike)."""
+        if self.is_encoder_decoder:
             raise NotImplementedError(f"{self.name}: num_params counts "
-                                      "attention-only decoders")
+                                      "decoder-only stacks")
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
-        q = self.num_heads * self.resolved_head_dim
-        kv = self.num_kv_heads * self.resolved_head_dim
+        hd = self.resolved_head_dim
         per = 3 if self.mlp_activation == "swiglu" else 2
         if self.moe is None:
             mlp = per * d * self.d_ff
@@ -131,15 +150,32 @@ class ModelConfig:
             e = self.moe
             mlp = (e.num_experts + e.num_shared_experts) * per * d * \
                 e.expert_d_ff + d * e.num_experts
-        return n + self.num_layers * (2 * d + 2 * d * q + 2 * d * kv + mlp)
+        for kind in self.layer_kinds:
+            n += 2 * d                         # two norms
+            if kind in (ATTN, LOCAL_ATTN):
+                q = self.num_heads * hd
+                kv = self.num_kv_heads * hd
+                n += 2 * d * q + 2 * d * kv
+            elif kind == SSM:
+                s = self.ssm
+                inner = s.expand * d
+                heads = inner // s.head_dim
+                n += d * (2 * inner + 2 * s.state_dim + heads) + inner * d
+                n += s.conv_width * (inner + 2 * s.state_dim)
+            elif kind == RGLRU:
+                w = self.rglru.lru_width or d
+                n += 2 * d * w + w * d + 2 * w   # in/out proj + gates
+            if kind in (ATTN, LOCAL_ATTN, RGLRU):
+                n += mlp
+        return n
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """The reference's CPU-smoke-size variant of an attention-only
-        config, experts, evidence and vision tower included (same rule as
-        ``repro.config.ModelConfig.reduced``)."""
+        """The reference's CPU-smoke-size variant of a config, experts,
+        SSD and RG-LRU widths, evidence and vision tower included (same
+        rule as ``repro.config.ModelConfig.reduced``)."""
         kw = dict(
             num_layers=max(2, min(len(self.block_pattern), 3)),
             d_model=256, d_ff=512, vocab_size=512, head_dim=64)
@@ -152,6 +188,13 @@ class ModelConfig:
                 self.moe, num_experts=4, top_k=2, expert_d_ff=128,
                 num_shared_experts=min(self.moe.num_shared_experts, 1),
                 capacity_factor=4.0)  # dropless in practice at smoke scale
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, state_dim=16, head_dim=32, chunk_size=16)
+        if self.rglru is not None:
+            kw["rglru"] = dataclasses.replace(self.rglru, lru_width=256)
+        if self.is_encoder_decoder:
+            kw["num_encoder_layers"] = 2
         if self.num_evidence_tokens:
             kw["num_evidence_tokens"] = 8
             kw["evidence_dim"] = min(self.evidence_dim, 256) or 256

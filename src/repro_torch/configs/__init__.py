@@ -2,9 +2,10 @@
 
 ``get_config`` accepts the arch id ("llava-1.5-7b") or the module name
 ("llava_1_5_7b"), as the reference's registry does. Only the configs this
-port serves are registered: every attention-only config of the reference
-that fits on one card (kimi-k2-1t-a32b does not; recurrent, hybrid and
-encoder-decoder configs are not ported yet).
+port serves are registered: every decoder-only config of the reference
+that fits on one card, attention-only, recurrent (mamba2-780m) and hybrid
+(recurrentgemma-2b); kimi-k2-1t-a32b fits on none, and the
+encoder-decoder seamless-m4t-large-v2 is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ _MODULES = {
     "qwen2_5_32b": "qwen2.5-32b",
     "yi_34b": "yi-34b",
     "granite_34b": "granite-34b",
+    "mamba2_780m": "mamba2-780m",
+    "recurrentgemma_2b": "recurrentgemma-2b",
 }
 
 _BY_NAME: Dict[str, ModelConfig] = {}

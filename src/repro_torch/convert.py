@@ -8,7 +8,11 @@ block-pattern position on a leading axis (``params["super"]``,
 is entry ``i`` of ``params["super"][p]``, and the unstacked
 ``params["tail"]`` layers follow; an MoE layer's leaves land at
 ``layers.<i>.moe.router.kernel`` and ``layers.<i>.moe.w_gate`` (up,
-down). Other subtrees flatten by name; a
+down), an SSD layer's at ``layers.<i>.ssm.*`` and an RG-LRU layer's at
+``layers.<i>.rglru.*``, as they are. Leaves keep the tree's dtypes: the
+SSD block's ``A_log``, ``D``, ``dt_bias`` and the RG-LRU's ``lam`` stay
+fp32 in a bf16 tree, as the port's modules hold them (``load_state_dict``
+keeps each parameter's dtype). Other subtrees flatten by name; a
 sequence inside them, such as the vision tower's tuple of blocks
 (``repro/models/vision.py:62``), by index: ``vision.blocks.<i>.wq.kernel``.
 The evidence projection carries over as ``evidence_proj.kernel``.

@@ -185,16 +185,27 @@ __device__ __forceinline__ float quad_sum(float v) {
 //   k_scales(), v_scales()     dequantization scales, or null;
 //   scale_index(b, h, j, key)  row j's index into them.
 // A key of -1 makes offset and scale_index look row j up on its own.
+//
+// The widest head a body takes is its template parameter MAXHD (a lane
+// holds MAXHD / 32 dims of each query head): DEC_MAX_HD for both kernels'
+// usual bodies, DEC_WIDE_HD for the dense kernel's hd-256 body
+// (split_decode_wide_kernel), whose two-stage rings take 64 KB of shared
+// memory at fp32 and opt in past the 48 KB default.
 // --------------------------------------------------------------------------
 constexpr int DEC_TILE = 16;      // rows per tile
 constexpr int DEC_MAX_G = 8;      // query heads per kv head
 constexpr int DEC_MAX_HD = 128;   // head dim
+constexpr int DEC_WIDE_HD = 256;  // head dim of the dense kernel's wide body
 constexpr int SPL_WARPS = 4;
 constexpr int SPL_THREADS = 32 * SPL_WARPS;
 constexpr int SPL_WROWS = DEC_TILE / SPL_WARPS;   // rows per warp per tile
 constexpr int SPL_STAGES = 2;
-constexpr int SPL_NI = DEC_MAX_HD / 32;           // head dims per lane
 constexpr int DEC_MAX_SPLIT = 64;                 // ops.py plans at most this
+// head dims a lane holds in a body of widest head MAXHD (a namespace-scope
+// constant, not a local one: a local constexpr changed the code nvcc made
+// of the hd <= 128 kernels)
+template <int MAXHD>
+constexpr int spl_ni = MAXHD / 32;
 
 __host__ __device__ constexpr int spl_row_bytes(int hd, int elem) {
   return (hd * elem + 15) / 16 * 16;
@@ -221,6 +232,11 @@ static_assert(split_smem_bytes(DEC_MAX_G, DEC_MAX_HD, sizeof(float)) +
                       SPL_WARPS * sizeof(SplitWarpScratch) <=
                   48 * 1024,
               "split_decode_body's shared memory exceeds 48 KB");
+// the wide body's, with its opt-in, fits the 227 KB a block may use
+static_assert(split_smem_bytes(DEC_MAX_G, DEC_WIDE_HD, sizeof(float)) +
+                      SPL_WARPS * sizeof(SplitWarpScratch) <=
+                  232448,
+              "the wide split_decode_body's shared memory exceeds 227 KB");
 
 // Copy U bytes from global to shared memory, or U zero bytes when !ok
 // (nothing is read then). U = 16 and 4 are asynchronous (cp.async); U = 2
@@ -302,7 +318,8 @@ __device__ __noinline__ void write_empty_row(const TKV* __restrict__ vc,
   }
 }
 
-template <int GP, int U, typename TQ, typename TKV, typename Rows>
+template <int GP, int U, typename TQ, typename TKV, typename Rows,
+          int MAXHD = DEC_MAX_HD>
 __device__ void split_decode_body(const TQ* __restrict__ q,
                                   const TKV* __restrict__ kc,
                                   const TKV* __restrict__ vc,
@@ -333,11 +350,11 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
   // this lane's head dims of the group's queries, pre-scaled; heads past G
   // (GP pads G up to a power of two) are zero and never weigh anything
   const size_t qbase = ((size_t)b * H + (size_t)h * G) * hd;
-  float qr[GP][SPL_NI], acc[GP][SPL_NI];
+  float qr[GP][spl_ni<MAXHD>], acc[GP][spl_ni<MAXHD>];
 #pragma unroll
   for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int i = 0; i < SPL_NI; ++i) {
+    for (int i = 0; i < spl_ni<MAXHD>; ++i) {
       const int d = lane + 32 * i;
       qr[g][i] = (g < G && d < hd) ? to_float(q[qbase + g * hd + d]) * scale
                                    : 0.f;
@@ -424,9 +441,9 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
       for (int r = 0; r < SPL_WROWS; ++r) {
         const TKV* kr =
             reinterpret_cast<const TKV*>(kbuf + (size_t)(s * SPL_WROWS + r) * rb);
-        float kf[SPL_NI];
+        float kf[spl_ni<MAXHD>];
 #pragma unroll
-        for (int i = 0; i < SPL_NI; ++i) {
+        for (int i = 0; i < spl_ni<MAXHD>; ++i) {
           const int d = lane + 32 * i;
           kf[i] = d < hd ? to_float(kr[d]) : 0.f;
         }
@@ -434,7 +451,7 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
         for (int g = 0; g < GP; ++g) {
           float a = 0.f;
 #pragma unroll
-          for (int i = 0; i < SPL_NI; ++i) a += qr[g][i] * kf[i];
+          for (int i = 0; i < spl_ni<MAXHD>; ++i) a += qr[g][i] * kf[i];
           part[r * GP + g] = a;
         }
       }
@@ -460,15 +477,15 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
       for (int g = 0; g < GP; ++g) {
         const float a = sw.alpha[g];
 #pragma unroll
-        for (int i = 0; i < SPL_NI; ++i) acc[g][i] *= a;
+        for (int i = 0; i < spl_ni<MAXHD>; ++i) acc[g][i] *= a;
       }
 #pragma unroll
       for (int r = 0; r < SPL_WROWS; ++r) {
         const TKV* vr =
             reinterpret_cast<const TKV*>(vbuf + (size_t)(s * SPL_WROWS + r) * rb);
-        float vf[SPL_NI];
+        float vf[spl_ni<MAXHD>];
 #pragma unroll
-        for (int i = 0; i < SPL_NI; ++i) {
+        for (int i = 0; i < spl_ni<MAXHD>; ++i) {
           const int d = lane + 32 * i;
           vf[i] = d < hd ? to_float(vr[d]) : 0.f;
         }
@@ -476,7 +493,7 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
         for (int g = 0; g < GP; ++g) {
           const float pr = sw.p[r * GP + g];
 #pragma unroll
-          for (int i = 0; i < SPL_NI; ++i) acc[g][i] += pr * vf[i];
+          for (int i = 0; i < spl_ni<MAXHD>; ++i) acc[g][i] += pr * vf[i];
         }
       }
     }
@@ -496,7 +513,7 @@ __device__ void split_decode_body(const TQ* __restrict__ q,
 #pragma unroll
   for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int i = 0; i < SPL_NI; ++i) {
+    for (int i = 0; i < spl_ni<MAXHD>; ++i) {
       const int d = lane + 32 * i;
       if (g < G && d < hd) mine[g * ld + d] = acc[g][i];
     }
@@ -591,6 +608,18 @@ split_decode_kernel(const TQ* q, const TKV* k, const TKV* v, TQ* out,
                                           scale);
 }
 
+// the dense kernel's hd-256 body: one block an SM may hold all 255
+// registers a thread (the query and accumulator registers alone are
+// 2 * GP * 8 a lane)
+template <typename TQ, typename TKV, int GP, int U, typename Rows>
+__global__ void __launch_bounds__(SPL_THREADS, 1)
+split_decode_wide_kernel(const TQ* q, const TKV* k, const TKV* v, TQ* out,
+                         float* part, Rows rows, int H, int rows_per_split,
+                         float scale) {
+  split_decode_body<GP, U, TQ, TKV, Rows, DEC_WIDE_HD>(
+      q, k, v, out, part, rows, H, rows.Hkv, rows.hd, rows_per_split, scale);
+}
+
 template <typename TQ, typename TKV, typename Rows>
 __global__ void __launch_bounds__(SPL_THREADS)
 split_combine_kernel(const float* part, const TKV* v, TQ* out, Rows rows,
@@ -613,15 +642,30 @@ struct SplitLaunch {
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TKV, int GP, int U, typename Rows>
+template <typename TQ, typename TKV, int GP, int U, int MAXHD,
+          typename Rows>
 int launch_split_kernel(const SplitLaunch& a, const Rows& rows) {
   const size_t smem = split_smem_bytes(a.H / rows.Hkv, rows.hd, sizeof(TKV));
-  split_decode_kernel<TQ, TKV, GP, U, Rows>
-      <<<dim3(rows.Hkv, a.B, a.n_split), SPL_THREADS, smem, a.stream>>>(
-          static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
-          static_cast<const TKV*>(a.v), static_cast<TQ*>(a.out), a.part,
-          rows, a.H, a.rows_per_split,
-          1.0f / sqrtf(static_cast<float>(rows.hd)));
+  const dim3 grid(rows.Hkv, a.B, a.n_split);
+  const float scale = 1.0f / sqrtf(static_cast<float>(rows.hd));
+  if constexpr (MAXHD == DEC_MAX_HD) {
+    split_decode_kernel<TQ, TKV, GP, U, Rows>
+        <<<grid, SPL_THREADS, smem, a.stream>>>(
+            static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+            static_cast<const TKV*>(a.v), static_cast<TQ*>(a.out), a.part,
+            rows, a.H, a.rows_per_split, scale);
+  } else {
+    static_assert(MAXHD == DEC_WIDE_HD, "MAXHD: DEC_MAX_HD or DEC_WIDE_HD");
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_decode_wide_kernel<TQ, TKV, GP, U, Rows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    split_decode_wide_kernel<TQ, TKV, GP, U, Rows>
+        <<<grid, SPL_THREADS, smem, a.stream>>>(
+            static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+            static_cast<const TKV*>(a.v), static_cast<TQ*>(a.out), a.part,
+            rows, a.H, a.rows_per_split, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -664,29 +708,29 @@ inline int dec_groups(int G) {
 
 // a group of G / groups <= DEC_MAX_G heads takes the GP 8 body: one
 // instantiation for every group size
-template <typename TQ, typename TKV, int U, typename Rows>
+template <typename TQ, typename TKV, int U, int MAXHD, typename Rows>
 int launch_split_g(const SplitLaunch& a, const GroupedRows<Rows>& rows) {
-  return launch_split_kernel<TQ, TKV, DEC_MAX_G, U>(a, rows);
+  return launch_split_kernel<TQ, TKV, DEC_MAX_G, U, MAXHD>(a, rows);
 }
 
-template <typename TQ, typename TKV, int U, typename Rows>
+template <typename TQ, typename TKV, int U, int MAXHD, typename Rows>
 int launch_split_g(const SplitLaunch& a, const Rows& rows) {
   const int G = a.H / rows.Hkv;
-  if (G == 1) return launch_split_kernel<TQ, TKV, 1, U>(a, rows);
-  if (G == 2) return launch_split_kernel<TQ, TKV, 2, U>(a, rows);
-  if (G <= 4) return launch_split_kernel<TQ, TKV, 4, U>(a, rows);
-  return launch_split_kernel<TQ, TKV, 8, U>(a, rows);
+  if (G == 1) return launch_split_kernel<TQ, TKV, 1, U, MAXHD>(a, rows);
+  if (G == 2) return launch_split_kernel<TQ, TKV, 2, U, MAXHD>(a, rows);
+  if (G <= 4) return launch_split_kernel<TQ, TKV, 4, U, MAXHD>(a, rows);
+  return launch_split_kernel<TQ, TKV, 8, U, MAXHD>(a, rows);
 }
 
 // The copy unit: 16 bytes where a row's byte length and both bases allow,
 // else 4, else the element (2- and 1-byte elements only: a row of 4-byte
 // elements always takes 4-byte units), so only those (TKV, U) pairs exist.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan or shape
-// the kernels do not take.
-template <typename TQ, typename TKV, typename Rows>
+// the kernels do not take (a head wider than MAXHD among them).
+template <typename TQ, typename TKV, int MAXHD, typename Rows>
 int launch_split_decode(const SplitLaunch& a, const Rows& rows) {
   const int Hkv = rows.Hkv, hd = rows.hd;
-  if (a.H % Hkv != 0 || a.H / Hkv > DEC_MAX_G || hd > DEC_MAX_HD ||
+  if (a.H % Hkv != 0 || a.H / Hkv > DEC_MAX_G || hd > MAXHD ||
       a.n_split < 1 || a.n_split > DEC_MAX_SPLIT ||
       a.rows_per_split % DEC_TILE != 0 ||
       (long)a.n_split * a.rows_per_split < rows.capacity() ||
@@ -695,11 +739,12 @@ int launch_split_decode(const SplitLaunch& a, const Rows& rows) {
   const int nb = hd * static_cast<int>(sizeof(TKV));
   int err;
   if (nb % 16 == 0 && aligned(a.k, 16) && aligned(a.v, 16))
-    err = launch_split_g<TQ, TKV, 16>(a, rows);
+    err = launch_split_g<TQ, TKV, 16, MAXHD>(a, rows);
   else if (nb % 4 == 0 && aligned(a.k, 4) && aligned(a.v, 4))
-    err = launch_split_g<TQ, TKV, 4>(a, rows);
+    err = launch_split_g<TQ, TKV, 4, MAXHD>(a, rows);
   else if constexpr (sizeof(TKV) < 4)
-    err = launch_split_g<TQ, TKV, static_cast<int>(sizeof(TKV))>(a, rows);
+    err = launch_split_g<TQ, TKV, static_cast<int>(sizeof(TKV)), MAXHD>(
+        a, rows);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != 0 || a.n_split == 1) return err;
@@ -713,12 +758,13 @@ int launch_split_decode(const SplitLaunch& a, const Rows& rows) {
 // The entry of both decode kernels: any G = H / Hkv; above DEC_MAX_G the
 // kv heads' query heads run in groups (GroupedRows), each a block of its
 // own, and the plan (n_split) must then count Hkv * dec_groups(G) heads.
-template <typename TQ, typename TKV, typename Rows>
+// MAXHD picks the body: DEC_MAX_HD, or DEC_WIDE_HD for heads up to 256.
+template <typename TQ, typename TKV, int MAXHD = DEC_MAX_HD, typename Rows>
 int launch_decode(const SplitLaunch& a, const Rows& rows) {
   if (rows.Hkv < 1 || a.H < rows.Hkv || a.H % rows.Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int groups = dec_groups(a.H / rows.Hkv);
-  if (groups == 1) return launch_split_decode<TQ, TKV>(a, rows);
-  return launch_split_decode<TQ, TKV>(
+  if (groups == 1) return launch_split_decode<TQ, TKV, MAXHD>(a, rows);
+  return launch_split_decode<TQ, TKV, MAXHD>(
       a, GroupedRows<Rows>{rows, groups, rows.Hkv * groups, rows.hd});
 }

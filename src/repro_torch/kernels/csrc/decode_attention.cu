@@ -31,6 +31,12 @@
 // With more than one split, split_combine_body merges the splits'
 // partials from the fp32 workspace in split order in a second kernel.
 // Masked rows are never read.
+// Head dims above 128 (recurrentgemma-2b's local attention: hd 256, 10
+// query heads over one kv head, run as 2 groups of 5) take the body's
+// wide instantiation (split_decode_wide_kernel, MAXHD 256): 8 dims a lane
+// of each query head in registers, 64 KB of stage rings at fp32, one
+// block an SM's worth of registers. The hd <= 128 kernels are compiled as
+// before.
 #include "attention_common.cuh"
 
 struct DenseRows {
@@ -61,7 +67,14 @@ struct DenseRows {
   __device__ size_t scale_index(int, int, int, int) const { return 0; }
 };
 
-// q: (B, 1, H, hd); k/v: (B, S, Hkv, hd); mask: (B, S) uint8; out like q;
+template <typename T>
+static int launch_dense(const SplitLaunch& a, const DenseRows& rows) {
+  if (rows.hd > DEC_MAX_HD) return launch_decode<T, T, DEC_WIDE_HD>(a, rows);
+  return launch_decode<T, T>(a, rows);
+}
+
+// q: (B, 1, H, hd); k/v: (B, S, Hkv, hd), hd <= 256; mask: (B, S) uint8;
+// out like q;
 // work: fp32 (B, Hkv, n_split, H / Hkv, hd + 2) floats, unused (may be
 // null) when n_split is 1 (grouped heads lay them out as (B, Hkv, groups,
 // n_split, G / groups, hd + 2)). The split plan (n_split, rows_per_split)
@@ -78,8 +91,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                       n_split, rows_per_split,
                       static_cast<cudaStream_t>(stream)};
   const DenseRows rows{static_cast<const uint8_t*>(mask), S, Hkv, hd};
-  if (dtype == F32) return launch_decode<float, float>(a, rows);
-  if (dtype == BF16)
-    return launch_decode<__nv_bfloat16, __nv_bfloat16>(a, rows);
+  if (dtype == F32) return launch_dense<float>(a, rows);
+  if (dtype == BF16) return launch_dense<__nv_bfloat16>(a, rows);
   return static_cast<int>(cudaErrorInvalidValue);
 }

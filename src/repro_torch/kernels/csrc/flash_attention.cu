@@ -46,6 +46,10 @@
 // with one block barrier per tile. Padded row strides make every fragment
 // load from shared memory free of bank conflicts (FlashSmem). Shared
 // memory is 107,520 bytes at fp32 hd 128, so two blocks fit on an SM.
+// At hd 256 (recurrentgemma-2b's local attention) it is 205,824 bytes at
+// fp32 (138,240 at bf16): one block an SM, whose launch bound lets a
+// thread take all 255 registers, the output accumulator alone being
+// 16 x 256 / 32 = 128 of them.
 // Q stays in shared memory (fp32, unscaled; the scale goes into exp2) and
 // is split per fragment as it is loaded, since its hi and lo fragments
 // held whole would take 128 registers a thread at hd 128. fp32 Q comes by
@@ -91,9 +95,13 @@ struct FlashSmem {
 // 1 KB of it for each block
 static_assert(2 * (FlashSmem<float, 128>::bytes + 1024) <= 228 * 1024,
               "flash_kernel: two fp32 hd-128 blocks must fit on an SM");
+// one fp32 hd-256 block fits the 227 KB a block may use
+static_assert(FlashSmem<float, 256>::bytes <= 232448,
+              "flash_kernel: an fp32 hd-256 block must fit on an SM");
 
+// blocks an SM holds at once: two up to hd 128, one at hd 256
 template <typename T, int HD>
-__global__ void __launch_bounds__(FA_THREADS, 2)
+__global__ void __launch_bounds__(FA_THREADS, HD > 128 ? 1 : 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ kv_len,
              T* __restrict__ o, int L, int H, int Hkv, float scale_log2,
@@ -363,13 +371,14 @@ static int launch_hd(const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, kl, out, B, L, H, Hkv, causal, window, st);
     case 64: return launch<T, 64>(q, k, v, kl, out, B, L, H, Hkv, causal, window, st);
     case 128: return launch<T, 128>(q, k, v, kl, out, B, L, H, Hkv, causal, window, st);
+    case 256: return launch<T, 256>(q, k, v, kl, out, B, L, H, Hkv, causal, window, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // q: (B, L, H, hd); k/v: (B, L, Hkv, hd), Hkv | H; kv_len: (B,) int32 in
 // [1, L], or null for all L keys; out like q. dtype: F32 or BF16; hd in
-// {16, 32, 64, 128}. Returns cudaGetLastError().
+// {16, 32, 64, 128, 256}. Returns cudaGetLastError().
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                const void* kv_len, void* out, int B, int L,
                                int H, int Hkv, int hd, int causal, int window,

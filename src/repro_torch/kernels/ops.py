@@ -28,7 +28,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.float8_e4m3fn: 3}
 _ACT_DTYPES = (torch.float32, torch.bfloat16)
-_FLASH_HD = (16, 32, 64, 128)
+_FLASH_HD = (16, 32, 64, 128, 256)
 # csrc/xmodal_score.cu: K4b's tile (XM_ROWS text x XM_COLS visual rows,
 # a block each per split of d) and the columns of d a chunk of its ring
 # holds (XM_KC); K4a's columns of d per block of its second pass (XA_COLS)
@@ -43,8 +43,9 @@ _MOE_MAX_K = 32
 # takes, and the blocks per SM the plan aims for
 DEC_TILE, DEC_MAX_SPLIT, DEC_MIN_TILES, DEC_BLOCKS_PER_SM = 16, 64, 4, 16
 # the most query heads a decode block serves (a kv head's G above it runs
-# in groups, ``decode_groups``) and the largest head_dim
-DEC_MAX_G, DEC_MAX_HD = 8, 128
+# in groups, ``decode_groups``), the largest head_dim of both decode
+# kernels' usual body, and of the dense kernel's wide one
+DEC_MAX_G, DEC_MAX_HD, DEC_WIDE_HD = 8, 128, 256
 
 
 def reset_launches() -> None:
@@ -117,11 +118,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
-def _check_decode_q(name: str, q, Hkv: int, hd: int) -> None:
+def _check_decode_q(name: str, q, Hkv: int, hd: int,
+                    max_hd: int = DEC_MAX_HD) -> None:
     B, one, H, qd = q.shape
-    _check(one == 1 and qd == hd and H % Hkv == 0 and hd <= DEC_MAX_HD,
+    _check(one == 1 and qd == hd and H % Hkv == 0 and hd <= max_hd,
            f"{name}: q {tuple(q.shape)} vs Hkv={Hkv}, hd={hd} (needs "
-           f"Hkv | H, head_dim <= {DEC_MAX_HD})")
+           f"Hkv | H, head_dim <= {max_hd})")
     _check(q.dtype in _ACT_DTYPES, f"{name}: q must be fp32 or bf16")
 
 
@@ -171,16 +173,17 @@ def _sms(t) -> int:
 
 
 def decode_attention(q, k, v, kv_mask):
-    """One query token vs a dense cache. q: (B, 1, H, hd); k/v:
-    (B, S, Hkv, hd) in q's dtype; kv_mask: (B, S) bool. On the card the
-    cache axis is split across blocks (``decode_splits``); the splits'
+    """One query token vs a dense cache. q: (B, 1, H, hd), hd <= 256;
+    k/v: (B, S, Hkv, hd) in q's dtype; kv_mask: (B, S) bool. On the card
+    the cache axis is split across blocks (``decode_splits``); the splits'
     partials go to an fp32 workspace (B, Hkv, n_split, H / Hkv, hd + 2)
-    that a second kernel of the same launch merges."""
+    that a second kernel of the same launch merges. Heads wider than 128
+    run the kernel's wide body."""
     if not q.is_cuda:
         return ref.decode_attention_ref(q, k, v, kv_mask)
     B, S, Hkv, hd = k.shape
     _check_cuda("decode_attention", q, k, v, kv_mask)
-    _check_decode_q("decode_attention", q, Hkv, hd)
+    _check_decode_q("decode_attention", q, Hkv, hd, DEC_WIDE_HD)
     _check(q.shape[0] == B and v.shape == k.shape and
            kv_mask.shape == (B, S) and kv_mask.dtype == torch.bool and
            k.dtype == q.dtype and v.dtype == q.dtype,

@@ -10,6 +10,7 @@
     python -m repro_torch.launch.serve --impl paged_cuda --spec-k 4
     python -m repro_torch.launch.serve --impl paged_cuda --open-loop \
         --arrival poisson --arrival-rate 8 --slo-ms 500
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --impl cuda
 
 Configs with a vision tower serve image requests: synthetic images drawn
 from a pool of ``--image-pool`` distinct ones, encoded at submit time and
@@ -17,6 +18,12 @@ prefilled ahead of the prompt; configs with evidence tokens but no tower
 get random precomputed evidence. The random draws follow the reference
 CLI's order (``repro/launch/serve.py:197-216``), so one seed makes the
 same requests in both packages.
+
+The recurrent (mamba2-780m) and hybrid (recurrentgemma-2b) configs serve
+on ``--impl torch|cuda`` only (a paged impl raises: they have no layer to
+page); their prompt state sits in the engine's state arena, reported as
+``state arena [kind]: peak R/N rows of X kB`` (rows held at once against
+the arena's 2 * slots + 4, the bytes of one row over every cache leaf).
 
 Weights are random, made from seed 0 (no checkpoint is in the
 repository), and the model runs in fp32, as in the reference CLI; a
@@ -330,6 +337,11 @@ def main(argv: Optional[List[str]] = None,
         if s.get("kv_byte_budget"):
             print(f"kv byte budget: {s['kv_byte_budget'] / 1e6:.2f} MB "
                   f"ceiling, {s['budget_evictions']} budget evictions")
+    if eng.arena is not None:
+        a = eng.arena_stats()
+        print(f"state arena [{a['state_kind']}]: peak {a['max_in_use']}/"
+              f"{a['num_rows']} rows of {a['bytes_per_row'] / 1e3:.1f} kB "
+              f"({a['alloc_count']} allocs, {a['sizing_stalls']} stalls)")
     if eng.image_encodes or eng.image_feat_hits:
         print(f"vision frontend: {eng.image_encodes} tower encodes, "
               f"{eng.image_feat_hits} feature-memo hits")

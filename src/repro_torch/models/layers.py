@@ -71,6 +71,17 @@ def mlp(p, x):
     return p.w_down(F.silu(p.w_gate(x)) * p.w_up(x))
 
 
+def store_state(dst, new, go=None):
+    """Write a recurrent state update into the cache's own storage, cast
+    to its dtype: a captured decode step replays fixed addresses, so the
+    state is never rebound. ``go``: optional 0-dim bool tensor; when
+    False (a masked step of the macro body) the state keeps its value."""
+    new = new.to(dst.dtype)
+    if go is not None:
+        new = torch.where(go, new, dst)
+    dst.copy_(new)
+
+
 def _normal(shape, scale, dtype, device, gen):
     w = torch.randn(shape, generator=gen, device=device,
                     dtype=torch.float32) * scale

@@ -3,17 +3,20 @@ full-sequence forward and the serving API the engine calls
 (``repro/models/model.py:38-223``).
 
 Parameter names mirror the reference's param tree: ``embed.table``,
-``layers.<i>.ln1.scale``, ``layers.<i>.attn.wq.kernel``,
+``layers.<i>.ln1.scale``, ``layers.<i>.attn.wq.kernel`` (an attention
+layer), ``layers.<i>.ssm.in_proj.kernel`` (an SSD layer),
+``layers.<i>.rglru.w_x.kernel`` (an RG-LRU layer),
 ``layers.<i>.mlp.w_gate.kernel`` (or, in MoE configs,
 ``layers.<i>.moe.router.kernel`` and ``layers.<i>.moe.w_gate``),
 ``final_norm.scale``, untied ``unembed.kernel`` and, for the vlm family,
 ``evidence_proj.kernel`` and the vision tower's ``vision.*`` —
 ``convert.params_from_jax`` produces exactly these keys. The port runs
 the full-sequence forward (training, rescoring) and serves decoder-only
-attention stacks with dense or MoE MLPs, with evidence tokens and a
-vision tower in the vlm family; other families raise
-``NotImplementedError``. Parameters are made with ``requires_grad``
-off; ``training.train_loop.train`` turns it on.
+stacks of attention (full, windowed, local), SSD and RG-LRU blocks with
+dense or MoE MLPs, with evidence tokens and a vision tower in the vlm
+family; the encoder-decoder family raises ``NotImplementedError``.
+Parameters are made with ``requires_grad`` off;
+``training.train_loop.train`` turns it on.
 """
 from __future__ import annotations
 
@@ -21,11 +24,13 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
-from repro_torch.config import ATTN, ModelConfig
+from repro_torch.config import ATTN, LOCAL_ATTN, RGLRU, SSM, ModelConfig
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Norm, Dense, _normal
 from repro_torch.models.moe import MoE
+from repro_torch.models.rglru import RGLRU as RGLRUBlock
+from repro_torch.models.ssm import SSM as SSMBlock
 from repro_torch.models.vision import VisionTower, vision_encode
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -34,9 +39,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = [
-        ("encoder-decoder", cfg.is_encoder_decoder),
-        ("SSM / RG-LRU / local-attention blocks",
-         any(k != ATTN for k in cfg.layer_kinds)),
+        ("encoder-decoder stacks (the next slice of the port)",
+         cfg.is_encoder_decoder),
         ("evidence tokens / vision towers outside the vlm family",
          cfg.family != "vlm" and (cfg.vision is not None or
                                   cfg.num_evidence_tokens > 0)),
@@ -46,9 +50,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     for what, present in unsupported:
         if present:
             raise NotImplementedError(
-                f"{cfg.name}: {what} are not ported yet; this slice serves "
-                "decoder-only attention stacks with dense or MoE MLPs "
-                "(with evidence in the vlm family)")
+                f"{cfg.name}: {what} are not ported yet; the port serves "
+                "decoder-only stacks of attention, SSD and RG-LRU blocks "
+                "with dense or MoE MLPs (with evidence in the vlm family)")
 
 
 class Embedding(nn.Module):
@@ -58,12 +62,24 @@ class Embedding(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, dtype, device, gen):
+    """One layer of kind ``kind``: ``attn`` (ATTN, LOCAL_ATTN), ``ssm`` or
+    ``rglru`` under the reference's names (``transformer.py:40-58``),
+    and the MLP where the kind has one."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, dtype, device, gen):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.kind = kind
         self.ln1 = Norm(cfg.d_model, **kw)
-        self.attn = Attention(cfg, gen=gen, **kw)
-        has_mlp = cfg.d_ff > 0 or cfg.moe is not None   # transformer.py:37
+        if kind in (ATTN, LOCAL_ATTN):
+            self.attn = Attention(cfg, gen=gen, **kw)
+        elif kind == SSM:
+            self.ssm = SSMBlock(cfg, gen=gen, **kw)
+        elif kind == RGLRU:
+            self.rglru = RGLRUBlock(cfg, gen=gen, **kw)
+        else:
+            raise ValueError(f"unknown block kind {kind!r}")
+        has_mlp = tf_lib.has_mlp(cfg, kind)
         self.ln2 = Norm(cfg.d_model, **kw) if has_mlp else None
         self.moe = MoE(cfg, gen=gen, **kw) if cfg.moe is not None else None
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, gen=gen,
@@ -71,9 +87,9 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """Decoder-only attention LM with seeded random weights (load real or
-    reference weights with ``load_state_dict``), with the evidence
-    projection and vision tower of a vlm config."""
+    """Decoder-only LM with seeded random weights (load real or reference
+    weights with ``load_state_dict``), with the evidence projection and
+    vision tower of a vlm config."""
 
     def __init__(self, cfg: ModelConfig, param_dtype=None, *, device=None,
                  seed: int = 0):
@@ -85,8 +101,8 @@ class Model(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         kw = dict(dtype=self.param_dtype, device=self.device, gen=gen)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(cfg, kind, **kw)
+                                    for kind in cfg.layer_kinds)
         self.final_norm = Norm(cfg.d_model, dtype=self.param_dtype,
                                device=self.device)
         if not cfg.tie_embeddings:
@@ -160,8 +176,11 @@ class Model(nn.Module):
         images = images.to(self.vision.patch_proj.kernel.dtype)
         return vision_encode(self.vision, self.cfg, images)
 
-    def decode_step(self, token, cache, *, impl: str = "torch"):
-        return tf_lib.transformer_decode(self, token, cache, impl=impl)
+    def decode_step(self, token, cache, *, impl: str = "torch", go=None):
+        """One token a row. ``go``: optional 0-dim bool tensor; when False
+        the recurrent layers keep their state (a masked macro step)."""
+        return tf_lib.transformer_decode(self, token, cache, impl=impl,
+                                         go=go)
 
     def decode_block(self, tokens, cache, valid=None, *,
                      impl: str = "torch", drop_page: int = 0):
@@ -174,17 +193,52 @@ class Model(nn.Module):
         return tf_lib.transformer_decode_block(self, tokens, cache, valid,
                                                impl=impl, drop_page=drop_page)
 
-    # -- capability flags the engine reads ---------------------------------
+    # -- capability flags the engine reads (repro/models/model.py:95-220)
+    @property
+    def state_kind(self) -> str:
+        """What a serving slot owns: ``"kv"`` (every layer caches attention
+        KV, possibly windowed), ``"recurrent"`` (every layer carries
+        fixed-size recurrent state: SSD state and conv tail, RG-LRU h and
+        conv tail) or ``"hybrid"`` (both). Recurrent and hybrid slots keep
+        their prompt state in the engine's ``StateArena``."""
+        if self.cfg.is_encoder_decoder:
+            return "kv"
+        kinds = set(self.cfg.layer_kinds)
+        attn = bool(kinds & {ATTN, LOCAL_ATTN})
+        recurrent = bool(kinds - {ATTN, LOCAL_ATTN})
+        if attn and recurrent:
+            return "hybrid"
+        return "recurrent" if recurrent else "kv"
+
     @property
     def has_pageable_layers(self) -> bool:
-        """Full-context attention layers whose KV the page pool can hold."""
-        return self.cfg.attn_window == 0
+        """At least one full-context attention layer whose KV the page
+        pool can hold."""
+        return (not self.cfg.is_encoder_decoder and
+                self.cfg.attn_window == 0 and
+                any(k == ATTN for k in self.cfg.layer_kinds))
+
+    def capabilities(self) -> dict:
+        """What the serving stack may enable for this architecture."""
+        return {
+            "state_kind": self.state_kind,
+            "is_encoder_decoder": self.cfg.is_encoder_decoder,
+            "has_pageable_layers": self.has_pageable_layers,
+            "supports_bucketed_prefill": self.supports_bucketed_prefill,
+            "supports_prefix_cache": self.supports_prefix_cache,
+            "supports_speculative": self.supports_speculative,
+            "has_vision_tower": self.cfg.vision is not None,
+            "num_evidence_tokens": self.cfg.num_evidence_tokens,
+        }
 
     @property
     def supports_bucketed_prefill(self) -> bool:
         """Right-padded bucketed prefill is exact for attention-only
-        stacks (causality hides the pads from real positions)."""
-        return True
+        stacks (causality hides the pads from real positions); recurrent
+        layers fold pads into their state, allclose but not bit for
+        bit."""
+        return (not self.cfg.is_encoder_decoder and
+                all(k in (ATTN, LOCAL_ATTN) for k in self.cfg.layer_kinds))
 
     @property
     def supports_prefix_cache(self) -> bool:

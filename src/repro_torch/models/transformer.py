@@ -1,55 +1,137 @@
-"""Decoder-only attention stacks: the full-sequence forward, cache
-layouts, prefill and decode.
+"""Decoder-only stacks of attention, SSD and RG-LRU blocks: the
+full-sequence forward, cache layouts, prefill and decode.
 
-Follows ``repro/models/transformer.py`` for attention-only stacks, with a
-Python loop over layers where the reference scans over stacked
-super-blocks. Caches stack the per-layer tensors on a leading layer axis:
+Follows ``repro/models/transformer.py``, with a Python loop over layers
+where the reference scans over stacked super-blocks. Each layer runs its
+kind's block (``block_pattern`` tiled over the layers): full or windowed
+attention (``ATTN``: ``cfg.attn_window``), sliding-window attention
+(``LOCAL_ATTN``: ``cfg.local_window``), the Mamba-2 SSD block (``SSM``,
+no MLP) or the RG-LRU block (``RGLRU``). Caches stack each kind's
+per-layer tensors on a leading axis over the layers of that kind:
 
-  dense: {"k", "v": (num_layers, B, S, Hkv, hd), "pos": (B,) int32}
-  paged: {"k_pages", "v_pages": (num_layers, P, ps, Hkv, hd),
+  dense: {"k", "v": (n_attn, B, S_ring, Hkv, hd),     attention layers
+          "ssd": (n_ssm, B, H, P, N) fp32,            SSD state
+          "ssm_conv": (n_ssm, B, W-1, inner + 2N),    SSD conv tail
+          "h": (n_rglru, B, w) fp32,                  RG-LRU state
+          "rglru_conv": (n_rglru, B, W-1, w),         RG-LRU conv tail
+          "pos": (B,) int32}
+  paged (attention-only stacks):
+         {"k_pages", "v_pages": (num_layers, P, ps, Hkv, hd),
           ["k_scale", "v_scale": (num_layers, P, ps, Hkv) fp32,]
           "pos": (B,) int32, "block_table": (B, cache_len // ps) int32}
 
-so ``cache["k"][l]`` is layer l's (B, S, Hkv, hd) ring and
-``cache["k_pages"][l]`` its (P, ps, Hkv, hd) pool. Prefill and decode
-update the cache tensors in place and return the same dict.
+with only the leaves of the kinds the stack has. ``cache["k"][j]`` is the
+j-th attention layer's (B, S_ring, Hkv, hd) ring, S_ring = cache_len, or
+min(cache_len, window) for windowed layers (every attention layer of a
+stack has the same ring); ``cache["k_pages"][l]`` is layer l's
+(P, ps, Hkv, hd) pool. Every leaf but ``pos`` has its batch on axis 1,
+so that a cache row moves leaf by leaf. Prefill and decode update the
+cache tensors in place and return the same dict; decode writes recurrent
+state with ``copy_`` into the cache's own storage, as a captured decode
+graph needs.
 """
 from __future__ import annotations
+
+from typing import Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ATTN, LOCAL_ATTN, RGLRU, SSM, ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import dense, embed, mlp, rmsnorm, unembed
 from repro_torch.models.moe import moe_apply, moe_aux
 
+# the cache leaf of each part of a recurrent kind's state
+_STATE_LEAVES = {SSM: {"ssd": "ssd", "conv": "ssm_conv"},
+                 RGLRU: {"h": "h", "conv": "rglru_conv"}}
+
+
+def has_mlp(cfg: ModelConfig, kind: str) -> bool:
+    """Attention and RG-LRU blocks carry an MLP, SSD blocks none
+    (``transformer.py:36-37``)."""
+    return kind in (ATTN, LOCAL_ATTN, RGLRU) and \
+        (cfg.d_ff > 0 or cfg.moe is not None)
+
+
+def window_for(cfg: ModelConfig, kind: str) -> int:
+    return cfg.attn_window if kind == ATTN else cfg.local_window
+
+
+def layer_slots(cfg: ModelConfig) -> Tuple[List[Tuple[str, int]],
+                                           Dict[str, int]]:
+    """Each layer's (kind, index along its cache leaves' layer axis), and
+    the number of layers a leaf group stacks ("attn" for both attention
+    kinds, SSM, RGLRU)."""
+    counts: Dict[str, int] = {}
+    slots = []
+    for kind in cfg.layer_kinds:
+        group = "attn" if kind in (ATTN, LOCAL_ATTN) else kind
+        slots.append((kind, counts.get(group, 0)))
+        counts[group] = counts.get(group, 0) + 1
+    return slots, counts
+
+
+def ring_lens(cfg: ModelConfig, cache_len: int) -> set:
+    """The ring lengths of the stack's attention layers (``transformer.py:
+    122-129``): cache_len for full-context attention, else
+    min(cache_len, the layer's window)."""
+    return {cache_len if kind == ATTN and cfg.attn_window == 0 else
+            min(cache_len, window_for(cfg, kind))
+            for kind in cfg.layer_kinds if kind in (ATTN, LOCAL_ATTN)}
+
 
 def _ring_len(cfg: ModelConfig, cache_len: int) -> int:
-    return cache_len if cfg.attn_window == 0 else \
-        min(cache_len, cfg.attn_window)
+    """The one ring of the stack's attention layers: rings of different
+    lengths do not stack."""
+    rings = ring_lens(cfg, cache_len)
+    if len(rings) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: attention layers with rings of {sorted(rings)} "
+            f"slots at cache_len {cache_len} do not stack in one cache")
+    return rings.pop() if rings else cache_len
 
 
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device):
-    hd = cfg.resolved_head_dim
-    shape = (cfg.num_layers, batch, _ring_len(cfg, cache_len),
-             cfg.num_kv_heads, hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+    _, n = layer_slots(cfg)
+    cache = {}
+    if n.get("attn"):
+        shape = (n["attn"], batch, _ring_len(cfg, cache_len),
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    for kind, make in ((SSM, ssm_lib.make_ssm_state),
+                       (RGLRU, rglru_lib.make_rglru_state)):
+        if n.get(kind):
+            state = make(cfg, n[kind] * batch, dtype, device)
+            for key, t in state.items():
+                cache[_STATE_LEAVES[kind][key]] = t.reshape(
+                    (n[kind], batch) + t.shape[1:])
+    cache["pos"] = torch.zeros(batch, dtype=torch.int32, device=device)
+    return cache
+
+
+def _state_of(cache, kind: str, j: int):
+    """Layer j's recurrent state as the block functions name it: views of
+    the stacked leaves, so that writes land in the cache."""
+    return {key: cache[leaf][j] for key, leaf in _STATE_LEAVES[kind].items()}
 
 
 def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                      page_size: int, num_pages: int, kv_dtype: str = "auto",
                      device=None):
     """Decode cache whose KV lives in a shared page pool per layer,
-    addressed through ``block_table`` (``transformer.py:262``). Windowed
-    layers are not paged (their ring is already bounded)."""
+    addressed through ``block_table`` (``transformer.py:262``). Only
+    full-context attention stacks are paged here (windowed and recurrent
+    layers keep dense per-slot state)."""
     if cache_len % page_size:
         raise ValueError(f"cache_len {cache_len} is not a multiple of "
                          f"page_size {page_size}")
-    if cfg.attn_window:
-        raise ValueError("windowed attention layers are not paged")
+    if cfg.attn_window or any(k != ATTN for k in cfg.layer_kinds):
+        raise ValueError("only full-context attention-only stacks are "
+                         "paged")
     hd = cfg.resolved_head_dim
     sdtype, quantized = attn_lib.kv_storage_dtype(kv_dtype, dtype)
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, hd)
@@ -69,7 +151,7 @@ def _mlp_routed(blk, cfg: ModelConfig, x, impl: str):
     """The MLP sub-block (``transformer.py:61``): dense, or MoE with its
     dispatch and combine through ``impl``. Returns (x + its output, the
     MoE's routing for ``moe_aux``, None in a dense block)."""
-    if blk.ln2 is None:                 # d_ff == 0: attention-only block
+    if blk.ln2 is None:        # an SSD block, or d_ff == 0: no MLP
         return x, None
     h = rmsnorm(blk.ln2.scale, x, cfg.norm_eps)
     if blk.moe is not None:
@@ -115,18 +197,34 @@ def _add_aux(acc, aux):
         acc[k] = acc[k] + v if k in acc else v
 
 
+def _block_prefill(blk, cfg: ModelConfig, x, positions, impl: str,
+                   lengths=None):
+    """One layer over the whole sequence (``transformer.py:75-101``).
+    Returns (x, the layer's cache entry: (k, v) of an attention layer or
+    a recurrent layer's state, the MoE routing for ``moe_aux`` or
+    None)."""
+    h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
+    if blk.kind in (ATTN, LOCAL_ATTN):
+        y, entry = attn_lib.attn_prefill(blk.attn, cfg, h, positions,
+                                         window=window_for(cfg, blk.kind),
+                                         impl=impl, lengths=lengths)
+    elif blk.kind == SSM:
+        y, entry = ssm_lib.ssm_prefill(blk.ssm, cfg, h, lengths=lengths)
+    else:
+        y, entry = rglru_lib.rglru_prefill(blk.rglru, cfg, h,
+                                           lengths=lengths)
+    x, routing = _mlp_routed(blk, cfg, x + y, impl)
+    return x, entry, routing
+
+
 def _superblock(model, blocks, x, positions, impl: str):
     """One tile of ``cfg.block_pattern`` over the whole sequence, without
     a cache (``transformer.py:220``). Returns (x, aux): each MoE layer's
     router losses and dropped share (``moe_aux``), summed over the tile's
     layers as the reference's ``_sum_aux`` sums them."""
-    cfg = model.cfg
     aux = {}
     for blk in blocks:
-        h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
-        y, _ = attn_lib.attn_prefill(blk.attn, cfg, h, positions,
-                                     window=cfg.attn_window, impl=impl)
-        x, routing = _mlp_routed(blk, cfg, x + y, impl)
+        x, _, routing = _block_prefill(blk, model.cfg, x, positions, impl)
         if routing is not None:
             _add_aux(aux, moe_aux(*routing))
     return x, aux
@@ -137,7 +235,7 @@ def transformer_forward(model, tokens, evidence=None, *, impl: str = "torch",
     """Full-sequence forward for training and scoring
     (``transformer.py:203``): evidence rows (optional) ahead of the
     tokens, positions 0..L-1 over both, every layer's attention through
-    ``attn_prefill`` with no cache. Returns (logits (B, L, V), hidden
+    its kind's block with no cache. Returns (logits (B, L, V), hidden
     (B, L, d) after the final norm, aux).
 
     ``aux`` reduces the MoE layers' values as the reference does: the sum
@@ -183,7 +281,12 @@ def transformer_prefill(model, tokens, cache, evidence=None, *,
     bucket: last-token logits/hidden come from each row's true last
     position and ``pos`` is seeded per row. Causal masking keeps every
     real position exact under right-padding; keys past each row's length
-    are masked on both impls (``attention.attn_prefill``). Returns
+    are masked on both impls (``attention.attn_prefill``); recurrent
+    layers turn pad steps into identity steps and gather their decode
+    seed at each row's length (allclose to a per-row prefill, not bit for
+    bit: their chunk and scan shapes follow the padded length). A
+    windowed layer's ring keeps the prompt's tail. Recurrent state is
+    cast to its cache leaf's dtype (``transformer.py:486-490``). Returns
     (logits_last (B, V), hidden_last (B, d), cache)."""
     cfg = model.cfg
     x = embed_inputs(model, tokens, evidence)
@@ -191,13 +294,15 @@ def transformer_prefill(model, tokens, cache, evidence=None, *,
     positions = torch.arange(L, device=x.device).expand(B, L)
     if lengths is not None:
         lengths = lengths.to(torch.int32)
-    for i, blk in enumerate(model.layers):
-        h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
-        y, (k, v) = attn_lib.attn_prefill(blk.attn, cfg, h, positions,
-                                          window=cfg.attn_window, impl=impl,
-                                          lengths=lengths)
-        x = _mlp_part(blk, cfg, x + y, impl)
-        attn_lib.prefill_into_cache(cache["k"][i], cache["v"][i], k, v)
+    slots, _ = layer_slots(cfg)
+    for blk, (kind, j) in zip(model.layers, slots):
+        x, entry, _ = _block_prefill(blk, cfg, x, positions, impl, lengths)
+        if kind in (ATTN, LOCAL_ATTN):
+            attn_lib.prefill_into_cache(cache["k"][j], cache["v"][j],
+                                        *entry)
+        else:
+            for key, dst in _state_of(cache, kind, j).items():
+                dst.copy_(entry[key].to(dst.dtype))
     if lengths is None:
         x_last = x[:, -1:]
         cache["pos"] = torch.full((B,), L, dtype=torch.int32,
@@ -276,29 +381,40 @@ def transformer_prefill_chunked(model, tokens, cache, chunk: int, *,
     return logits, hidden, cache
 
 
-def transformer_decode(model, token, cache, *, impl: str = "torch"):
+def transformer_decode(model, token, cache, *, impl: str = "torch",
+                       go=None):
     """One decode step (``transformer.py:493``). token: (B,) or (B, 1).
-    Every row's KV is written at its ``pos`` and every ``pos`` advances in
-    place, idle rows included. Returns (logits (B, V), hidden (B, d),
-    cache)."""
+    Every row's KV is written at its ``pos``, its recurrent state updated
+    in place, and every ``pos`` advances in place, idle rows included.
+    ``go``: optional 0-dim bool tensor; when False, recurrent state keeps
+    its value (the macro body's masked steps; the caller winds ``pos``
+    back, and the KV written at ``pos`` is written again by the next
+    real step). Returns (logits (B, V), hidden (B, d), cache)."""
     cfg = model.cfg
     if token.dim() == 1:
         token = token[:, None]
     pos = cache["pos"]
     bt = cache.get("block_table")
     x = embed(model.embed.table, token)
-    for i, blk in enumerate(model.layers):
+    slots, _ = layer_slots(cfg)
+    for i, (blk, (kind, j)) in enumerate(zip(model.layers, slots)):
         h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
-        if bt is not None:
+        if kind == SSM:
+            y = ssm_lib.ssm_decode(blk.ssm, cfg, h,
+                                   _state_of(cache, kind, j), go)
+        elif kind == RGLRU:
+            y = rglru_lib.rglru_decode(blk.rglru, cfg, h,
+                                       _state_of(cache, kind, j), go)
+        elif bt is not None:
             y = attn_lib.attn_decode_paged(
                 blk.attn, cfg, h, cache["k_pages"][i], cache["v_pages"][i],
                 pos, bt, impl=impl,
                 ks=cache["k_scale"][i] if "k_scale" in cache else None,
                 vs=cache["v_scale"][i] if "v_scale" in cache else None)
         else:
-            y = attn_lib.attn_decode(blk.attn, cfg, h, cache["k"][i],
-                                     cache["v"][i], pos,
-                                     window=cfg.attn_window, impl=impl)
+            y = attn_lib.attn_decode(blk.attn, cfg, h, cache["k"][j],
+                                     cache["v"][j], pos,
+                                     window=window_for(cfg, kind), impl=impl)
         x = _mlp_part(blk, cfg, x + y, impl)
     logits, hidden = _logits(model, x)
     pos += 1        # in place: a captured decode step keeps its addresses

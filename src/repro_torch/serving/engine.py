@@ -1,7 +1,8 @@
 """Slot-scheduled batched serving engine with CAMD adaptive decoding.
 
-The port of ``repro/serving/engine.py`` for decoder-only attention
-models. A fixed decode batch of ``slots``; each slot holds one candidate
+The port of ``repro/serving/engine.py`` for decoder-only models:
+attention stacks, and the recurrent (SSD) and hybrid (RG-LRU + local
+attention) ones. A fixed decode batch of ``slots``; each slot holds one candidate
 generation of some request. When a request reaches coverage its slots
 free and refill from the queue, so CAMD's adaptive allocation falls out of
 slot scheduling.
@@ -61,6 +62,18 @@ to ``align_sum``, the incremental S_align of the candidate score; with
 ``xmodal_rescore`` each finished candidate's S_align is recomputed
 instead by the cross-modal score (paper Eq. 8-9, kernel K4).
 
+Recurrent and hybrid models (``Model.state_kind`` "recurrent" or
+"hybrid") serve on the dense impls only: they have no layer to page. Each
+request is prefilled alone (their right-padded bucketed prefill is not
+bit for bit a per-row one), and its prompt state, every cache leaf of its
+row (SSD state and conv tails, RG-LRU h and conv tails, the local layers'
+rings), moves into a row of a fixed-stride ``StateArena`` of
+2 * slots + 4 rows, ``model.make_cache(rows, cache_len)`` on the device,
+until its request finishes or is cancelled; candidates are seeded from
+that row. Prefill-ahead is bounded by the arena's free rows
+(``sizing_stalls`` counts the deferrals), and ``arena_stats`` reports
+the resident state bytes.
+
 Paged engines store KV in the param dtype (``kv_dtype`` "auto"), in
 fp32 or bf16, or quantized to int8 or fp8-e4m3 with one fp32 scale per
 (page, slot, kv head): prompt spans are quantized once at seeding and
@@ -114,10 +127,12 @@ from repro_torch.config import CAMDConfig, PagedKVConfig, SamplingConfig
 from repro_torch.core import controller as ctrl
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.transformer import ring_lens
 from repro_torch.sampling.samplers import (GumbelNoise, sample_token,
                                            sample_token_batch,
                                            speculative_accept)
 from repro_torch.serving.page_pool import PagePool, prefix_page_keys
+from repro_torch.serving.state_arena import StateArena
 from repro_torch.serving.scheduler import (NewWork, PrefillWork, RoundWork,
                                            SchedulerContext, make_scheduler)
 
@@ -250,9 +265,16 @@ class ServeEngine:
         self.macro_steps = macro_steps
         self.paged = impl.startswith("paged")
         self._model_impl = _MODEL_IMPL[impl]
+        # "kv" slots own attention KV only, "recurrent" ones fixed-size
+        # state only, "hybrid" ones both; recurrent and hybrid prompt
+        # state lives in the state arena, never in pages
+        self.state_kind = model.state_kind
         if self.paged and not model.has_pageable_layers:
-            raise ValueError(f"impl={impl!r} pages full-context attention "
-                             f"KV, but {self.cfg.name} has none")
+            raise ValueError(
+                f"impl={impl!r} pages full-context attention KV, but "
+                f"{self.cfg.name} ({self.state_kind}) has no pageable "
+                "layers — serve it with impl='torch'/'cuda' (fixed-stride "
+                "state rows are arena-managed, not paged)")
         # the prefix cache and chunked prefill need paged KV on an
         # all-attention full-context decoder; elsewhere they are off
         self.prefix_cache = bool(prefix_cache) and self.paged and \
@@ -342,9 +364,17 @@ class ServeEngine:
         self.bucket_prefill = bool(bucket_prefill) and \
             model.supports_bucketed_prefill
         self.prefill_bucket_min = prefill_bucket_min
-        self._min_ring = cache_len if self.cfg.attn_window == 0 else \
-            min(cache_len, self.cfg.attn_window)
+        rings = ring_lens(self.cfg, cache_len)
+        self._min_ring = min(rings) if rings else cache_len
         self.state = self._blank_state()
+        # recurrent and hybrid prompt rows: a bounded device buffer of
+        # whole cache rows, managed by the arena (engine.py:401-412)
+        self.arena = None
+        self._arena_buf = None
+        if self.state_kind != "kv" and not self.paged:
+            rows = 2 * slots + 4
+            self.arena = StateArena(rows)
+            self._arena_buf = model.make_cache(rows, cache_len, self._dtype)
         if self.paged:
             # the pool enforces the byte budget from the engine's bytes a
             # page
@@ -450,7 +480,7 @@ class ServeEngine:
         step."""
         st = self.state
         logits, hidden, _ = self.model.decode_step(
-            st.last_token, st.cache, impl=self._model_impl)
+            st.last_token, st.cache, impl=self._model_impl, go=go)
         if go is not None:               # a masked step keeps its position
             st.cache["pos"].sub_((~go).to(torch.int32))
         tok, lp = sample_token(logits.float(), self.sampling,
@@ -1086,6 +1116,8 @@ class ServeEngine:
         self.scheduler.reset_stats()
         if self.paged:
             self.pool.reset_stats()
+        if self.arena is not None:
+            self.arena.reset_stats()
 
     # -- async front-end hooks -------------------------------------------
     def has_work(self) -> bool:
@@ -1124,10 +1156,7 @@ class ServeEngine:
         if self.paged:
             self._seed_paged_slots(info, slot_ids, lim)
         else:
-            row = info["cache_row"]
-            st.cache["k"][:, idx] = row["k"]
-            st.cache["v"][:, idx] = row["v"]
-            st.cache["pos"][idx] = row["pos"]
+            self._put_rows(st.cache, idx, self._request_row(info))
         bias = info.get("bias")
         toks, lps = sample_token_batch(info["prefill_logits"], self.sampling,
                                        bias=bias, greedy=self._greedy_row,
@@ -1224,6 +1253,62 @@ class ServeEngine:
             info["evid_row"] = torch.zeros((1, 1, self.d),
                                            device=self.device)
         self._reqs[req.uid] = info
+        self._arena_put(info)
+
+    # -- cache rows and the state arena ---------------------------------
+    @staticmethod
+    def _cache_row(cache, i: int) -> Dict[str, torch.Tensor]:
+        """Row ``i`` of a dense cache as a 1-row view: every leaf has its
+        batch on axis 1 but ``pos`` (``models/transformer.py``)."""
+        return {name: leaf[i:i + 1] if name == "pos" else leaf[:, i:i + 1]
+                for name, leaf in cache.items()}
+
+    @staticmethod
+    def _put_rows(cache, idx, row) -> None:
+        """Copy a 1-row cache into rows ``idx`` of ``cache``, leaf by leaf
+        (in place)."""
+        for name, leaf in row.items():
+            if name == "pos":
+                cache["pos"][idx] = leaf
+            else:
+                cache[name][:, idx] = leaf.to(cache[name].dtype)
+
+    def _arena_put(self, info) -> None:
+        """Move a freshly prefilled prompt row into a state-arena row,
+        held until ``_finish_request`` (``engine.py:1041-1053``), so that
+        prefilled but unadmitted recurrent state is bounded and
+        counted."""
+        if self.arena is None or info.get("cache_row") is None:
+            return
+        r = self.arena.alloc(1, self.arena.best_shard())[0]
+        self._put_rows(self._arena_buf, torch.tensor([r], device=self.device),
+                       info["cache_row"])
+        info["cache_row"] = None
+        info["arena_row"] = r
+
+    def _request_row(self, info):
+        """The request's 1-row prompt cache: a view of its arena row on a
+        recurrent or hybrid engine, its own prefill row otherwise."""
+        r = info.get("arena_row")
+        if r is not None:
+            return self._cache_row(self._arena_buf, r)
+        return info["cache_row"]
+
+    def arena_stats(self) -> Dict[str, Any]:
+        """State-arena telemetry of a recurrent or hybrid engine, ``{}``
+        on a kv one (``engine.py:1501-1515``): the arena's counters, the
+        bytes of one row over every cache leaf and the bytes the arena
+        holds resident."""
+        if self.arena is None:
+            return {}
+        s: Dict[str, Any] = dict(self.arena.stats())
+        s["state_kind"] = self.state_kind
+        rows = self.arena.num_rows
+        bpr = sum(leaf.numel() // rows * leaf.element_size()
+                  for leaf in self._arena_buf.values())
+        s["bytes_per_row"] = int(bpr)
+        s["resident_state_bytes"] = int(bpr) * rows
+        return s
 
     def _evidence(self, reqs: List[Request], rows: int):
         """(rows, Ne, De) evidence of ``reqs`` (which all carry evidence,
@@ -1444,6 +1529,11 @@ class ServeEngine:
         ahead = max(self.B, 4)
         pending = [r for r in self._queue[:ahead]
                    if r.uid not in self._reqs and r.uid not in self._chunking]
+        if self.arena is not None and len(pending) > self.arena.free_rows:
+            # arena-bounded prefill-ahead: the overflow waits for a pass
+            # with free rows (engine.py:1988-1992)
+            self.arena.sizing_stalls += 1
+            pending = pending[:self.arena.free_rows]
         if self.prefix_cache:
             misses = []
             for r in pending:
@@ -1492,9 +1582,8 @@ class ServeEngine:
         self.prefill_calls += 1
         self.prefill_tokens += int(lens[:n].sum())
         for i, r in enumerate(reqs):
-            row = {"k": cache["k"][:, i:i + 1], "v": cache["v"][:, i:i + 1],
-                   "pos": cache["pos"][i:i + 1]}
-            self._init_info(r, row, lg[i:i + 1], h[i:i + 1], int(lens[i]))
+            self._init_info(r, self._cache_row(cache, i), lg[i:i + 1],
+                            h[i:i + 1], int(lens[i]))
 
     # -- scheduling ------------------------------------------------------
     def _free_slots(self) -> List[int]:
@@ -1670,6 +1759,9 @@ class ServeEngine:
         info["done"] = True
         info["pending_round"] = False
         info["cache_row"] = None
+        r = info.pop("arena_row", None)
+        if r is not None:
+            self.arena.free([r])
         if self.paged and info.get("prompt_pages"):
             self.pool.free(info.pop("prompt_pages"))
         self._newly_done.append(uid)
@@ -1729,6 +1821,13 @@ class ServeEngine:
                 return False        # a chunk job advanced: not a sizing error
             if self.paged:
                 self._raise_pool_sizing()
+            if self.arena is not None:
+                # a full arena means held rows, and held rows mean live or
+                # admissible work: fail fast rather than spin
+                raise RuntimeError(
+                    f"state arena ({self.arena.num_rows} rows, "
+                    f"{self.arena.free_rows} free) cannot admit pending "
+                    "work — arena sizing invariant violated")
         return False
 
     # -- run loops -------------------------------------------------------

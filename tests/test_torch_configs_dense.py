@@ -139,12 +139,16 @@ def test_config_equals_reference(module, name):
 
 def test_served_configs_cover_the_attention_only_ones():
     """Every attention-only config of the reference is registered, but
-    kimi-k2-1t-a32b (about 1T parameters: no single card holds it)."""
+    kimi-k2-1t-a32b (about 1T parameters: no single card holds it); the
+    recurrent and hybrid ones are registered beside them
+    (tests/test_torch_recurrent_models.py), the encoder-decoder one
+    not yet."""
     from repro.configs import list_configs as jlist
     attn_only = {n for n in jlist()
                  if all(k == "attn" for k in jget_config(n).layer_kinds)
                  and not jget_config(n).is_encoder_decoder}
-    assert set(list_configs()) == attn_only - {"kimi-k2-1t-a32b"}
+    assert set(list_configs()) == attn_only - {"kimi-k2-1t-a32b"} | {
+        "mamba2-780m", "recurrentgemma-2b"}
     assert jget_config("kimi-k2-1t-a32b").num_params() * 2 > 1e12
 
 

@@ -78,6 +78,79 @@ def test_flash_kernel_on_card(gen, dtype, hd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_hd256_on_card(gen, dtype):
+    """K2 at head_dim 256 (recurrentgemma-2b's local attention: 10 query
+    heads over one kv head): a one-row prefill of a whole tile, a ragged
+    row, windows that bind (L 600 against 256, L 300 against 96: the
+    window's edge cuts diagonal tiles), key lengths and a non-causal row.
+    Two runs give the same bits."""
+    for L, causal, window, lens in ((256, True, 2048, None),
+                                    (200, True, 0, None),
+                                    (600, True, 256, None),
+                                    (300, True, 96, None),
+                                    (130, True, 0, [130, 17]),
+                                    (37, False, 0, None)):
+        B = 1 if lens is None else 2
+        q = _rand(gen, (B, L, 10, 256), dtype)
+        k = _rand(gen, (B, L, 1, 256), dtype)
+        v = _rand(gen, (B, L, 1, 256), dtype)
+        ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device="cuda")
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  lengths=ln)
+        _close(out, ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window, lengths=ln),
+               dtype)
+        assert torch.equal(out, ops.flash_attention(
+            q, k, v, causal=causal, window=window, lengths=ln))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_hd256_on_card(gen, dtype):
+    """K3 at head_dim 256 on its wide body, G 10 run as 2 groups of 5:
+    recurrentgemma's served decode (B 8, S 288, a ring mask), a 512-slot
+    ring whose positions wrapped past it with a window of 300 binding, G 1
+    and G 4, and a row with no valid key, under several splits and one.
+    Two runs give the same bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, S, H, Hkv, kind in ((8, 288, 10, 1, "ring"),
+                               (4, 512, 10, 1, "wrapped window"),
+                               (3, 200, 2, 2, "ring"),
+                               (2, 300, 8, 2, "ring"),
+                               (3, 300, 10, 1, "empty row"),
+                               (3, 16, 10, 1, "empty row")):
+        q = _rand(gen, (B, 1, H, 256), dtype)
+        k = _rand(gen, (B, S, Hkv, 256), dtype)
+        v = _rand(gen, (B, S, Hkv, 256), dtype)
+        slot = torch.arange(S, device="cuda")
+        pos = torch.randint(0, S, (B,), generator=gen, device="cuda")
+        if kind == "wrapped window":
+            pos = pos + 3 * S
+        p = pos[:, None]
+        slot_pos = p - torch.remainder(p - slot[None, :], S)
+        mask = slot_pos >= 0
+        if kind == "wrapped window":
+            mask &= slot_pos > p - 300
+            assert bool((~mask).any(1).all())
+        if kind == "empty row":
+            mask[1] = False
+        n_split, _ = ops.decode_splits(B, Hkv * ops.decode_groups(H // Hkv),
+                                       S, sms)
+        assert (n_split == 1) == (S == 16)
+        out = ops.decode_attention(q, k, v, mask)
+        _close(out, ref.decode_attention_ref(q, k, v, mask), dtype)
+        assert torch.equal(out, ops.decode_attention(q, k, v, mask))
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_decode_attention(
+            q[:, :, :1].contiguous(), k[:1].reshape(S, 1, 1, 256),
+            v[:1].reshape(S, 1, 1, 256),
+            torch.zeros(B, 1, dtype=torch.int32, device="cuda"),
+            torch.ones(B, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.gpu
 def test_kernel_refuses_inputs_that_require_grad(gen):
     """No kernel has a backward: K2 on a q that requires grad raises under
     grad mode (its output would carry no grad_fn, and q's gradient would
@@ -592,6 +665,39 @@ def test_graph_macro_step_equals_eager_on_card(gen, arch):
     assert eager._graphs_captured == 0
     assert streams == e_streams == runs["legacy"][1]
     assert launches == e_launches
+    a, b = _state_tensors(eng), _state_tensors(eager)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
+def test_recurrent_graph_equals_eager_on_card(gen, arch):
+    """The recurrent (SSD) and hybrid (RG-LRU + local attention) models
+    through ``cuda`` with K 4, every launch a replay of the one captured
+    graph, whose decode writes the recurrent state in place: the same
+    CAMD streams and launch counts as the body run eagerly and as the
+    legacy loop, a bitwise equal final state, and the state arena empty
+    at the end."""
+    runs = {}
+    for name, K in (("graph", 4), ("eager body", 4), ("legacy", 0)):
+        eng, reqs = _engine_on_card(arch, K, impl="cuda")
+        if name == "eager body":
+            def eager(eng=eng):
+                eng._fill_noise(eng._t)
+                return eng._macro_step()
+            eng._macro_launch = eager
+        res, launches = _serve_on_card(eng, reqs)
+        runs[name] = (eng, [[c["tokens"].tolist() for c in r.candidates]
+                            for r in res], launches)
+        eng.arena.check()
+        assert eng.arena.in_use == 0
+    eng, streams, launches = runs["graph"]
+    assert eng._graphs_captured == 1 and eng.macro_launches > 1
+    eager, e_streams, e_launches = runs["eager body"]
+    assert streams == e_streams == runs["legacy"][1]
+    assert launches == e_launches
+    assert (launches["decode_attention"] > 0) == (arch != "mamba2-780m")
     a, b = _state_tensors(eng), _state_tensors(eager)
     for k in a:
         assert torch.equal(a[k], b[k]), k

@@ -250,16 +250,23 @@ def test_quantized_paged_decode_matches(tiny_model, name):
 
 
 def test_unsupported_families_raise():
+    """The encoder-decoder family, evidence outside the vlm family and
+    gelu MoE experts raise; a stack of local-attention blocks builds (the
+    recurrent and hybrid families are served:
+    tests/test_torch_recurrent_models.py)."""
     from repro_torch.configs import get_config
     base = get_config("qwen3_0_6b").reduced()
     assert get_config("qwen3-0.6b") is get_config("qwen3_0_6b")
     moe = get_config("granite-moe-3b-a800m").reduced()
-    for cfg in (base.with_overrides(block_pattern=("ssm",)),
-                base.with_overrides(is_encoder_decoder=True),
+    for cfg in (base.with_overrides(is_encoder_decoder=True),
                 base.with_overrides(num_evidence_tokens=4),
                 moe.with_overrides(mlp_activation="gelu")):
         with pytest.raises(NotImplementedError):
             build_model(cfg, device="cpu")
+    local = build_model(base.with_overrides(block_pattern=("local",)),
+                        device="cpu")
+    assert [blk.kind for blk in local.layers] == ["local", "local"]
+    assert local.state_kind == "kv" and not local.has_pageable_layers
 
 
 @pytest.mark.parametrize("activation", ["gelu", "relu"])

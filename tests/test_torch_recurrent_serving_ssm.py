@@ -1,0 +1,11 @@
+"""The port's serving engine on mamba2-780m (attention-free SSD blocks,
+recurrent slots) against the JAX package's, on the CPU; the cases are
+those of ``recurrent_serving_cases.py``."""
+import pytest
+
+from recurrent_serving_cases import *  # noqa: F401,F403
+
+
+@pytest.fixture(scope="session")
+def arch():
+    return "mamba2-780m"
