@@ -131,6 +131,26 @@ Run from the root of a checkout. It
      at head_dim 256 (``hd256_phase``: recurrentgemma's 10 query heads
      over one kv head, the window binding at L 3072 and on a wrapped
      2048-slot ring).
+  33-34. the encoder-decoder seamless-m4t-large-v2 (512 random audio
+     frames a request into a 24-layer encoder; a 24-layer decoder with
+     cross-attention): at 4 + 4 layers, full widths, fp32, the greedy
+     streams of torch (K 8), cuda (K 8, the graph) and cuda (K 0) must
+     agree, with K2 and K3 launched once a decoder layer a prefill and a
+     step, and ``--impl paged_cuda`` refused; then it is served at full
+     width in fp32 through ``--impl cuda --mode camd --xmodal-rescore``
+     (8 requests arriving at once through the front-end), with exact
+     launch counts (K2 once a decoder layer a prefill, K3 once a decoder
+     layer a replayed step, K4a and K4b once a rescored candidate,
+     nothing else), tokens/s, TTFT, peak memory, and a replay's device
+     time a step against the byte bound of one step. The kernel phase
+     holds and times K2 and K3 at its decoder's 16/16 heads of width 64
+     (``seamless_attention_phase``) and K4 at its 512 frames of width
+     1024.
+Before the kernel phase and again after the last phase, ``timer_check``
+profiles K4a's timed call in 40 windows with no head, 40 behind one
+spinning kernel of ~1 ms and 40 the timer's way (behind 500 spinning
+kernels of a few cycles, whose records take the places the profiler
+drops), and prints what each way lost.
 Every serve phase and open-loop wave checks that the flash kernel ran
 once a layer a whole-prompt prefill forward and the paged decode kernel
 once a layer a step of every replay (none in a speculative run).
@@ -195,8 +215,15 @@ RG_ATTN = dict(H=10, Hkv=1, hd=256, window=2048)
 # served decode)
 HD256_ENTRIES = ("recurrentgemma-2b", "recurrentgemma-2b bf16",
                  "recurrentgemma-2b L3072")
+# seamless-m4t-large-v2: its decoder's self-attention, which K2 and K3
+# serve (16 query heads over 16 kv heads of width 64, G 1), and its 512
+# audio frames of width 1024, the evidence K4 rescores against
+SEAMLESS = dict(name="seamless-m4t-large-v2", H=16, Hkv=16, hd=64,
+                frames=512, d=1024, eos=256206, layers=24)
+SEAMLESS_DENSE_LAYERS = 4
 NEW_ENTRIES = tuple(LARGE_HEADS) + ("granite-34b int8", "granite-34b fp8",
-                                    "internvl2-2b") + HD256_ENTRIES
+                                    "internvl2-2b") + HD256_ENTRIES + (
+    SEAMLESS["name"],)
 # K3's second timing shape: the reference's decode_32k cache length
 # (repro/config.py:263); K3 is timed at each length of the sweep, from
 # one 16-row tile to 2048 of them
@@ -248,55 +275,95 @@ def device_records(torch, prof):
     return times, counts
 
 
+# spinning kernels of a few cycles each (``torch.cuda._sleep``) that open
+# each profiled window: a process that has profiled many device records
+# drops the first records of later windows (~30 late in this script, more
+# the more it has profiled; ``timer_check``), and these take their place
+HEAD_RECORDS = 500
+
+
 class Timer:
     """Per-launch timing with the L2 cache flushed before each launch (the
     serving path meets every layer's K/V cold): ``device_ms`` sums the
     device durations of the call's kernels under torch.profiler (launch
     gaps and host time excluded), ``ms`` reads CUDA events around the
     call (the host's work inside the call included, where the device
-    waits on it)."""
+    waits on it).
+
+    A process that has profiled many device records drops the first
+    records of every later window (``timer_check``): the first calls'
+    kernels went missing, and the timer failed a correct tree. So each
+    padded window opens with ``HEAD_RECORDS`` spinning kernels of a few
+    cycles, which take the dropped places. They and the flush are left
+    out of every sum."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-        self._flush_keys = set(self._kernel_times(self._flush, 1))
+        self.prof = None
+        # the timer's own kernels, each named from a window of two calls
+        # that leaves nothing out yet
+        self._flush_keys, self._pad_keys = set(), set()
+        self._flush_keys = set(self._kernel_times(self._flush, 2, pad=False))
+        self._pad_keys = set(self._kernel_times(self._pad, 2, pad=False))
 
     def _flush(self):
         self.flush.bitwise_not_()
 
-    def _kernel_times(self, fn, reps: int, flush: bool = True):
+    def _pad(self):
+        for _ in range(HEAD_RECORDS):
+            self.torch.cuda._sleep(1)
+
+    def _kernel_times(self, fn, reps: int, flush: bool = True,
+                      pad: bool = True):
         """{kernel name: summed device microseconds} over ``reps`` calls,
-        each after an L2 flush unless ``flush`` is false."""
+        each after an L2 flush unless ``flush`` is false, the window
+        opened by the head records unless ``pad`` is false (``timer_check``
+        profiles both ways; an unpadded window can time the spinning
+        kernel itself). The flush and the head are left out. The profile
+        stays in ``self.prof``."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if pad:
+                self._pad()
             for _ in range(reps):
                 if flush:
                     self._flush()
                 fn()
             torch.cuda.synchronize()
         times, self.counts = device_records(torch, prof)
-        return times
+        self.prof = prof
+        own = self._flush_keys | (self._pad_keys if pad else set())
+        return {k: v for k, v in times.items() if k not in own}
 
     def device_ms(self, fn, kernel: str = None, reps: int = 20,
-                  warmup: int = 3, flush: bool = True) -> float:
+                  warmup: int = 3, flush: bool = True,
+                  pad: bool = True) -> float:
         """Device time per call: the call's kernels (only those whose name
         holds ``kernel``, when given), the flush left out; with ``flush``
-        false the call finds in the L2 what its previous call left."""
+        false the call finds in the L2 what its previous call left; with
+        ``pad`` false the window is not padded (to time the pad's own
+        kernel)."""
         for _ in range(warmup):
             fn()
         for _ in range(3):
             times = {k: v for k, v in
-                     self._kernel_times(fn, reps, flush).items()
-                     if k not in self._flush_keys and (kernel is None or
-                                                       kernel in k)}
+                     self._kernel_times(fn, reps, flush, pad).items()
+                     if kernel is None or kernel in k}
             # every kernel of the call runs at least once a call: fewer
             # records mean the profiler lost some, so profile again
             if all(self.counts[k] >= reps for k in times):
                 break
         check(bool(times), f"timer: the profiler saw no kernel "
               f"{kernel or ''} in the call")
+        if not all(self.counts[k] >= reps for k in times):
+            kept = _window_records(self.torch, self.prof, kernel or "")
+            print(f"timer: {kernel or 'the call'}: kept {kept['head']} of "
+                  f"{HEAD_RECORDS if pad else 0} head, {kept['flush']} flush "
+                  f"and {kept['call']} call records of {reps} calls",
+                  file=sys.stderr)
         check(all(self.counts[k] >= reps for k in times),
               f"timer: the profiler lost records of {kernel or 'the call'}")
         return sum(times.values()) / reps / 1e3
@@ -305,8 +372,7 @@ class Timer:
         """Device ms per call of each kernel the call runs, the flush
         left out."""
         return {k: v / reps / 1e3 for k, v in
-                self._kernel_times(fn, reps).items()
-                if k not in self._flush_keys}
+                self._kernel_times(fn, reps).items()}
 
     def ms(self, fn, reps: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -1042,13 +1108,16 @@ def xmodal_phase(torch, ops, ref, timer):
     input values, so bf16 inputs take the fp32 tolerance. K4b's split plan
     takes one split at the two short-d cases and several at the serving
     shape and at d 1004 (whose bf16 rows lie off a 16-byte boundary:
-    element copies); both kinds must occur. Timed at llava's serving shape
-    and at internvl2-2b's (256 image rows of width 2048)."""
+    element copies); both kinds must occur. Timed at llava's serving shape,
+    at internvl2-2b's (256 image rows of width 2048) and at
+    seamless-m4t-large-v2's (512 audio frames of width 1024)."""
     g = torch.Generator(device="cuda").manual_seed(4)
     serving = (1, SERVE["max_new"], IMAGE_TOKENS, SERVE["prompt"], 4096)
     internvl = (1, SERVE["max_new"], INTERNVL_TOKENS, SERVE["prompt"],
                 INTERNVL_D)
-    cases = [serving, internvl,            # (B, L, Nv, Nt, d)
+    seamless = (1, SERVE["max_new"], SEAMLESS["frames"], SERVE["prompt"],
+                SEAMLESS["d"])
+    cases = [serving, internvl, seamless,  # (B, L, Nv, Nt, d)
              (3, 1, 7, 129, 48),           # ragged rows, d not a chunk multiple
              (2, 33, 65, 31, 100),
              (2, 8, 100, 70, 1004)]        # ragged, split d
@@ -1097,11 +1166,13 @@ def xmodal_phase(torch, ops, ref, timer):
           "xmodal_score_max: the cases must take one split and several")
     # timing at the serving shapes: one finished candidate's 32 tokens
     # (all live) against llava's 576 image rows and a 256-token prompt
-    # (the kernels' rows), and against internvl2-2b's 256 of width 2048
-    # (their "internvl2-2b" entries), fp32
+    # (the kernels' rows), against internvl2-2b's 256 of width 2048 and
+    # seamless-m4t-large-v2's 512 audio frames of width 1024 (their
+    # entries of those names), fp32
     timed = {}
     for key, (B, L, Nv, Nt, d) in (("llava", serving),
-                                   ("internvl2-2b", internvl)):
+                                   ("internvl2-2b", internvl),
+                                   (SEAMLESS["name"], seamless)):
         tok, mask, vis, txt = inputs(B, L, Nv, Nt, d, torch.float32)
         mask.fill_(1.0)
         shape = f"fp32 B{B} L{L} Nv{Nv} Nt{Nt} d{d}"
@@ -1136,11 +1207,11 @@ def xmodal_phase(torch, ops, ref, timer):
             f"fp32 SIMT {b['simt']:.5f}, 3xTF32 {b['tf32x3']:.5f} ms")
         timed[key] = (t_mean, t_max)
     t_mean, t_max = timed["llava"]
-    sub_mean, sub_max = timed["internvl2-2b"]
-    t_mean["internvl2-2b"] = {k_: sub_mean[k_]
-                              for k_ in SUB_KEYS + ("by_kernel",)}
-    t_max["internvl2-2b"] = {k_: sub_max[k_] for k_ in
-                             SUB_KEYS + ("by_kernel", "splits") + TF32_BOUNDS}
+    for key in ("internvl2-2b", SEAMLESS["name"]):
+        sub_mean, sub_max = timed[key]
+        t_mean[key] = {k_: sub_mean[k_] for k_ in SUB_KEYS + ("by_kernel",)}
+        t_max[key] = {k_: sub_max[k_] for k_ in
+                      SUB_KEYS + ("by_kernel", "splits") + TF32_BOUNDS}
     t_mean["max_abs_err"] = max(errs["xmodal_score_mean"])
     t_max["max_abs_err"] = max(errs["xmodal_score_max"])
     return {"xmodal_score_mean": t_mean, "xmodal_score_max": t_max}
@@ -1269,9 +1340,10 @@ def moe_phase(torch, ops, ref, timer):
                        if k_ in tt}
         out[name] = td
     # the floor under a launch-bound kernel: the device time of an empty
-    # kernel, timed as the kernels are
+    # kernel, timed as the kernels are, in a window the timer's pads (the
+    # same spinning kernel) stay out of
     out["moe_combine"]["floor_ms"] = timer.device_ms(
-        lambda: torch.cuda._sleep(0))
+        lambda: torch.cuda._sleep(0), pad=False)
     return out
 
 
@@ -1500,9 +1572,8 @@ def graph_phase(torch, name, out, timer):
                 ("replay", eng._graph.replay, 5, 3),
                 ("eager body", eng._macro_step, 2, 1)):
             wall, ev = wall_event_ms(torch, fn, reps)
-            busy = sum(v for k, v in timer._kernel_times(
-                fn, prof_reps, flush=False).items()
-                if k not in timer._flush_keys) / prof_reps / 1e3
+            busy = sum(timer._kernel_times(
+                fn, prof_reps, flush=False).values()) / prof_reps / 1e3
             rows[how] = (wall, ev, busy)
     print(f"graph [{name}]: noise fill {fill_wall:.3f} ms wall, "
           f"{fill_ev:.3f} ms CUDA events a launch; one macro launch "
@@ -1673,8 +1744,7 @@ def granite_timing(torch, out, timer):
             model.decode_step(tok, paged, impl="cuda")
 
         decode_ms = timer.ms(step, reps=5, warmup=2)
-        by_kernel = {k: v for k, v in timer._kernel_times(step, 5).items()
-                     if k not in timer._flush_keys}
+        by_kernel = timer._kernel_times(step, 5)
     busy = sum(by_kernel.values()) / 5 / 1e3
     print(f"granite: one bucketed prefill of {B} x {L} tokens "
           f"{prefill_ms:.2f} ms; one decode forward of {B} slots "
@@ -2850,6 +2920,371 @@ def grad_guard_check(torch, ops):
           "grad, with nothing launched")
 
 
+# ---------------------------------------------------------------------------
+# the timer's windows
+# ---------------------------------------------------------------------------
+
+TIMER_SESSIONS = 40
+
+
+def _window_records(torch, prof, fn_key: str):
+    """What one profiled window kept of its device records: the head's
+    spinning kernels, the flushes, the kernels whose name holds
+    ``fn_key`` (one record a call each) and the fewest records of one of
+    them, hidden records, and the first record's start after the
+    window's start (ms, None when the window kept nothing)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    res = prof.profiler.kineto_results
+    recs = [(e.start_ns(), e.name(),
+             getattr(e, "is_hidden_event", lambda: False)())
+            for e in res.events() if e.device_type() == cuda]
+    calls: dict = {}
+    for _, name, _ in recs:
+        if fn_key in name:
+            calls[name] = calls.get(name, 0) + 1
+    return {"head": sum("sleep" in n or "spin" in n for _, n, _ in recs),
+            "flush": sum("bitwise_not" in n for _, n, _ in recs),
+            "call": min(calls.values(), default=0), "kinds": len(calls),
+            "hidden": sum(h for _, _, h in recs),
+            "lead": (min(t for t, _, _ in recs) - res.trace_start_ns()) / 1e6
+            if recs else None}
+
+
+def _one_pad_window(torch, timer, fn, reps: int):
+    """A window of ``reps`` flushed calls opened by one spinning kernel of
+    ~1 ms in place of the head records: time ahead of the calls, but one
+    record. The profile, for ``_window_records``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1 << 21)
+        for _ in range(reps):
+            timer._flush()
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def timer_check(torch, ops, timer, when: str):
+    """The timer's fault (the profiler lost records of K4a's kernels on
+    three profiles in a row, failing a correct tree): K4a's timed call at
+    llava's shape, ``TIMER_SESSIONS`` profiled windows of 20 flushed calls
+    each way, in turns: with no head (as the timer did before,
+    ``Timer._kernel_times(pad=False)``), behind one spinning kernel of
+    ~1 ms (``_one_pad_window``), and the timer's way, behind
+    ``HEAD_RECORDS`` spinning kernels of a few cycles; run ``when`` the
+    process is fresh and again after every other phase, millions of
+    profiled records later. Prints, for each way, the windows that lost a
+    record of the calls (a flush or a K4a kernel), the fewest of the
+    calls' records and of the head's that a window kept, the hidden
+    records and the first record's start after the window's start. It
+    asserts nothing: each timed call checks its own records
+    (``Timer.device_ms``)."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    B, L, Nv, d = 1, SERVE["max_new"], IMAGE_TOKENS, 4096
+    tok, vis = (torch.randn(B, n, d, generator=g, device="cuda")
+                for n in (L, Nv))
+    mask = torch.ones(B, L, device="cuda")
+    fn = lambda: ops.xmodal_mean_sum(tok, mask, vis)   # noqa: E731
+    for _ in range(3):
+        fn()
+    reps = 20
+    ways = {"no head": lambda: timer._kernel_times(fn, reps, pad=False),
+            "one 1 ms pad": lambda: setattr(timer, "prof", _one_pad_window(
+                torch, timer, fn, reps)),
+            "timer": lambda: timer._kernel_times(fn, reps)}
+    seen = {way: [] for way in ways}
+    for _ in range(TIMER_SESSIONS):
+        for way, run in ways.items():
+            run()
+            seen[way].append(_window_records(torch, timer.prof,
+                                             "xmodal_mean_kernel"))
+    bad = {}
+    for way, rows in seen.items():
+        bad[way] = [r for r in rows if r["flush"] < reps or
+                    r["call"] < reps or r["kinds"] < 2]
+        leads = [r["lead"] for r in rows if r["lead"] is not None]
+        print(f"timer check [{when}, {way}]: {len(bad[way])} of {len(rows)} "
+              f"windows lost records of the calls (fewest kept: flush "
+              f"{min(r['flush'] for r in rows)}, K4a "
+              f"{min(r['call'] for r in rows)} of {reps}; head "
+              f"{min(r['head'] for r in rows)}-{max(r['head'] for r in rows)}"
+              f"); {sum(r['hidden'] for r in rows)} hidden records; first "
+              f"record {min(leads, default=math.nan):.3f}-"
+              f"{max(leads, default=math.nan):.3f} ms after the window's "
+              "start")
+    del tok, vis
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder: seamless-m4t-large-v2
+# ---------------------------------------------------------------------------
+
+def seamless_attention_phase(torch, ops, ref, timer):
+    """K2 and K3 at seamless-m4t-large-v2's decoder self-attention
+    (``SEAMLESS``: 16 query heads over 16 kv heads of width 64), fp32,
+    each against its plain version and twice for the same bits: K2 at the
+    served one-row prefill (B 1, L 256, no key lengths: the
+    encoder-decoder prefills a request alone, with no bucket) and a
+    ragged L 77; K3 at the served decode (B 8, S 288, a ring mask), at
+    S 16 (one split) and at a row with no valid key. Then timed: K2 at
+    the served prefill beside SDPA and its bounds, K3 at the served
+    decode (``decode_timing``). Returns ({kernel: {entry: times}},
+    {kernel: max_abs_err})."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(13)
+    H, Hkv, hd = (SEAMLESS[k] for k in ("H", "Hkv", "hd"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {"flash_attention": [], "decode_attention": []}
+    for L in (SERVE["prompt"], 77):
+        q, k, v = (torch.randn(1, L, h, hd, generator=g, device="cuda")
+                   for h in (H, Hkv, Hkv))
+        case = f"float32 B1 L{L} H{H}/{Hkv} hd{hd} causal"
+        out = ops.flash_attention(q, k, v)
+        errs["flash_attention"].append(compare(
+            torch, "flash_attention", case, out,
+            ref.flash_attention_ref(q, k, v), "float32"))
+        check(torch.equal(out, ops.flash_attention(q, k, v)),
+              f"flash_attention {case}: two runs differ")
+    plans = set()
+    for B, S, kind in ((8, CACHE_LEN, "ring"), (8, 16, "ring"),
+                       (3, CACHE_LEN, "empty row")):
+        q, k, v = (torch.randn(B, n_, h, hd, generator=g, device="cuda")
+                   for n_, h in ((1, H), (S, Hkv), (S, Hkv)))
+        pos = torch.randint(0, S, (B,), generator=g, device="cuda")
+        mask = ring_mask(torch, pos, S)
+        if kind == "empty row":
+            mask[1] = False
+        n_split, rows = ops.decode_splits(B, Hkv, S, sms)
+        plans.add(n_split > 1)
+        case = f"float32 B{B} S{S} H{H}/{Hkv} hd{hd} {kind} " \
+            f"{n_split}x{rows}"
+        out = ops.decode_attention(q, k, v, mask)
+        errs["decode_attention"].append(compare(
+            torch, "decode_attention", case, out,
+            ref.decode_attention_ref(q, k, v, mask), "float32"))
+        check(torch.equal(out, ops.decode_attention(q, k, v, mask)),
+              f"decode_attention {case}: two runs differ")
+    check(plans == {False, True},
+          "decode_attention: the seamless cases must take one split and "
+          "several")
+    timed = {"flash_attention": {}, "decode_attention": {}}
+    L = SERVE["prompt"]
+    q, k, v = (torch.randn(1, L, h, hd, generator=g, device="cuda")
+               for h in (H, Hkv, Hkv))
+    shape = f"fp32 B1 L{L} H{H} Hkv{Hkv} hd{hd} causal"
+    errs["flash_attention"].append(compare(
+        torch, "flash_attention", f"{shape} (timed)",
+        ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v),
+        "float32"))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = times(timer, lambda: ops.flash_attention(q, k, v), "flash_kernel",
+              lambda: ref.flash_attention_ref(q, k, v),
+              lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True))
+    t["bound_ms"], t["bound_by"], b = flash_bounds(1, L, H, Hkv, hd)
+    t.update({f"bound_{k_}_ms": val for k_, val in b.items()})
+    t["shape"] = shape
+    print(f"  flash_attention {SEAMLESS['name']}: kernel {t['ms']:.4f} ms "
+          f"(call {t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
+          f"{t['library_ms']:.4f}; bounds: bytes {b['bytes']:.5f}, fp32 "
+          f"SIMT {b['simt']:.5f}, 3xTF32 {b['tf32x3']:.5f} ms ({shape})")
+    timed["flash_attention"][SEAMLESS["name"]] = {
+        k_: t[k_] for k_ in SUB_KEYS + TF32_BOUNDS}
+    del q, k, v, qt, kt, vt
+    t, err = decode_timing(torch, ops, ref, timer, g, CACHE_LEN, H=H,
+                           Hkv=Hkv, hd=hd)
+    errs["decode_attention"].append(err)
+    timed["decode_attention"][SEAMLESS["name"]] = {
+        k_: t[k_] for k_ in SUB_KEYS + ("by_kernel",)}
+    return timed, {k_: max(v_) for k_, v_ in errs.items()}
+
+
+def seamless_argv(impl="cuda", extra=()):
+    """The serve phases' shapes (8 slots, 8 requests of 256 prompt tokens
+    and 512 random audio frames, 32 new tokens, CAMD, K 8) through
+    ``--impl cuda`` (an encoder-decoder has no layer to page) with
+    cross-modal rescoring, the 8 requests arriving at once through the
+    front-end (``--open-loop`` at 1000 requests/s), which times their
+    first tokens. The ring holds prompt and new tokens (288): the frames
+    are the encoder's."""
+    return with_arg(serve_argv(SEAMLESS["name"], CACHE_LEN, SEAMLESS["eos"],
+                               ("--xmodal-rescore",)), "--impl", impl) + [
+        "--open-loop", "--arrival", "poisson", "--arrival-rate", "1000",
+        *extra]
+
+
+def seamless_step_bytes(eng):
+    """Bytes one decode step of all slots must move at least: the decoder's
+    weights a step reads once (self-attention, the cross-attention's
+    ``wq``/``wo``, MLP, norms, the final norm and the untied unembedding;
+    not the cross ``wk``/``wv``, whose K/V sit in the cache, nor the
+    encoder's), each slot's token embedding, every slot's cross K/V, and
+    the self-attention rings up to the mean position of a request's
+    decode (prompt + max_new / 2). Returns (total, weights, cross, ring)."""
+    m, cache = eng.model, eng.state.cache
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in m.named_parameters()
+                  if n.startswith(("dec_layers.", "final_norm.", "unembed."))
+                  and ".xattn.wk." not in n and ".xattn.wv." not in n)
+    weights += eng.B * m.embed.table.shape[1] * m.embed.table.element_size()
+    cross = sum(cache[k].numel() * cache[k].element_size()
+                for k in ("cross_k", "cross_v"))
+    n, B, S, Hkv, hd = cache["k"].shape
+    live = min(S, SERVE["prompt"] + SERVE["max_new"] // 2)
+    ring = 2 * n * B * live * Hkv * hd * cache["k"].element_size()
+    return weights + cross + ring, weights, cross, ring
+
+
+def seamless_dense_check(torch, ops, serve):
+    """At 4 encoder and 4 decoder layers, full widths, fp32: greedy streams
+    of the plain (torch, K 8), kernel (cuda, K 8, the captured graph) and
+    kernel legacy-loop (cuda, K 0) engines agree; the kernel runs launch
+    K2 once a decoder layer a prefill forward and K3 once a decoder layer
+    a step, nothing else; ``--impl paged_cuda`` is refused (no layer to
+    page). Returns the kernel graph run's launches."""
+    name, n = SEAMLESS["name"], SEAMLESS_DENSE_LAYERS
+    argv = ["--arch", name, "--no-reduced", "--num-layers", str(n),
+            "--mode", "greedy", "--requests", "4", "--prompt-len", "64",
+            "--max-new", "16", "--cache-len", "96", "--eos-id",
+            str(SEAMLESS["eos"]), "--device", "cuda", "--seed", "1"]
+    streams, launches = {}, {}
+    for impl, K in (("torch", 8), ("cuda", 8), ("cuda", 0)):
+        ops.reset_launches()
+        with counting_prefills(torch) as (forwards, _):
+            out = serve.main(argv + ["--impl", impl, "--macro-steps",
+                                     str(K)])
+        torch.cuda.synchronize()
+        eng = out["engine"]
+        got = dict(ops.LAUNCHES)
+        want = {k_: 0 for k_ in got}
+        if impl == "cuda":
+            want["flash_attention"] = n * forwards["prefill"]
+            want["decode_attention"] = n * eng.total_steps if K == 0 else \
+                n * eng.macro_launches * eng.macro_steps
+        check(got == want and eng._graphs_captured == (K > 0) and
+              forwards["prefill"] == eng.prefill_calls == 4,
+              f"seamless dense check: {impl} K {K}: launches {got}, not "
+              f"{want}; {eng._graphs_captured} graphs, "
+              f"{forwards['prefill']} prefill forwards")
+        launches[impl, K] = got
+        streams[impl, K] = [r.tokens.tolist() for r in
+                            sorted(out["results"], key=lambda r: r.uid)]
+        del out, eng
+        free_memory(torch)
+    for key in (("cuda", 8), ("cuda", 0)):
+        check(streams[key] == streams["torch", 8],
+              f"seamless dense check: {key} greedy streams differ from "
+              f"torch's: {streams[key]} vs {streams['torch', 8]}")
+    try:
+        serve.main(argv + ["--impl", "paged_cuda"])
+    except ValueError as e:
+        check("pageable" in str(e), f"seamless dense check: paged_cuda "
+              f"raised {e!r}")
+        print(f"seamless dense check: --impl paged_cuda refused: {e}")
+    else:
+        check(False, "seamless dense check: --impl paged_cuda served")
+    free_memory(torch)
+    print(f"seamless dense check: greedy streams of torch (K 8), cuda (K 8, "
+          f"graph) and cuda (K 0) agree ({sum(map(len, streams['torch', 8]))}"
+          f" tokens, {n} + {n} layers); cuda launches {launches['cuda', 8]}")
+    return launches["cuda", 8]
+
+
+def seamless_serve_phase(torch, ops, serve, timer, card):
+    """seamless-m4t-large-v2 served at full width (24 encoder and 24
+    decoder layers, d 1024, vocabulary 256206, 512 frames) in fp32 through
+    the serve entry point (``seamless_argv``), launch counts set to 0 just
+    before and read just after: K2 once a decoder layer a prefill forward
+    (one a request), K3 once a decoder layer a step of every replay, K4a
+    and K4b once a rescored candidate, nothing else. One graph; every
+    request resolved, every candidate rescored with a finite S_align; the
+    prefill counts the prompts' tokens only. Prints tokens/s, TTFT, peak
+    memory, the graph's capture and a replay's device time a step against
+    the byte bound of one step. Returns (launches, seconds)."""
+    t0 = time.perf_counter()
+    name = SEAMLESS["name"]
+    argv = seamless_argv()
+    print(f"encoder-decoder phase [{name}]: python -m "
+          "repro_torch.launch.serve " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with counting_prefills(torch) as (forwards, _):
+        out = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    eng, m, results = out["engine"], out["metrics"], out["results"]
+    cfg = eng.cfg
+    check((cfg.num_layers, cfg.num_encoder_layers, cfg.d_model,
+           cfg.vocab_size, cfg.num_evidence_tokens) ==
+          (SEAMLESS["layers"], SEAMLESS["layers"], SEAMLESS["d"], 256206,
+           SEAMLESS["frames"]), f"{name}: not at full width: {cfg}")
+    check(len(results) == SERVE["requests"] and
+          m["completed"] == SERVE["requests"],
+          f"{name}: unresolved requests: {m}")
+    rescored = 0
+    for r in results:
+        check(r.n_candidates > 0 and 0 < len(r.tokens) <= SERVE["max_new"]
+              and all(0 <= int(t_) < eng.V for t_ in r.tokens) and
+              math.isfinite(r.best_score),
+              f"{name}: request {r.uid} has no usable candidate")
+        check(all(math.isfinite(c.get("s_align_xmodal", math.nan))
+                  for c in r.candidates),
+              f"{name}: request {r.uid} has a candidate not rescored")
+        rescored += len(r.candidates)
+    check(eng._graphs_captured == 1 and eng.macro_launches > 0,
+          f"{name}: {eng._graphs_captured} graphs captured")
+    L = cfg.num_layers
+    want = {k_: 0 for k_ in launches}
+    want["flash_attention"] = L * forwards["prefill"]
+    want["decode_attention"] = L * eng.macro_launches * eng.macro_steps
+    want["xmodal_score_mean"] = want["xmodal_score_max"] = rescored
+    check(launches == want, f"{name}: launches {launches}, not {want} ({L} "
+          f"decoder layers, {forwards['prefill']} prefill forwards, "
+          f"{eng.macro_launches} replays of {eng.macro_steps}, {rescored} "
+          "rescored candidates)")
+    check(forwards["prefill"] == eng.prefill_calls == SERVE["requests"] and
+          eng.prefill_tokens == SERVE["requests"] * SERVE["prompt"],
+          f"{name}: {forwards['prefill']} prefill forwards over "
+          f"{eng.prefill_tokens} tokens")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"encoder-decoder [{name}]: {out['tokens_per_s']:.1f} tok/s "
+          f"({eng.total_tokens} tokens in {out['seconds']:.2f} s, "
+          f"{eng.total_steps} decode steps, {eng.macro_launches} launches, "
+          f"{eng.prefill_calls} prefills, {rescored} candidates rescored); "
+          f"TTFT p50 {m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} "
+          f"ms; peak device memory {peak_gb:.2f} GB; launches {launches} "
+          f"[{card}]")
+    rows = graph_phase(torch, name, out, timer)
+    K = eng.macro_steps
+    total, weights, cross, ring = seamless_step_bytes(eng)
+    bound = total / PEAK_BYTES_PER_S * 1e3
+    busy = rows["replay"][2] / K
+    print(f"encoder-decoder [{name}]: graph captured in {eng._capture_s:.3f}"
+          f" s; a replay's device time {busy:.4f} ms a step against the "
+          f"byte bound {bound:.4f} ms ({weights / 1e9:.3f} GB of decoder "
+          f"weights, {cross / 1e9:.3f} GB of {eng.B} slots' cross K/V, "
+          f"{ring / 1e9:.3f} GB of rings; {bound / busy:.3f} of the bound) "
+          f"[{card}]")
+    del out, eng
+    check_released(torch, f"{name} serve")
+    return launches, time.perf_counter() - t0
+
+
+def encdec_phase(torch, ops, serve, timer, card):
+    """seamless-m4t-large-v2: its 4 + 4-layer dense check, then its
+    full-width serve. Returns {run: launches}."""
+    name = SEAMLESS["name"]
+    runs = {}
+    stamp(f"{name} dense check")
+    runs[f"{name} dense check"] = seamless_dense_check(torch, ops, serve)
+    stamp(f"{name} serve")
+    runs[f"{name} serve"], secs = seamless_serve_phase(
+        torch, ops, serve, timer, card)
+    print(f"{name} serve: {secs:.1f} s")
+    return runs
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("run from the root of a checkout: src/repro_torch not found")
@@ -2891,6 +3326,7 @@ def main() -> None:
         check(hmma > 0, f"{src}: no tensor-core instruction in SASS")
 
     timer = Timer(torch)
+    timer_check(torch, ops, timer, "first")
     print("kernel phase:")
     timings = {"flash_attention": flash_phase(torch, ops, ref, timer),
                "decode_attention": decode_phase(torch, ops, ref, timer),
@@ -2899,7 +3335,8 @@ def main() -> None:
                **xmodal_phase(torch, ops, ref, timer),
                **moe_phase(torch, ops, ref, timer)}
     for entries, errs in (any_g_phase(torch, ops, ref, timer, kv_quantize),
-                          hd256_phase(torch, ops, ref, timer)):
+                          hd256_phase(torch, ops, ref, timer),
+                          seamless_attention_phase(torch, ops, ref, timer)):
         for name, by_key in entries.items():
             timings[name].update(by_key)
             timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"],
@@ -3089,6 +3526,14 @@ def main() -> None:
     print(f"recurrent phases: {time.perf_counter() - t0:.1f} s")
     rg_runs = ("recurrentgemma-2b serve", "recurrentgemma-2b dense check")
 
+    stamp("encoder-decoder")
+    # seamless-m4t-large-v2: 512 audio frames into its encoder, K2 and K3
+    # in its decoder's self-attention, K4 rescoring against the frames
+    t0 = time.perf_counter()
+    runs.update(encdec_phase(torch, ops, serve, timer, card))
+    print(f"encoder-decoder phases: {time.perf_counter() - t0:.1f} s")
+    ed_runs = (f"{SEAMLESS['name']} serve", f"{SEAMLESS['name']} dense check")
+
     stamp("training")
     # training at full width on the plain impl, the card against the CPU
     # at 2 layers, a checkpoint round trip; then plug-and-play rescoring
@@ -3105,6 +3550,7 @@ def main() -> None:
     print(f"training and rescoring phases: {time.perf_counter() - t0:.1f} s "
           f"(training launched {launched} kernels)")
 
+    timer_check(torch, ops, timer, "last")
     stamp("launches")
     # launches: the serve phases for the kernels the serving path runs,
     # the dense checks for the dense decode kernel (K3), which only the
@@ -3112,7 +3558,7 @@ def main() -> None:
     paths = {"decode_attention": ("qwen3-0.6b dense check",
                                   "llava-1.5-7b dense check",
                                   "granite-moe-3b-a800m dense check") +
-             new_dense + rg_runs}
+             new_dense + rg_runs + ed_runs}
     serves = ("qwen3-0.6b serve", "llava-1.5-7b serve",
               "granite-moe-3b-a800m serve")
     # the quantized pools', the prefix cache's, the chunked and the
@@ -3122,9 +3568,10 @@ def main() -> None:
                   tuple(open_runs) + ("qwen3-0.6b open loop camd",) +
                   new_serves
                   for name in ("flash_attention", "paged_decode_attention")})
-    paths["flash_attention"] += tuple(rescore_runs) + rg_runs
+    paths["flash_attention"] += tuple(rescore_runs) + rg_runs + ed_runs
     paths.update({name: serves + spec_runs[1:2] + ("internvl2-2b serve",
-                                                   "llava-1.5-7b rescore")
+                                                   "llava-1.5-7b rescore",
+                                                   ed_runs[0])
                   for name in ("xmodal_score_mean", "xmodal_score_max")})
     paths.update({name: serves + spec_runs[2:] +
                   ("granite-moe-3b-a800m rescore",)

@@ -86,9 +86,7 @@ class VisionConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture (the reference's fields; the encoder-decoder
-    family, which this port does not serve yet, is rejected by
-    ``models.model.Model``)."""
+    """One architecture (the reference's fields)."""
     name: str
     family: str                   # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
@@ -136,10 +134,10 @@ class ModelConfig:
         ``repro.config.ModelConfig.num_params`` counts it (the vision
         tower and the evidence projection are not counted there either;
         the SSD block's A_log, D and dt_bias and the RG-LRU's conv bias
-        and lambda are not counted alike)."""
-        if self.is_encoder_decoder:
-            raise NotImplementedError(f"{self.name}: num_params counts "
-                                      "decoder-only stacks")
+        and lambda are not counted alike). An encoder-decoder stack adds
+        its encoder layers and each decoder layer's cross-attention and
+        its norm (``repro/config.py:226-233``); the encoder's final norm
+        is not counted there either."""
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
         hd = self.resolved_head_dim
@@ -167,6 +165,12 @@ class ModelConfig:
                 n += 2 * d * w + w * d + 2 * w   # in/out proj + gates
             if kind in (ATTN, LOCAL_ATTN, RGLRU):
                 n += mlp
+        if self.is_encoder_decoder:
+            attn = 2 * d * self.num_heads * hd + \
+                2 * d * self.num_kv_heads * hd
+            n += self.num_encoder_layers * (attn + per * d * self.d_ff
+                                            + 2 * d)
+            n += self.num_layers * (attn + d)
         return n
 
     def with_overrides(self, **kw) -> "ModelConfig":

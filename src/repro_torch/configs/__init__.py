@@ -2,10 +2,10 @@
 
 ``get_config`` accepts the arch id ("llava-1.5-7b") or the module name
 ("llava_1_5_7b"), as the reference's registry does. Only the configs this
-port serves are registered: every decoder-only config of the reference
-that fits on one card, attention-only, recurrent (mamba2-780m) and hybrid
-(recurrentgemma-2b); kimi-k2-1t-a32b fits on none, and the
-encoder-decoder seamless-m4t-large-v2 is not ported yet.
+port serves are registered: every config of the reference that fits on
+one card, attention-only, recurrent (mamba2-780m), hybrid
+(recurrentgemma-2b) and encoder-decoder (seamless-m4t-large-v2);
+kimi-k2-1t-a32b fits on none.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ _MODULES = {
     "granite_34b": "granite-34b",
     "mamba2_780m": "mamba2-780m",
     "recurrentgemma_2b": "recurrentgemma-2b",
+    "seamless_m4t_large_v2": "seamless-m4t-large-v2",
 }
 
 _BY_NAME: Dict[str, ModelConfig] = {}

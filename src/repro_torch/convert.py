@@ -15,7 +15,11 @@ fp32 in a bf16 tree, as the port's modules hold them (``load_state_dict``
 keeps each parameter's dtype). Other subtrees flatten by name; a
 sequence inside them, such as the vision tower's tuple of blocks
 (``repro/models/vision.py:62``), by index: ``vision.blocks.<i>.wq.kernel``.
-The evidence projection carries over as ``evidence_proj.kernel``.
+The evidence projection carries over as ``evidence_proj.kernel``. An
+encoder-decoder's tree (``repro/models/encdec.py:46-63``) stacks its
+encoder layers in ``enc_super`` and its decoder layers, cross-attention
+``xattn`` and ``lnx`` included, in ``dec_super``: entry ``i`` lands at
+``enc_layers.<i>.*`` and ``dec_layers.<i>.*``, and ``enc_norm`` as it is.
 ``opt_state_from_jax`` carries an optimizer state's moments the same way.
 """
 from __future__ import annotations
@@ -42,26 +46,44 @@ def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]):
 def params_from_jax(np_tree: Mapping[str, Any],
                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors, the tree's dtypes) for ``Model(cfg)``."""
+    if cfg.is_encoder_decoder:
+        flat: Dict[str, np.ndarray] = {}
+        stacks = {"enc_super": ("enc_layers", cfg.num_encoder_layers),
+                  "dec_super": ("dec_layers", cfg.num_layers)}
+        _flatten({k: v for k, v in np_tree.items() if k not in stacks},
+                 "", flat)
+        for key, (prefix, n) in stacks.items():
+            _unstack(np_tree[key], n, lambda i: f"{prefix}.{i}.", key, flat)
+        return {k: _to_tensor(v) for k, v in flat.items()}
     pat = cfg.block_pattern
     n_super = cfg.num_layers // len(pat)
     flat: Dict[str, np.ndarray] = {}
     _flatten({k: v for k, v in np_tree.items() if k not in ("super", "tail")},
              "", flat)
     for p, stacked in enumerate(np_tree["super"]):
-        per_pos: Dict[str, np.ndarray] = {}
-        _flatten(stacked, "", per_pos)
-        for name, arr in per_pos.items():
-            if arr.shape[0] != n_super:
-                raise ValueError(f"super[{p}].{name}: leading axis "
-                                 f"{arr.shape[0]} != {n_super} blocks")
-            for i in range(n_super):
-                flat[f"layers.{i * len(pat) + p}.{name}"] = arr[i]
+        _unstack(stacked, n_super,
+                 lambda i, p=p: f"layers.{i * len(pat) + p}.", f"super[{p}]",
+                 flat)
     for j, layer in enumerate(np_tree.get("tail", ())):
         per_layer: Dict[str, np.ndarray] = {}
         _flatten(layer, "", per_layer)
         for name, arr in per_layer.items():
             flat[f"layers.{n_super * len(pat) + j}.{name}"] = arr
     return {k: _to_tensor(v) for k, v in flat.items()}
+
+
+def _unstack(stacked, n: int, prefix, what: str,
+             out: Dict[str, np.ndarray]) -> None:
+    """Entry ``i`` of every leaf of a tree stacked on a leading axis of
+    ``n`` layers, under ``prefix(i)``."""
+    leaves: Dict[str, np.ndarray] = {}
+    _flatten(stacked, "", leaves)
+    for name, arr in leaves.items():
+        if arr.shape[0] != n:
+            raise ValueError(f"{what}.{name}: leading axis {arr.shape[0]} "
+                             f"!= {n} layers")
+        for i in range(n):
+            out[f"{prefix(i)}{name}"] = arr[i]
 
 
 def opt_state_from_jax(opt_np, cfg: ModelConfig):

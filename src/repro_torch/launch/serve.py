@@ -11,13 +11,17 @@
     python -m repro_torch.launch.serve --impl paged_cuda --open-loop \
         --arrival poisson --arrival-rate 8 --slo-ms 500
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --impl cuda
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \
+        --impl cuda --mode camd --xmodal-rescore
 
 Configs with a vision tower serve image requests: synthetic images drawn
 from a pool of ``--image-pool`` distinct ones, encoded at submit time and
 prefilled ahead of the prompt; configs with evidence tokens but no tower
-get random precomputed evidence. The random draws follow the reference
-CLI's order (``repro/launch/serve.py:197-216``), so one seed makes the
-same requests in both packages.
+get random precomputed evidence: the encoder-decoder
+seamless-m4t-large-v2 takes 512 audio frames a request into its
+encoder (``--impl torch|cuda``; it has no layer to page). The random
+draws follow the reference CLI's order (``repro/launch/serve.py:197-216``),
+so one seed makes the same requests in both packages.
 
 The recurrent (mamba2-780m) and hybrid (recurrentgemma-2b) configs serve
 on ``--impl torch|cuda`` only (a paged impl raises: they have no layer to
@@ -33,7 +37,8 @@ caller of ``build_engine`` or ``main`` may pass another ``param_dtype``
 exceed the device's memory is refused before anything is allocated.
 ``--reduced`` (the default, as in the reference CLI) serves the
 CPU-smoke-size variant of the config; ``--no-reduced`` serves it at its
-published widths, and ``--num-layers`` cuts its depth. Runs on the CUDA
+published widths, and ``--num-layers`` cuts its depth (an
+encoder-decoder's encoder and decoder both). Runs on the CUDA
 device unless ``--device cpu``; there each macro launch (``--macro-steps``
 K > 0) replays one CUDA graph of the K-step body, and the legacy loop
 (``--macro-steps 0``) runs eagerly. ``--open-loop`` serves the same
@@ -68,7 +73,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="serve the CPU-smoke-size variant of the config "
                          "(--no-reduced: its published widths)")
     ap.add_argument("--num-layers", type=int, default=0,
-                    help="cut the model to this many layers (0 = keep)")
+                    help="cut the model to this many layers, an "
+                         "encoder-decoder's encoder and decoder each "
+                         "(0 = keep)")
     ap.add_argument("--image-tokens", type=int, default=0,
                     help="vision configs: encode the synthetic images into "
                          "N image tokens each (the tower's patch grid is "
@@ -198,6 +205,8 @@ def build_engine(args: argparse.Namespace, param_dtype=torch.float32):
         cfg = cfg.reduced()
     if args.num_layers:
         cfg = cfg.with_overrides(num_layers=args.num_layers)
+        if cfg.is_encoder_decoder:
+            cfg = cfg.with_overrides(num_encoder_layers=args.num_layers)
     # fp32 by default, as the reference CLI
     cfg = cfg.with_overrides(dtype=str(param_dtype).replace("torch.", ""))
     if args.image_tokens:

@@ -107,9 +107,12 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
 
 def attn_prefill(p: Attention, cfg: ModelConfig, x, positions, *,
                  window: int = 0, impl: str = "torch", lengths=None,
-                 ctx_kv=None, q_offset: int = 0):
-    """Full-sequence causal attention. Returns (out (B, L, d), (k, v)) for
-    cache seeding. ``lengths`` ((B,) int32, optional): the true lengths of
+                 ctx_kv=None, q_offset: int = 0, causal: bool = True):
+    """Full-sequence attention, causal unless ``causal`` is False (an
+    encoder's bidirectional layers, which run ``sdpa`` on every impl, as
+    the reference's encoder calls its plain path: ``encdec.py:79``).
+    Returns (out (B, L, d), (k, v)) for cache seeding. ``lengths``
+    ((B,) int32, optional): the true lengths of
     right-padded rows in a bucketed prefill; keys past them are masked on
     both paths, as the reference's plain path masks them
     (``transformer.py:324``). Real positions never attend to pads anyway
@@ -129,14 +132,26 @@ def attn_prefill(p: Attention, cfg: ModelConfig, x, positions, *,
         vc = torch.cat([ctx_kv[1].to(v.dtype), v], dim=1)
         out = sdpa(q, kc, vc, causal=True, window=window, q_offset=q_offset)
         return p.wo(out.reshape(B, L, -1)), (k, v)
-    if impl == "cuda":
+    if impl == "cuda" and causal:
         out = ops.flash_attention(q, k, v, causal=True, window=window,
                                   lengths=lengths)
     else:
         kv_mask = None if lengths is None else \
             torch.arange(L, device=x.device)[None, :] < lengths.long()[:, None]
-        out = sdpa(q, k, v, causal=True, window=window, kv_mask=kv_mask)
+        out = sdpa(q, k, v, causal=causal, window=window, kv_mask=kv_mask)
     return p.wo(out.reshape(B, L, -1)), (k, v)
+
+
+def cross_attend(p: Attention, cfg: ModelConfig, x, k, v):
+    """Cross-attention of a decoder layer (``attention.py:165-170``, and
+    at decode ``:533-537``): ``wq`` on x (no rope, no qk-norm), the
+    encoder memory's K/V k/v (B, Ne, Hkv, hd), plain ``sdpa`` with no
+    mask, then ``wo``. x: (B, L, d), L = 1 at decode. Runs ``sdpa`` on
+    every impl, as the reference does."""
+    B, L, _ = x.shape
+    q = p.wq(x).reshape(B, L, cfg.num_heads, cfg.resolved_head_dim)
+    out = sdpa(q, k, v, causal=False)
+    return p.wo(out.reshape(B, L, -1))
 
 
 # ---------------------------------------------------------------------------

@@ -9,13 +9,18 @@ layer), ``layers.<i>.ssm.in_proj.kernel`` (an SSD layer),
 ``layers.<i>.mlp.w_gate.kernel`` (or, in MoE configs,
 ``layers.<i>.moe.router.kernel`` and ``layers.<i>.moe.w_gate``),
 ``final_norm.scale``, untied ``unembed.kernel`` and, for the vlm family,
-``evidence_proj.kernel`` and the vision tower's ``vision.*`` —
-``convert.params_from_jax`` produces exactly these keys. The port runs
-the full-sequence forward (training, rescoring) and serves decoder-only
-stacks of attention (full, windowed, local), SSD and RG-LRU blocks with
-dense or MoE MLPs, with evidence tokens and a vision tower in the vlm
-family; the encoder-decoder family raises ``NotImplementedError``.
-Parameters are made with ``requires_grad`` off;
+``evidence_proj.kernel`` and the vision tower's ``vision.*``. An
+encoder-decoder stack (``models/encdec.py``) has ``enc_layers.<i>.*``
+(``ln1``, ``attn``, ``ln2``, ``mlp``), ``dec_layers.<i>.*`` (those and
+the cross-attention ``xattn`` with its norm ``lnx``) and ``enc_norm``
+in place of ``layers``. ``convert.params_from_jax`` produces exactly
+these keys. The port runs the full-sequence forward (training,
+rescoring) and serves decoder-only stacks of attention (full, windowed,
+local), SSD and RG-LRU blocks with dense or MoE MLPs, with evidence
+tokens and a vision tower in the vlm family, and encoder-decoder stacks
+whose encoder takes the evidence (the audio family); the paged cache,
+continuation prefill and speculative blocks are decoder-only, as in the
+reference. Parameters are made with ``requires_grad`` off;
 ``training.train_loop.train`` turns it on.
 """
 from __future__ import annotations
@@ -25,6 +30,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.config import ATTN, LOCAL_ATTN, RGLRU, SSM, ModelConfig
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Norm, Dense, _normal
@@ -39,11 +45,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = [
-        ("encoder-decoder stacks (the next slice of the port)",
-         cfg.is_encoder_decoder),
-        ("evidence tokens / vision towers outside the vlm family",
-         cfg.family != "vlm" and (cfg.vision is not None or
-                                  cfg.num_evidence_tokens > 0)),
+        ("evidence tokens / vision towers of a decoder-only stack outside "
+         "the vlm family",
+         cfg.family != "vlm" and not cfg.is_encoder_decoder and
+         (cfg.vision is not None or cfg.num_evidence_tokens > 0)),
         (f"{cfg.mlp_activation} MoE experts",
          cfg.moe is not None and cfg.mlp_activation != "swiglu"),
     ]
@@ -52,7 +57,8 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {what} are not ported yet; the port serves "
                 "decoder-only stacks of attention, SSD and RG-LRU blocks "
-                "with dense or MoE MLPs (with evidence in the vlm family)")
+                "with dense or MoE MLPs (with evidence in the vlm family) "
+                "and encoder-decoder stacks")
 
 
 class Embedding(nn.Module):
@@ -87,9 +93,9 @@ class Block(nn.Module):
 
 
 class Model(nn.Module):
-    """Decoder-only LM with seeded random weights (load real or reference
-    weights with ``load_state_dict``), with the evidence projection and
-    vision tower of a vlm config."""
+    """Decoder-only or encoder-decoder LM with seeded random weights (load
+    real or reference weights with ``load_state_dict``), with the
+    evidence projection and vision tower of a vlm config."""
 
     def __init__(self, cfg: ModelConfig, param_dtype=None, *, device=None,
                  seed: int = 0):
@@ -101,13 +107,23 @@ class Model(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         kw = dict(dtype=self.param_dtype, device=self.device, gen=gen)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(Block(cfg, kind, **kw)
-                                    for kind in cfg.layer_kinds)
+        if cfg.is_encoder_decoder:
+            self.enc_layers = nn.ModuleList(
+                encdec_lib.EncoderBlock(cfg, **kw)
+                for _ in range(cfg.num_encoder_layers))
+            self.dec_layers = nn.ModuleList(
+                encdec_lib.DecoderBlock(cfg, **kw)
+                for _ in range(cfg.num_layers))
+            self.enc_norm = Norm(cfg.d_model, dtype=self.param_dtype,
+                                 device=self.device)
+        else:
+            self.layers = nn.ModuleList(Block(cfg, kind, **kw)
+                                        for kind in cfg.layer_kinds)
         self.final_norm = Norm(cfg.d_model, dtype=self.param_dtype,
                                device=self.device)
         if not cfg.tie_embeddings:
             self.unembed = Dense(cfg.d_model, cfg.vocab_size, **kw)
-        # transformer.py:162-167
+        # transformer.py:162-167, encdec.py:61-62
         self.evidence_proj = Dense(cfg.evidence_dim, cfg.d_model, **kw) \
             if cfg.num_evidence_tokens and cfg.evidence_dim != cfg.d_model \
             else None
@@ -121,19 +137,36 @@ class Model(nn.Module):
         (B, L), optional evidence (B, Ne, De) ahead of them. Returns
         (logits (B, Ne + L, V), hidden (B, Ne + L, d), aux), ``aux`` the
         MoE layers' ``moe_lb_loss``, ``moe_z_loss`` and ``moe_drop_frac``
-        (empty for a dense model). ``remat`` recomputes each layer in the
-        backward pass."""
+        (empty for a dense model). An encoder-decoder takes its evidence
+        (required) into the encoder and returns (logits (B, L, V), hidden
+        (B, L, d), {}). ``remat`` recomputes each layer in the backward
+        pass."""
+        if self.cfg.is_encoder_decoder:
+            if evidence is None:
+                raise ValueError(f"{self.cfg.name}: an encoder-decoder "
+                                 "needs encoder inputs (evidence)")
+            return encdec_lib.encdec_forward(self, tokens, evidence,
+                                             impl=impl, remat=remat)
         return tf_lib.transformer_forward(self, tokens, evidence, impl=impl,
                                           remat=remat)
 
     # -- serving ---------------------------------------------------------
     def make_cache(self, batch: int, cache_len: int, dtype=None):
+        if self.cfg.is_encoder_decoder:
+            return encdec_lib.make_cache(self.cfg, batch, cache_len,
+                                         dtype or self.param_dtype,
+                                         self.device)
         return tf_lib.make_cache(self.cfg, batch, cache_len,
                                  dtype or self.param_dtype, self.device)
 
     def make_paged_cache(self, batch: int, cache_len: int, dtype=None, *,
                          page_size: int, num_pages: int,
                          kv_dtype: str = "auto"):
+        if self.cfg.is_encoder_decoder:
+            # repro/models/model.py:65-67: the cross K/V are per-request
+            # constants, not pages
+            raise NotImplementedError(
+                "paged KV cache is decoder-only for now")
         return tf_lib.make_paged_cache(self.cfg, batch, cache_len,
                                        dtype or self.param_dtype, page_size,
                                        num_pages, kv_dtype=kv_dtype,
@@ -144,7 +177,14 @@ class Model(nn.Module):
         """``evidence``: optional (B, Ne, De) rows prefilled ahead of the
         tokens. ``lengths``: optional (B,) int32 true lengths, evidence
         rows included, for length-bucketed batched prefill over
-        right-padded rows."""
+        right-padded rows. An encoder-decoder encodes the evidence
+        (required) instead and takes no ``lengths``."""
+        if self.cfg.is_encoder_decoder:
+            if evidence is None or lengths is not None:
+                raise ValueError(f"{self.cfg.name}: encoder-decoder prefill "
+                                 "takes evidence and no bucketed lengths")
+            return encdec_lib.encdec_prefill(self, tokens, cache, evidence,
+                                             impl=impl)
         return tf_lib.transformer_prefill(self, tokens, cache, evidence,
                                           impl=impl, lengths=lengths)
 
@@ -155,6 +195,7 @@ class Model(nn.Module):
         positions start..) run, attending to ``ctx_kv``, the cached K/V of
         positions [0, start): {"k", "v": (num_layers, B, start, Hkv, hd)}.
         Needs ``supports_prefix_cache``."""
+        self._decoder_only("continuation prefill")
         return tf_lib.transformer_prefill_suffix(self, tokens, cache, ctx_kv,
                                                  start, impl=impl)
 
@@ -163,6 +204,7 @@ class Model(nn.Module):
         """The prompt in ``chunk``-token pieces through the suffix path,
         equal to the whole-prompt ``prefill``; whole prefill when
         ``chunk`` is 0 or covers the prompt."""
+        self._decoder_only("chunked prefill")
         return tf_lib.transformer_prefill_chunked(self, tokens, cache, chunk,
                                                   impl=impl)
 
@@ -178,7 +220,10 @@ class Model(nn.Module):
 
     def decode_step(self, token, cache, *, impl: str = "torch", go=None):
         """One token a row. ``go``: optional 0-dim bool tensor; when False
-        the recurrent layers keep their state (a masked macro step)."""
+        the recurrent layers keep their state (a masked macro step); an
+        encoder-decoder has none."""
+        if self.cfg.is_encoder_decoder:
+            return encdec_lib.encdec_decode(self, token, cache, impl=impl)
         return tf_lib.transformer_decode(self, token, cache, impl=impl,
                                          go=go)
 
@@ -190,8 +235,14 @@ class Model(nn.Module):
         ``cache["pos"]``. ``valid`` (B, S): positions that write KV; a page
         pool takes the others' writes on page ``drop_page``. Needs
         ``supports_speculative``."""
+        self._decoder_only("speculative block decode")
         return tf_lib.transformer_decode_block(self, tokens, cache, valid,
                                                impl=impl, drop_page=drop_page)
+
+    def _decoder_only(self, what: str) -> None:
+        if self.cfg.is_encoder_decoder:
+            raise ValueError(f"{self.cfg.name}: {what} is decoder-only "
+                             "(an encoder-decoder prefills whole prompts)")
 
     # -- capability flags the engine reads (repro/models/model.py:95-220)
     @property

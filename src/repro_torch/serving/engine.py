@@ -1,8 +1,8 @@
 """Slot-scheduled batched serving engine with CAMD adaptive decoding.
 
-The port of ``repro/serving/engine.py`` for decoder-only models:
-attention stacks, and the recurrent (SSD) and hybrid (RG-LRU + local
-attention) ones. A fixed decode batch of ``slots``; each slot holds one candidate
+The port of ``repro/serving/engine.py``: decoder-only attention stacks,
+the recurrent (SSD) and hybrid (RG-LRU + local attention) ones, and
+encoder-decoder stacks. A fixed decode batch of ``slots``; each slot holds one candidate
 generation of some request. When a request reaches coverage its slots
 free and refill from the queue, so CAMD's adaptive allocation falls out of
 slot scheduling.
@@ -61,6 +61,13 @@ mean cosine against the request's (projected, normalised) evidence rows
 to ``align_sum``, the incremental S_align of the candidate score; with
 ``xmodal_rescore`` each finished candidate's S_align is recomputed
 instead by the cross-modal score (paper Eq. 8-9, kernel K4).
+
+An encoder-decoder model (seamless-m4t-large-v2) is a "kv" model with no
+layer to page: it serves on the dense impls only, each request
+prefilled alone (no buckets, prefix cache, chunks or speculation, as in
+the reference). Its evidence feeds the encoder, not the prompt span;
+the prefill row's cross K/V move into the slot with the rest of the
+row, and the captured decode step reads them from the engine's cache.
 
 Recurrent and hybrid models (``Model.state_kind`` "recurrent" or
 "hybrid") serve on the dense impls only: they have no layer to page. Each
@@ -1208,8 +1215,12 @@ class ServeEngine:
 
     # -- prefill -------------------------------------------------------
     def _prompt_span(self, req: Request) -> int:
-        """Cache positions the prompt occupies, evidence rows included."""
-        ne = self.cfg.num_evidence_tokens if req.evidence is not None else 0
+        """Cache positions the prompt occupies, evidence rows included
+        (``engine.py:1657``): an encoder-decoder's evidence feeds the
+        encoder instead."""
+        ne = self.cfg.num_evidence_tokens \
+            if (req.evidence is not None and
+                not self.cfg.is_encoder_decoder) else 0
         return len(req.prompt) + ne
 
     def _init_info(self, req: Request, cache_row, lg, h, prompt_len: int):

@@ -141,14 +141,15 @@ def test_served_configs_cover_the_attention_only_ones():
     """Every attention-only config of the reference is registered, but
     kimi-k2-1t-a32b (about 1T parameters: no single card holds it); the
     recurrent and hybrid ones are registered beside them
-    (tests/test_torch_recurrent_models.py), the encoder-decoder one
-    not yet."""
+    (tests/test_torch_recurrent_models.py), and the encoder-decoder
+    seamless-m4t-large-v2 (tests/test_torch_encdec.py)."""
     from repro.configs import list_configs as jlist
     attn_only = {n for n in jlist()
                  if all(k == "attn" for k in jget_config(n).layer_kinds)
                  and not jget_config(n).is_encoder_decoder}
     assert set(list_configs()) == attn_only - {"kimi-k2-1t-a32b"} | {
-        "mamba2-780m", "recurrentgemma-2b"}
+        "mamba2-780m", "recurrentgemma-2b", "seamless-m4t-large-v2"}
+    assert jget_config("seamless-m4t-large-v2").is_encoder_decoder
     assert jget_config("kimi-k2-1t-a32b").num_params() * 2 > 1e12
 
 

@@ -3,9 +3,10 @@ module of the JAX package ``repro``.
 
 A fresh interpreter installs an import hook that refuses those names,
 then imports every module of the port (the async front-end, the traffic
-module, training and rescoring among them), runs its serve entry point
-on the CPU, closed-loop and open-loop, and its training launcher for two
-reduced steps.
+module, training, rescoring and the encoder-decoder among them), runs its
+serve entry point on the CPU, closed-loop and open-loop, and on the
+encoder-decoder seamless-m4t-large-v2 with CAMD and cross-modal
+rescoring, and its training launcher for two reduced steps.
 """
 import os
 import subprocess
@@ -40,6 +41,12 @@ out = serve.main(["--device", "cpu", "--requests", "2", "--max-new", "4",
 assert out["metrics"]["completed"] == 2, out["metrics"]
 assert {"repro_torch.serving.frontend",
         "repro_torch.serving.traffic"} <= set(names), names
+# the encoder-decoder: its encoder takes the requests' evidence
+assert "repro_torch.models.encdec" in names, names
+out = serve.main(["--device", "cpu", "--requests", "2", "--max-new", "4",
+                  "--arch", "seamless-m4t-large-v2", "--impl", "cuda",
+                  "--xmodal-rescore", "--num-layers", "1"])
+assert all(r.n_candidates > 0 for r in out["results"]), out["results"]
 # the training launcher: two reduced steps
 from repro_torch.launch import train
 hist = train.main(["--device", "cpu", "--reduced", "--steps", "2",

@@ -250,19 +250,26 @@ def test_quantized_paged_decode_matches(tiny_model, name):
 
 
 def test_unsupported_families_raise():
-    """The encoder-decoder family, evidence outside the vlm family and
-    gelu MoE experts raise; a stack of local-attention blocks builds (the
-    recurrent and hybrid families are served:
-    tests/test_torch_recurrent_models.py)."""
+    """Evidence on a decoder-only stack outside the vlm family and gelu
+    MoE experts raise; an encoder-decoder stack builds, its encoder taking
+    the evidence (served: tests/test_torch_encdec.py), and so does a
+    stack of local-attention blocks (the recurrent and hybrid families
+    are served: tests/test_torch_recurrent_models.py)."""
     from repro_torch.configs import get_config
     base = get_config("qwen3_0_6b").reduced()
     assert get_config("qwen3-0.6b") is get_config("qwen3_0_6b")
     moe = get_config("granite-moe-3b-a800m").reduced()
-    for cfg in (base.with_overrides(is_encoder_decoder=True),
-                base.with_overrides(num_evidence_tokens=4),
+    for cfg in (base.with_overrides(num_evidence_tokens=4),
                 moe.with_overrides(mlp_activation="gelu")):
         with pytest.raises(NotImplementedError):
             build_model(cfg, device="cpu")
+    encdec = build_model(base.with_overrides(
+        is_encoder_decoder=True, num_encoder_layers=1, num_evidence_tokens=4,
+        evidence_dim=32), device="cpu")
+    assert (len(encdec.enc_layers), len(encdec.dec_layers)) == (1, 2)
+    assert encdec.evidence_proj is not None and \
+        not hasattr(encdec, "layers")
+    assert encdec.state_kind == "kv" and not encdec.has_pageable_layers
     local = build_model(base.with_overrides(block_pattern=("local",)),
                         device="cpu")
     assert [blk.kind for blk in local.layers] == ["local", "local"]
