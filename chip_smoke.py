@@ -6,7 +6,9 @@
 Run from the root of a checkout. It
   1. prints the card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel of the port from ``src/repro_torch/kernels/
-     csrc`` with nvcc, one process per source, all at once;
+     csrc`` with nvcc, one process per source, all at once, while the
+     card-against-CPU training check of 28-30 (which launches no kernel)
+     runs beside it;
   3. kernel phase: holds each kernel against its plain PyTorch version on
      the card (fp32 and bf16, head_dim 64 and 128, the serving shapes and
      ragged edges, granite's 24/8 heads of width 64 (GQA group 3) for the
@@ -103,20 +105,26 @@ Run from the root of a checkout. It
      int8/fp8 pools at 48), K2 in bf16 at the 32-34B models' buckets and
      K4 at internvl2-2b's shape.
   28-30. training and rescoring, the full-sequence forward: full-width
-     qwen3-0.6b (50 steps of 8 x 128 tokens, the reference CLI's
-     defaults) and granite-moe-3b-a800m (10 steps) trained in fp32
-     through the training launcher on the plain impl (no kernel
-     launches; losses finite, qwen3's falling, peak memory, median step,
-     tokens/s, the AdamW update's time, granite's router losses); at 2
-     layers three train steps of each on the card against the same three
-     on the CPU (losses, and granite's router losses), and a checkpoint
-     round trip on the card; then ``camd_wrap``
+     qwen3-0.6b (20 steps of 8 x 128 tokens, the reference CLI's
+     defaults but for its 50 steps), granite-moe-3b-a800m (10 steps),
+     mamba2-780m (10) and recurrentgemma-2b (5) trained in fp32 through
+     the training launcher,
+     and seamless-m4t-large-v2 (5, with 512 evidence frames a row)
+     through ``training.train``, on the plain impl (no kernel launches;
+     losses finite, qwen3's falling, peak memory, median step, tokens/s,
+     the AdamW update's time, granite's router losses); at 2 layers
+     (recurrentgemma 3, seamless 2 + 2) three train steps of each on the
+     card against the same three on the CPU (losses, and granite's router
+     losses), and a checkpoint round trip on the card; then ``camd_wrap``
      rescores 8 candidates of 32 tokens on full-width llava-1.5-7b (with
-     one image's 576 rows as evidence) and granite-moe-3b-a800m with both
-     impls: the cuda one launches K2 once a layer, K4a/K4b once, K5a/K5b
-     once a layer, agrees with the plain one, and each kernel's first
-     call is held against its plain version at the shape it got; last,
-     every kernel of that path raises on inputs that require grad.
+     one image's 576 rows as evidence), granite-moe-3b-a800m and
+     seamless-m4t-large-v2 (512 frames into its encoder) with both
+     impls: the cuda one launches K2 once a (decoder) layer, K4a/K4b
+     once, K5a/K5b once a layer, agrees with the plain one, and each
+     kernel's first call is held against its plain version at the shape
+     it got; every kernel of that path raises on inputs that require
+     grad; last, the CAMD core's stop rules, round update, candidate
+     score and §4.1 theory on the card agree with the CPU's.
   31-32. the recurrent and hybrid models: at 3 layers, full widths, fp32,
      the greedy streams of torch (K 8), cuda (K 8, the graph) and cuda
      (K 0) must agree for mamba2-780m (SSD blocks) and recurrentgemma-2b
@@ -167,6 +175,7 @@ exits with an error, printing no result, without a CUDA device or outside
 a checkout of the repository.
 """
 import asyncio
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -2539,20 +2548,44 @@ def cancel_check(torch, ops, serve):
 # training and rescoring: the full-sequence forward
 # ---------------------------------------------------------------------------
 
-# the reference CLI's defaults (repro/launch/train.py:18-30); granite-moe
-# for 10 steps (3.30 B params: fp32 weights, grads, m and v ~53 GB)
-TRAIN_QWEN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "50", "--batch", "8",
+# the reference CLI's defaults (repro/launch/train.py:18-30) but for the
+# steps: qwen3-0.6b for 20 of its 50 (the script's time), granite-moe for
+# 10 (3.30 B params: fp32 weights, grads, m and v ~53 GB)
+TRAIN_QWEN_ARGV = ["--arch", "qwen3-0.6b", "--steps", "20", "--batch", "8",
                    "--seq", "128", "--lr", "1e-3", "--device", "cuda"]
 TRAIN_GRANITE_ARGV = ["--arch", "granite-moe-3b-a800m", "--steps", "10",
                       "--batch", "8", "--seq", "128", "--lr", "1e-3",
                       "--device", "cuda"]
-# three steps of 2-layer qwen3-0.6b and granite-moe-3b-a800m on the card
-# and on the host's CPU; the losses (and the MoE's aux terms) must agree
-# within this relative tolerance (fp32, TF32 off: the two sum in other
-# orders, and AdamW's normalised step turns a near-cancelling gradient's
-# rounding into a visible share of lr)
-TRAIN_CHECK = dict(archs=("qwen3-0.6b", "granite-moe-3b-a800m"), layers=2,
-                   batch=2, seq=64, steps=3)
+# the recurrent (0.78 B params, 12.5 GB to train) and the hybrid (2.15 B,
+# 34.4 GB) model through the same launcher
+TRAIN_MAMBA_ARGV = ["--arch", "mamba2-780m", "--steps", "10", "--batch",
+                    "8", "--seq", "128", "--lr", "1e-3", "--device", "cuda"]
+TRAIN_RG_ARGV = ["--arch", "recurrentgemma-2b", "--steps", "5", "--batch",
+                 "8", "--seq", "128", "--lr", "1e-3", "--device", "cuda"]
+# the encoder-decoder (1.63 B, 26 GB) through training.train on lm_batches
+# with evidence_batch's 512 frames a row (the CLI draws no evidence, as
+# the reference's)
+TRAIN_SEAMLESS = dict(steps=5, batch=8, seq=128, lr=1e-3)
+# three steps on the card and on the host's CPU, full widths at reduced
+# depth (arch: layer overrides, batch, seq); the losses (and the MoE's aux
+# terms) must agree within this relative tolerance (fp32, TF32 off: the
+# two sum in other orders, and AdamW's normalised step turns a
+# near-cancelling gradient's rounding into a visible share of lr). The
+# CPU side computes full-width logits: 256000-way for recurrentgemma and
+# seamless, so their rows are shorter. recurrentgemma's 3 layers hold one
+# local-attention layer; seamless's 2 + 2 take 512 frames a row.
+TRAIN_CHECK = {
+    "qwen3-0.6b": (dict(num_layers=2), 2, 64),
+    "granite-moe-3b-a800m": (dict(num_layers=2), 2, 64),
+    "mamba2-780m": (dict(num_layers=2), 2, 64),
+    "recurrentgemma-2b": (dict(num_layers=3), 2, 32),
+    "seamless-m4t-large-v2": (dict(num_layers=2, num_encoder_layers=2), 2,
+                              32),
+}
+TRAIN_CHECK_STEPS = 3
+# glibc's mallopt parameters and defaults (malloc.h)
+M_TRIM_THRESHOLD, M_MMAP_MAX = -1, -4
+MALLOC_DEFAULTS = {M_TRIM_THRESHOLD: 128 * 1024, M_MMAP_MAX: 65536}
 TRAIN_CHECK_KEYS = ("loss", "moe_lb_loss", "moe_drop_frac")
 TRAIN_CHECK_RTOL = 1e-4
 # a round of candidates rescored by camd_wrap: 8 candidates of 32 tokens
@@ -2589,32 +2622,73 @@ def timing_adamw(torch):
         train_loop.adamw_update = saved
 
 
+def _train_seamless(torch):
+    """``training.train`` on full-width seamless-m4t-large-v2, fp32, remat
+    on: ``TRAIN_SEAMLESS`` steps of ``lm_batches`` rows with
+    ``evidence_batch``'s frames, warm-up and schedule as the CLI sets
+    them. Returns (history with each step's "seconds", argument view)."""
+    from types import SimpleNamespace
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train
+    c = TRAIN_SEAMLESS
+    cfg = get_config(SEAMLESS["name"]).with_overrides(dtype="float32")
+    tc = TrainConfig(total_steps=c["steps"], warmup_steps=c["steps"] // 10,
+                     learning_rate=c["lr"])
+    model = build_model(cfg, torch.float32, device="cuda", seed=tc.seed)
+    data = lm_batches(cfg.vocab_size, c["batch"], c["seq"], seed=0,
+                      evidence={"num_tokens": cfg.num_evidence_tokens,
+                                "dim": cfg.evidence_dim})
+    hist = train(model, tc, data, steps=c["steps"], log_every=1)[2]
+    prev = 0.0
+    for h in hist:
+        h["seconds"], prev = h["elapsed_s"] - prev, h["elapsed_s"]
+    del model
+    return hist, SimpleNamespace(arch=cfg.name, steps=c["steps"],
+                                 batch=c["batch"], seq=c["seq"],
+                                 vocab=cfg.vocab_size)
+
+
 def train_phase(torch, ops, card):
-    """Trains full-width qwen3-0.6b (50 steps) and granite-moe-3b-a800m
-    (10 steps) in fp32 through ``repro_torch.launch.train.main``, remat on
-    as the reference's TrainConfig has it, on the plain ``torch`` impl
-    (the counterpart of the reference's ``xla`` training path: no kernel
+    """Trains full-width qwen3-0.6b (20 steps), granite-moe-3b-a800m (10),
+    mamba2-780m (10) and recurrentgemma-2b (5) in fp32 through
+    ``repro_torch.launch.train.main``, and seamless-m4t-large-v2 (5, with
+    512 evidence frames a row) through ``training.train``, remat on as the
+    reference's TrainConfig has it, on the plain ``torch`` impl (the
+    counterpart of the reference's ``xla`` training path: no kernel
     launches). Every loss finite, qwen3's last logged loss below its
     first, the peak device memory under the card's. Prints the median
-    step after two warm-up steps, tokens/s, the AdamW update's median
-    (CUDA events) and, for granite, the MoE router's load-balance loss and
+    step after two warm-up steps, tokens/s (decoder tokens), the AdamW
+    update's median (CUDA events), the fp32 logits' size (their gradient
+    is as large) and, for granite, the MoE router's load-balance loss and
     dropped share. Returns {run: launches}."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import train
     runs = {}
     total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
-    for argv in (TRAIN_QWEN_ARGV, TRAIN_GRANITE_ARGV):
-        args = train.parse_args(argv)
-        run = f"{args.arch} train"
-        print("train phase: python -m repro_torch.launch.train " +
-              " ".join(argv))
+    jobs = [(argv, lambda argv=argv: (train.main(argv),
+                                      train.parse_args(argv)))
+            for argv in (TRAIN_QWEN_ARGV, TRAIN_GRANITE_ARGV,
+                         TRAIN_MAMBA_ARGV, TRAIN_RG_ARGV)]
+    jobs.append((None, lambda: _train_seamless(torch)))
+    for argv, job in jobs:
+        if argv is None:
+            print(f"train phase: training.train on {SEAMLESS['name']}, "
+                  f"{TRAIN_SEAMLESS} with 512 evidence frames a row")
+        else:
+            print("train phase: python -m repro_torch.launch.train " +
+                  " ".join(argv))
         free_memory(torch)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         t0 = time.perf_counter()
         with timing_adamw(torch) as spans:
-            hist = train.main(argv)
+            hist, args = job()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        run = f"{args.arch} train"
         runs[run] = dict(ops.LAUNCHES)
         check(not any(runs[run].values()), f"{run}: kernels launched in "
               f"training: {runs[run]}")
@@ -2628,6 +2702,7 @@ def train_phase(torch, ops, card):
         adamw_ms = statistics.median(a.elapsed_time(b)
                                      for a, b in spans[2:])
         tokens = args.batch * args.seq
+        logits_gb = tokens * get_config(args.arch).vocab_size * 4 / 1e9
         moe = ""
         if "moe_lb_loss" in hist[-1]:
             moe = (f"; moe_lb_loss {hist[0]['moe_lb_loss']:.4f} -> "
@@ -2639,8 +2714,9 @@ def train_phase(torch, ops, card):
               f"{hist[0]['accuracy']:.3f} -> {hist[-1]['accuracy']:.3f}; "
               f"median step {step_s * 1e3:.1f} ms after two warm-up steps "
               f"({tokens / step_s:.0f} tokens/s), AdamW update "
-              f"{adamw_ms:.2f} ms; peak device memory {peak_gb:.1f} GB of "
-              f"the card's {total_gb:.1f}{moe}  [{card}]")
+              f"{adamw_ms:.2f} ms; fp32 logits {logits_gb:.2f} GB; peak "
+              f"device memory {peak_gb:.1f} GB of the card's "
+              f"{total_gb:.1f}{moe}  [{card}]")
         if args.arch == "qwen3-0.6b":
             check(losses[-1] < losses[0], f"{run}: loss did not fall "
                   f"({losses[0]:.4f} -> {losses[-1]:.4f})")
@@ -2649,55 +2725,96 @@ def train_phase(torch, ops, card):
     return runs
 
 
+@contextlib.contextmanager
+def host_heap_kept():
+    """While open, this process's allocator (glibc) serves large blocks
+    from its heap and keeps what is freed there. By default it maps each
+    block afresh and unmaps it on free, so every temporary of a
+    full-width update on the host (2.6 GB for recurrentgemma-2b's tied
+    table) page-faults anew, and the host side of ``train_check`` takes
+    about twice as long. On leaving, the defaults come back and the kept
+    memory is returned."""
+    import ctypes
+    libc = ctypes.CDLL("libc.so.6")
+    set_ok = (libc.mallopt(M_MMAP_MAX, 0) == 1 and
+              libc.mallopt(M_TRIM_THRESHOLD, 2 ** 31 - 1) == 1)
+    print(f"host allocator: large blocks from the heap, kept "
+          f"({'set' if set_ok else 'NOT set: mallopt refused'})")
+    try:
+        yield
+    finally:
+        for param, value in MALLOC_DEFAULTS.items():
+            libc.mallopt(param, value)
+        libc.malloc_trim(0)
+
+
 def train_check(torch):
-    """2-layer full-width qwen3-0.6b and granite-moe-3b-a800m: three
+    """Full widths at reduced depth (``TRAIN_CHECK``): 2-layer qwen3-0.6b,
+    granite-moe-3b-a800m and mamba2-780m, 3-layer recurrentgemma-2b (two
+    RG-LRU layers and a local-attention one) and 2 + 2-layer
+    seamless-m4t-large-v2 (with its 512 evidence frames a row): three
     ``training.train`` steps on the card against the same three on the
     host's CPU, from the same weights and batches; the loss and, for the
     MoE, its load-balance loss and dropped share agree within
-    ``TRAIN_CHECK_RTOL`` at every step. Then a checkpoint round trip on the
-    card: qwen3's trained weights saved, loaded into a fresh model, the
-    same logits bit for bit."""
-    import itertools
+    ``TRAIN_CHECK_RTOL`` at every step. Then a checkpoint round trip on
+    the card: qwen3's trained weights saved, loaded into a fresh model,
+    the same logits bit for bit. Returns {arch: max relative
+    difference}."""
     from repro_torch.config import TrainConfig
+    tc = TrainConfig(total_steps=TRAIN_CHECK_STEPS, warmup_steps=1,
+                     learning_rate=1e-3)
+    rels = {}
+    with host_heap_kept():
+        for arch, (over, batch, seq) in TRAIN_CHECK.items():
+            rels[arch] = _train_check_arch(torch, tc, arch, over, batch, seq)
+    return rels
+
+
+def _train_check_arch(torch, tc, arch, over, batch, seq):
+    """One entry of ``TRAIN_CHECK``; returns the max relative
+    difference."""
+    import copy
+    import itertools
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batches
     from repro_torch.models.model import build_model
     from repro_torch.training import train
     from repro_torch.training.train_loop import batch_to
-    c = TRAIN_CHECK
-    tc = TrainConfig(total_steps=c["steps"], warmup_steps=1,
-                     learning_rate=1e-3)
-    for arch in c["archs"]:
-        cfg = get_config(arch).with_overrides(num_layers=c["layers"],
-                                              dtype="float32")
-        data = list(itertools.islice(lm_batches(cfg.vocab_size, c["batch"],
-                                                c["seq"], seed=0),
-                                     c["steps"]))
-        gpu = build_model(cfg, torch.float32, device="cuda", seed=0)
-        cpu = build_model(cfg, torch.float32, device="cpu", seed=0)
-        cpu.load_state_dict(gpu.state_dict())
-        t0 = time.perf_counter()
-        hist = {name: train(model, tc, iter(data), steps=c["steps"],
-                            log_every=1)[2]
-                for name, model in (("cuda", gpu), ("cpu", cpu))}
-        keys = [k for k in TRAIN_CHECK_KEYS if k in hist["cpu"][0]]
-        vals = {name: {k: [h[k] for h in hs] for k in keys}
-                for name, hs in hist.items()}
-        rel = max(abs(a - b) / max(abs(b), 1e-30)
-                  for k in keys
-                  for a, b in zip(vals["cuda"][k], vals["cpu"][k]))
-        print(f"train check [{c['layers']}-layer {arch}, B {c['batch']}, L "
-              f"{c['seq']}]: card {vals['cuda']}, CPU {vals['cpu']}; "
-              f"max rel diff {rel:.2e} (tol {TRAIN_CHECK_RTOL:g}); "
-              f"{time.perf_counter() - t0:.1f} s")
-        check(rel <= TRAIN_CHECK_RTOL, f"train check [{arch}]: card and "
-              f"CPU {'/'.join(keys)} differ by {rel:.2e}")
-        del cpu
-        if arch == "qwen3-0.6b":
-            checkpoint_check(torch, cfg, gpu, batch_to(data[0], "cuda"),
-                             c["steps"])
-        del gpu
-        free_memory(torch)
+    n = tc.total_steps
+    cfg = get_config(arch).with_overrides(dtype="float32", **over)
+    ev = None
+    if cfg.is_encoder_decoder:
+        ev = {"num_tokens": cfg.num_evidence_tokens,
+              "dim": cfg.evidence_dim}
+    data = list(itertools.islice(lm_batches(cfg.vocab_size, batch, seq,
+                                            seed=0, evidence=ev), n))
+    gpu = build_model(cfg, torch.float32, device="cuda", seed=0)
+    # the same weights on the host, without the host drawing random
+    # ones of its own first (~7 s for recurrentgemma's 0.85 B)
+    cpu = copy.deepcopy(gpu).cpu()
+    cpu.device = torch.device("cpu")
+    t0 = time.perf_counter()
+    hist = {name: train(model, tc, iter(data), steps=n, log_every=1)[2]
+            for name, model in (("cuda", gpu), ("cpu", cpu))}
+    keys = [k for k in TRAIN_CHECK_KEYS if k in hist["cpu"][0]]
+    vals = {name: {k: [h[k] for h in hs] for k in keys}
+            for name, hs in hist.items()}
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for k in keys
+              for a, b in zip(vals["cuda"][k], vals["cpu"][k]))
+    layers = "+".join(str(over[k]) for k in sorted(over, reverse=True))
+    print(f"train check [{layers}-layer {arch}, B {batch}, L {seq}]: "
+          f"card {vals['cuda']}, CPU {vals['cpu']}; max rel diff "
+          f"{rel:.2e} (tol {TRAIN_CHECK_RTOL:g}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(rel <= TRAIN_CHECK_RTOL, f"train check [{arch}]: card and "
+          f"CPU {'/'.join(keys)} differ by {rel:.2e}")
+    del cpu
+    if arch == "qwen3-0.6b":
+        checkpoint_check(torch, cfg, gpu, batch_to(data[0], "cuda"), n)
+    del gpu
+    free_memory(torch)
+    return rel
 
 
 def checkpoint_check(torch, cfg, trained, batch, steps):
@@ -2751,16 +2868,19 @@ def recording_kernels(ops):
 def rescore_phase(torch, ops, ref, card):
     """``core.rescore.camd_wrap`` at full width, fp32, a round of
     ``RESCORE`` candidates: llava-1.5-7b with the vision tower's 576 rows
-    of one seeded image as evidence, granite-moe-3b-a800m without. Each
+    of one seeded image as evidence, granite-moe-3b-a800m without, and
+    the encoder-decoder seamless-m4t-large-v2 with 512 seeded audio frames
+    into its encoder (its decoder's logits carry no evidence offset). Each
     impl runs once with the launch counts set to 0 just before: ``torch``
-    launches nothing; ``cuda`` launches K2 once a layer, K4a and K4b once
-    each (llava), K5a and K5b once a layer (granite). Their scores and
-    terms agree within ``RESCORE_TOL``, ``stop`` and ``best_uid`` are
-    equal, ``p_star`` within ``RESCORE_P_STAR_ATOL``; so are the decisions
-    of a second call of both impls at cluster threshold 1.0, where every
-    candidate is a cluster of its own (random weights leave the
-    candidates' mean hidden states nearly parallel: one cluster at the
-    default 0.85, p_star 1 on both). Each kernel's first
+    launches nothing; ``cuda`` launches K2 once a (decoder) layer, K4a and
+    K4b once each (llava, seamless), K5a and K5b once a layer (granite);
+    the encoder's and the cross attention run plain sdpa on both. Their
+    scores and terms agree within ``RESCORE_TOL``, ``stop`` and
+    ``best_uid`` are equal, ``p_star`` within ``RESCORE_P_STAR_ATOL``; so
+    are the decisions of a second call of both impls at cluster threshold
+    1.0, where every candidate is a cluster of its own (random weights
+    leave the candidates' mean hidden states nearly parallel: one cluster
+    at the default 0.85, p_star 1 on both). Each kernel's first
     call is held against its plain version on the same inputs; the
     teacher-forced forward is timed by CUDA events on both impls. Returns
     {run: launches of the cuda run}."""
@@ -2771,7 +2891,7 @@ def rescore_phase(torch, ops, ref, card):
     r = RESCORE
     runs = {}
     camd, camd_split = CAMDConfig(), CAMDConfig(cluster_threshold=1.0)
-    for arch in ("llava-1.5-7b", "granite-moe-3b-a800m"):
+    for arch in ("llava-1.5-7b", "granite-moe-3b-a800m", SEAMLESS["name"]):
         free_memory(torch)
         torch.cuda.reset_peak_memory_stats()
         cfg = get_config(arch).with_overrides(dtype="float32")
@@ -2791,6 +2911,10 @@ def rescore_phase(torch, ops, ref, card):
                                generator=g, device="cuda")
             with torch.no_grad():
                 evidence = model.encode_image(image)[0]
+        elif cfg.is_encoder_decoder:
+            evidence = torch.randn((cfg.num_evidence_tokens,
+                                    cfg.evidence_dim), generator=g,
+                                   device="cuda")
         dec, launches, clusters, split = {}, {}, {}, {}
         for impl in ("torch", "cuda"):
             ops.reset_launches()
@@ -2871,7 +2995,8 @@ def rescore_phase(torch, ops, ref, card):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f"rescore [{arch}, {L}L]: {r['K']} candidates x {r['cand']} "
               f"tokens after a {r['prompt']}-token prompt"
-              f"{' and 576 image rows' if evidence is not None else ''}; "
+              + (f" and {evidence.shape[0]} evidence rows" if evidence
+                 is not None else "") + "; "
               f"stop {bool(a['stop'])}, p_star {float(a['p_star']):.6f} "
               f"(torch {float(b['p_star']):.6f}), best uid "
               f"{int(a['best_uid'])}; cuda vs torch max err "
@@ -2918,6 +3043,155 @@ def grad_guard_check(torch, ops):
           f"{ops.LAUNCHES}")
     print(f"grad guard: {', '.join(calls)} raise on inputs that require "
           "grad, with nothing launched")
+
+
+# the CAMD core on the card against the CPU: elementwise values within
+# fp32 ulps of each other's math library (atol, rtol), the expected
+# improvement's cancelling tail within 1e-6 abs (|z| std ulps of erf near
+# -1), the round's bias as rescoring holds it (2e-4 rel, 1e-4 abs)
+CORE_TOL = (1e-5, 1e-5)
+CORE_EI_TOL = (1e-6, 1e-3)
+CORE_BIAS_TOL = (1e-4, 2e-4)
+CORE_ROUND = dict(N=8, R=8, d=1024, V=4096)
+
+
+def core_check(torch):
+    """The §3.2 stop rules, two rounds of ``controller.round_update`` over
+    ``CORE_ROUND`` requests, ``score_candidates`` and ``core.theory``'s
+    functions on CUDA tensors against the same on the CPU: decisions,
+    counters and cluster counts equal, values within ``CORE_TOL`` (the
+    expected improvement ``CORE_EI_TOL``, the bias ``CORE_BIAS_TOL``); the
+    samplers draw on the card from a CUDA generator, in [0, 1], with a
+    two-sample Kolmogorov-Smirnov statistic against the CPU's draws under
+    the level-1e-3 critical value."""
+    from repro_torch.config import CAMDConfig
+    from repro_torch.core import controller as ctrl
+    from repro_torch.core import posterior, theory
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(21)
+    errs = {}
+
+    def same(name, a, b, tol=CORE_TOL):
+        a, b = a.cpu(), b
+        if a.dtype == torch.bool or not a.is_floating_point():
+            check(torch.equal(a, b), f"core check: {name} differs")
+            return
+        atol, rtol = tol
+        err = (a - b).abs()
+        errs[name] = max(errs.get(name, 0.0), float(err.max()))
+        check(bool((err <= atol + rtol * b.abs()).all()),
+              f"core check: {name} card vs CPU {errs[name]:.3e}")
+
+    def both(fn, *xs, **kw):
+        return (fn(*(x.cuda() for x in xs), **kw), fn(*xs, **kw))
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=g) * (hi - lo) + lo
+
+    best, prev = rand(4096), rand(4096)
+    prev[::3] = best[::3]
+    n = torch.randint(0, 4, (4096,), generator=g, dtype=torch.int32)
+    (cs, cr), (hs, hr) = both(posterior.threshold_stop, best, prev, n,
+                              tau=0.9, patience=3)
+    same("threshold_stop", cs, hs)
+    same("threshold rounds", cr, hr)
+    trials = torch.randint(0, 40, (4096,), generator=g).float()
+    succ = torch.floor(trials * rand(4096))
+    (cs, cm), (hs, hm) = both(posterior.beta_bernoulli_stop, succ, trials,
+                              delta=0.1)
+    same("beta_bernoulli_stop", cs, hs)
+    same("beta mean_fail", cm, hm)
+    mean, std = rand(4096, lo=-2.0, hi=2.0), rand(4096, hi=1.5)
+    toks = torch.randint(1, 200, (4096,), generator=g).float()
+    (cs, ce), (hs, he) = both(posterior.expected_improvement_stop, best,
+                              mean, std, toks, cost_per_token=1e-3)
+    same("expected_improvement_stop", cs, hs)
+    same("expected improvement", ce, he, CORE_EI_TOL)
+
+    c = CORE_ROUND
+    camd = CAMDConfig(max_clusters=8, min_samples=4, delta=0.3,
+                      cluster_threshold=0.9)
+    states = {dev: ctrl.init_state(camd, c["N"], c["d"], c["V"], device=dev)
+              for dev in ("cuda", "cpu")}
+    for rnd in range(2):
+        centres = torch.randn((3, c["d"]), generator=g)
+        pick = torch.randint(0, 2, (c["N"], c["R"]), generator=g)
+        valid = torch.ones((c["N"], c["R"]), dtype=torch.bool)
+        valid[-1, -1] = False
+        inp = ctrl.RoundInputs(
+            scores=torch.randn((c["N"], c["R"]), generator=g),
+            embs=centres[pick] + 0.1 * torch.randn(
+                (c["N"], c["R"], c["d"]), generator=g),
+            token_counts=torch.randint(0, 3, (c["N"], c["R"], c["V"]),
+                                       generator=g).float(),
+            lengths=torch.randint(1, 64, (c["N"], c["R"]), generator=g,
+                                  dtype=torch.int32),
+            valid=valid,
+            uids=torch.arange(c["N"] * c["R"], dtype=torch.int32).reshape(
+                c["N"], c["R"]) + 100 * rnd)
+        bias = {}
+        for dev in ("cuda", "cpu"):
+            states[dev], bias[dev] = ctrl.round_update(
+                camd, states[dev],
+                ctrl.RoundInputs(*(x.to(dev) for x in inp)))
+        same("round bias", bias["cuda"], bias["cpu"], CORE_BIAS_TOL)
+        for name in ("k_t", "rounds", "stopped", "best_uid",
+                     "best_cluster", "tokens_spent", "p_star",
+                     "best_score", "alpha"):
+            same(f"round {name}", getattr(states["cuda"], name),
+                 getattr(states["cpu"], name))
+        same("round clusters", states["cuda"].table.n_clusters,
+             states["cpu"].table.n_clusters)
+    lp = -3 * rand(8, 32)
+    mask = torch.ones(8, 32)
+    feats = dict(hidden=torch.randn((8, 32, 256), generator=g),
+                 token_embs=torch.randn((8, 32, 256), generator=g),
+                 visual_feats=torch.randn((8, 64, 256), generator=g),
+                 text_feats=torch.randn((8, 16, 256), generator=g))
+    card_s = ctrl.score_candidates(camd, lp.cuda(), mask.cuda(), **{
+        k: v.cuda() for k, v in feats.items()})
+    same("score_candidates", card_s,
+         ctrl.score_candidates(camd, lp, mask, **feats))
+
+    s = rand(20000)
+    Ks = torch.tensor([1, 2, 4, 8, 16, 32, 64])
+    for fn in (theory.coverage, theory.residual_risk):
+        same(fn.__name__, fn(Ks.cuda(), s.cuda()), fn(Ks, s))
+    same("n_delta", theory.n_delta(s.cuda(), 0.05), theory.n_delta(s, 0.05))
+    same("heavy_tail_rate", theory.heavy_tail_rate(Ks.cuda(), 0.5),
+         theory.heavy_tail_rate(Ks, 0.5))
+    deltas = theory.residual_risk(Ks, s)
+    fits = [theory.fit_power_law(Ks.cuda(), deltas.cuda()),
+            theory.fit_power_law(Ks, deltas)]
+    check(fits[0] == fits[1], f"core check: fits differ {fits}")
+    n_draw = 100_000
+    ks_bound = math.sqrt(-math.log(1e-3 / 2) / 2) * math.sqrt(2 / n_draw)
+    ks = {}
+    for name in ("sample_heavy_tail", "sample_stretched_exp",
+                 "sample_light_tail"):
+        fn = getattr(theory, name)
+        on_card = fn(torch.Generator(device="cuda").manual_seed(5), n_draw)
+        on_cpu = fn(torch.Generator(device="cpu").manual_seed(5), n_draw,
+                    device="cpu")
+        check(on_card.device.type == "cuda" and on_card.shape == (n_draw,)
+              and bool(((on_card >= 0) & (on_card <= 1)).all()),
+              f"core check: {name} draws on the card")
+        a, b = on_card.cpu().sort().values, on_cpu.sort().values
+        x = torch.cat([a, b])
+        ks[name] = float((torch.searchsorted(a, x, right=True) -
+                          torch.searchsorted(b, x, right=True)).abs().max()
+                         / n_draw)
+        check(ks[name] < ks_bound, f"core check: {name} KS {ks[name]:.4f} "
+              f">= {ks_bound:.4f}")
+    torch.cuda.synchronize()
+    print(f"core check: stop rules over 4096 inputs, two rounds of "
+          f"round_update over {c['N']} requests x {c['R']} candidates, "
+          f"score_candidates and the theory's functions, card against CPU; "
+          f"max |diff| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()
+                                     if v) +
+          "; samplers' KS against the CPU's draws " +
+          ", ".join(f"{k} {v:.4f}" for k, v in ks.items()) +
+          f" (bound {ks_bound:.4f}); {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3307,8 +3581,15 @@ def main() -> None:
     from repro_torch.models.attention import kv_quantize
 
     t0 = time.perf_counter()
-    info = build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.1f}s wall, parallel")
+    # training launches no kernel, so the card-against-CPU training check
+    # (mostly the host's full-width updates) runs while nvcc builds
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build.build_all)
+        stamp("training check, while the kernels build")
+        train_check(torch)
+        info = building.result()
+    print(f"kernel build: {time.perf_counter() - t0:.1f}s wall, parallel, "
+          "beside the training check")
     for name, rec in info.items():
         log = str(rec["log"])
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
@@ -3535,17 +3816,21 @@ def main() -> None:
     ed_runs = (f"{SEAMLESS['name']} serve", f"{SEAMLESS['name']} dense check")
 
     stamp("training")
-    # training at full width on the plain impl, the card against the CPU
-    # at 2 layers, a checkpoint round trip; then plug-and-play rescoring
-    # through K2, K4 and K5; kernels refuse inputs that require grad
+    # training at full width on the plain impl (the recurrent, hybrid and
+    # encoder-decoder models too; the card against the CPU at 2-3 layers
+    # and the checkpoint round trip ran beside the build); then
+    # plug-and-play rescoring through K2, K4
+    # and K5 (seamless: K2 and K4); kernels refuse inputs that require
+    # grad; the CAMD core's stop rules, round update and theory on the
+    # card against the CPU
     t0 = time.perf_counter()
     free_memory(torch)
     train_runs = train_phase(torch, ops, card)
-    train_check(torch)
     stamp("rescoring")
     rescore_runs = rescore_phase(torch, ops, ref, card)
     runs.update(rescore_runs)
     grad_guard_check(torch, ops)
+    core_check(torch)
     launched = sum(sum(r.values()) for r in train_runs.values())
     print(f"training and rescoring phases: {time.perf_counter() - t0:.1f} s "
           f"(training launched {launched} kernels)")
@@ -3569,10 +3854,10 @@ def main() -> None:
                   new_serves
                   for name in ("flash_attention", "paged_decode_attention")})
     paths["flash_attention"] += tuple(rescore_runs) + rg_runs + ed_runs
-    paths.update({name: serves + spec_runs[1:2] + ("internvl2-2b serve",
-                                                   "llava-1.5-7b rescore",
-                                                   ed_runs[0])
-                  for name in ("xmodal_score_mean", "xmodal_score_max")})
+    paths.update({name: serves + spec_runs[1:2] + (
+        "internvl2-2b serve", "llava-1.5-7b rescore", ed_runs[0],
+        f"{SEAMLESS['name']} rescore")
+        for name in ("xmodal_score_mean", "xmodal_score_max")})
     paths.update({name: serves + spec_runs[2:] +
                   ("granite-moe-3b-a800m rescore",)
                   for name in ("moe_dispatch", "moe_combine")})

@@ -1,7 +1,10 @@
 """CAMD round controller (``repro/core/controller.py``), as batched tensor
 ops: every ``CAMDState`` field carries a leading request axis N, and one
-call folds the completed rounds of N requests (the reference vmaps
-``round_update_assign`` over requests, ``controller.py:124-135``).
+call folds the completed rounds of N requests. So ``init_state(cfg, n,
+...)`` is the reference's ``batched_init``, ``round_update_assign`` its
+``batched_round_update_assign`` and ``round_update`` its
+``batched_round_update`` (the reference vmaps its one-request functions
+over requests, ``controller.py:118-135``); a single request is N = 1.
 """
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from repro_torch.config import CAMDConfig
-from repro_torch.core import clustering, posterior
+from repro_torch.core import clustering, posterior, scoring
 
 
 class CAMDState(NamedTuple):
@@ -73,6 +76,16 @@ def select_state(state: CAMDState, i: int) -> CAMDState:
     return CAMDState(*map(take, state))
 
 
+def round_update(cfg: CAMDConfig, state: CAMDState, inp: RoundInputs
+                 ) -> Tuple[CAMDState, torch.Tensor]:
+    """Fold one round of candidates into each request's state. Returns
+    (state, the Eq. 16 guidance bias (N, V) for the next round's logits,
+    zeros once stopped): ``round_update_assign`` without the assignment
+    (``controller.py:63-72``)."""
+    state, bias, _ = round_update_assign(cfg, state, inp)
+    return state, bias
+
+
 def round_update_assign(cfg: CAMDConfig, state: CAMDState, inp: RoundInputs
                         ) -> Tuple[CAMDState, torch.Tensor, torch.Tensor]:
     """Fold one round of candidates into each request's state: score ->
@@ -120,3 +133,14 @@ def round_update_assign(cfg: CAMDConfig, state: CAMDState, inp: RoundInputs
         stopped=stopped, p_star=p_star, best_score=best_score,
         best_uid=best_uid, best_cluster=best_cluster, tokens_spent=tokens)
     return new_state, bias, cluster_idx
+
+
+def score_candidates(cfg: CAMDConfig, token_logprobs, mask, *, hidden=None,
+                     token_embs=None, visual_feats=None, text_feats=None,
+                     impl: str = "torch"):
+    """Eq. 12 with this config's λ weights (``controller.py:138-145``);
+    ``impl="cuda"`` runs S_align through the K4 kernels."""
+    return scoring.evidence_weighted_score(
+        token_logprobs, mask, hidden=hidden, token_embs=token_embs,
+        visual_feats=visual_feats, text_feats=text_feats,
+        lambda_g=cfg.lambda_g, lambda_c=cfg.lambda_c, impl=impl)

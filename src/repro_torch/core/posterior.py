@@ -1,8 +1,10 @@
 """Posterior coverage estimation and Bayesian adaptive sampling
-(paper §4.2.2-§4.2.3, Eq. 14-16), batched over requests — follows
-``repro/core/posterior.py``.
+(paper §4.2.2-§4.2.3, Eq. 14-16), batched over requests, and the §3.2
+stopping baselines — follows ``repro/core/posterior.py``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -41,3 +43,41 @@ def mixture_logit_bias(pi_bar, cluster_hist, *, strength: float = 1.0,
     p_mix = p_mix + (1.0 - pi_bar.sum(dim=-1, keepdim=True)) / V
     bias = strength * torch.log(p_mix + 1e-20)
     return bias - bias.mean(dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# §3.2 adaptive stopping baselines (the motivation experiment's rules),
+# elementwise over tensors of any shape (``posterior.py:61-92``)
+# ---------------------------------------------------------------------------
+
+def threshold_stop(best_score, prev_best, no_improve_rounds, *, tau: float,
+                   patience: int):
+    """Rule (i): stop once the best score reaches ``tau``, or after
+    ``patience`` rounds without improvement. Returns (stop, rounds), the
+    count of rounds without improvement."""
+    improved = best_score > prev_best + 1e-9
+    rounds = torch.where(improved, torch.zeros_like(no_improve_rounds),
+                         no_improve_rounds + 1)
+    return (best_score >= tau) | (rounds >= patience), rounds
+
+
+def beta_bernoulli_stop(successes, trials, *, delta: float,
+                        prior_a: float = 1.0, prior_b: float = 1.0):
+    """Rule (ii): a Beta(prior_a, prior_b) posterior on a trial's success;
+    stop when its mean failure is below δ. Returns (stop, mean_fail)."""
+    a = prior_a + successes
+    b = prior_b + trials - successes
+    mean_fail = b / (a + b)
+    return mean_fail < delta, mean_fail
+
+
+def expected_improvement_stop(best_score, score_mean, score_std,
+                              tokens_per_sample, *, cost_per_token: float):
+    """Rule (iii): stop when one more sample's expected improvement over
+    the best score, under a normal model of the scores, is below its
+    token cost. Returns (stop, ei)."""
+    z = (score_mean - best_score) / torch.clamp(score_std, min=1e-6)
+    phi = torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
+    Phi = 0.5 * (1.0 + torch.special.erf(z / math.sqrt(2.0)))
+    ei = score_std * (z * Phi + phi)
+    return ei < cost_per_token * tokens_per_sample, ei

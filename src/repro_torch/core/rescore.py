@@ -114,7 +114,7 @@ def camd_wrap(model, cfg: CAMDConfig, prompt, candidates, mask,
         lengths=m.sum(-1).to(torch.int32)[None],
         valid=(m > 0).any(-1)[None],
         uids=torch.as_tensor(uids, dtype=torch.int32, device=dev)[None])
-    state, bias, _ = ctrl.round_update_assign(cfg, state, inp)
+    state, bias = ctrl.round_update(cfg, state, inp)
     decision = {
         "stop": state.stopped[0], "p_star": state.p_star[0],
         "best_uid": state.best_uid[0], "bias": bias[0],

@@ -8,10 +8,14 @@ and the cosine schedule, the synthetic ``lm_batches`` stream (seed 0),
 and a ``step N loss= acc=`` line every ``steps // 10`` steps and at the
 last, as the reference prints them. Runs on the CUDA device unless
 ``--device cpu``. ``--reduced`` trains the CPU-smoke-size variant of the
-config. Sharded training (``--mesh`` other than 1x1) is not ported, and a
-config whose weights, gradients and two moments (16 bytes a parameter in
-fp32) exceed the device's memory is refused before anything is
-allocated.
+config. Decoder-only configs train here, recurrent and hybrid ones
+(mamba2-780m, recurrentgemma-2b) included; the batches carry no evidence,
+as the reference's, so an encoder-decoder (seamless-m4t-large-v2) raises
+in its forward: train it through ``training.train`` on ``lm_batches(...,
+evidence=...)``. Sharded training (``--mesh`` other than 1x1) is not
+ported, and a config whose weights, gradients and two moments (16 bytes
+a parameter in fp32) exceed the device's memory is refused before
+anything is allocated.
 """
 from __future__ import annotations
 
@@ -58,7 +62,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
     args = parse_args(argv)
     if tuple(int(x) for x in args.mesh.split("x")) != (1, 1):
         raise SystemExit(f"--mesh {args.mesh}: sharded training is not "
-                         "ported yet (ROADMAP Queue 1, item 8)")
+                         "ported yet (ROADMAP Queue 1, item 5)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -71,7 +75,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, float]]:
             f"{cfg.name}: fp32 weights, gradients and AdamW moments take "
             f"{need / 1e9:.1f} GB, more than the {total / 1e9:.1f} GB of "
             f"{device}; training it needs sharding (ROADMAP Queue 1, "
-            "item 8)")
+            "item 5)")
     tc = TrainConfig(total_steps=args.steps, warmup_steps=args.steps // 10,
                      learning_rate=args.lr, microbatches=args.microbatches)
     model = build_model(cfg, torch.float32, device=device, seed=tc.seed)

@@ -6,7 +6,8 @@ then imports every module of the port (the async front-end, the traffic
 module, training, rescoring and the encoder-decoder among them), runs its
 serve entry point on the CPU, closed-loop and open-loop, and on the
 encoder-decoder seamless-m4t-large-v2 with CAMD and cross-modal
-rescoring, and its training launcher for two reduced steps.
+rescoring, and its training launcher for two reduced steps; the §4.1
+theory module (``core.theory``) is among those imported.
 """
 import os
 import subprocess
@@ -53,7 +54,8 @@ hist = train.main(["--device", "cpu", "--reduced", "--steps", "2",
                    "--batch", "2", "--seq", "16"])
 assert len(hist) == 2, hist
 assert {"repro_torch.training.train_loop", "repro_torch.core.rescore",
-        "repro_torch.data.tasks"} <= set(names), names
+        "repro_torch.core.theory", "repro_torch.data.tasks"} <= set(names), \
+    names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked

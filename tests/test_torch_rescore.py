@@ -1,7 +1,10 @@
 """The port's plug-and-play CAMD rescoring (``repro_torch.core.rescore``)
 against the JAX package's, on the CPU, at the reduced internvl2-2b that
 ``tests/test_rescore.py`` builds (and with a narrower evidence width, so
-the evidence projection runs), and at the reduced granite-moe-3b-a800m.
+the evidence projection runs), at the reduced granite-moe-3b-a800m, and
+at the reduced encoder-decoder seamless-m4t-large-v2, whose evidence
+frames go into its encoder (its decoder's logits carry no evidence
+offset) and which both packages refuse to rescore without them.
 
 Same numpy inputs from a seed and the reference's weights (carried over
 by ``params_from_jax``). Both impls of the port (``torch``; ``cuda``,
@@ -77,6 +80,8 @@ SETUPS = {
     # evidence of another width goes through evidence_proj
     "internvl2-2b proj": dict(evidence_dim=96),
     "granite-moe-3b-a800m": dict(),
+    # the evidence goes into the encoder; S_align against the frames
+    "seamless-m4t-large-v2": dict(),
 }
 
 
@@ -113,6 +118,19 @@ def both(x):
     return (None, None) if x is None else (jnp.asarray(x), t(x))
 
 
+def refused(jcfg, ev):
+    """An encoder-decoder without its encoder inputs: the reference's
+    forward asserts, the port's raises."""
+    return jcfg.is_encoder_decoder and ev is None
+
+
+def refuses_both(jfn, tfn):
+    with pytest.raises(AssertionError, match="encoder inputs"):
+        jfn()
+    with pytest.raises(ValueError, match="encoder inputs"):
+        tfn()
+
+
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("evidence", [True, False])
 @pytest.mark.parametrize("name", list(SETUPS))
@@ -120,11 +138,19 @@ def test_teacher_forced_stats_match(setups, name, evidence, impl):
     jcfg, jmodel, jparams, model = setups[name]
     prompt, cands, mask, ev = inputs(jcfg, evidence=evidence)
     jev, tev = both(ev)
-    exp = jrescore.teacher_forced_stats(jmodel, jparams, jnp.asarray(prompt),
-                                        jnp.asarray(cands), jnp.asarray(mask),
-                                        jev)
-    got = rescore.teacher_forced_stats(model, t(prompt), t(cands), t(mask),
-                                       tev, impl=impl)
+
+    def jfn():
+        return jrescore.teacher_forced_stats(
+            jmodel, jparams, jnp.asarray(prompt), jnp.asarray(cands),
+            jnp.asarray(mask), jev)
+
+    def tfn():
+        return rescore.teacher_forced_stats(model, t(prompt), t(cands),
+                                            t(mask), tev, impl=impl)
+
+    if refused(jcfg, ev):
+        return refuses_both(jfn, tfn)
+    exp, got = jfn(), tfn()
     for e, g in zip(exp, got):
         assert tuple(e.shape) == tuple(g.shape)
         assert not g.requires_grad
@@ -136,17 +162,26 @@ def test_teacher_forced_stats_match(setups, name, evidence, impl):
 @pytest.mark.parametrize("name", list(SETUPS))
 def test_rescore_candidates_match(setups, name, evidence, impl):
     """Scores and every term; with evidence S_align is nonzero on the vlm
-    configs, without it zero, as the reference's."""
+    and audio configs, without it zero, as the reference's (seamless
+    refuses)."""
     jcfg, jmodel, jparams, model = setups[name]
     prompt, cands, mask, ev = inputs(jcfg, seed=2, evidence=evidence)
     jev, tev = both(ev)
     camd = JCAMD(lambda_g=0.9, lambda_c=0.7)
-    exp = jrescore.rescore_candidates(jmodel, jparams, camd,
-                                      jnp.asarray(prompt), jnp.asarray(cands),
-                                      jnp.asarray(mask), jev)
-    got = rescore.rescore_candidates(
-        model, tconfig.CAMDConfig(lambda_g=0.9, lambda_c=0.7), t(prompt),
-        t(cands), t(mask), tev, impl=impl)
+
+    def jfn():
+        return jrescore.rescore_candidates(
+            jmodel, jparams, camd, jnp.asarray(prompt), jnp.asarray(cands),
+            jnp.asarray(mask), jev)
+
+    def tfn():
+        return rescore.rescore_candidates(
+            model, tconfig.CAMDConfig(lambda_g=0.9, lambda_c=0.7), t(prompt),
+            t(cands), t(mask), tev, impl=impl)
+
+    if refused(jcfg, ev):
+        return refuses_both(jfn, tfn)
+    exp, got = jfn(), tfn()
     assert set(got) == set(exp)
     for k in exp:
         close(exp[k], got[k])

@@ -104,10 +104,12 @@ def close_but_few(exp, got, rtol, atol, outlier_atol):
 def port_cfg(jcfg):
     kw = {f.name: getattr(jcfg, f.name)
           for f in dataclasses.fields(tconfig.ModelConfig)}
-    if jcfg.moe is not None:
-        kw["moe"] = tconfig.MoEConfig(**dataclasses.asdict(jcfg.moe))
-    if jcfg.vision is not None:
-        kw["vision"] = tconfig.VisionConfig(**dataclasses.asdict(jcfg.vision))
+    for name, cls in (("moe", tconfig.MoEConfig),
+                      ("vision", tconfig.VisionConfig),
+                      ("ssm", tconfig.SSMConfig),
+                      ("rglru", tconfig.RGLRUConfig)):
+        if getattr(jcfg, name) is not None:
+            kw[name] = cls(**dataclasses.asdict(getattr(jcfg, name)))
     return tconfig.ModelConfig(**kw)
 
 
@@ -460,5 +462,5 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     sd, step = load_checkpoint(ck, fresh.state_dict())
     assert step == 3
     fresh.load_state_dict(sd)
-    with pytest.raises(SystemExit, match="item 8"):
+    with pytest.raises(SystemExit, match="item 5"):
         train_cli.main(["--reduced", "--mesh", "2x1", "--device", "cpu"])
