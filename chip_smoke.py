@@ -35,7 +35,15 @@ Run from the root of a checkout. It
   4. serve phase: serves CAMD requests on full-width qwen3-0.6b through
      the port's serve entry point with ``--impl paged_cuda`` and checks
      that the flash and paged decode kernels carried it, the flash kernel
-     once a layer a bucketed prefill;
+     once a layer a bucketed prefill; then the mesh phase serves the same
+     weights again through the entry point, at dp 1 and on 2 logical
+     data shards of the card (``--serve-dp 2 --prefill-shards 1
+     --prefix-cache``: the same streams and K1/K2 counts as dp 1, every
+     tail and frontier page on its slot's shard, every prompt page on
+     shard 0, idle rows on their shard's quarantine page, both shards
+     admitting) and on 4 (an 80-page pool, where shard-local capacity
+     gates admissions yet every request is served, and the full pool),
+     and prints tokens/s at dp 1, 2 and 4;
   5. profile: a shorter serve run of the same shapes under torch.profiler
      — device time by kernel and the device's idle share;
   6. dense check: at reduced depth, greedy streams of the plain (torch),
@@ -1449,13 +1457,14 @@ def counting_prefills(torch, timed=False):
 
 
 def serve_phase(torch, ops, serve, argv, kernels, timed=False,
-                param_dtype=None):
+                param_dtype=None, model=None):
     """One serve run through the entry point, with the launch counts set
     to 0 just before and read just after; every kernel in ``kernels`` must
     have carried it, every macro launch a replay of the engine's one
     captured graph; the flash kernel runs once a layer a whole-prompt
     prefill forward, the paged decode kernel once a layer a step of every
-    replay. ``param_dtype`` (fp32 when None, as the CLI) goes to
+    replay. ``param_dtype`` (fp32 when None, as the CLI) and ``model``
+    (an already built model to serve; None builds one) go to
     ``serve.main`` and on to ``build_engine``. Returns (launches, output
     of serve.main, with the prefill forwards under "forwards" and, with
     ``timed``, their CUDA-event spans under "spans", as
@@ -1467,7 +1476,7 @@ def serve_phase(torch, ops, serve, argv, kernels, timed=False,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     with counting_prefills(torch, timed) as (forwards, spans):
-        out = serve.main(argv, param_dtype or torch.float32)
+        out = serve.main(argv, param_dtype or torch.float32, model=model)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     out["forwards"], out["spans"] = dict(forwards), spans
@@ -1518,6 +1527,155 @@ def serve_phase(torch, ops, serve, argv, kernels, timed=False,
           f"bytes a page, peak {kv['peak_kv_bytes'] / 1e6:.2f} MB")
     out["peak_gb"] = peak_gb
     return launches, out
+
+
+# mesh serving: 2 and 4 logical data shards of the one card. Runs (a)'s
+# pool lets shard 0 hold every request's 16 prompt pages beside its
+# slots' pages (8 slots x 18 pages + a quarantine page, a shard), so that
+# shard-local capacity never binds; run (b)'s 80 pages (19 allocatable a
+# shard) fund one candidate at a time beside a prompt's 16.
+MESH_PAGES = 2 * (SERVE["slots"] * (CACHE_LEN // SERVE["page"]) + 1)
+MESH_TIGHT_PAGES = 80
+
+
+@contextlib.contextmanager
+def watching_shards():
+    """While open, records what every served engine does with its shards:
+    the prompt pages each admitted request holds ("prompt"), the pages
+    each slot takes as its own (CoW tail, staged frontier: "owned", (slot,
+    pages)), and every admission gate's (wanted, funded) ("gates")."""
+    from repro_torch.serving.engine import ServeEngine
+    rec = {"prompt": [], "owned": [], "gates": []}
+    saved = {name: getattr(ServeEngine, name) for name in
+             ("_seed_paged_slots", "_stage_frontier", "_paged_affordable")}
+
+    def seed(self, info, slot_ids, lim):
+        saved["_seed_paged_slots"](self, info, slot_ids, lim)
+        n = len(info["prompt_pages"])
+        rec["prompt"].extend(info["prompt_pages"])
+        rec["owned"].extend((s, self._slot_pages[s][n:]) for s in slot_ids)
+
+    def stage(self):
+        staged = saved["_stage_frontier"](self)
+        rec["owned"].extend((s, pages) for s, (_, pages) in staged.items())
+        return staged
+
+    def gate(self, info, want, lim=None):
+        got = saved["_paged_affordable"](self, info, want, lim)
+        rec["gates"].append((want, got))
+        return got
+
+    ServeEngine._seed_paged_slots, ServeEngine._stage_frontier = seed, stage
+    ServeEngine._paged_affordable = gate
+    try:
+        yield rec
+    finally:
+        for name, fn in saved.items():
+            setattr(ServeEngine, name, fn)
+
+
+def stream_digest(results):
+    """Each request's chosen tokens, rounds and candidates' tokens."""
+    return [(r.uid, r.rounds, [int(t) for t in r.tokens],
+             sorted([int(t) for t in c["tokens"]] for c in r.candidates))
+            for r in sorted(results, key=lambda r: r.uid)]
+
+
+def shard_checks(eng, rec, what):
+    """A drained sharded engine: every slot-owned page in the slot's own
+    shard, idle rows on their own shard's quarantine page, the pool
+    conserved and no reservation left."""
+    for s, pages in rec["owned"]:
+        for p in pages:
+            check(eng.pool.shard_of(p) == eng._slot_shard(s),
+                  f"{what}: slot {s} (shard {eng._slot_shard(s)}) took page "
+                  f"{p} of shard {eng.pool.shard_of(p)}")
+    bt = eng.state.cache["block_table"].cpu()
+    for s in range(eng.B):
+        q = eng.pool.quarantine_page(eng._slot_shard(s))
+        check(bool((bt[s] == q).all()), f"{what}: idle row {s} does not "
+              f"point at its shard's quarantine page {q}")
+    eng.pool.check()
+    check(eng._reserved == 0 and not eng._reserved_sh.any(),
+          f"{what}: reservations left {eng._reserved_sh.tolist()}")
+
+
+def mesh_runs(torch, ops, serve, model, serve_run):
+    """The mesh phase's four serve runs of full-width qwen3-0.6b through
+    ``serve_run(argv, model)`` (``serve_phase`` on the card) on ``model``:
+    dp 1 with the prefix cache; (a) ``--serve-dp 2 --prefill-shards 1
+    --prefix-cache`` on the same pool (``MESH_PAGES``); (b) ``--serve-dp
+    4`` on ``MESH_TIGHT_PAGES`` pages; (c) ``--serve-dp 4`` on the full
+    pool. Checks (a) against dp 1 (streams, K1 and K2 counts), the shard
+    locality of (a), (b) and (c), (a)'s prompt pages on shard 0 and both
+    its shards admitting, and (b) gated by shard-local capacity yet
+    serving every request. Returns ({run: launches}, {dp: output})."""
+    base = QWEN_ARGV + ["--num-pages", str(MESH_PAGES), "--prefix-cache"]
+    runs, outs, recs = {}, {}, {}
+    for dp, argv in (
+            (1, base),
+            (2, base + ["--serve-dp", "2", "--prefill-shards", "1"]),
+            ("4 tight", QWEN_ARGV + ["--num-pages", str(MESH_TIGHT_PAGES),
+                                     "--serve-dp", "4"]),
+            (4, QWEN_ARGV + ["--serve-dp", "4"])):
+        run = f"qwen3-0.6b serve dp {dp}"
+        with watching_shards() as rec:
+            runs[run], out = serve_run(argv, model)
+        eng = out["engine"]
+        outs[dp], recs[dp] = out, rec
+        gates = rec["gates"]
+        print(f"mesh [dp {dp}]: {out['tokens_per_s']:.1f} tok/s, "
+              f"{eng.macro_launches} launches, pool {eng.pool.num_pages} "
+              f"pages in {eng.pool.num_shards} shards, admitted per shard "
+              f"{eng.sched_stats().get('admitted_per_shard')}, admission "
+              f"gates funded short {sum(g < w for w, g in gates)} of "
+              f"{len(gates)}")
+        if dp != 1:
+            shard_checks(eng, rec, f"mesh dp {dp}")
+    check(stream_digest(outs[2]["results"]) ==
+          stream_digest(outs[1]["results"]),
+          "mesh (a): dp-2 streams differ from dp 1's")
+    a, b = runs["qwen3-0.6b serve dp 1"], runs["qwen3-0.6b serve dp 2"]
+    for name in ("flash_attention", "paged_decode_attention"):
+        check(a[name] == b[name], f"mesh (a): {name} launched {b[name]} "
+              f"times at dp 2, {a[name]} at dp 1")
+    eng = outs[2]["engine"]
+    check(bool(recs[2]["prompt"]) and
+          {eng.pool.shard_of(p) for p in recs[2]["prompt"]} == {0},
+          "mesh (a): a prompt page off shard 0")
+    per_shard = eng.sched_stats()["admitted_per_shard"]
+    check(set(per_shard) == {"0", "1"}, f"mesh (a): admitted {per_shard}")
+    tight = outs["4 tight"]["engine"]
+    gated = sum(g < w for w, g in recs["4 tight"]["gates"])
+    check(gated > 0, "mesh (b): no admission was gated by the tight pool")
+    check(len(outs["4 tight"]["results"]) == SERVE["requests"] and
+          tight.pool.in_use == 0, "mesh (b): unserved or leaked")
+    print(f"mesh (b): {gated} of {len(recs['4 tight']['gates'])} admission "
+          f"gates funded short, {tight.macro_launches} launches against "
+          f"{outs[4]['engine'].macro_launches} on the full pool; scheduler "
+          f"{tight.sched_stats()}")
+    return runs, outs
+
+
+def mesh_phase(torch, ops, serve, model, card):
+    """Mesh serving of full-width qwen3-0.6b on logical data shards of the
+    card, on the weights the qwen3 serve phase built (no new model load),
+    through the serve CLI's entry point: ``mesh_runs`` with each run in
+    ``serve_phase`` (launch counts from 0, one graph, K2 once a layer a
+    whole-prompt prefill, K1 once a layer a replayed step, results, pool
+    and cache conserved). Prints tokens/s at dp 1, 2 and 4 beside the
+    card's name and power limit. Returns {run: launches}."""
+    t0 = time.perf_counter()
+    runs, outs = mesh_runs(
+        torch, ops, serve, model,
+        lambda argv, m: serve_phase(torch, ops, serve, argv,
+                                    ("flash_attention",
+                                     "paged_decode_attention"), model=m))
+    print("mesh tokens/s: " + ", ".join(
+        f"dp {dp} {out['tokens_per_s']:.1f}" for dp, out in outs.items())
+        + f" ({card})")
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def spec_report(name, out, plain_tps):
@@ -3654,6 +3812,11 @@ def main() -> None:
     graph_phase(torch, "qwen3-0.6b", out, timer)
     fp32_bpp = out["engine"].kv_stats()["bytes_per_page"]
     qwen_tps = out["tokens_per_s"]
+    stamp("mesh serving")
+    # mesh serving on 2 and 4 logical data shards, the same weights
+    mesh_serves = tuple(mesh_phase(torch, ops, serve, out["engine"].model,
+                                   card).items())
+    runs.update(mesh_serves)
     del out
     check_released(torch, "qwen3-0.6b serve")
     profile_phase(torch, ops, serve, QWEN_ARGV)
@@ -3851,7 +4014,7 @@ def main() -> None:
     # kernels too (the speculative ones launch the latter 0 times)
     paths.update({name: serves + tuple(quant) + new_runs + spec_runs +
                   tuple(open_runs) + ("qwen3-0.6b open loop camd",) +
-                  new_serves
+                  new_serves + tuple(run for run, _ in mesh_serves)
                   for name in ("flash_attention", "paged_decode_attention")})
     paths["flash_attention"] += tuple(rescore_runs) + rg_runs + ed_runs
     paths.update({name: serves + spec_runs[1:2] + (

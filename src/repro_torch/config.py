@@ -1,10 +1,11 @@
 """Configuration dataclasses of the port.
 
 Copies of ``ModelConfig``, ``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``,
-``VisionConfig``, ``SamplingConfig``, ``CAMDConfig``, ``PagedKVConfig`` and ``TrainConfig``
+``VisionConfig``, ``ShapeConfig`` (with ``INPUT_SHAPES``),
+``SamplingConfig``, ``CAMDConfig``, ``PagedKVConfig`` and ``TrainConfig``
 from the JAX package's ``repro/config.py``, field for field, so a config
-built for one package describes the same model, serving and training
-setup in the other.
+built for one package describes the same model, input shape, serving and
+training setup in the other.
 """
 from __future__ import annotations
 
@@ -210,6 +211,23 @@ class ModelConfig:
             kw["attn_window"] = 64
         kw["local_window"] = 64
         return self.with_overrides(**kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned input shape (``repro/config.py:252-258``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str            # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -21,6 +21,9 @@ encoder layers in ``enc_super`` and its decoder layers, cross-attention
 ``xattn`` and ``lnx`` included, in ``dec_super``: entry ``i`` lands at
 ``enc_layers.<i>.*`` and ``dec_layers.<i>.*``, and ``enc_norm`` as it is.
 ``opt_state_from_jax`` carries an optimizer state's moments the same way.
+``flat_from_jax`` is the same walk without the tensor conversion: any
+tree of array-likes with a ``shape`` (broadcast views, object arrays of
+per-layer values) comes back flat, under the state dict's names.
 """
 from __future__ import annotations
 
@@ -46,6 +49,13 @@ def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]):
 def params_from_jax(np_tree: Mapping[str, Any],
                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors, the tree's dtypes) for ``Model(cfg)``."""
+    return {k: _to_tensor(v) for k, v in flat_from_jax(np_tree, cfg).items()}
+
+
+def flat_from_jax(np_tree: Mapping[str, Any],
+                  cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The reference tree's leaves (numpy, layers unstacked) under the
+    names of ``Model(cfg)``'s state dict."""
     if cfg.is_encoder_decoder:
         flat: Dict[str, np.ndarray] = {}
         stacks = {"enc_super": ("enc_layers", cfg.num_encoder_layers),
@@ -54,7 +64,7 @@ def params_from_jax(np_tree: Mapping[str, Any],
                  "", flat)
         for key, (prefix, n) in stacks.items():
             _unstack(np_tree[key], n, lambda i: f"{prefix}.{i}.", key, flat)
-        return {k: _to_tensor(v) for k, v in flat.items()}
+        return flat
     pat = cfg.block_pattern
     n_super = cfg.num_layers // len(pat)
     flat: Dict[str, np.ndarray] = {}
@@ -69,7 +79,7 @@ def params_from_jax(np_tree: Mapping[str, Any],
         _flatten(layer, "", per_layer)
         for name, arr in per_layer.items():
             flat[f"layers.{n_super * len(pat) + j}.{name}"] = arr
-    return {k: _to_tensor(v) for k, v in flat.items()}
+    return flat
 
 
 def _unstack(stacked, n: int, prefix, what: str,

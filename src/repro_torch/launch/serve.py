@@ -8,6 +8,8 @@
     python -m repro_torch.launch.serve --impl paged_cuda --prefix-cache \
         --prefill-chunk 64 --prompt-len 256
     python -m repro_torch.launch.serve --impl paged_cuda --spec-k 4
+    python -m repro_torch.launch.serve --impl paged_cuda --serve-dp 2 \
+        --prefill-shards 1 --prefix-cache
     python -m repro_torch.launch.serve --impl paged_cuda --open-loop \
         --arrival poisson --arrival-rate 8 --slo-ms 500
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --impl cuda
@@ -45,12 +47,20 @@ K > 0) replays one CUDA graph of the K-step body, and the legacy loop
 requests through the async front-end, each submitted at its time in a
 seeded Poisson or bursty arrival process, and reports TTFT and TPOT
 percentiles and the goodput at a TTFT SLO.
+
+``--serve-dp N`` (or ``--mesh N,model``, not both) serves over a mesh of
+N data shards (``launch.mesh.make_serve_mesh``): slots, the page pool and the
+state arena partition into N shards with shard-local admission, all on
+the one device (logical shards; a ``model`` above 1 raises, as does a
+mesh over several devices). ``--prefill-shards K`` puts prompt and chunk
+pages on the first K shards. The run prints a ``serving mesh:`` line and
+the candidates admitted per shard.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,9 +69,20 @@ from repro_torch import device_memory_bytes, resolve_device
 from repro_torch.config import (CAMDConfig, PagedKVConfig, SamplingConfig,
                                 VisionConfig)
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import IMPLS, Request, ServeEngine
 from repro_torch.serving.traffic import ARRIVALS, run_open_loop
+
+
+def mesh_shape(text: str) -> Tuple[int, int]:
+    """``--mesh``'s value: exactly 'dp,model', two positive ints."""
+    parts = text.split(",")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0
+                                  for p in parts):
+        raise argparse.ArgumentTypeError(
+            f"expected 'dp,model' as two positive ints, got {text!r}")
+    return int(parts[0]), int(parts[1])
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -124,6 +145,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prefill-chunk-budget", type=int, default=0,
                     help="most chunk tokens prefilled between two decode "
                          "launches (0 = one chunk)")
+    ap.add_argument("--prefill-shards", type=int, default=0,
+                    help="prefill/decode disaggregation: place prompt and "
+                         "chunk pages on the first N data shards; decode "
+                         "slots on every shard read them (0 = prompt pages "
+                         "follow the admitting slot)")
+    shards = ap.add_mutually_exclusive_group()
+    shards.add_argument("--serve-dp", type=int, default=0,
+                        help="serve over N data shards of the one device "
+                             "(slots, page pool and state arena "
+                             "partitioned, shard-local admission; 0 = "
+                             "unsharded)")
+    shards.add_argument("--mesh", type=mesh_shape, default=None,
+                        help="serving mesh as 'dp,model', two positive "
+                             "ints (a model axis above 1 is not ported yet "
+                             "and raises)")
     ap.add_argument("--kv-byte-budget", type=int, default=0,
                     help="resident-KV byte ceiling for the prefix cache: "
                          "cached-only pages are evicted until resident KV "
@@ -194,11 +230,14 @@ def make_requests(cfg, args) -> List[Request]:
     return reqs
 
 
-def build_engine(args: argparse.Namespace, param_dtype=torch.float32):
+def build_engine(args: argparse.Namespace, param_dtype=torch.float32,
+                 model=None):
     """The served config and the engine that ``args`` ask for (model
     weights made from seed 0, in ``param_dtype``: fp32 as the reference
     CLI serves; not a CLI flag). Raises ``SystemExit`` before allocating
-    when the weights alone exceed the device's memory. Returns (cfg,
+    when the weights alone exceed the device's memory. ``model`` (not a
+    CLI flag either) serves an already built model instead, which must
+    be the config, dtype and device ``args`` ask for. Returns (cfg,
     engine)."""
     cfg = get_config(args.arch)
     if args.reduced:
@@ -220,15 +259,27 @@ def build_engine(args: argparse.Namespace, param_dtype=torch.float32):
                 args.image_tokens, patch=v.patch, num_layers=v.num_layers,
                 d_model=v.d_model, num_heads=v.num_heads, d_ff=v.d_ff))
     device = resolve_device(args.device)
-    total = device_memory_bytes(device)
-    need = cfg.num_params() * torch.finfo(param_dtype).bits // 8
-    if total is not None and need > total:
-        raise SystemExit(
-            f"{cfg.name}: {cfg.num_params() / 1e9:.2f}B parameters need "
-            f"{need / 1e9:.1f} GB of {param_dtype} weights, more than the "
-            f"{total / 1e9:.1f} GB of {device}; serve it reduced "
-            "(--reduced or --num-layers) or in a smaller param dtype")
-    model = build_model(cfg, param_dtype, device=device, seed=0)
+    if model is not None:
+        if (model.cfg, model.param_dtype, model.device.type) != \
+                (cfg, param_dtype, device.type):
+            raise ValueError(f"the given model ({model.cfg.name}, "
+                             f"{model.param_dtype}, {model.device}) is not "
+                             f"the one asked for ({cfg.name}, {param_dtype}, "
+                             f"{device})")
+    else:
+        total = device_memory_bytes(device)
+        need = cfg.num_params() * torch.finfo(param_dtype).bits // 8
+        if total is not None and need > total:
+            raise SystemExit(
+                f"{cfg.name}: {cfg.num_params() / 1e9:.2f}B parameters need "
+                f"{need / 1e9:.1f} GB of {param_dtype} weights, more than "
+                f"the {total / 1e9:.1f} GB of {device}; serve it reduced "
+                "(--reduced or --num-layers) or in a smaller param dtype")
+        model = build_model(cfg, param_dtype, device=device, seed=0)
+    mesh = None
+    if args.mesh or args.serve_dp > 1:
+        dp, mp = args.mesh or (args.serve_dp, 1)
+        mesh = make_serve_mesh(dp, model=mp, device=device)
     eng = ServeEngine(
         model, slots=args.slots, cache_len=args.cache_len,
         sampling=SamplingConfig(max_new_tokens=args.max_new),
@@ -244,30 +295,34 @@ def build_engine(args: argparse.Namespace, param_dtype=torch.float32):
         sched_policy=args.sched_policy, global_budget=args.global_budget,
         prefix_cache=args.prefix_cache, prefill_chunk=args.prefill_chunk,
         prefill_chunk_budget=args.prefill_chunk_budget,
-        spec_k=args.spec_k, spec_mode=args.spec_mode,
+        prefill_shards=args.prefill_shards, mesh=mesh, spec_k=args.spec_k,
+        spec_mode=args.spec_mode,
         xmodal_rescore=args.xmodal_rescore, seed=args.seed)
     return cfg, eng
 
 
-def main(argv: Optional[List[str]] = None,
-         param_dtype=torch.float32) -> Dict[str, object]:
+def main(argv: Optional[List[str]] = None, param_dtype=torch.float32,
+         model=None) -> Dict[str, object]:
     """Serve synthetic requests, as one pre-staged batch or (``--open-loop``)
     arriving on their own clock; prints results and telemetry and returns
     them (``engine``, ``results``, ``seconds``, ``tokens_per_s``, and with
     ``--open-loop`` the per-request ``traces`` and their ``metrics``).
-    ``param_dtype`` goes to ``build_engine``."""
+    ``param_dtype`` and ``model`` go to ``build_engine``."""
     args = parse_args(argv)
     if args.open_loop and args.macro_steps < 1:
         raise SystemExit("--open-loop drives the fused macro-step loop; "
                          "use --macro-steps >= 1")
     t_build = time.perf_counter()
-    cfg, eng = build_engine(args, param_dtype)
+    cfg, eng = build_engine(args, param_dtype, model)
     model = eng.model
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     print(f"model [{cfg.name}]: {cfg.num_params() / 1e6:.1f}M parameters "
           f"in {str(param_dtype).replace('torch.', '')}, built with the "
           f"engine in {time.perf_counter() - t_build:.2f}s")
+    if eng.mesh is not None:
+        print(f"serving mesh: {dict(eng.mesh.shape)}, {eng.dp} data shards "
+              f"of {eng.slots_per_shard} slots on {model.device}")
     reqs = make_requests(cfg, args)
     if not args.open_loop:
         for req in reqs:
@@ -331,7 +386,13 @@ def main(argv: Optional[List[str]] = None,
     if eng.chunked:
         print(f"chunked prefill: chunk={eng.chunk} budget="
               f"{eng.chunk_budget} tok/turn, {ss['chunk_calls']} chunk "
-              f"calls over {ss['chunk_tokens']} tokens")
+              f"calls over {ss['chunk_tokens']} tokens"
+              + (f", prefill shards 0..{eng.prefill_shards - 1} of "
+                 f"{eng.dp}" if eng.prefill_shards else ""))
+    if "admitted_per_shard" in ss:
+        print(f"shards: admitted per shard {ss['admitted_per_shard']}"
+              + (f", prompt pages on shards 0..{eng.prefill_shards - 1}"
+                 if eng.prefill_shards else ""))
     if eng.paged:
         s = eng.kv_stats()
         print(f"paged kv [{s['kv_dtype']}]: peak {s['max_in_use']}/"

@@ -117,8 +117,27 @@ at the next step boundary, deactivated and pointed at the quarantine page
 in place, so the captured graph keeps its addresses), and with
 ``stream_tokens`` each launch's new tokens ride its one host sync into
 ``stream_events``; ``serving/frontend.py`` builds the asyncio front-end
-on these hooks. Mesh serving and prefill/decode disaggregation are later
-slices of the port: asking for either raises ``NotImplementedError``.
+on these hooks.
+
+Mesh serving (``mesh=``, ``launch.mesh.make_serve_mesh``) partitions the
+engine into ``dp`` data shards, dp the product of the mesh's data axes:
+slot s belongs to shard ``s // slots_per_shard``, the page pool splits
+into dp equal page-id ranges (``PagePool(num_shards=dp)``, the pool
+rounded up to a multiple of dp, one quarantine page a shard) and a
+recurrent engine's state arena into dp row ranges. Every page a slot
+writes (its CoW tail, its frontier and legacy-loop pages) comes from its
+own shard, idle rows point at their own shard's quarantine page, page
+reservations are kept per shard and admission is shard-local
+(``_paged_affordable`` funds each candidate from its slot's shard). The
+engine keeps the rule table's specs of its tensors (``state_specs``,
+``param_specs``, ``distributed/sharding.py``) but leaves the tensors
+whole on its one device: in this slice the shards are logical, the
+counterpart of the reference's forced host devices, and a mesh over
+several devices or with a ``"model"`` axis above 1 raises
+``NotImplementedError``. ``prefill_shards=k`` disaggregates prefill from
+decode: prompt and chunk pages go to the least-loaded of shards 0..k-1
+and slots on every shard read them. Sharding is placement only: streams
+equal the unsharded engine's while shard-local capacity does not bind.
 """
 from __future__ import annotations
 
@@ -132,6 +151,7 @@ import torch
 
 from repro_torch.config import CAMDConfig, PagedKVConfig, SamplingConfig
 from repro_torch.core import controller as ctrl
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.transformer import ring_lens
@@ -211,9 +231,29 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _unsupported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (a later slice of the PyTorch port)")
+def _mesh_dp(mesh, device: torch.device) -> int:
+    """The data-shard count of a serving mesh whose every position is
+    ``device``. A mesh over several devices, or with a model axis above
+    1, raises ``NotImplementedError``."""
+    model = mesh.shape.get("model", 1)
+    if model > 1:
+        raise NotImplementedError(
+            f"a serving mesh with model={model}: tensor parallelism is "
+            "not ported yet (ROADMAP.md Queue 1 item 5)")
+    devices = getattr(mesh, "devices", None)
+    if devices is None:
+        raise ValueError("a mesh of shape only names no device to serve on")
+    distinct = {torch.device(d) for d in devices}
+    if len(distinct) > 1:
+        raise NotImplementedError(
+            f"a serving mesh over {len(distinct)} devices: placement over "
+            "several devices is not ported yet (ROADMAP.md Queue 1 item 5)")
+    (dev,) = distinct
+    if (dev.type, dev.index or 0) != (device.type, device.index or 0):
+        raise ValueError(f"the mesh's device {dev} is not the model's "
+                         f"{device}")
+    return max(1, int(np.prod([mesh.shape[a] for a in shd.dp_axes(mesh)],
+                              dtype=np.int64)))
 
 
 class ServeEngine:
@@ -236,10 +276,6 @@ class ServeEngine:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         if macro_steps < 0:
             raise ValueError("macro_steps must be >= 0")
-        for what, asked in (("prefill/decode disaggregation", prefill_shards),
-                            ("mesh serving", mesh is not None)):
-            if asked:
-                raise _unsupported(what)
         if spec_mode not in ("coverage", "fixed"):
             raise ValueError(f"unknown spec_mode {spec_mode!r}")
         if spec_ngram < 1:
@@ -258,6 +294,13 @@ class ServeEngine:
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
+        # mesh serving: slots partition contiguously over dp data shards
+        self.mesh = mesh
+        self.dp = 1 if mesh is None else _mesh_dp(mesh, self.device)
+        if slots % self.dp:
+            raise ValueError(f"slots {slots} must divide across {self.dp} "
+                             "data shards")
+        self.slots_per_shard = slots // self.dp
         self.B = slots
         self.V = self.cfg.vocab_size
         self.d = self.cfg.d_model
@@ -298,16 +341,27 @@ class ServeEngine:
                                  f"of page_size {ps}")
             self.page_size = ps
             self.pages_per_slot = cache_len // ps
-            num_pages = paged_kv.num_pages or slots * self.pages_per_slot + 1
+            # one quarantine page a shard; a given pool size rounds up to a
+            # multiple of the shard count
+            num_pages = paged_kv.num_pages or \
+                slots * self.pages_per_slot + self.dp
+            num_pages += -num_pages % self.dp
             self.pool = PagePool(num_pages, ps, prefix_cache=self.prefix_cache,
+                                 num_shards=self.dp,
                                  kv_byte_budget=paged_kv.kv_byte_budget)
             self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
             self._slot_pos = np.zeros(slots, np.int64)
             self._slot_limit = np.zeros(slots, np.int64)
             # pages a running candidate may still allocate are reserved at
-            # admission, so an admitted candidate can always finish
+            # admission, so an admitted candidate can always finish; a
+            # slot's future pages come from its own shard, so the ledger
+            # is kept per shard
             self._slot_reserved = np.zeros(slots, np.int64)
-            self._reserved = 0
+            self._reserved_sh = np.zeros(self.dp, np.int64)
+            # each slot's own shard's quarantine page
+            self._slot_quarantine = np.asarray(
+                [self.pool.quarantine_page(self._slot_shard(s))
+                 for s in range(slots)], np.int32)
             # the most page boundaries one slot crosses in K steps (each
             # committing up to spec_k tokens), plus the boundary the first
             # step may land on
@@ -319,10 +373,18 @@ class ServeEngine:
             self.chunk = -(-int(prefill_chunk) // ps) * ps \
                 if self.chunked else 0
             self.chunk_budget = int(prefill_chunk_budget) or self.chunk
+            # prefill/decode disaggregation: prompt and chunk pages on the
+            # first ``prefill_shards`` shards (0: the admitting slot's)
+            self.prefill_shards = int(prefill_shards)
+            shd.prefill_shard_ids(self.dp, self.prefill_shards)  # validates
         else:
+            if prefill_shards:
+                raise ValueError("prefill/decode disaggregation needs a "
+                                 "paged impl")
             self.pool = None
             self.chunked = False
             self.chunk = self.chunk_budget = 0
+            self.prefill_shards = 0
         self.noise = noise if noise is not None else \
             GumbelNoise(seed, self.device)
         self._t = 0                      # global decode step counter
@@ -375,13 +437,17 @@ class ServeEngine:
         self._min_ring = min(rings) if rings else cache_len
         self.state = self._blank_state()
         # recurrent and hybrid prompt rows: a bounded device buffer of
-        # whole cache rows, managed by the arena (engine.py:401-412)
+        # whole cache rows, managed by the arena (engine.py:401-412), in
+        # one row range a shard
         self.arena = None
         self._arena_buf = None
         if self.state_kind != "kv" and not self.paged:
-            rows = 2 * slots + 4
-            self.arena = StateArena(rows)
+            rows = (2 * self.slots_per_shard + 4) * self.dp
+            self.arena = StateArena(rows, num_shards=self.dp)
             self._arena_buf = model.make_cache(rows, cache_len, self._dtype)
+        self.state_specs = self.param_specs = self.arena_specs = None
+        if mesh is not None:
+            self._install_mesh(mesh)
         if self.paged:
             # the pool enforces the byte budget from the engine's bytes a
             # page
@@ -445,18 +511,66 @@ class ServeEngine:
     def _any_live(self) -> bool:
         return bool((self._slot_req >= 0).any())
 
+    # -- mesh placement ---------------------------------------------------
+    def _install_mesh(self, mesh) -> None:
+        """The rule table's specs of the engine's tensors (``engine.py:
+        466-498``): the decode batch and every per-slot leaf on the data
+        axes, the paged pools on their page axis, the arena's rows like
+        slot rows, the parameters replicated. The tensors stay whole on
+        the one device; shard s owns slot rows ``[s * slots_per_shard,
+        ...)``, pages ``[s * pool.pages_per_shard, ...)`` and arena rows
+        ``[s * arena.rows_per_shard, ...)``. Checks that every sharded dim
+        divides by its axes."""
+        self.state_specs = shd.engine_state_specs(self.cfg, self.state, mesh)
+        self.param_specs = shd.serve_param_specs(
+            self.cfg, dict(self.model.named_parameters()), mesh)
+        leaves = [(f"cache.{k}", v, self.state_specs["cache"][k])
+                  for k, v in self.state.cache.items()]
+        leaves += [(f, getattr(self.state, f), spec)
+                   for f, spec in self.state_specs.items() if f != "cache"]
+        if self._arena_buf is not None:
+            self.arena_specs = shd.cache_specs(self.cfg, self._arena_buf,
+                                               mesh)
+            leaves += [(f"arena.{k}", v, self.arena_specs[k])
+                       for k, v in self._arena_buf.items()]
+        for name, t, spec in leaves:
+            for dim, axes in enumerate(spec):
+                if axes is not None and \
+                        t.shape[dim] % shd._axsize(mesh, axes):
+                    raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)}"
+                                     f" does not divide over {axes}")
+
+    def _slot_shard(self, s: int) -> int:
+        """The data shard owning slot ``s`` (contiguous partition)."""
+        return s // self.slots_per_shard
+
+    @property
+    def _reserved(self) -> int:
+        """Page reservations of running candidates, over all shards."""
+        return int(self._reserved_sh.sum())
+
+    def _shard_headroom(self, s: int) -> int:
+        """Pages shard ``s`` could fund right now: free and cache-evictable
+        pages of its range minus the reservations charged to it."""
+        return self.pool.free_pages_in(s) + self.pool.evictable(s) \
+            - int(self._reserved_sh[s])
+
     def _blank_state(self) -> EngineState:
         B, V, d, dev = self.B, self.V, self.d, self.device
         if self.paged:
             # a speculating engine's pool tensors hold one more page than
             # the page pool hands out: the sink of the verify blocks'
-            # dropped writes, which no row reads (page 0 is read by idle
-            # rows, whose hidden states an MoE layer routes beside the
-            # live ones)
+            # dropped writes, which no row reads (a quarantine page is read
+            # by its shard's idle rows, whose hidden states an MoE layer
+            # routes beside the live ones)
             cache = self.model.make_paged_cache(
                 B, self.cache_len, self._dtype, page_size=self.page_size,
                 num_pages=self.pool.num_pages + int(self.spec),
                 kv_dtype=self.kv_dtype)
+            # idle rows point at their own shard's quarantine page
+            cache["block_table"].copy_(torch.as_tensor(
+                self._slot_quarantine, device=dev)[:, None].expand(
+                    B, self.pages_per_slot))
         else:
             cache = self.model.make_cache(B, self.cache_len, self._dtype)
 
@@ -883,9 +997,32 @@ class ServeEngine:
                 seg = seg.expand(pool.shape[0], n, *pool.shape[2:])
             attn_lib._raw(pool)[:, pg] = attn_lib._raw(seg.to(pool.dtype))
 
-    def _seed_prompt_pages(self, info):
+    def _page_shard_of(self, info, fallback: Optional[int] = None) -> int:
+        """The shard a request's prompt pages live on, chosen once
+        (``engine.py:1064``): a prefix hit's held pages pin it; else the
+        caller's ``fallback`` (the first admitted slot's shard) or, at
+        early-seed time or under disaggregation, the least-loaded prefill
+        shard."""
+        if "page_shard" not in info:
+            held = info.get("prompt_pages")
+            if held:
+                info["page_shard"] = self.pool.shard_of(held[0])
+            elif fallback is not None and not self.prefill_shards:
+                info["page_shard"] = fallback
+            else:
+                info["page_shard"] = self._prefill_shard_pick()
+        return info["page_shard"]
+
+    def _prefill_shard_pick(self) -> int:
+        """The shard with the most headroom among those that may host
+        prompt and chunk pages (the first ``prefill_shards``, or all)."""
+        k = self.prefill_shards or self.dp
+        return int(np.argmax([self._shard_headroom(s) for s in range(k)]))
+
+    def _seed_prompt_pages(self, info, shard: Optional[int] = None):
         """Allocate and write the request's full prompt pages once (one
-        pool hold each, released when the request finishes) and register
+        pool hold each, released when the request finishes) on its page
+        shard (``_page_shard_of``, ``shard`` the fallback) and register
         them in the prefix cache. A prefix hit arrives holding the cached
         pages; only the rest is written, from the suffix row, whose row
         positions are prompt positions minus ``prefix_len``."""
@@ -896,7 +1033,8 @@ class ServeEngine:
         if len(held) * ps != info.get("prefix_len", 0):
             raise RuntimeError(f"{len(held)} held prefix pages for a prefix "
                                f"of {info.get('prefix_len', 0)} positions")
-        new_full = self.pool.alloc(info["prompt_len"] // ps - len(held))
+        new_full = self.pool.alloc(info["prompt_len"] // ps - len(held),
+                                   self._page_shard_of(info, shard))
         self._write_pages(info["cache_row"], new_full, 0)
         info["prompt_pages"] = held + new_full
         if self.prefix_cache and info.get("cacheable"):
@@ -913,17 +1051,20 @@ class ServeEngine:
             return
         L = info["prompt_len"]
         need = L // self.page_size - len(info.get("prompt_pages", ()))
-        if self._headroom() - need < self._pages_per_candidate(L):
+        shard = self._page_shard_of(info)
+        if self._shard_headroom(shard) - need < self._pages_per_candidate(L):
             return
-        self._seed_prompt_pages(info)
+        self._seed_prompt_pages(info, shard)
         # early seeding must not eat the pages backing live reservations
         self._ensure_reserved_free()
 
     def _seed_paged_slots(self, info, slot_ids: List[int], lim: int):
         """Point ``slot_ids`` at the request's prompt pages: full pages are
         shared (refcounted), the partial tail page is copied per candidate
-        — the copy-on-write point. After a prefix hit the request's row
-        starts at ``prefix_len``, so the tail is read from there."""
+        — the copy-on-write point — from the slot's own shard, and the
+        rest of a row points at that shard's quarantine page. After a
+        prefix hit the request's row starts at ``prefix_len``, so the tail
+        is read from there."""
         L = info["prompt_len"]
         ps = self.page_size
         if L + lim > self.cache_len:
@@ -931,14 +1072,16 @@ class ServeEngine:
                              f"cache of {self.cache_len} (no ring wrap)")
         full, tail_len = divmod(L, ps)
         row_off = info.get("prefix_len", 0)
-        self._seed_prompt_pages(info)
-        bt_rows = np.zeros((len(slot_ids), self.pages_per_slot), np.int32)
+        self._seed_prompt_pages(info, self._slot_shard(slot_ids[0]))
+        bt_rows = np.repeat(self._slot_quarantine[slot_ids][:, None],
+                            self.pages_per_slot, axis=1)
         tails = []
         for j, s in enumerate(slot_ids):
+            sh = self._slot_shard(s)
             pages = list(info["prompt_pages"])
             self.pool.share(pages)
             if tail_len:
-                tail = self.pool.alloc(1)
+                tail = self.pool.alloc(1, sh)
                 tails += tail
                 pages += tail
             self._slot_pages[s] = pages
@@ -946,7 +1089,7 @@ class ServeEngine:
             self._slot_limit[s] = L + lim
             future = self._pages_per_candidate(L, lim) - (1 if tail_len else 0)
             self._slot_reserved[s] = future
-            self._reserved += future
+            self._reserved_sh[sh] += future
             bt_rows[j, :len(pages)] = pages
         self._write_pages(info["cache_row"], tails, full * ps - row_off,
                           broadcast=True)
@@ -960,6 +1103,14 @@ class ServeEngine:
                                                     device=self.device)
         cache["pos"][idx] = L
 
+    def _quarantine_rows(self, slots: List[int]) -> None:
+        """Point the block-table rows of ``slots`` at their own shards'
+        quarantine pages, in place (the captured graph keeps its
+        addresses)."""
+        q = torch.as_tensor(self._slot_quarantine[slots], device=self.device)
+        self.state.cache["block_table"][
+            torch.as_tensor(slots, device=self.device)] = q[:, None]
+
     def _pages_per_candidate(self, prompt_len: int,
                              lim: Optional[int] = None) -> int:
         """Pages a candidate may allocate beyond the shared prompt pages:
@@ -968,26 +1119,49 @@ class ServeEngine:
         return -((prompt_len + lim) // -self.page_size) - \
             prompt_len // self.page_size
 
-    def _headroom(self) -> int:
-        """Pages the pool could fund right now: free and cache-evictable
-        pages minus live reservations."""
-        return self.pool.free_pages + self.pool.evictable() - self._reserved
-
     def _ensure_reserved_free(self):
-        """Back every live reservation with free pages (evicting
-        cached-only prefix pages where needed)."""
-        self.pool.ensure_free(self._reserved)
+        """Back every live reservation with free pages of its own shard
+        (evicting cached-only prefix pages where needed)."""
+        for s in range(self.dp):
+            self.pool.ensure_free(int(self._reserved_sh[s]), s)
 
     def _paged_affordable(self, info, want: int,
                           lim: Optional[int] = None) -> int:
-        """Candidates of this request the pool can fund right now (the
-        headroom minus the unseeded part of the prompt hold)."""
+        """Candidates of this request the pool can fund right now, shard by
+        shard (``engine.py:1220-1268``): walk the free slots an admission
+        would take, in the order it takes them, and fund each candidate
+        from its slot's own shard's headroom, the unseeded part of the
+        prompt hold from the request's page shard; a hold its shard cannot
+        fund admits nothing. With one shard this is the headroom minus
+        the hold, over the pages a candidate needs."""
         L = info["prompt_len"]
         per_cand = self._pages_per_candidate(L, lim)
         need_hold = 0 if info.get("prompt_seeded") else \
             L // self.page_size - len(info.get("prompt_pages", ()))
-        avail = self._headroom() - need_hold
-        return max(0, min(want, avail // max(per_cand, 1)))
+        free = self._free_slots()[:want]
+        if not free:
+            return 0
+        avail = [self._shard_headroom(s) for s in range(self.dp)]
+        held = info.get("prompt_pages")
+        if "page_shard" in info:
+            hold_shard = info["page_shard"]
+        elif held:
+            hold_shard = self.pool.shard_of(held[0])
+        elif self.prefill_shards:
+            hold_shard = self._prefill_shard_pick()
+        else:
+            hold_shard = self._slot_shard(free[0])
+        avail[hold_shard] -= need_hold
+        if avail[hold_shard] < 0:
+            return 0
+        take = 0
+        for slot in free:
+            sh = self._slot_shard(slot)
+            if avail[sh] < per_cand:
+                break
+            avail[sh] -= per_cand
+            take += 1
+        return take
 
     @staticmethod
     def _page_crossings(lo: int, hi: int, ps: int) -> int:
@@ -996,10 +1170,11 @@ class ServeEngine:
 
     def _stage_frontier(self):
         """Stage each live slot's next pages for one macro launch, out of
-        its admission-time reservation, into the static (B, F)
-        ``_frontier`` (idle rows hold page 0). Returns {slot: (start_pos,
-        pages)}."""
-        fr = np.zeros((self.B, self._frontier_width), np.int32)
+        its admission-time reservation and its own shard, into the static
+        (B, F) ``_frontier`` (entries past them hold the slot's
+        quarantine page). Returns {slot: (start_pos, pages)}."""
+        fr = np.repeat(self._slot_quarantine[:, None], self._frontier_width,
+                       axis=1)
         staged: Dict[int, Tuple[int, List[int]]] = {}
         ps = self.page_size
         for s in range(self.B):
@@ -1016,9 +1191,10 @@ class ServeEngine:
                     raise RuntimeError(f"slot {s} needs {need} frontier "
                                        f"pages, reserved "
                                        f"{self._slot_reserved[s]}")
-                pages = self.pool.stage_frontier(need)
+                sh = self._slot_shard(s)
+                pages = self.pool.stage_frontier(need, sh)
                 self._slot_reserved[s] -= need
-                self._reserved -= need
+                self._reserved_sh[sh] -= need
                 fr[s, :need] = pages
             staged[s] = (p, pages)
         self._frontier.copy_(torch.from_numpy(fr))
@@ -1037,7 +1213,7 @@ class ServeEngine:
             if unused:
                 self.pool.return_frontier(unused)
                 self._slot_reserved[s] += len(unused)
-                self._reserved += len(unused)
+                self._reserved_sh[self._slot_shard(s)] += len(unused)
             self._slot_pos[s] = p1
 
     def _alloc_step_pages(self):
@@ -1054,11 +1230,11 @@ class ServeEngine:
                 if li >= self.pages_per_slot:
                     raise RuntimeError(f"slot {s} ran past the paged cache "
                                        f"({p} >= {self.cache_len})")
-                page = self.pool.alloc(1)[0]
+                page = self.pool.alloc(1, self._slot_shard(s))[0]
                 self._slot_pages[s].append(page)
                 if self._slot_reserved[s] > 0:
                     self._slot_reserved[s] -= 1
-                    self._reserved -= 1
+                    self._reserved_sh[self._slot_shard(s)] -= 1
                 rows.append(s)
                 cols.append(li)
                 vals.append(page)
@@ -1212,6 +1388,9 @@ class ServeEngine:
             self._slot_streamed[s] = 0
             info["cand_slots"].append((self._next_cand, s))
             self._next_cand += 1
+        if self.dp > 1:
+            self.scheduler.note_shard_admission(
+                self._slot_shard(s) for s in slot_ids)
 
     # -- prefill -------------------------------------------------------
     def _prompt_span(self, req: Request) -> int:
@@ -1427,7 +1606,11 @@ class ServeEngine:
             if pages:
                 self.pool.free(pages)             # the probe's hold
             return
-        self._chunking[req.uid] = {"req": req, "pos": cur, "pages": pages}
+        # the shard the whole prompt's pages will live on
+        shard = self.pool.shard_of(pages[0]) if pages \
+            else self._prefill_shard_pick()
+        self._chunking[req.uid] = {"req": req, "pos": cur, "pages": pages,
+                                   "shard": shard}
 
     def _run_chunk(self, uid: int, job: Dict[str, Any]) -> int:
         """Advance one job by one chunk (``engine.py:1860``); returns the
@@ -1446,7 +1629,8 @@ class ServeEngine:
         if not final:
             # keep one worst-case candidate fundable after this chunk
             need = take // ps
-            if self._headroom() - need < self._pages_per_candidate(L):
+            if self._shard_headroom(job["shard"]) - need < \
+                    self._pages_per_candidate(L):
                 return 0
         row = self.model.make_cache(1, self.cache_len, self._dtype)
         if cur == 0:
@@ -1466,7 +1650,7 @@ class ServeEngine:
         self.chunk_calls += 1
         self.chunk_tokens += take
         if not final:
-            new_pages = self.pool.alloc(need)
+            new_pages = self.pool.alloc(need, job["shard"])
             # the chunk's row holds positions [cur, cur + take) at [0, take)
             self._write_pages(row, new_pages, 0)
             job["pages"] = job["pages"] + new_pages
@@ -1479,6 +1663,7 @@ class ServeEngine:
         info = self._reqs[uid]
         info["prompt_pages"] = job["pages"]      # the job's holds carry over
         info["prefix_len"] = cur
+        info["page_shard"] = job["shard"]
         if self.prefix_cache:
             info["page_keys"] = prefix_page_keys(stream, ps)
             info["cacheable"] = True
@@ -1684,13 +1869,14 @@ class ServeEngine:
             if self.paged:
                 self.pool.free(self._slot_pages[slot])
                 self._slot_pages[slot] = []
-                self._reserved -= int(self._slot_reserved[slot])
+                self._reserved_sh[self._slot_shard(slot)] -= \
+                    int(self._slot_reserved[slot])
                 self._slot_reserved[slot] = 0
             if uid not in uids:
                 uids.append(uid)
         if self.paged:
-            # freed slots' dead writes land on the quarantine page
-            st.cache["block_table"][idx] = self.pool.quarantine_page()
+            # freed slots' dead writes land on their shard's quarantine page
+            self._quarantine_rows(slots)
         due = [u for u in uids
                if not any(self._slot_req[s] == u for s in range(self.B))]
         if due:
@@ -2048,12 +2234,13 @@ class ServeEngine:
                         self.pool.return_frontier(pages)
                 self.pool.free(self._slot_pages[s])
                 self._slot_pages[s] = []
-                self._reserved -= int(self._slot_reserved[s])
+                self._reserved_sh[self._slot_shard(s)] -= \
+                    int(self._slot_reserved[s])
                 self._slot_reserved[s] = 0
         idx = torch.as_tensor(slots, device=self.device)
         self.state.active[idx] = False
         if self.paged:
-            self.state.cache["block_table"][idx] = self.pool.quarantine_page()
+            self._quarantine_rows(slots)
         for uid in sorted(uids):
             info = self._reqs.get(uid)
             if info is not None and not info["done"]:
@@ -2106,6 +2293,7 @@ class _EngineSchedContext(SchedulerContext):
     def __init__(self, eng: ServeEngine):
         self.eng = eng
         self.max_new = eng.max_new
+        self.num_shards = eng.dp
 
     def free_slots(self) -> int:
         return len(self.eng._free_slots())

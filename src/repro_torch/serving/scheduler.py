@@ -1,8 +1,8 @@
 """Traffic-level scheduling policies for the serving engine (numpy only).
 
 The port's copy of ``repro/serving/scheduler.py``, chunked-prefill
-ordering (``prefill_order``) included, without the per-shard telemetry of
-mesh serving (a later slice of the port).
+ordering (``prefill_order``) and the per-shard admission telemetry of
+mesh serving (``admitted_per_shard``) included.
 
 CAMD's compute-allocation logic (more samples for hard instances, fewer
 for easy) historically lived only *inside* a request — the round-based
@@ -91,9 +91,19 @@ class RoundWork:
 
 class SchedulerContext:
     """What a policy may observe and do. The engine implements this
-    (``_EngineSchedContext``); property tests implement fakes."""
+    (``_EngineSchedContext``); property tests implement fakes.
+
+    Under mesh serving (``num_shards > 1``) slots and KV pages are
+    partitioned across data shards: slot ``s`` lives on shard
+    ``s // (slots / num_shards)`` and only that shard's pages back it.
+    Policies stay shard-oblivious: ``affordable`` is the shard-local
+    capacity gate (the engine walks the free slots an admission of
+    ``want`` candidates would take, in the order ``admit_*`` assigns
+    them, and counts the longest prefix each slot's own shard can
+    fund)."""
 
     max_new: int
+    num_shards: int = 1
 
     def free_slots(self) -> int:
         raise NotImplementedError
@@ -156,6 +166,9 @@ class Scheduler:
         self.admitted_candidates = 0
         self.declined_rounds = 0
         self.cancelled_candidates = 0
+        # mesh serving: admitted candidates by the data shard of their
+        # slot, so that skewed placement shows without a device readback
+        self.admitted_per_shard: Dict[int, int] = {}
 
     # -- budget ---------------------------------------------------------
     def remaining(self) -> Optional[int]:
@@ -205,6 +218,14 @@ class Scheduler:
         self.admitted_candidates = 0
         self.declined_rounds = 0
         self.cancelled_candidates = 0
+        self.admitted_per_shard = {}
+
+    def note_shard_admission(self, shards) -> None:
+        """Engine callback: one entry per admitted candidate, the data
+        shard of the slot it landed on."""
+        for s in shards:
+            self.admitted_per_shard[int(s)] = \
+                self.admitted_per_shard.get(int(s), 0) + 1
 
     def exhausted(self) -> bool:
         """No admission can ever be funded again (terminal-drain check:
@@ -223,6 +244,9 @@ class Scheduler:
             "declined_rounds": self.declined_rounds,
             "cancelled_candidates": self.cancelled_candidates,
         }
+        if self.admitted_per_shard:
+            s["admitted_per_shard"] = {
+                str(k): v for k, v in sorted(self.admitted_per_shard.items())}
         return s
 
     # -- policy ---------------------------------------------------------

@@ -12,8 +12,12 @@ the reference's step, launch and host-sync counts and its
 (``ReferenceNoise``) on 2 slots and 10 requests, where the arena of
 2 * 2 + 4 rows bounds prefill-ahead: rounds, candidates and streams
 equal, p* within 1e-4 and the arena's counters, ``sizing_stalls``
-included, equal. Within the port: cancels at every timing class leave
-the arena conserved, and a paged impl is refused. ``StateArena`` runs a
+included, equal. Mesh serving at dp 2 (two logical shards on the CPU,
+the arena in two row ranges of 2 * slots_per_shard + 4): greedy streams
+and launch counts equal the single-device reference's, CAMD streams the
+unsharded port's.
+Within the port: cancels at every timing class leave the arena
+conserved, and a paged impl is refused. ``StateArena`` runs a
 seeded sequence of operations in lockstep with the reference's arena.
 The JAX engines are built once a session per model.
 """
@@ -29,6 +33,7 @@ from repro.serving import ServeEngine as JEngine
 from repro.serving.state_arena import StateArena as JArena
 from repro.serving.state_arena import StateArenaError as JArenaError
 from repro_torch import config as tconfig
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.serving.state_arena import StateArena, StateArenaError
 from test_torch_engine_camd import ReferenceNoise
@@ -91,17 +96,17 @@ def ref_camd(pair):
     return _reference(pair, "camd", 2, 10, 3)
 
 
-def _engine(pair, mode, slots, K, impl="torch", noise=None):
+def _engine(pair, mode, slots, K, impl="torch", noise=None, **extra):
     jcfg, _, _, model = pair
     return ServeEngine(model, impl=impl,
                        sampling=tconfig.SamplingConfig(
                            max_new_tokens=MAX_NEW, temperature=0.8),
                        camd=tconfig.CAMDConfig(**CAMD), noise=noise,
-                       **_kw(jcfg, mode, slots, K))
+                       **_kw(jcfg, mode, slots, K), **extra)
 
 
-def _port(pair, mode, slots, n, seed, K, impl="torch", noise=None):
-    eng = _engine(pair, mode, slots, K, impl, noise)
+def _port(pair, mode, slots, n, seed, K, impl="torch", noise=None, **extra):
+    eng = _engine(pair, mode, slots, K, impl, noise, **extra)
     for i, p in enumerate(_prompts(pair[0], n, seed)):
         eng.submit(Request(uid=i, prompt=p))
     with torch.inference_mode():
@@ -154,6 +159,36 @@ def test_camd_equals_reference(pair, ref_camd):
     assert stats["max_in_use"] == stats["num_rows"] == 2 * 2 + 4
     assert (eng.total_steps, eng.macro_launches, eng.host_syncs) == \
         exp_counts
+
+
+def test_dp2_streams_equal_reference(pair, ref_greedy):
+    """A dp-2 mesh: greedy on 4 slots (2 a shard) gives the single-device
+    reference's streams and step, launch and host-sync counts; CAMD on 4
+    slots with the reference's noise gives the unsharded port's streams,
+    candidates and rounds. The arena holds 2 * slots_per_shard + 4 rows
+    a shard (16 here against one device's 12, so prefill-ahead, which
+    the arena bounds, never waits in either) and ends conserved. Where
+    the arena does bind, a dp-2 engine's larger arena admits requests at
+    other decode steps, whose noise differs: the reference's too."""
+    mesh = make_serve_mesh(2, device="cpu")
+    exp, _, exp_counts = ref_greedy
+    out, eng = _port(pair, "greedy", 4, 5, 0, 4, mesh=mesh)
+    assert (eng.dp, eng.arena.num_shards, eng.arena.num_rows) == (2, 2, 16)
+    for a, b in zip(exp, out):
+        np.testing.assert_array_equal(np.asarray(a.tokens), b.tokens)
+    assert (eng.total_steps, eng.macro_launches, eng.host_syncs) == \
+        exp_counts
+    assert set(eng.sched_stats()["admitted_per_shard"]) == {"0", "1"}
+    assert eng.arena_specs["pos"] == ("data",)
+    runs = [_port(pair, "camd", 4, 6, 3, 4, noise=ReferenceNoise(0),
+                  **kw) for kw in ({}, dict(mesh=mesh))]
+    assert runs[0][1].arena.sizing_stalls == \
+        runs[1][1].arena.sizing_stalls == 0
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert (a.n_candidates, a.rounds, a.tokens_spent) == \
+            (b.n_candidates, b.rounds, b.tokens_spent)
+        for ca, cb in zip(a.candidates, b.candidates):
+            assert ca["tokens"].tolist() == cb["tokens"].tolist()
 
 
 def test_macro_steps_do_not_change_streams(pair):

@@ -166,10 +166,22 @@ def test_page_pool_copy_invariants():
 
 def test_later_slices_raise(tiny):
     _, _, _, model = tiny
-    for kw in (dict(mesh=object()), dict(prefill_shards=1),
-               dict(impl="paged", prefill_shards=1)):
+    # mesh serving is served now on logical shards of one device
+    # (tests/test_torch_serving_sharded.py); a mesh with a model axis or
+    # over several devices is a later slice
+    from repro_torch.launch.mesh import ServeMesh, make_serve_mesh
+    cpu = torch.device("cpu")
+    for mesh in (make_serve_mesh(2, model=2, device="cpu"),
+                 ServeMesh({"data": 2, "model": 1}, ("data", "model"),
+                           (cpu, torch.device("cuda", 1)))):
         with pytest.raises(NotImplementedError):
+            ServeEngine(model, cache_len=64, mesh=mesh)
+    # disaggregation needs a paged impl, and at most dp prefill shards
+    for kw in (dict(prefill_shards=1), dict(impl="paged", prefill_shards=2)):
+        with pytest.raises(ValueError):
             ServeEngine(model, cache_len=64, **kw)
+    assert ServeEngine(model, cache_len=64, impl="paged",
+                       prefill_shards=1).prefill_shards == 1
     # speculative decoding is served now (tests/test_torch_engine_spec.py),
     # inside the macro body only
     assert ServeEngine(model, cache_len=64, impl="paged", spec_k=4).spec
