@@ -43,7 +43,19 @@ Run from the root of a checkout. It
      shard 0, idle rows on their shard's quarantine page, both shards
      admitting) and on 4 (an 80-page pool, where shard-local capacity
      gates admissions yet every request is served, and the full pool),
-     and prints tokens/s at dp 1, 2 and 4;
+     and prints tokens/s at dp 1, 2 and 4; then the ranks phase serves 2
+     requests through the entry point as torch.distributed ranks: (a)
+     one NCCL rank (world 1, the macro body and its collectives one
+     captured graph) with the streams and K1/K2 counts of the run
+     without a group, and through one torchrun launch of two gloo ranks
+     sharing the card (eager bodies) (b) ``--mesh 1,2`` (8/4 heads a
+     rank, K2 once a layer a prefill bucket, K1 once a layer a step), (c)
+     ``--mesh 2,1`` (half the slots and pages a rank, plus mirror pages)
+     with (a)'s streams and (d) ``--mesh 1,2 --impl cuda`` (K2, K3) with
+     the one-process cuda run's; a parting stream must part at a top-two
+     logit margin below 1e-4; it prints tokens/s, per-rank peak memory
+     and weight and KV bytes; the kernel phase holds and times K1, K3 and
+     K2 at a rank's 8/4 heads;
   5. profile: a shorter serve run of the same shapes under torch.profiler
      — device time by kernel and the device's idle share;
   6. dense check: at reduced depth, greedy streams of the plain (torch),
@@ -187,10 +199,13 @@ import concurrent.futures
 import contextlib
 import json
 import math
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -238,9 +253,12 @@ HD256_ENTRIES = ("recurrentgemma-2b", "recurrentgemma-2b bf16",
 SEAMLESS = dict(name="seamless-m4t-large-v2", H=16, Hkv=16, hd=64,
                 frames=512, d=1024, eos=256206, layers=24)
 SEAMLESS_DENSE_LAYERS = 4
+# a model rank's heads of qwen3-0.6b at model=2: 8 query over 4 kv heads
+RANK_HEADS = (8, 4)
+RANK_ENTRY = "qwen3-0.6b tp2 rank"
 NEW_ENTRIES = tuple(LARGE_HEADS) + ("granite-34b int8", "granite-34b fp8",
                                     "internvl2-2b") + HD256_ENTRIES + (
-    SEAMLESS["name"],)
+    SEAMLESS["name"], RANK_ENTRY)
 # K3's second timing shape: the reference's decode_32k cache length
 # (repro/config.py:263); K3 is timed at each length of the sweep, from
 # one 16-row tile to 2048 of them
@@ -579,36 +597,71 @@ def flash_timing(torch, ops, ref, timer, g):
     time, beside ``flash_bounds``. Takes any tree's ``ops``, so that one
     call can time a parent's kernel too. Returns K2's row with its
     max_abs_err over the timed inputs."""
-    F = torch.nn.functional
     rows, errs = {}, []
-    for name, (B, L, H, Hkv, hd) in FLASH_SHAPES.items():
-        q = torch.randn(B, L, H, hd, generator=g, device="cuda")
-        k = torch.randn(B, L, Hkv, hd, generator=g, device="cuda")
-        v = torch.randn(B, L, Hkv, hd, generator=g, device="cuda")
-        shape = f"fp32 B{B} L{L} H{H} Hkv{Hkv} hd{hd} causal"
-        errs.append(compare(torch, "flash_attention", f"{shape} (timed)",
-                            ops.flash_attention(q, k, v),
-                            ref.flash_attention_ref(q, k, v), "float32"))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        t = times(timer, lambda: ops.flash_attention(q, k, v),
-                  "flash_kernel", lambda: ref.flash_attention_ref(q, k, v),
-                  lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, is_causal=True, enable_gqa=True))
-        t["bound_ms"], t["bound_by"], b = flash_bounds(B, L, H, Hkv, hd)
-        t.update({f"bound_{key}_ms": val for key, val in b.items()})
-        t["shape"] = shape
-        print(f"  flash_attention {name}: kernel {t['ms']:.4f} ms (call "
-              f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
-              f"{t['library_ms']:.4f}; bounds: bytes {b['bytes']:.5f}, "
-              f"fp32 SIMT {b['simt']:.5f}, 3xTF32 {b['tf32x3']:.5f} ms "
-              f"({shape})")
-        rows[name] = t
-        del q, k, v, qt, kt, vt
+    for name, shape in FLASH_SHAPES.items():
+        rows[name], err = flash_shape_timing(torch, ops, ref, timer, g, name,
+                                             *shape)
+        errs.append(err)
     t = rows["qwen3"]
     for name in ("granite", "llava"):
         t[name] = {key: rows[name][key] for key in SUB_KEYS + TF32_BOUNDS}
     t["max_abs_err"] = max(errs)
     return t
+
+
+def flash_shape_timing(torch, ops, ref, timer, g, name, B, L, H, Hkv, hd):
+    """K2 at one causal fp32 shape: held against its plain version, then
+    the kernel's, the wrapper call's, the plain version's and SDPA's times
+    beside ``flash_bounds``. Returns (times, max_abs_err)."""
+    F = torch.nn.functional
+    q = torch.randn(B, L, H, hd, generator=g, device="cuda")
+    k = torch.randn(B, L, Hkv, hd, generator=g, device="cuda")
+    v = torch.randn(B, L, Hkv, hd, generator=g, device="cuda")
+    shape = f"fp32 B{B} L{L} H{H} Hkv{Hkv} hd{hd} causal"
+    err = compare(torch, "flash_attention", f"{shape} (timed)",
+                  ops.flash_attention(q, k, v),
+                  ref.flash_attention_ref(q, k, v), "float32")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    t = times(timer, lambda: ops.flash_attention(q, k, v),
+              "flash_kernel", lambda: ref.flash_attention_ref(q, k, v),
+              lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True, enable_gqa=True))
+    t["bound_ms"], t["bound_by"], b = flash_bounds(B, L, H, Hkv, hd)
+    t.update({f"bound_{key}_ms": val for key, val in b.items()})
+    t["shape"] = shape
+    print(f"  flash_attention {name}: kernel {t['ms']:.4f} ms (call "
+          f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
+          f"{t['library_ms']:.4f}; bounds: bytes {b['bytes']:.5f}, "
+          f"fp32 SIMT {b['simt']:.5f}, 3xTF32 {b['tf32x3']:.5f} ms "
+          f"({shape})")
+    return t, err
+
+
+def rank_shape_phase(torch, ops, ref, timer):
+    """K1, K3 and K2 at a model rank's shapes of qwen3-0.6b at model=2
+    (``RANK_HEADS``: 8 query over 4 kv heads, hd 128): K1 and K3 at B 8,
+    S 288 with the serve phase's lengths, K2 at the 8 x 256 bucket, each
+    held against its plain version and timed beside its bound and SDPA's
+    time (``decode_timing``, ``flash_shape_timing``). Returns ({kernel:
+    {RANK_ENTRY: times}}, {kernel: max_abs_err})."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    H, Hkv = RANK_HEADS
+    B = SERVE["slots"]
+    lens = [SERVE["prompt"] + 1 + 4 * i for i in range(B)]
+    entries, errs = {}, {}
+    for paged, kernel in ((False, "decode_attention"),
+                          (True, "paged_decode_attention")):
+        t, errs[kernel] = decode_timing(
+            torch, ops, ref, timer, g, CACHE_LEN, paged=paged, H=H, Hkv=Hkv,
+            lengths=lens if paged else None)
+        entries[kernel] = {RANK_ENTRY: {k: t[k] for k in SUB_KEYS + (
+            "by_kernel", "sdpa_on_gathered_ms") if k in t}}
+    t, errs["flash_attention"] = flash_shape_timing(
+        torch, ops, ref, timer, g, RANK_ENTRY, B, SERVE["prompt"], H, Hkv,
+        128)
+    entries["flash_attention"] = {RANK_ENTRY: {
+        k: t[k] for k in SUB_KEYS + TF32_BOUNDS}}
+    return entries, errs
 
 
 def ring_mask(torch, pos, S):
@@ -1390,6 +1443,13 @@ def dense_argv(arch, cache_len, eos_id, extra=()):
             "--device", "cuda", "--seed", "1", *extra]
 
 
+def with_arg(argv, flag, value):
+    """``argv`` with ``flag``'s value replaced."""
+    argv = list(argv)
+    argv[argv.index(flag) + 1] = str(value)
+    return argv
+
+
 IMAGE_EXTRA = ("--xmodal-rescore", "--image-pool", "2")
 QWEN_ARGV = serve_argv("qwen3-0.6b", CACHE_LEN, 151936)
 LLAVA_ARGV = serve_argv("llava-1.5-7b", MM_CACHE_LEN, 32000, IMAGE_EXTRA)
@@ -1676,6 +1736,281 @@ def mesh_phase(torch, ops, serve, model, card):
         + f" ({card})")
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
     return runs
+
+
+# serving over ranks (ranks_phase): full-width qwen3-0.6b, 8 slots, 2
+# requests of 256 + 32 tokens (4 took the phase to 61 s, over its 45),
+# CAMD, on the mesh phase's pool, where no shard's capacity binds (every
+# mesh admits as one device does)
+RANKS_ARGV = with_arg(QWEN_ARGV, "--requests", 2) + [
+    "--num-pages", str(MESH_PAGES)]
+# the runs of two gloo ranks on the one card: (mesh, impl), and the run
+# of one process whose streams each must give
+RANK_RUNS = {"(b)": ("1,2", "paged_cuda", "(a)"),
+             "(c)": ("2,1", "paged_cuda", "(a)"),
+             "(d)": ("1,2", "cuda", "(d0)")}
+RANKS_TIMEOUT = 400
+SPLIT_MARGIN = 1e-4
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_nccl_rank():
+    """The environment torchrun gives a world of one rank, for the serve
+    entry point to join over NCCL while open; the group is destroyed and
+    the environment restored on exit."""
+    import torch.distributed as dist
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               RANK="0", LOCAL_RANK="0", WORLD_SIZE="1")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rank_record(torch, out):
+    """What a rank's serve run shows: its streams, launches, tokens/s,
+    peak device memory, the bytes of its weights and pools, its head and
+    row counts and its pool's pages (own range and mirrors)."""
+    eng = out["engine"]
+    model = eng.model
+    cache = eng.state.cache
+    rec = dict(
+        rank=eng.world.rank, coords=list(eng.world.coords),
+        streams=stream_digest(out["results"]), launches=out["launches"],
+        tokens_per_s=out["tokens_per_s"], seconds=out["seconds"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        weight_bytes=sum(p.numel() * p.element_size()
+                         for p in model.parameters()),
+        kv_bytes=sum(t.numel() * t.element_size() for k, t in cache.items()
+                     if k not in ("pos", "block_table")),
+        eager=eng._eager_body, graphs=eng._graphs_captured,
+        macro_launches=eng.macro_launches, macro_steps=eng.macro_steps,
+        prefill_calls=eng.prefill_calls, layers=eng.cfg.num_layers,
+        B_local=eng.B_local, kv_heads=model.kv_heads,
+        q_heads=model.layers[0].attn.wq.kernel.shape[1] //
+        eng.cfg.resolved_head_dim)
+    if eng.paged:
+        rec.update(pool_pages=int(cache["k_pages"].shape[1]),
+                   own_pages=eng._own_pages, num_pages=eng.pool.num_pages,
+                   mirror_pages=eng._n_mirror, mirror_peak=eng.mirror_peak)
+    return rec
+
+
+def ranks_worker(spec: str, out_dir: str) -> None:
+    """One rank of ``ranks_phase``'s torchrun launch: joins the gloo group
+    (env://), serves each (run, argv) of ``spec`` (JSON) through the serve
+    entry point, and writes each run's record to ``out_dir`` (a file a
+    rank and run: the ranks' standard outputs interleave)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    dist.init_process_group("gloo", init_method="env://")
+    try:
+        for run, argv in json.loads(spec):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            out = serve.main(argv)
+            torch.cuda.synchronize()
+            rec = dict(run=run, **rank_record(torch, out))
+            Path(out_dir, f"{run}-{rec['rank']}.json").write_text(
+                json.dumps(rec))
+            del out
+            free_memory(torch)
+    finally:
+        dist.destroy_process_group()
+
+
+def stream_split(a, b):
+    """Where two stream digests part: (request, the candidate's common
+    prefix, its next token in a, in b), or None when they are equal."""
+    for ra, rb in zip(a, b):
+        if ra == rb:
+            continue
+        for ca, cb in zip(ra[3], rb[3]):
+            if ca != cb:
+                j = next((i for i, (x, y) in enumerate(zip(ca, cb))
+                          if x != y), min(len(ca), len(cb)))
+                return (ra[0], ca[:j], ca[j] if j < len(ca) else None,
+                        cb[j] if j < len(cb) else None)
+        return ra[0], [], None, None
+    return None if len(a) == len(b) else (None, [], None, None)
+
+
+def streams_agree(torch, serve, model, argv, got, want, what):
+    """``got``'s streams equal ``want``'s, or part where the one-process
+    model's top two logits (after the request's prompt and the
+    candidate's common prefix) lie within ``SPLIT_MARGIN``: the step and
+    both logits are printed. Fails otherwise."""
+    split = stream_split(json.loads(json.dumps(got)),
+                         json.loads(json.dumps(want)))
+    if split is None:
+        return
+    uid, prefix, tok_got, tok_want = split
+    check(uid is not None and tok_got is not None and tok_want is not None,
+          f"{what}: streams differ in their candidates, not at a token")
+    req = serve.make_requests(model.cfg, serve.parse_args(argv))[uid]
+    toks = torch.as_tensor(list(req.prompt) + list(prefix),
+                           device="cuda")[None]
+    with torch.inference_mode():
+        lg, _, _ = model.prefill(toks, model.make_cache(1, toks.shape[1]))
+    top = torch.topk(lg[0].float(), 2).values
+    margin = float(top[0] - top[1])
+    print(f"{what}: streams part at request {uid}, step {len(prefix)}: "
+          f"token {tok_got} (logit {float(lg[0, tok_got]):.6f}) against "
+          f"{tok_want} (logit {float(lg[0, tok_want]):.6f}); top-two "
+          f"margin {margin:.3e}")
+    check(margin < SPLIT_MARGIN, f"{what}: streams part at a top-two "
+          f"margin of {margin:.3e}, not below {SPLIT_MARGIN}")
+
+
+def rank_launch_checks(rec, what):
+    """Each rank's K2 once a layer a prefill bucket, its decode kernel (K1
+    paged, K3 dense) once a layer a step of every launch, no other."""
+    L, steps = rec["layers"], rec["macro_launches"] * rec["macro_steps"]
+    paged = "pool_pages" in rec
+    want = {"flash_attention": L * rec["prefill_calls"],
+            "paged_decode_attention": L * steps if paged else 0,
+            "decode_attention": 0 if paged else L * steps}
+    for name, n in want.items():
+        check(rec["launches"][name] == n,
+              f"{what} rank {rec['rank']}: {name} launched "
+              f"{rec['launches'][name]} times, not {n}")
+
+
+def ranks_phase(torch, ops, serve, model, card):
+    """Serving full-width qwen3-0.6b over torch.distributed ranks, through
+    the serve entry point, on the qwen3 serve phase's weights where one
+    process serves (``RANKS_ARGV``): (a) one NCCL rank (world 1; the
+    macro body captured as one graph with its collectives) against the
+    same run without a group: the same streams and K1/K2 counts; then,
+    through one torchrun launch of two gloo ranks on the card (their
+    bodies eager), (b) ``--mesh 1,2`` (8/4 heads a rank; K2 once a layer
+    a prefill bucket, K1 once a layer a step), (c) ``--mesh 2,1`` (half
+    the slots and pages a rank, with mirror pages for the prompt pages
+    its slots read on the other shard), each with (a)'s streams, and (d)
+    ``--mesh 1,2 --impl cuda`` (K2 and K3) with the streams of the
+    one-process cuda run (d0). Where streams part, ``streams_agree``
+    prints the step and logits. Prints tokens/s, per-rank peak memory and
+    weight and KV bytes beside the card. Returns ({run: launches}, the
+    paged runs, the dense runs)."""
+    t0 = time.perf_counter()
+    runs = {}
+    runs["qwen3-0.6b ranks one process"], base = serve_phase(
+        torch, ops, serve, RANKS_ARGV, TEXT_KERNELS, model=model)
+    with one_nccl_rank():
+        runs["qwen3-0.6b ranks (a)"], a = serve_phase(
+            torch, ops, serve, RANKS_ARGV + ["--mesh", "1,1"], TEXT_KERNELS,
+            model=model)
+    eng = a["engine"]
+    check(eng.world is not None and eng.world.backend == "nccl" and
+          not eng._eager_body and eng._graphs_captured == 1,
+          "ranks (a): not one NCCL rank replaying one captured graph")
+    want = stream_digest(base["results"])
+    check(stream_digest(a["results"]) == want,
+          "ranks (a): streams differ from the run without a group")
+    for name in TEXT_KERNELS:
+        check(runs["qwen3-0.6b ranks (a)"][name] ==
+              runs["qwen3-0.6b ranks one process"][name],
+              f"ranks (a): {name} launched differently from the run without "
+              "a group")
+    one = {"(a)": dict(streams=want, tps=a["tokens_per_s"],
+                       weight_bytes=sum(p.numel() * p.element_size()
+                                        for p in model.parameters()),
+                       kv_bytes=a["engine"].kv_stats()["bytes_per_page"] *
+                       a["engine"].pool.num_pages)}
+    del base, a, eng
+    dense_argv = with_arg(RANKS_ARGV, "--impl", "cuda")
+    ops.reset_launches()
+    d0 = serve.main(dense_argv, model=model)
+    torch.cuda.synchronize()
+    runs["qwen3-0.6b ranks (d0)"] = dict(ops.LAUNCHES)
+    one["(d0)"] = dict(streams=stream_digest(d0["results"]),
+                       tps=d0["tokens_per_s"])
+    del d0
+    free_memory(torch)
+    spec = [(run, with_arg(RANKS_ARGV, "--impl", impl) +
+             ["--mesh", mesh, "--dist-backend", "gloo"])
+            for run, (mesh, impl, _) in RANK_RUNS.items()]
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+               "--master-port", str(free_port()), str(ROOT / "chip_smoke.py"),
+               "--ranks-worker", json.dumps(spec), out_dir]
+        print("ranks phase: " + " ".join(cmd[:-2]) + " '<runs>' <dir>")
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=RANKS_TIMEOUT)
+        records = [json.loads(f.read_text())
+                   for f in sorted(Path(out_dir).glob("*.json"))]
+    for line in proc.stdout.splitlines():
+        print(f"  | {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:])
+    check(proc.returncode == 0 and len(records) == 2 * len(RANK_RUNS),
+          f"ranks phase: torchrun exited {proc.returncode} with "
+          f"{len(records)} records")
+    print(f"ranks phase: torchrun of two gloo ranks, {len(RANK_RUNS)} runs, "
+          f"{time.perf_counter() - t1:.1f} s")
+    paged_runs, dense_runs = [], []
+    for run, (mesh, impl, ref_run) in RANK_RUNS.items():
+        recs = [r for r in records if r["run"] == run]
+        dp, mp = (int(x) for x in mesh.split(","))
+        for rec in recs:
+            what = f"ranks {run} --mesh {mesh} {impl}"
+            check(rec["eager"] and rec["graphs"] == 0,
+                  f"{what}: a gloo rank's body must run eagerly")
+            check(rec["q_heads"] == 16 // mp and rec["kv_heads"] == 8 // mp
+                  and rec["B_local"] == SERVE["slots"] // dp,
+                  f"{what} rank {rec['rank']}: {rec['q_heads']}/"
+                  f"{rec['kv_heads']} heads, {rec['B_local']} rows")
+            if "pool_pages" in rec:
+                check(rec["own_pages"] * dp == rec["num_pages"] and
+                      rec["pool_pages"] == rec["own_pages"] +
+                      rec["mirror_pages"],
+                      f"{what} rank {rec['rank']}: pool of "
+                      f"{rec['pool_pages']} pages, own {rec['own_pages']}")
+            rank_launch_checks(rec, what)
+            streams_agree(torch, serve, model, RANKS_ARGV, rec["streams"],
+                          one[ref_run]["streams"],
+                          f"{what} rank {rec['rank']}")
+            name = f"qwen3-0.6b ranks {run} rank {rec['rank']}"
+            runs[name] = rec["launches"]
+            (paged_runs if "pool_pages" in rec else dense_runs).append(name)
+            print(f"{what} rank {rec['rank']} at {tuple(rec['coords'])}: "
+                  f"{rec['tokens_per_s']:.1f} tok/s ({card}), peak device "
+                  f"memory {rec['peak_gb']:.2f} GB (build included), weights "
+                  f"{rec['weight_bytes'] / 1e9:.3f} GB, KV "
+                  f"{rec['kv_bytes'] / 1e6:.1f} MB" + (
+                      f" ({rec['pool_pages']} pages: {rec['own_pages']} "
+                      f"own of {rec['num_pages']}, {rec['mirror_pages']} "
+                      f"mirror, {rec['mirror_peak']} used at peak)"
+                      if "pool_pages" in rec else "") + f", {rec['q_heads']}"
+                  f"/{rec['kv_heads']} heads, {rec['B_local']} rows; "
+                  f"launches {rec['launches']}")
+    a = one["(a)"]
+    print(f"ranks: (a) one NCCL rank {a['tps']:.1f} tok/s, weights "
+          f"{a['weight_bytes'] / 1e9:.3f} GB, KV {a['kv_bytes'] / 1e6:.1f} MB;"
+          f" (d0) one process cuda {one['(d0)']['tps']:.1f} tok/s ({card})")
+    print(f"ranks phase: {time.perf_counter() - t0:.1f} s")
+    return runs, tuple(paged_runs), tuple(dense_runs)
 
 
 def spec_report(name, out, plain_tps):
@@ -2244,13 +2579,6 @@ def quant_dense_check(torch, ops, serve, argv, kv_dtype):
 LLAVA_KERNELS = ("flash_attention", "paged_decode_attention",
                  "xmodal_score_mean", "xmodal_score_max")
 TEXT_KERNELS = ("flash_attention", "paged_decode_attention")
-
-
-def with_arg(argv, flag, value):
-    """``argv`` with ``flag``'s value replaced."""
-    argv = list(argv)
-    argv[argv.index(flag) + 1] = str(value)
-    return argv
 
 
 def prefill_times(spans):
@@ -3775,7 +4103,8 @@ def main() -> None:
                **moe_phase(torch, ops, ref, timer)}
     for entries, errs in (any_g_phase(torch, ops, ref, timer, kv_quantize),
                           hd256_phase(torch, ops, ref, timer),
-                          seamless_attention_phase(torch, ops, ref, timer)):
+                          seamless_attention_phase(torch, ops, ref, timer),
+                          rank_shape_phase(torch, ops, ref, timer)):
         for name, by_key in entries.items():
             timings[name].update(by_key)
             timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"],
@@ -3817,6 +4146,11 @@ def main() -> None:
     mesh_serves = tuple(mesh_phase(torch, ops, serve, out["engine"].model,
                                    card).items())
     runs.update(mesh_serves)
+    stamp("serving over ranks")
+    # one NCCL rank, then two gloo ranks on the card through torchrun
+    rank_runs, rank_paged, rank_dense = ranks_phase(
+        torch, ops, serve, out["engine"].model, card)
+    runs.update(rank_runs)
     del out
     check_released(torch, "qwen3-0.6b serve")
     profile_phase(torch, ops, serve, QWEN_ARGV)
@@ -4014,9 +4348,13 @@ def main() -> None:
     # kernels too (the speculative ones launch the latter 0 times)
     paths.update({name: serves + tuple(quant) + new_runs + spec_runs +
                   tuple(open_runs) + ("qwen3-0.6b open loop camd",) +
-                  new_serves + tuple(run for run, _ in mesh_serves)
+                  new_serves + tuple(run for run, _ in mesh_serves) +
+                  ("qwen3-0.6b ranks one process", "qwen3-0.6b ranks (a)") +
+                  rank_paged
                   for name in ("flash_attention", "paged_decode_attention")})
-    paths["flash_attention"] += tuple(rescore_runs) + rg_runs + ed_runs
+    paths["decode_attention"] += ("qwen3-0.6b ranks (d0)",) + rank_dense
+    paths["flash_attention"] += tuple(rescore_runs) + rg_runs + ed_runs + \
+        ("qwen3-0.6b ranks (d0)",) + rank_dense
     paths.update({name: serves + spec_runs[1:2] + (
         "internvl2-2b serve", "llava-1.5-7b rescore", ed_runs[0],
         f"{SEAMLESS['name']} rescore")
@@ -4066,4 +4404,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ranks-worker"]:
+        ranks_worker(*sys.argv[2:4])
+    else:
+        main()

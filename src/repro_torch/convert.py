@@ -21,6 +21,9 @@ encoder layers in ``enc_super`` and its decoder layers, cross-attention
 ``xattn`` and ``lnx`` included, in ``dec_super``: entry ``i`` lands at
 ``enc_layers.<i>.*`` and ``dec_layers.<i>.*``, and ``enc_norm`` as it is.
 ``opt_state_from_jax`` carries an optimizer state's moments the same way.
+``rank_params`` is ``params_from_jax`` cut to a rank's blocks
+(``sharding.place`` under the serving specs), the state dict of a model
+built for that rank (``build_model(..., world=)``).
 ``flat_from_jax`` is the same walk without the tensor conversion: any
 tree of array-likes with a ``shape`` (broadcast views, object arrays of
 per-layer values) comes back flat, under the state dict's names.
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding as shd
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]):
@@ -50,6 +54,15 @@ def params_from_jax(np_tree: Mapping[str, Any],
                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors, the tree's dtypes) for ``Model(cfg)``."""
     return {k: _to_tensor(v) for k, v in flat_from_jax(np_tree, cfg).items()}
+
+
+def rank_params(np_tree: Mapping[str, Any], cfg: ModelConfig,
+                world) -> Dict[str, torch.Tensor]:
+    """The rank's blocks of ``params_from_jax``: each parameter cut by
+    the serving specs of the world's mesh (``sharding.cut_specs``)."""
+    full = params_from_jax(np_tree, cfg)
+    specs = shd.cut_specs(shd.serve_param_specs(cfg, full, world))
+    return shd.place(full, specs, world, shd.rank_coords(world))
 
 
 def flat_from_jax(np_tree: Mapping[str, Any],

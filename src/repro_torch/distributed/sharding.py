@@ -287,3 +287,87 @@ def serve_param_specs(cfg: ModelConfig, params: Mapping[str, Any], mesh,
         return {k: replicated(len(_shape(v))) for k, v in params.items()}
     return param_specs(cfg, params, mesh,
                        dataclasses.replace(rules, fsdp=False))
+
+
+# ---------------------------------------------------------------------------
+# Placement over ranks (the counterpart of ``to_shardings``, ``:260``)
+# ---------------------------------------------------------------------------
+
+def _block(mesh, axes, coords: Mapping[str, int]) -> Tuple[int, int]:
+    """(index, count) of a position's block along a dim sharded on
+    ``axes``: row-major over the axes, as a mesh lays them out."""
+    named = (axes,) if isinstance(axes, str) else tuple(axes)
+    idx, n = 0, 1
+    for a in named:
+        idx = idx * mesh.shape[a] + int(coords[a])
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def local_shard(tensor, spec: Spec, mesh, coords: Mapping[str, int]):
+    """A position's block of a whole tensor under ``spec``: every dim
+    sharded on axes is cut into their product of equal blocks and the
+    block at ``coords`` (axis name to index) is kept. A view where the
+    cut allows one."""
+    out = tensor
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        idx, n = _block(mesh, axes, coords)
+        size = out.shape[dim]
+        if size % n:
+            raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
+                             f"divide over {axes} ({n} blocks)")
+        out = out.narrow(dim, idx * (size // n), size // n)
+    return out
+
+
+def place(tensors: Mapping[str, Any], specs: Mapping[str, Spec], mesh,
+          coords: Mapping[str, int]) -> Dict[str, Any]:
+    """``local_shard`` over a flat dict (a state dict, a cache): each
+    position's blocks, as contiguous tensors."""
+    return {k: local_shard(v, specs[k], mesh, coords).contiguous()
+            for k, v in tensors.items()}
+
+
+def cut_specs(specs: Mapping[str, Spec]) -> Dict[str, Spec]:
+    """The specs a rank cuts its parameters by: the serving specs, but a
+    projection's bias goes with its kernel's output columns. The table
+    replicates biases (GSPMD slices them to the sharded activation); a
+    rank adds its columns' bias."""
+    out = dict(specs)
+    for name in specs:
+        kernel = name[:-len("bias")] + "kernel"
+        if name.endswith(".bias") and kernel in specs:
+            out[name] = tuple(specs[kernel][1:])
+    return out
+
+
+def rank_coords(world) -> Dict[str, int]:
+    """A rank world's position by axis name (the ``coords`` of
+    ``local_shard``)."""
+    return dict(zip(world.axis_names, world.coords))
+
+
+def check_model_split(cfg: ModelConfig, mesh,
+                      rules: ShardingRules = ShardingRules()) -> None:
+    """Refuse a model axis the port cannot run: its split must cut whole
+    heads and keep each query head with its kv head (H and Hkv both
+    divide), and a split MLP must be the gated one (column-parallel gate
+    and up, row-parallel down). The reference's rule cuts the flat
+    ``H * hd`` dim, which GSPMD may split mid-head (granite-34b's one kv
+    head under model=2); the port runs heads whole."""
+    m = mesh.shape.get(rules.model_axis, 1)
+    if m <= 1:
+        return
+    where = "(ROADMAP.md Queue 1 item 5)"
+    if cfg.num_heads % m or cfg.num_kv_heads % m:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.num_heads} query heads over "
+            f"{cfg.num_kv_heads} kv heads do not split whole over "
+            f"model={m}; the port splits whole heads only {where}")
+    if cfg.d_ff and cfg.mlp_activation != "swiglu":
+        raise NotImplementedError(
+            f"{cfg.name}: a {cfg.mlp_activation} MLP over model={m}: the "
+            f"rule table splits w_out's output dim, which the port does not "
+            f"run {where}")

@@ -2,13 +2,24 @@
 
 ``make_serve_mesh`` is the serving mesh (``repro/launch/mesh.py:36-64``):
 ``dp`` data shards x ``model`` tensor-parallel ranks, one device per
-position. In this slice every position names the engine's one device
-(the card by default, the CPU when asked): dp logical data shards on one
-device, the counterpart of the reference's forced host devices. The
-engine partitions its slots, page pool and state arena into the shards
-and keeps the specs of the rule table (``distributed/sharding.py``);
-placing them over several cards waits for the slice that brings
-``torch.distributed`` (ROADMAP.md Queue 1 item 5).
+position. It comes in two forms:
+
+* ``make_rank_mesh(dp, model)``: one process a position, over the
+  initialized ``torch.distributed`` group of dp * model ranks (under
+  ``torchrun``: ``python -m torch.distributed.run --nproc-per-node N -m
+  repro_torch.launch.serve --mesh dp,model``). Position ``(d, m)`` is
+  rank ``d * model + m``, on ``cuda:LOCAL_RANK`` under NCCL; under gloo,
+  on the card (every rank on the one card) or on the CPU when asked. The
+  mesh carries the rank's ``distributed.context.RankWorld``; the model
+  is cut for it (``build_model(..., world=)``) and the engine holds the
+  rank's slot rows and pages.
+* ``make_serve_mesh(dp)``: one process, every position on the engine's
+  one device (the card by default, the CPU when asked): dp logical data
+  shards on one device, the counterpart of the reference's forced host
+  devices. The engine partitions its slots, page pool and state arena
+  into the shards and keeps the specs of the rule table
+  (``distributed/sharding.py``). A one-process mesh with ``model`` above
+  1 or over several devices raises: it is served as ranks.
 
 Prefill/decode disaggregation (``ServeEngine(prefill_shards=k)``) is a
 logical split of this mesh's data axis: prompt and chunk pages land on
@@ -21,21 +32,23 @@ only, for the rule table and a later dry run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import context
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeMesh:
     """A mesh: ``shape`` (axis name to size), ``axis_names`` and, per
     position in row-major order, its device (None: a mesh of shape
-    only)."""
+    only); a rank mesh also its process's ``world``."""
     shape: Dict[str, int]
     axis_names: Tuple[str, ...]
     devices: Optional[Tuple[torch.device, ...]] = None
+    world: Optional[Any] = None
 
     @property
     def size(self) -> int:
@@ -78,3 +91,20 @@ def make_serve_mesh(dp: int = 0, *, model: int = 1,
         dp = max(1, n // model)
     return ServeMesh({"data": dp, "model": model}, ("data", "model"),
                      (dev,) * (dp * model))
+
+
+def make_rank_mesh(dp: int, model: int = 1, *, device=None) -> ServeMesh:
+    """The serving mesh of ``dp`` x ``model`` ranks, one process each,
+    over the initialized default process group (``context.
+    init_rank_world``; every rank calls this in the same order). Under
+    NCCL each rank is on ``cuda:LOCAL_RANK``; under gloo on ``device``
+    (the card by default, which raises without one; ``"cpu"`` for the
+    CPU). Every position's device is listed as the rank's own where
+    ranks share one (gloo), else as ``cuda:<rank>`` (one node)."""
+    world = context.init_rank_world(dp, model, device=device)
+    if world.backend == "nccl":
+        devices = tuple(torch.device("cuda", r) for r in range(dp * model))
+    else:
+        devices = (world.device,) * (dp * model)
+    return ServeMesh({"data": dp, "model": model}, ("data", "model"),
+                     devices, world)

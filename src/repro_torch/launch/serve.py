@@ -55,21 +55,42 @@ the one device (logical shards; a ``model`` above 1 raises, as does a
 mesh over several devices). ``--prefill-shards K`` puts prompt and chunk
 pages on the first K shards. The run prints a ``serving mesh:`` line and
 the candidates admitted per shard.
+
+Under ``torchrun``, ``--mesh dp,model`` equal to the world serves as
+ranks (``launch.mesh.make_rank_mesh``): the process joins the group
+(``--dist-backend``, NCCL by default; gloo only when named), cuts the
+model for its rank and serves its data shard's slots and pages::
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --no-reduced --impl paged_cuda \
+        --mesh 1,2 --dist-backend gloo
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --device cpu --mesh 2,1 \
+        --dist-backend gloo
+
+NCCL takes one card a rank; ranks sharing a card run over gloo, whose
+macro body runs eagerly (``graph: off (gloo)`` on the ``serving mesh:``
+line). Rank 0 prints the results; every rank prints its kernel launches
+(``rank R launches: {...}``) and returns them under ``launches``.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import device_memory_bytes, resolve_device
 from repro_torch.config import (CAMDConfig, PagedKVConfig, SamplingConfig,
                                 VisionConfig)
 from repro_torch.configs import get_config
-from repro_torch.launch.mesh import make_serve_mesh
+from repro_torch.distributed import context
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_rank_mesh, make_serve_mesh
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import IMPLS, Request, ServeEngine
 from repro_torch.serving.traffic import ARRIVALS, run_open_loop
@@ -158,8 +179,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "unsharded)")
     shards.add_argument("--mesh", type=mesh_shape, default=None,
                         help="serving mesh as 'dp,model', two positive "
-                             "ints (a model axis above 1 is not ported yet "
-                             "and raises)")
+                             "ints: under torchrun a mesh of that many ranks "
+                             "(one process each); alone, dp logical shards "
+                             "of the one device (a model axis above 1 "
+                             "raises there)")
+    ap.add_argument("--dist-backend", choices=context.BACKENDS, default=None,
+                    help="torch.distributed backend of a rank mesh: nccl "
+                         "(the default; a card a rank) or gloo (ranks "
+                         "sharing a card, or the CPU), never chosen for "
+                         "you")
     ap.add_argument("--kv-byte-budget", type=int, default=0,
                     help="resident-KV byte ceiling for the prefix cache: "
                          "cached-only pages are evicted until resident KV "
@@ -230,6 +258,39 @@ def make_requests(cfg, args) -> List[Request]:
     return reqs
 
 
+def _join_ranks(args: argparse.Namespace):
+    """The rank mesh ``args`` ask for, or None: under torchrun
+    (``WORLD_SIZE`` set) or in an initialized process group, ``--mesh``
+    names a mesh of the world's ranks. Joins the default group (env://,
+    ``--dist-backend``, NCCL unless gloo is named) when it is not up
+    yet."""
+    if not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
+        if args.dist_backend:
+            raise SystemExit("--dist-backend needs ranks: run under torchrun "
+                             "(python -m torch.distributed.run)")
+        return None
+    if not args.mesh:
+        raise SystemExit("serving as ranks needs --mesh dp,model equal to "
+                         "the world")
+    backend = args.dist_backend or "nccl"
+    if backend == "nccl" and (not torch.cuda.is_available() or (
+            args.device and torch.device(args.device).type != "cuda")):
+        raise SystemExit("NCCL serves ranks on CUDA devices: name "
+                         "--dist-backend gloo for ranks on the CPU")
+    if not dist.is_initialized():
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group(backend, init_method="env://")
+    elif dist.get_backend() != backend:
+        raise SystemExit(f"the process group runs {dist.get_backend()}, "
+                         f"not --dist-backend {backend}")
+    dp, mp = args.mesh
+    if dp * mp != dist.get_world_size():
+        raise SystemExit(f"--mesh {dp},{mp} is {dp * mp} ranks; the world "
+                         f"has {dist.get_world_size()}")
+    return make_rank_mesh(dp, mp, device=args.device)
+
+
 def build_engine(args: argparse.Namespace, param_dtype=torch.float32,
                  model=None):
     """The served config and the engine that ``args`` ask for (model
@@ -237,8 +298,10 @@ def build_engine(args: argparse.Namespace, param_dtype=torch.float32,
     CLI serves; not a CLI flag). Raises ``SystemExit`` before allocating
     when the weights alone exceed the device's memory. ``model`` (not a
     CLI flag either) serves an already built model instead, which must
-    be the config, dtype and device ``args`` ask for. Returns (cfg,
-    engine)."""
+    be the config, dtype and device ``args`` ask for (on a rank mesh with
+    a model axis, cut for the rank). As a rank (``_join_ranks``) the
+    model is built for the rank's world on its device; a failed build
+    releases the world's groups. Returns (cfg, engine)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -258,7 +321,20 @@ def build_engine(args: argparse.Namespace, param_dtype=torch.float32,
             vision=VisionConfig.for_tokens(
                 args.image_tokens, patch=v.patch, num_layers=v.num_layers,
                 d_model=v.d_model, num_heads=v.num_heads, d_ff=v.d_ff))
-    device = resolve_device(args.device)
+    mesh = _join_ranks(args)
+    world = mesh.world if mesh is not None else None
+    try:
+        return _build(args, cfg, param_dtype, model, mesh, world)
+    except BaseException:
+        if world is not None:
+            context.release_world(world)
+        raise
+
+
+def _build(args, cfg, param_dtype, model, mesh, world):
+    """``build_engine`` once the config and the rank world are known."""
+    device = world.device if world is not None else resolve_device(
+        args.device)
     if model is not None:
         if (model.cfg, model.param_dtype, model.device.type) != \
                 (cfg, param_dtype, device.type):
@@ -275,9 +351,9 @@ def build_engine(args: argparse.Namespace, param_dtype=torch.float32,
                 f"{need / 1e9:.1f} GB of {param_dtype} weights, more than "
                 f"the {total / 1e9:.1f} GB of {device}; serve it reduced "
                 "(--reduced or --num-layers) or in a smaller param dtype")
-        model = build_model(cfg, param_dtype, device=device, seed=0)
-    mesh = None
-    if args.mesh or args.serve_dp > 1:
+        model = build_model(cfg, param_dtype, device=device, seed=0,
+                            world=world)
+    if world is None and (args.mesh or args.serve_dp > 1):
         dp, mp = args.mesh or (args.serve_dp, 1)
         mesh = make_serve_mesh(dp, model=mp, device=device)
     eng = ServeEngine(
@@ -305,24 +381,45 @@ def main(argv: Optional[List[str]] = None, param_dtype=torch.float32,
          model=None) -> Dict[str, object]:
     """Serve synthetic requests, as one pre-staged batch or (``--open-loop``)
     arriving on their own clock; prints results and telemetry and returns
-    them (``engine``, ``results``, ``seconds``, ``tokens_per_s``, and with
+    them (``engine``, ``results``, ``seconds``, ``tokens_per_s``,
+    ``launches`` (this process's kernel launches), and with
     ``--open-loop`` the per-request ``traces`` and their ``metrics``).
-    ``param_dtype`` and ``model`` go to ``build_engine``."""
+    ``param_dtype`` and ``model`` go to ``build_engine``. As a rank, it
+    releases its mesh's groups on return; the default process group
+    stays up for its starter."""
     args = parse_args(argv)
     if args.open_loop and args.macro_steps < 1:
         raise SystemExit("--open-loop drives the fused macro-step loop; "
                          "use --macro-steps >= 1")
     t_build = time.perf_counter()
     cfg, eng = build_engine(args, param_dtype, model)
+    try:
+        return _serve(args, cfg, eng, param_dtype, t_build)
+    finally:
+        if eng.world is not None:
+            context.release_world(eng.world)
+
+
+def _serve(args, cfg, eng, param_dtype, t_build) -> Dict[str, object]:
+    """``main`` once the engine is built. Rank 0 of a rank mesh prints the
+    run; every rank prints its kernel launches."""
+    world = eng.world
+    say = print if world is None or world.rank == 0 else \
+        (lambda *a, **kw: None)
     model = eng.model
     if model.device.type == "cuda":
         torch.cuda.synchronize()
-    print(f"model [{cfg.name}]: {cfg.num_params() / 1e6:.1f}M parameters "
-          f"in {str(param_dtype).replace('torch.', '')}, built with the "
-          f"engine in {time.perf_counter() - t_build:.2f}s")
+    say(f"model [{cfg.name}]: {cfg.num_params() / 1e6:.1f}M parameters "
+        f"in {str(param_dtype).replace('torch.', '')}, built with the "
+        f"engine in {time.perf_counter() - t_build:.2f}s")
     if eng.mesh is not None:
-        print(f"serving mesh: {dict(eng.mesh.shape)}, {eng.dp} data shards "
-              f"of {eng.slots_per_shard} slots on {model.device}")
+        ranks = "" if world is None else (
+            f"; rank {world.rank} at {world.coords} of {world.dp} x "
+            f"{world.model} ranks over {world.backend}, graph: " +
+            ("off (gloo)" if eng._eager_body else
+             "on" if model.device.type == "cuda" else "off (cpu)"))
+        say(f"serving mesh: {dict(eng.mesh.shape)}, {eng.dp} data shards "
+            f"of {eng.slots_per_shard} slots on {model.device}{ranks}")
     reqs = make_requests(cfg, args)
     if not args.open_loop:
         for req in reqs:
@@ -345,80 +442,87 @@ def main(argv: Optional[List[str]] = None, param_dtype=torch.float32,
     secs = time.perf_counter() - t0
     if args.open_loop:
         for tr in traces:
-            print(f"req {tr.uid}: arrival {tr.t_arrival * 1e3:7.1f}ms  "
-                  f"ttft {(tr.t_first - tr.t_arrival) * 1e3:7.1f}ms  "
-                  f"tokens={tr.n_tokens}")
-        print(f"open loop [{args.arrival} @ {args.arrival_rate:.1f} rps]: "
-              f"{metrics['completed']} completed over "
-              f"{metrics['span_s']:.2f}s")
-        print(f"  ttft p50/p99 {metrics['ttft_p50_ms']:.1f}/"
-              f"{metrics['ttft_p99_ms']:.1f} ms   "
-              f"tpot p50/p99 {metrics['tpot_p50_ms']:.1f}/"
-              f"{metrics['tpot_p99_ms']:.1f} ms")
-        print(f"  goodput {metrics['goodput_rps']:.2f} rps at "
-              f"{args.slo_ms:.0f}ms TTFT SLO "
-              f"({metrics['good_requests']}/{metrics['completed']}), "
-              f"{metrics['tokens_per_s']:.1f} tok/s")
+            say(f"req {tr.uid}: arrival {tr.t_arrival * 1e3:7.1f}ms  "
+                f"ttft {(tr.t_first - tr.t_arrival) * 1e3:7.1f}ms  "
+                f"tokens={tr.n_tokens}")
+        say(f"open loop [{args.arrival} @ {args.arrival_rate:.1f} rps]: "
+            f"{metrics['completed']} completed over "
+            f"{metrics['span_s']:.2f}s")
+        say(f"  ttft p50/p99 {metrics['ttft_p50_ms']:.1f}/"
+            f"{metrics['ttft_p99_ms']:.1f} ms   "
+            f"tpot p50/p99 {metrics['tpot_p50_ms']:.1f}/"
+            f"{metrics['tpot_p99_ms']:.1f} ms")
+        say(f"  goodput {metrics['goodput_rps']:.2f} rps at "
+            f"{args.slo_ms:.0f}ms TTFT SLO "
+            f"({metrics['good_requests']}/{metrics['completed']}), "
+            f"{metrics['tokens_per_s']:.1f} tok/s")
     else:
         for r in results:
-            print(f"req {r.uid}: candidates={r.n_candidates} "
-                  f"rounds={r.rounds} tokens={r.tokens_spent} "
-                  f"p*={r.p_star:.3f} early={r.stopped_early} "
-                  f"out={r.tokens[:8].tolist()}")
-    print(f"engine [{cfg.name}, {cfg.num_layers}L d{cfg.d_model}, "
-          f"{str(model.param_dtype).replace('torch.', '')}, "
-          f"{args.impl} on {model.device}]: {eng.total_steps} steps, "
-          f"{eng.total_tokens} tokens in {secs:.3f}s "
-          f"({eng.total_tokens / secs:.1f} tok/s, prefill included)")
-    print(f"macro-step: K={eng.macro_steps}, {eng.macro_launches} launches"
-          f"{' (CUDA graph replays)' if eng._graphs_captured else ''}, "
-          f"{eng.host_syncs} host syncs")
+            say(f"req {r.uid}: candidates={r.n_candidates} "
+                f"rounds={r.rounds} tokens={r.tokens_spent} "
+                f"p*={r.p_star:.3f} early={r.stopped_early} "
+                f"out={r.tokens[:8].tolist()}")
+    say(f"engine [{cfg.name}, {cfg.num_layers}L d{cfg.d_model}, "
+        f"{str(model.param_dtype).replace('torch.', '')}, "
+        f"{args.impl} on {model.device}]: {eng.total_steps} steps, "
+        f"{eng.total_tokens} tokens in {secs:.3f}s "
+        f"({eng.total_tokens / secs:.1f} tok/s, prefill included)")
+    say(f"macro-step: K={eng.macro_steps}, {eng.macro_launches} launches"
+        f"{' (CUDA graph replays)' if eng._graphs_captured else ''}, "
+        f"{eng.host_syncs} host syncs")
     if eng.spec:
-        print(f"speculative: K={eng.spec_k} ({eng.spec_mode}), "
-              f"{eng.spec_drafted} drafted, {eng.spec_accepted} accepted "
-              f"({eng.spec_accepted / max(eng.spec_drafted, 1):.0%})")
+        say(f"speculative: K={eng.spec_k} ({eng.spec_mode}), "
+            f"{eng.spec_drafted} drafted, {eng.spec_accepted} accepted "
+            f"({eng.spec_accepted / max(eng.spec_drafted, 1):.0%})")
     ss = eng.sched_stats()
-    print(f"scheduler: {ss['policy']} admitted={ss['admitted_candidates']} "
-          f"spent={ss['spent']}/{ss['global_budget'] or 'inf'} "
-          f"declined={ss['declined_rounds']} starved={ss['starved']}")
-    print(f"prefill: {ss['prefill_calls']} calls over "
-          f"{ss['prefill_tokens']} tokens")
+    say(f"scheduler: {ss['policy']} admitted={ss['admitted_candidates']} "
+        f"spent={ss['spent']}/{ss['global_budget'] or 'inf'} "
+        f"declined={ss['declined_rounds']} starved={ss['starved']}")
+    say(f"prefill: {ss['prefill_calls']} calls over "
+        f"{ss['prefill_tokens']} tokens")
     if eng.chunked:
-        print(f"chunked prefill: chunk={eng.chunk} budget="
-              f"{eng.chunk_budget} tok/turn, {ss['chunk_calls']} chunk "
-              f"calls over {ss['chunk_tokens']} tokens"
-              + (f", prefill shards 0..{eng.prefill_shards - 1} of "
-                 f"{eng.dp}" if eng.prefill_shards else ""))
+        say(f"chunked prefill: chunk={eng.chunk} budget="
+            f"{eng.chunk_budget} tok/turn, {ss['chunk_calls']} chunk "
+            f"calls over {ss['chunk_tokens']} tokens"
+            + (f", prefill shards 0..{eng.prefill_shards - 1} of "
+               f"{eng.dp}" if eng.prefill_shards else ""))
     if "admitted_per_shard" in ss:
-        print(f"shards: admitted per shard {ss['admitted_per_shard']}"
-              + (f", prompt pages on shards 0..{eng.prefill_shards - 1}"
-                 if eng.prefill_shards else ""))
+        say(f"shards: admitted per shard {ss['admitted_per_shard']}"
+            + (f", prompt pages on shards 0..{eng.prefill_shards - 1}"
+               if eng.prefill_shards else ""))
     if eng.paged:
         s = eng.kv_stats()
-        print(f"paged kv [{s['kv_dtype']}]: peak {s['max_in_use']}/"
-              f"{s['num_pages']} pages "
-              f"({s['peak_kv_bytes'] / 1e6:.2f} MB resident at peak vs "
-              f"{s['dense_equiv_bytes'] / 1e6:.2f} MB dense-equivalent)")
+        say(f"paged kv [{s['kv_dtype']}]: peak {s['max_in_use']}/"
+            f"{s['num_pages']} pages "
+            f"({s['peak_kv_bytes'] / 1e6:.2f} MB resident at peak vs "
+            f"{s['dense_equiv_bytes'] / 1e6:.2f} MB dense-equivalent)")
         if "prefix_cache" in s:
             pc = s["prefix_cache"]
-            print(f"prefix cache: {pc['hits']} page hits, "
-                  f"{pc['hit_tokens']} prefill tokens skipped, "
-                  f"{pc['bytes_saved'] / 1e6:.2f} MB KV writes saved")
+            say(f"prefix cache: {pc['hits']} page hits, "
+                f"{pc['hit_tokens']} prefill tokens skipped, "
+                f"{pc['bytes_saved'] / 1e6:.2f} MB KV writes saved")
         if s.get("kv_byte_budget"):
-            print(f"kv byte budget: {s['kv_byte_budget'] / 1e6:.2f} MB "
-                  f"ceiling, {s['budget_evictions']} budget evictions")
+            say(f"kv byte budget: {s['kv_byte_budget'] / 1e6:.2f} MB "
+                f"ceiling, {s['budget_evictions']} budget evictions")
     if eng.arena is not None:
         a = eng.arena_stats()
-        print(f"state arena [{a['state_kind']}]: peak {a['max_in_use']}/"
-              f"{a['num_rows']} rows of {a['bytes_per_row'] / 1e3:.1f} kB "
-              f"({a['alloc_count']} allocs, {a['sizing_stalls']} stalls)")
+        say(f"state arena [{a['state_kind']}]: peak {a['max_in_use']}/"
+            f"{a['num_rows']} rows of {a['bytes_per_row'] / 1e3:.1f} kB "
+            f"({a['alloc_count']} allocs, {a['sizing_stalls']} stalls)")
     if eng.image_encodes or eng.image_feat_hits:
-        print(f"vision frontend: {eng.image_encodes} tower encodes, "
-              f"{eng.image_feat_hits} feature-memo hits")
+        say(f"vision frontend: {eng.image_encodes} tower encodes, "
+            f"{eng.image_feat_hits} feature-memo hits")
+    launches = dict(ops.LAUNCHES)
+    if world is not None:
+        print(f"rank {world.rank} launches: {launches}")
     return {"engine": eng, "results": results, "seconds": secs,
             "tokens_per_s": eng.total_tokens / secs, "traces": traces,
-            "metrics": metrics}
+            "metrics": metrics, "launches": launches}
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

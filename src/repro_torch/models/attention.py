@@ -49,11 +49,14 @@ class Attention(nn.Module):
 
 
 def project_qkv(p: Attention, cfg: ModelConfig, x, positions):
+    """q (B, L, H, hd), k and v (B, L, Hkv, hd), roped (and qk-normed per
+    head). The head counts are the projections' widths over hd: a model
+    rank's H / model and Hkv / model (``sharding.check_model_split``)."""
     B, L, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = p.wq(x).reshape(B, L, cfg.num_heads, hd)
-    k = p.wk(x).reshape(B, L, cfg.num_kv_heads, hd)
-    v = p.wv(x).reshape(B, L, cfg.num_kv_heads, hd)
+    q = p.wq(x).reshape(B, L, -1, hd)
+    k = p.wk(x).reshape(B, L, -1, hd)
+    v = p.wv(x).reshape(B, L, -1, hd)
     if cfg.qk_norm:
         q = rmsnorm_headwise(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm_headwise(p.k_norm, k, cfg.norm_eps)
@@ -149,7 +152,7 @@ def cross_attend(p: Attention, cfg: ModelConfig, x, k, v):
     mask, then ``wo``. x: (B, L, d), L = 1 at decode. Runs ``sdpa`` on
     every impl, as the reference does."""
     B, L, _ = x.shape
-    q = p.wq(x).reshape(B, L, cfg.num_heads, cfg.resolved_head_dim)
+    q = p.wq(x).reshape(B, L, -1, cfg.resolved_head_dim)
     out = sdpa(q, k, v, causal=False)
     return p.wo(out.reshape(B, L, -1))
 

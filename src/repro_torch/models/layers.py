@@ -90,7 +90,10 @@ def _normal(shape, scale, dtype, device, gen):
 
 class Dense(nn.Module):
     """``x @ kernel (+ bias)`` with a (d_in, d_out) kernel, initialised
-    N(0, 1) * d_in^-0.5 like ``repro.models.layers.dense_init``."""
+    N(0, 1) * d_in^-0.5 like ``repro.models.layers.dense_init``. A
+    row-parallel rank's kernel holds its rows of the contracting dim:
+    ``reduce_world`` (a ``distributed.context.RankWorld``) then sums the
+    partial products over the model group, before the bias."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  dtype=torch.float32, device=None, gen=None):
@@ -99,9 +102,13 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out, dtype=dtype,
                                              device=device),
                                  requires_grad=False) if bias else None
+        self.reduce_world = None
 
     def forward(self, x):
-        return dense(self.kernel, x, self.bias)
+        if self.reduce_world is None:
+            return dense(self.kernel, x, self.bias)
+        y = self.reduce_world.all_reduce_model(x @ self.kernel)
+        return y if self.bias is None else y + self.bias
 
 
 class Norm(nn.Module):
@@ -134,8 +141,18 @@ class MLP(nn.Module):
             self.w_out = Dense(d_ff, d_model, **kw)
 
 
-def embed(table, tokens):
-    return table[tokens]
+def embed(table, tokens, start: int = 0, world=None):
+    """Rows ``tokens`` of an embedding table. A vocab-parallel rank holds
+    rows [start, start + len(table)): tokens outside them give zero rows,
+    and the sum over the model group ``world`` gives every token its
+    row (``x + 0`` is exact)."""
+    if world is None:
+        return table[tokens]
+    local = tokens - start
+    hit = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return world.all_reduce_model(torch.where(hit[..., None], rows,
+                                              torch.zeros_like(rows)))
 
 
 def unembed(x, table, tied: bool):

@@ -22,6 +22,17 @@ whose encoder takes the evidence (the audio family); the paged cache,
 continuation prefill and speculative blocks are decoder-only, as in the
 reference. Parameters are made with ``requires_grad`` off;
 ``training.train_loop.train`` turns it on.
+
+Built for a rank of a serving mesh (``world``, a
+``distributed.context.RankWorld``), a model draws every whole tensor
+from the seeded generator in the one-device order and keeps the rank's
+block under the rule table's serving specs
+(``sharding.serve_param_specs``): its query and kv heads, MLP columns
+and vocabulary rows on the model axis, so that the ranks' weights are
+slices of the one-device model's, bit for bit. Row-parallel ``wo`` and
+``w_down`` then sum over the model group, the embedding is
+vocab-parallel and the logits are gathered. Attention-only decoders
+only: the other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,10 +41,11 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.config import ATTN, LOCAL_ATTN, RGLRU, SSM, ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, Norm, Dense, _normal
+from repro_torch.models.layers import MLP, Norm, Dense, _normal, embed
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU as RGLRUBlock
 from repro_torch.models.ssm import SSM as SSMBlock
@@ -61,10 +73,43 @@ def _check_supported(cfg: ModelConfig) -> None:
                 "and encoder-decoder stacks")
 
 
+def check_rank_supported(cfg: ModelConfig, world) -> None:
+    """The families a rank of a serving mesh cannot hold yet, each with
+    its step of ROADMAP.md Queue 1 item 5, and the model axis's split
+    (``sharding.check_model_split``)."""
+    kinds = set(cfg.layer_kinds)
+    refused = [
+        ("a vision tower or evidence tokens", "step 1, vlm over ranks",
+         cfg.vision is not None or cfg.num_evidence_tokens > 0),
+        ("MoE layers", "step 2, MoE expert parallelism",
+         cfg.moe is not None),
+        ("recurrent layers", "step 3, the recurrent and hybrid arena over "
+         "ranks", not cfg.is_encoder_decoder and
+         bool(kinds - {ATTN, LOCAL_ATTN})),
+        ("an encoder-decoder stack", "step 4, encoder-decoder over ranks",
+         cfg.is_encoder_decoder),
+    ]
+    for what, step, present in refused:
+        if present:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} over ranks are not ported yet "
+                f"(ROADMAP.md Queue 1 item 5, {step}); a rank holds "
+                "attention-only decoders")
+    shd.check_model_split(cfg, world)
+
+
 class Embedding(nn.Module):
+    """The (V, d) table, or a vocab-parallel rank's rows [start, start +
+    V / model) of it with its model group ``world``."""
+
     def __init__(self, vocab: int, d: int, *, dtype, device, gen):
         super().__init__()
         self.table = _normal((vocab, d), d ** -0.5, dtype, device, gen)
+        self.start = 0
+        self.world = None
+
+    def forward(self, tokens):
+        return embed(self.table, tokens, self.start, self.world)
 
 
 class Block(nn.Module):
@@ -98,9 +143,11 @@ class Model(nn.Module):
     evidence projection and vision tower of a vlm config."""
 
     def __init__(self, cfg: ModelConfig, param_dtype=None, *, device=None,
-                 seed: int = 0):
+                 seed: int = 0, world=None):
         super().__init__()
         _check_supported(cfg)
+        if world is not None:
+            check_rank_supported(cfg, world)
         self.cfg = cfg
         self.param_dtype = param_dtype or _DTYPES[cfg.dtype]
         self.device = resolve_device(device)
@@ -129,6 +176,45 @@ class Model(nn.Module):
             else None
         self.vision = VisionTower(cfg, **kw) if cfg.vision is not None \
             else None
+        # the rank world the weights are cut for, the model group the
+        # logits gather over (vocab-parallel) and the kv heads a layer
+        # caches
+        self.world = world
+        self.vocab_world = None
+        self.kv_heads = cfg.num_kv_heads
+        self._whole = None
+        if world is not None:
+            self._keep_rank_blocks(world)
+
+    def param_shapes(self):
+        """Every parameter's whole shape (a rank's model: before its cut),
+        by state-dict name: what the rule table specs."""
+        return self._whole or {k: tuple(p.shape)
+                               for k, p in self.named_parameters()}
+
+    def _keep_rank_blocks(self, world) -> None:
+        """Cut every parameter to the rank's block under the serving specs
+        (``sharding.cut_specs``; new storage, so the whole tensors are
+        freed), and wire the model group into the row-parallel
+        projections, the embedding and the logits."""
+        self._whole = {k: tuple(p.shape) for k, p in self.named_parameters()}
+        specs = shd.serve_param_specs(self.cfg, self._whole, world)
+        cuts = shd.cut_specs(specs)
+        at = shd.rank_coords(world)
+        for name, p in self.named_parameters():
+            block = shd.local_shard(p.data, cuts[name], world, at)
+            p.data = torch.empty(block.shape, dtype=block.dtype,
+                                 device=block.device).copy_(block)
+        model_axis = shd.ShardingRules().model_axis
+        for name, mod in self.named_modules():
+            if isinstance(mod, Dense) and \
+                    specs[f"{name}.kernel"][0] == model_axis:
+                mod.reduce_world = world           # row-parallel
+        if specs["embed.table"][0] == model_axis:
+            self.embed.start = world.coords[1] * self.embed.table.shape[0]
+            self.embed.world = self.vocab_world = world
+        if world.model > 1:
+            self.kv_heads = self.cfg.num_kv_heads // world.model
 
     # -- full-sequence forward (training / scoring) ----------------------
     def forward(self, tokens, evidence=None, *, impl: str = "torch",
@@ -157,7 +243,8 @@ class Model(nn.Module):
                                          dtype or self.param_dtype,
                                          self.device)
         return tf_lib.make_cache(self.cfg, batch, cache_len,
-                                 dtype or self.param_dtype, self.device)
+                                 dtype or self.param_dtype, self.device,
+                                 kv_heads=self.kv_heads)
 
     def make_paged_cache(self, batch: int, cache_len: int, dtype=None, *,
                          page_size: int, num_pages: int,
@@ -170,7 +257,8 @@ class Model(nn.Module):
         return tf_lib.make_paged_cache(self.cfg, batch, cache_len,
                                        dtype or self.param_dtype, page_size,
                                        num_pages, kv_dtype=kv_dtype,
-                                       device=self.device)
+                                       device=self.device,
+                                       kv_heads=self.kv_heads)
 
     def prefill(self, tokens, cache, evidence=None, *, impl: str = "torch",
                 lengths=None):
@@ -317,5 +405,6 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ModelConfig, param_dtype=None, *, device=None,
-                seed: int = 0) -> Model:
-    return Model(cfg, param_dtype, device=device, seed=seed)
+                seed: int = 0, world=None) -> Model:
+    """A seeded model; with ``world``, the rank's blocks of it."""
+    return Model(cfg, param_dtype, device=device, seed=seed, world=world)

@@ -38,10 +38,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ATTN, LOCAL_ATTN, RGLRU, SSM, ModelConfig
+from repro_torch.distributed.context import constrain_logits
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import dense, embed, mlp, rmsnorm, unembed
+from repro_torch.models.layers import dense, mlp, rmsnorm, unembed
 from repro_torch.models.moe import moe_apply, moe_aux
 
 # the cache leaf of each part of a recurrent kind's state
@@ -94,12 +95,15 @@ def _ring_len(cfg: ModelConfig, cache_len: int) -> int:
     return rings.pop() if rings else cache_len
 
 
-def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device):
+def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device,
+               kv_heads: int = 0):
+    """``kv_heads``: the kv heads a layer caches (0: the config's; a model
+    rank caches its Hkv / model)."""
     _, n = layer_slots(cfg)
     cache = {}
     if n.get("attn"):
         shape = (n["attn"], batch, _ring_len(cfg, cache_len),
-                 cfg.num_kv_heads, cfg.resolved_head_dim)
+                 kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     for kind, make in ((SSM, ssm_lib.make_ssm_state),
@@ -121,11 +125,12 @@ def _state_of(cache, kind: str, j: int):
 
 def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                      page_size: int, num_pages: int, kv_dtype: str = "auto",
-                     device=None):
+                     device=None, kv_heads: int = 0):
     """Decode cache whose KV lives in a shared page pool per layer,
     addressed through ``block_table`` (``transformer.py:262``). Only
     full-context attention stacks are paged here (windowed and recurrent
-    layers keep dense per-slot state)."""
+    layers keep dense per-slot state). ``kv_heads`` as ``make_cache``'s;
+    int8/fp8 scales are per (page, slot, local kv head)."""
     if cache_len % page_size:
         raise ValueError(f"cache_len {cache_len} is not a multiple of "
                          f"page_size {page_size}")
@@ -134,7 +139,8 @@ def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                          "paged")
     hd = cfg.resolved_head_dim
     sdtype, quantized = attn_lib.kv_storage_dtype(kv_dtype, dtype)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, hd)
+    shape = (cfg.num_layers, num_pages, page_size,
+             kv_heads or cfg.num_kv_heads, hd)
     cache = {"k_pages": torch.zeros(shape, dtype=sdtype, device=device),
              "v_pages": torch.zeros(shape, dtype=sdtype, device=device)}
     if quantized:
@@ -167,11 +173,19 @@ def _mlp_part(blk, cfg: ModelConfig, x, impl: str):
 
 
 def _logits(model, h):
+    """Logits over the whole vocabulary and the final-norm hidden state.
+    A vocab-parallel rank computes its vocabulary columns (its rows of a
+    tied table) and gathers the rest over the model group
+    (``context.constrain_logits``)."""
     cfg = model.cfg
     h = rmsnorm(model.final_norm.scale, h, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return unembed(h, model.embed.table, tied=True), h
-    return unembed(h, model.unembed.kernel, tied=False), h
+        logits = unembed(h, model.embed.table, tied=True)
+    else:
+        logits = unembed(h, model.unembed.kernel, tied=False)
+    if model.vocab_world is not None:
+        logits = constrain_logits(logits, model.vocab_world)
+    return logits, h
 
 
 def embed_inputs(model, tokens, evidence=None):
@@ -179,7 +193,7 @@ def embed_inputs(model, tokens, evidence=None):
     (``transformer.py:175``): (B, Ne + L, d). Evidence of another width
     goes through ``evidence_proj``, which, as in the reference, takes the
     evidence before its cast to the activation dtype."""
-    x = embed(model.embed.table, tokens)
+    x = model.embed(tokens)
     if evidence is None:
         return x
     if model.evidence_proj is None:
@@ -332,7 +346,7 @@ def transformer_prefill_suffix(model, tokens, cache, ctx_kv, start: int, *,
         raise ValueError(f"{model.cfg.name}: continuation prefill needs an "
                          "all-attention full-context decoder")
     cfg = model.cfg
-    x = embed(model.embed.table, tokens)
+    x = model.embed(tokens)
     B, s, _ = x.shape
     positions = start + torch.arange(s, device=x.device).expand(B, s)
     for i, blk in enumerate(model.layers):
@@ -395,7 +409,7 @@ def transformer_decode(model, token, cache, *, impl: str = "torch",
         token = token[:, None]
     pos = cache["pos"]
     bt = cache.get("block_table")
-    x = embed(model.embed.table, token)
+    x = model.embed(token)
     slots, _ = layer_slots(cfg)
     for i, (blk, (kind, j)) in enumerate(zip(model.layers, slots)):
         h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
@@ -441,7 +455,7 @@ def transformer_decode_block(model, tokens, cache, valid=None, *,
     cfg = model.cfg
     pos = cache["pos"]
     bt = cache.get("block_table")
-    x = embed(model.embed.table, tokens)
+    x = model.embed(tokens)
     for i, blk in enumerate(model.layers):
         h = rmsnorm(blk.ln1.scale, x, cfg.norm_eps)
         if bt is not None:

@@ -130,14 +130,39 @@ own shard, idle rows point at their own shard's quarantine page, page
 reservations are kept per shard and admission is shard-local
 (``_paged_affordable`` funds each candidate from its slot's shard). The
 engine keeps the rule table's specs of its tensors (``state_specs``,
-``param_specs``, ``distributed/sharding.py``) but leaves the tensors
-whole on its one device: in this slice the shards are logical, the
-counterpart of the reference's forced host devices, and a mesh over
-several devices or with a ``"model"`` axis above 1 raises
-``NotImplementedError``. ``prefill_shards=k`` disaggregates prefill from
-decode: prompt and chunk pages go to the least-loaded of shards 0..k-1
-and slots on every shard read them. Sharding is placement only: streams
-equal the unsharded engine's while shard-local capacity does not bind.
+``param_specs``, ``distributed/sharding.py``). On a one-process mesh
+(``make_serve_mesh``) the shards are logical: the tensors stay whole on
+the one device, the counterpart of the reference's forced host devices,
+and a mesh over several devices or with a ``"model"`` axis above 1
+raises ``NotImplementedError``. ``prefill_shards=k`` disaggregates
+prefill from decode: prompt and chunk pages go to the least-loaded of
+shards 0..k-1 and slots on every shard read them. Sharding is placement
+only: streams equal the unsharded engine's while shard-local capacity
+does not bind.
+
+On a rank mesh (``launch.mesh.make_rank_mesh``: one process a position
+of a ``(dp, model)`` mesh over ``torch.distributed``) each rank holds
+its model shard (the model is cut for the rank: heads, MLP columns,
+vocabulary rows), its data shard's slot rows ``[d * B / dp, ...)`` of
+every state leaf and its shard's page range of the pools, and runs a
+full copy of the host controller over all B slots: every rank makes the
+same admissions, page choices and CAMD decisions. Prefill runs every
+request on every data rank (at the rank's heads), so that each rank
+samples every candidate's first token and can seed any of its slots.
+The shared prompt pages of a request whose candidates span shards lie
+on one shard (the reference reads them across shards, where GSPMD
+gathers them): a rank copies those its slots read into mirror pages
+past its page range (``_mirror``), written from its own prefill row and
+held while its slots hold them. Block tables and the frontier carry
+rank-local page ids. The macro body's exit flags are OR-ed over the
+data group each step, its per-slot outputs gathered over the data group
+before the host reads them, and each rank draws its rows of the global
+noise, so a rank samples what one device samples from the same logits.
+On a NCCL group the body is captured as one graph with its collectives;
+on a gloo group (named by the caller) it runs eagerly, since gloo stages
+through the host. Speculation, the prefix cache, chunked prefill,
+prefill shards and cross-modal rescoring over more than one rank raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -154,6 +179,7 @@ from repro_torch.core import controller as ctrl
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
+from repro_torch.models.model import check_rank_supported
 from repro_torch.models.transformer import ring_lens
 from repro_torch.sampling.samplers import (GumbelNoise, sample_token,
                                            sample_token_batch,
@@ -231,23 +257,37 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+_AS_RANKS = ("serve it as ranks: launch.mesh.make_rank_mesh under "
+             "torch.distributed (python -m torch.distributed.run "
+             "--nproc-per-node N -m repro_torch.launch.serve --mesh "
+             "dp,model; ROADMAP.md Queue 1 item 5)")
+
+
 def _mesh_dp(mesh, device: torch.device) -> int:
-    """The data-shard count of a serving mesh whose every position is
-    ``device``. A mesh over several devices, or with a model axis above
-    1, raises ``NotImplementedError``."""
+    """The data-shard count of a serving mesh: a rank mesh's dp, or that
+    of a one-process mesh whose every position is ``device``. A
+    one-process mesh over several devices, or with a model axis above 1,
+    raises ``NotImplementedError``."""
+    world = getattr(mesh, "world", None)
+    if world is not None:
+        if (world.device.type, world.device.index or 0) != \
+                (device.type, device.index or 0):
+            raise ValueError(f"the rank's device {world.device} is not the "
+                             f"model's {device}")
+        return world.dp
     model = mesh.shape.get("model", 1)
     if model > 1:
         raise NotImplementedError(
-            f"a serving mesh with model={model}: tensor parallelism is "
-            "not ported yet (ROADMAP.md Queue 1 item 5)")
+            f"a one-process serving mesh with model={model}: "
+            f"{_AS_RANKS}")
     devices = getattr(mesh, "devices", None)
     if devices is None:
         raise ValueError("a mesh of shape only names no device to serve on")
     distinct = {torch.device(d) for d in devices}
     if len(distinct) > 1:
         raise NotImplementedError(
-            f"a serving mesh over {len(distinct)} devices: placement over "
-            "several devices is not ported yet (ROADMAP.md Queue 1 item 5)")
+            f"a one-process serving mesh over {len(distinct)} devices: "
+            f"{_AS_RANKS}")
     (dev,) = distinct
     if (dev.type, dev.index or 0) != (device.type, device.index or 0):
         raise ValueError(f"the mesh's device {dev} is not the model's "
@@ -296,12 +336,31 @@ class ServeEngine:
         self.device = model.device
         # mesh serving: slots partition contiguously over dp data shards
         self.mesh = mesh
+        self.world = getattr(mesh, "world", None)
         self.dp = 1 if mesh is None else _mesh_dp(mesh, self.device)
         if slots % self.dp:
             raise ValueError(f"slots {slots} must divide across {self.dp} "
                              "data shards")
         self.slots_per_shard = slots // self.dp
         self.B = slots
+        # the slot rows this process holds: a rank its data shard's
+        # [row0, row0 + B_local), one process all of them
+        self.B_local = slots if self.world is None else self.slots_per_shard
+        self.row0 = 0 if self.world is None else \
+            self.world.coords[0] * self.B_local
+        self._rows = slice(self.row0, self.row0 + self.B_local)
+        if self.world is not None:
+            self._check_rank_engine(model, spec_k > 1, prefix_cache,
+                                    prefill_chunk > 0, prefill_shards > 0,
+                                    xmodal_rescore)
+        # a gloo group stages every collective through the host, which a
+        # CUDA graph cannot capture: its macro body runs eagerly. A NCCL
+        # group makes its communicators now, by one eager collective each,
+        # before a capture records collectives
+        self._eager_body = self.world is not None and \
+            self.world.backend == "gloo"
+        if self.world is not None and not self._eager_body:
+            self.world.warm()
         self.V = self.cfg.vocab_size
         self.d = self.cfg.d_model
         self.cache_len = cache_len
@@ -362,6 +421,24 @@ class ServeEngine:
             self._slot_quarantine = np.asarray(
                 [self.pool.quarantine_page(self._slot_shard(s))
                  for s in range(slots)], np.int32)
+            # the pages this process's pool tensors hold: a rank its
+            # shard's range, then mirror pages for the prompt pages its
+            # slots read on other shards (each slot at most a prompt's
+            # full pages); one process every page
+            rank = self.world is not None
+            self._page0 = self.pool.page_offset(self.row0 //
+                                                self.slots_per_shard)
+            self._own_pages = self.pool.pages_per_shard if rank else \
+                num_pages
+            n_mirror = self.slots_per_shard * (self.pages_per_slot - 1) \
+                if rank and self.dp > 1 else 0
+            self._mirror: Dict[int, int] = {}     # global page -> local id
+            self._mirror_refs: Dict[int, int] = {}
+            self._n_mirror = n_mirror
+            self._mirror_free = list(range(self._own_pages + n_mirror - 1,
+                                           self._own_pages - 1, -1))
+            self._slot_mirrors: Dict[int, List[int]] = {}
+            self.mirror_peak = 0
             # the most page boundaries one slot crosses in K steps (each
             # committing up to spec_k tokens), plus the boundary the first
             # step may land on
@@ -456,13 +533,14 @@ class ServeEngine:
                                         device=self.device)
         # the macro body's static inputs: each global step's Gumbel noise
         # and, speculating, acceptance uniforms (none in greedy mode), and
-        # the paged slots' staged pages
+        # the paged slots' staged pages, for the rows this process holds
         n_noise = max(macro_steps, 1) * max(self.spec_k, 1)
         self._noise_buf = None if mode == "greedy" else \
-            torch.zeros((n_noise, slots, self.V), device=self.device)
-        self._unif_buf = torch.zeros((n_noise, slots), device=self.device) \
+            torch.zeros((n_noise, self.B_local, self.V), device=self.device)
+        self._unif_buf = torch.zeros((n_noise, self.B_local),
+                                     device=self.device) \
             if self.spec and mode != "greedy" else None
-        self._frontier = torch.zeros((slots, self._frontier_width),
+        self._frontier = torch.zeros((self.B_local, self._frontier_width),
                                      dtype=torch.int32, device=self.device) \
             if self.paged else None
         # the card's captured macro body: graph, its output tensors and
@@ -511,22 +589,147 @@ class ServeEngine:
     def _any_live(self) -> bool:
         return bool((self._slot_req >= 0).any())
 
+    # -- ranks ------------------------------------------------------------
+    def _check_rank_engine(self, model, spec, prefix_cache, chunked,
+                           prefill_shards, xmodal) -> None:
+        """What a rank engine refuses: a model family no rank holds yet, a
+        model not cut for this rank's world, and over more than one rank
+        the features that need a sink page a shard or reads of another
+        rank's pages (ROADMAP.md Queue 1 item 5's later steps)."""
+        world = self.world
+        check_rank_supported(model.cfg, world)
+        if model.world is not None and model.world is not world:
+            raise ValueError("the model is cut for another rank world")
+        if model.world is None and world.model > 1:
+            raise ValueError(f"a model axis of {world.model} serves a model "
+                             "cut for the rank: build_model(cfg, ..., "
+                             "world=mesh.world)")
+        if world.size == 1:
+            return
+        for what, step, on in (
+                ("speculative decoding", "step 5, speculation over ranks",
+                 spec),
+                ("the prefix cache", "step 6, the prefix cache and "
+                 "disaggregated prefill across ranks", prefix_cache),
+                ("chunked prefill", "step 6, the prefix cache and "
+                 "disaggregated prefill across ranks", chunked),
+                ("prefill shards", "step 6, the prefix cache and "
+                 "disaggregated prefill across ranks", prefill_shards),
+                ("cross-modal rescoring", "step 1, vlm over ranks", xmodal)):
+            if on:
+                raise NotImplementedError(
+                    f"{what} over {world.size} ranks is not ported yet "
+                    f"(ROADMAP.md Queue 1 item 5, {step})")
+
+    def _own(self, slots) -> Tuple[np.ndarray, np.ndarray]:
+        """The slots of ``slots`` whose rows this process holds: (their
+        positions in ``slots``, their local rows)."""
+        s = np.asarray(slots, np.int64)
+        j = np.nonzero((s >= self.row0) & (s < self.row0 + self.B_local))[0]
+        return j, s[j] - self.row0
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of a per-slot tensor: on a rank mesh the data
+        group's blocks, gathered in slot order; else ``t``."""
+        return t if self.world is None else self.world.all_gather_data(t)
+
+    def _data_any(self, *flags: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """0-dim bool flags, each OR-ed over the data group on a rank mesh
+        (one collective for all); else the flags."""
+        if self.world is None:
+            return flags
+        t = torch.stack(flags).to(torch.int32)
+        self.world.any_data(t)
+        return tuple(t > 0)
+
+    def _local_pages(self, pages, held_only: bool = False) -> np.ndarray:
+        """Pool indices of global page ids in this process's pool tensors
+        (int32, the array's shape): a rank's own range shifted to 0, a
+        mirrored page its mirror's index; one process, the ids
+        themselves. A page held nowhere here raises, or gives -1 with
+        ``held_only``."""
+        g = np.asarray(pages, np.int64)
+        loc = g - self._page0
+        for i in np.nonzero(((loc < 0) | (loc >= self._own_pages)).ravel())[0]:
+            page = int(g.ravel()[i])
+            if page not in self._mirror and not held_only:
+                raise RuntimeError(f"page {page} is not held by this rank")
+            loc.ravel()[i] = self._mirror.get(page, -1)
+        return loc.astype(np.int32)
+
+    def _hold_mirrors(self, s: int, pages: List[int], info) -> None:
+        """Slot ``s`` (this rank's) reads the request's prompt pages
+        ``pages``: those on another shard get a mirror page here, written
+        from the request's prefill row at first use, and held until the
+        slot lets go (``_drop_mirrors``)."""
+        new = False
+        for g in pages:
+            if 0 <= g - self._page0 < self._own_pages:
+                continue
+            if g not in self._mirror:
+                self._mirror[g] = self._mirror_free.pop()
+                new = True
+            self._mirror_refs[g] = self._mirror_refs.get(g, 0) + 1
+            self._slot_mirrors.setdefault(s, []).append(g)
+        self.mirror_peak = max(self.mirror_peak, len(self._mirror))
+        if new:
+            # prompt page i holds the row's positions [i * ps, ...)
+            self._write_pages(info["cache_row"], pages, 0)
+
+    def _drop_mirrors(self, s: int) -> None:
+        for g in self._slot_mirrors.pop(s, ()):
+            self._mirror_refs[g] -= 1
+            if not self._mirror_refs[g]:
+                del self._mirror_refs[g]
+                self._mirror_free.append(self._mirror.pop(g))
+
+    def _whole_shapes(self) -> EngineState:
+        """A rank's state as the shapes of the whole tensors over every
+        rank (B slot rows, every page, every kv head): what the rule table
+        specs."""
+        m = self.world.model
+
+        def whole(name, t):
+            shape = list(t.shape)
+            if name in ("pos", "block_table"):
+                shape[0] = self.B
+            elif name.endswith(("_pages", "_scale")):
+                shape[1] = self.pool.num_pages + int(self.spec)
+                shape[3] *= m
+            else:                       # dense k/v: (n, B, S, Hkv, hd)
+                shape[1] = self.B
+                shape[3] *= m
+            return tuple(shape)
+
+        st = self.state
+        return EngineState(
+            cache={k: whole(k, t) for k, t in st.cache.items()},
+            **{f.name: (self.B,) + tuple(getattr(st, f.name).shape[1:])
+               for f in dataclasses.fields(st) if f.name != "cache"})
+
     # -- mesh placement ---------------------------------------------------
     def _install_mesh(self, mesh) -> None:
         """The rule table's specs of the engine's tensors (``engine.py:
         466-498``): the decode batch and every per-slot leaf on the data
         axes, the paged pools on their page axis, the arena's rows like
-        slot rows, the parameters replicated. The tensors stay whole on
-        the one device; shard s owns slot rows ``[s * slots_per_shard,
-        ...)``, pages ``[s * pool.pages_per_shard, ...)`` and arena rows
-        ``[s * arena.rows_per_shard, ...)``. Checks that every sharded dim
-        divides by its axes."""
-        self.state_specs = shd.engine_state_specs(self.cfg, self.state, mesh)
+        slot rows, the parameters replicated, or tensor-parallel on a
+        model axis. Shard s owns slot rows ``[s * slots_per_shard, ...)``,
+        pages ``[s * pool.pages_per_shard, ...)`` and arena rows ``[s *
+        arena.rows_per_shard, ...)``. One process keeps the tensors whole
+        on its device. A rank holds its blocks of the whole tensors the
+        specs are of: the model was cut by ``param_specs`` at its build,
+        the state is allocated as the rank's slot rows (``B_local``) and
+        page range (``_own_pages``, and its mirror pages past it); its
+        pools and dense caches hold its kv heads, where the table
+        replicates a pool's heads. Checks that every sharded dim divides
+        by its axes."""
+        state = self.state if self.world is None else self._whole_shapes()
+        self.state_specs = shd.engine_state_specs(self.cfg, state, mesh)
         self.param_specs = shd.serve_param_specs(
-            self.cfg, dict(self.model.named_parameters()), mesh)
+            self.cfg, self.model.param_shapes(), mesh)
         leaves = [(f"cache.{k}", v, self.state_specs["cache"][k])
-                  for k, v in self.state.cache.items()]
-        leaves += [(f, getattr(self.state, f), spec)
+                  for k, v in state.cache.items()]
+        leaves += [(f, getattr(state, f), spec)
                    for f, spec in self.state_specs.items() if f != "cache"]
         if self._arena_buf is not None:
             self.arena_specs = shd.cache_specs(self.cfg, self._arena_buf,
@@ -534,11 +737,11 @@ class ServeEngine:
             leaves += [(f"arena.{k}", v, self.arena_specs[k])
                        for k, v in self._arena_buf.items()]
         for name, t, spec in leaves:
+            shape = shd._shape(t)
             for dim, axes in enumerate(spec):
-                if axes is not None and \
-                        t.shape[dim] % shd._axsize(mesh, axes):
-                    raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)}"
-                                     f" does not divide over {axes}")
+                if axes is not None and shape[dim] % shd._axsize(mesh, axes):
+                    raise ValueError(f"{name}: dim {dim} of {shape} does not "
+                                     f"divide over {axes}")
 
     def _slot_shard(self, s: int) -> int:
         """The data shard owning slot ``s`` (contiguous partition)."""
@@ -556,7 +759,10 @@ class ServeEngine:
             - int(self._reserved_sh[s])
 
     def _blank_state(self) -> EngineState:
-        B, V, d, dev = self.B, self.V, self.d, self.device
+        """The state of the slot rows this process holds (a rank's data
+        shard's), its pools holding its pages (``_own_pages`` and the
+        mirrors past them)."""
+        B, V, d, dev = self.B_local, self.V, self.d, self.device
         if self.paged:
             # a speculating engine's pool tensors hold one more page than
             # the page pool hands out: the sink of the verify blocks'
@@ -565,12 +771,12 @@ class ServeEngine:
             # routes beside the live ones)
             cache = self.model.make_paged_cache(
                 B, self.cache_len, self._dtype, page_size=self.page_size,
-                num_pages=self.pool.num_pages + int(self.spec),
+                num_pages=self._own_pages + self._n_mirror + int(self.spec),
                 kv_dtype=self.kv_dtype)
             # idle rows point at their own shard's quarantine page
-            cache["block_table"].copy_(torch.as_tensor(
-                self._slot_quarantine, device=dev)[:, None].expand(
-                    B, self.pages_per_slot))
+            cache["block_table"].copy_(torch.as_tensor(self._local_pages(
+                self._slot_quarantine[self._rows]), device=dev)[:, None]
+                .expand(B, self.pages_per_slot))
         else:
             cache = self.model.make_cache(B, self.cache_len, self._dtype)
 
@@ -622,7 +828,8 @@ class ServeEngine:
             st.align_sum += torch.einsum(
                 "bnd,bd->bn", self._evid, self._unit_embed(tok)).mean(-1) \
                 * actf
-        st.token_counts[torch.arange(self.B, device=self.device), tok] += actf
+        st.token_counts[torch.arange(self.B_local, device=self.device),
+                        tok] += actf
         write = (torch.arange(self.max_new, device=self.device)[None, :] ==
                  st.n_tok[:, None]) & act[:, None]
         torch.where(write, tok[:, None], st.out_buf, out=st.out_buf)
@@ -645,8 +852,10 @@ class ServeEngine:
         if self.spec:
             return self._macro_step_spec()
         K = max(self.macro_steps, 1)
-        st, B, dev = self.state, self.B, self.device
-        go = st.active.any()
+        st, B, dev = self.state, self.B_local, self.device
+        # the exit rule reads every slot: on a rank mesh its flags are
+        # OR-ed over the data group
+        (go,) = self._data_any(st.active.any())
         steps = torch.zeros((), dtype=torch.int32, device=dev)
         done_out = torch.zeros(B, dtype=torch.bool, device=dev)
         rows = torch.arange(B, device=dev)
@@ -667,7 +876,8 @@ class ServeEngine:
             done = self._decode_step(noise, go)
             steps += go.to(torch.int32)
             torch.where(go, done, done_out, out=done_out)
-            go = go & st.active.any() & ~done.any()
+            live, ended = self._data_any(st.active.any(), done.any())
+            go = go & live & ~ended
         return done_out, steps
 
     def _macro_step_spec(self) -> Tuple[torch.Tensor, ...]:
@@ -832,16 +1042,18 @@ class ServeEngine:
         if self._noise_buf is None:
             return
         for i in range(self._noise_buf.shape[0]):
-            self._noise_buf[i].copy_(self.noise.step(t0 + i, self.B, self.V))
+            self._noise_buf[i].copy_(
+                self.noise.step(t0 + i, self.B, self.V)[self._rows])
             if self._unif_buf is not None:
-                self._unif_buf[i].copy_(self.noise.uniform(t0 + i, self.B))
+                self._unif_buf[i].copy_(
+                    self.noise.uniform(t0 + i, self.B)[self._rows])
 
     def _macro_launch(self) -> Tuple[torch.Tensor, ...]:
-        """One macro launch of the staged body: eager on the CPU, a replay
-        of the captured graph on the card (captured at the first
-        launch). Returns ``_macro_step``'s outputs."""
+        """One macro launch of the staged body: eager on the CPU and on a
+        gloo rank, a replay of the captured graph on the card (captured at
+        the first launch). Returns ``_macro_step``'s outputs."""
         self._fill_noise(self._t)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self._eager_body:
             return self._macro_step()
         if self._graph is None:
             self._capture()
@@ -862,7 +1074,9 @@ class ServeEngine:
         again with the same values (the speculative body's go to its sink
         page, or rewrite a dense ring's own values). Its kernel launches
         go to ``_warmup_launches``; the capture's, which launch nothing, become
-        the per-replay counts. Raises if the capture fails."""
+        the per-replay counts. On a rank mesh (NCCL) the body's collectives
+        are captured with it (the engine warmed each group's communicator
+        when it was built). Raises if the capture fails."""
         t0 = time.perf_counter()
         st = self.state
         main = torch.cuda.current_stream(self.device)
@@ -900,14 +1114,14 @@ class ServeEngine:
 
     def _unit_embed(self, tok) -> torch.Tensor:
         """fp32 token embeddings over their norms (+1e-8)."""
-        e = self.model.embed.table[tok].float()
+        e = self.model.embed(tok).float()
         return e / (torch.linalg.vector_norm(e, dim=-1, keepdim=True) + 1e-8)
 
     def _step_noise(self, t: int):
         """The legacy loop's noise for global step ``t``."""
         if self.mode == "greedy":
             return None
-        return self.noise.step(t, self.B, self.V)
+        return self.noise.step(t, self.B, self.V)[self._rows]
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -977,16 +1191,24 @@ class ServeEngine:
         identical CoW tail copies of a round's candidates). Quantized
         pools take the span quantized once, values and scales, and then
         broadcast, so the copies are bit-identical
-        (``repro/serving/engine.py:1268-1310``)."""
-        if not pages:
+        (``repro/serving/engine.py:1268-1310``). A rank writes the pages
+        it holds (its range, its mirrors) and skips the rest."""
+        local = self._local_pages(pages, held_only=True)
+        keep = np.nonzero(local >= 0)[0]
+        if not len(keep):
             return
-        n, ps = len(pages), self.page_size
-        span = ps if broadcast else n * ps
-        pg = torch.as_tensor(pages, device=self.device)
+        n, ps = len(keep), self.page_size
+        pg = torch.as_tensor(local[keep], device=self.device)
+        span = ps if broadcast else len(pages) * ps
+        # a rank that holds some of the pages writes their spans only
+        at = None if broadcast or n == len(pages) else start + (
+            torch.as_tensor(keep, device=self.device)[:, None] * ps +
+            torch.arange(ps, device=self.device)[None, :]).reshape(-1)
         cache = self.state.cache
         for name in ("k", "v"):
             pool, spool = cache[f"{name}_pages"], cache.get(f"{name}_scale")
-            seg = row[name][:, 0, start:start + span]    # (nL, span, Hkv, hd)
+            seg = row[name][:, 0, start:start + span] if at is None else \
+                row[name][:, 0].index_select(1, at)      # (nL, span, Hkv, hd)
             seg = seg.reshape(pool.shape[0], -1, *pool.shape[2:])
             if spool is not None:
                 seg, sseg = attn_lib.kv_quantize(seg, pool.dtype)
@@ -1073,6 +1295,7 @@ class ServeEngine:
         full, tail_len = divmod(L, ps)
         row_off = info.get("prefix_len", 0)
         self._seed_prompt_pages(info, self._slot_shard(slot_ids[0]))
+        mine, rows = self._own(slot_ids)
         bt_rows = np.repeat(self._slot_quarantine[slot_ids][:, None],
                             self.pages_per_slot, axis=1)
         tails = []
@@ -1097,19 +1320,24 @@ class ServeEngine:
             # admission counted evictable pages as headroom: make them free
             # pages now, before a later hit can pin them again
             self._ensure_reserved_free()
-        idx = torch.as_tensor(slot_ids, device=self.device)
+        for j in mine:
+            self._hold_mirrors(slot_ids[j], info["prompt_pages"], info)
+        idx = torch.as_tensor(rows, device=self.device)
         cache = self.state.cache
-        cache["block_table"][idx] = torch.as_tensor(bt_rows,
-                                                    device=self.device)
+        cache["block_table"][idx] = torch.as_tensor(
+            self._local_pages(bt_rows[mine]), device=self.device)
         cache["pos"][idx] = L
 
     def _quarantine_rows(self, slots: List[int]) -> None:
         """Point the block-table rows of ``slots`` at their own shards'
         quarantine pages, in place (the captured graph keeps its
         addresses)."""
-        q = torch.as_tensor(self._slot_quarantine[slots], device=self.device)
+        mine, rows = self._own(slots)
+        q = torch.as_tensor(self._local_pages(
+            self._slot_quarantine[np.asarray(slots)[mine]]),
+            device=self.device)
         self.state.cache["block_table"][
-            torch.as_tensor(slots, device=self.device)] = q[:, None]
+            torch.as_tensor(rows, device=self.device)] = q[:, None]
 
     def _pages_per_candidate(self, prompt_len: int,
                              lim: Optional[int] = None) -> int:
@@ -1197,7 +1425,8 @@ class ServeEngine:
                 self._reserved_sh[sh] -= need
                 fr[s, :need] = pages
             staged[s] = (p, pages)
-        self._frontier.copy_(torch.from_numpy(fr))
+        self._frontier.copy_(torch.from_numpy(self._local_pages(
+            fr[self._rows])))
         return staged
 
     def _reclaim_frontier(self, staged, pos_np):
@@ -1239,20 +1468,25 @@ class ServeEngine:
                 cols.append(li)
                 vals.append(page)
             self._slot_pos[s] += 1
-        if rows:
+        mine, local_rows = self._own(rows)
+        if len(mine):
             bt = self.state.cache["block_table"]
-            bt[torch.as_tensor(rows, device=self.device),
-               torch.as_tensor(cols, device=self.device)] = \
-                torch.as_tensor(vals, dtype=torch.int32, device=self.device)
+            bt[torch.as_tensor(local_rows, device=self.device),
+               torch.as_tensor(np.asarray(cols)[mine], device=self.device)] = \
+                torch.as_tensor(self._local_pages(np.asarray(vals)[mine]),
+                                device=self.device)
 
     def _bytes_per_page(self) -> int:
         """Resident bytes of one pool page over every layer, values and
         int8/fp8 scales alike; every pool leaf has its page axis second
-        (``repro/serving/engine.py:1444-1458``)."""
+        (``repro/serving/engine.py:1444-1458``). A model rank holds its
+        share of the kv heads: the page's bytes are its times the model
+        axis, as the byte budget reckons them on one device."""
         cache = self.state.cache
-        return sum(cache[k][:, 0].numel() * cache[k].element_size()
-                   for k in ("k_pages", "v_pages", "k_scale", "v_scale")
-                   if k in cache)
+        m = 1 if self.world is None else self.world.model
+        return m * sum(cache[k][:, 0].numel() * cache[k].element_size()
+                       for k in ("k_pages", "v_pages", "k_scale", "v_scale")
+                       if k in cache)
 
     def kv_stats(self) -> Dict[str, Any]:
         """Pool accounting with resident KV bytes against the dense worst
@@ -1334,8 +1568,11 @@ class ServeEngine:
             raise ValueError(f"prompt {info['prompt_len']} + limit {lim} "
                              f"overflows the cache of {self.cache_len} "
                              "(speculation does not ring-wrap)")
-        idx = torch.as_tensor(slot_ids, device=self.device)
-        n = len(slot_ids)
+        # every candidate's first token is drawn (the same draws on every
+        # rank); the slots' rows this process holds take theirs
+        mine, rows = self._own(slot_ids)
+        idx = torch.as_tensor(rows, device=self.device)
+        n, m = len(slot_ids), len(rows)
         if self.paged:
             self._seed_paged_slots(info, slot_ids, lim)
         else:
@@ -1344,6 +1581,8 @@ class ServeEngine:
         toks, lps = sample_token_batch(info["prefill_logits"], self.sampling,
                                        bias=bias, greedy=self._greedy_row,
                                        noise=self.noise.first(n, self.V))
+        pick = torch.as_tensor(mine, device=self.device)
+        toks, lps = toks[pick], lps[pick]
         h0 = info["prefill_hidden"]
         hn0 = h0 / (torch.linalg.vector_norm(h0, dim=-1, keepdim=True) + 1e-8)
         if self.has_evidence:
@@ -1357,15 +1596,15 @@ class ServeEngine:
             toks, self.V).float()
         st.sum_lp[idx] = lps
         st.n_tok[idx] = 1
-        st.prev_h[idx] = hn0.expand(n, -1)
+        st.prev_h[idx] = hn0.expand(m, -1)
         st.sum_coh[idx] = 0.0
         st.sum_emb[idx] = 0.0
         st.active[idx] = True
-        out = torch.zeros((n, self.max_new), dtype=torch.long,
+        out = torch.zeros((m, self.max_new), dtype=torch.long,
                           device=self.device)
         out[:, 0] = toks
         st.out_buf[idx] = out
-        st.bias[idx] = 0.0 if bias is None else bias.expand(n, -1)
+        st.bias[idx] = 0.0 if bias is None else bias.expand(m, -1)
         st.greedy[idx] = self.mode == "greedy"
         st.limit[idx] = lim
         k_eff = self._coverage_k(info.get("p_star"))
@@ -1578,7 +1817,7 @@ class ServeEngine:
         """The cached pages' K/V as context for a suffix prefill:
         {"k", "v": (num_layers, 1, n * page_size, Hkv, hd)}, dequantized
         for int8/fp8 pools (``engine.py:1787``)."""
-        pg = torch.as_tensor(pages, device=self.device)
+        pg = torch.as_tensor(self._local_pages(pages), device=self.device)
         cache = self.state.cache
         ctx = {}
         for name in ("k", "v"):
@@ -1832,9 +2071,9 @@ class ServeEngine:
         st = self.state
         idx = torch.as_tensor(slots, device=self.device)
         out_buf, sum_lp, n_tok, sum_coh, sum_emb, align_sum, counts = \
-            self._sync((st.out_buf[idx], st.sum_lp[idx], st.n_tok[idx],
-                        st.sum_coh[idx], st.sum_emb[idx], st.align_sum[idx],
-                        st.token_counts[idx]))
+            self._sync(tuple(self._all_rows(t)[idx] for t in (
+                st.out_buf, st.sum_lp, st.n_tok, st.sum_coh, st.sum_emb,
+                st.align_sum, st.token_counts)))
         uids: List[int] = []
         for j, slot in enumerate(slots):
             uid = int(self._slot_req[slot])
@@ -1869,6 +2108,7 @@ class ServeEngine:
             if self.paged:
                 self.pool.free(self._slot_pages[slot])
                 self._slot_pages[slot] = []
+                self._drop_mirrors(slot)
                 self._reserved_sh[self._slot_shard(slot)] -= \
                     int(self._slot_reserved[slot])
                 self._slot_reserved[slot] = 0
@@ -2075,7 +2315,9 @@ class ServeEngine:
         want_ntok = self.stream_tokens or bool(self._cancels)
         extra = ((self.state.n_tok,) if want_ntok else ()) + \
             ((self.state.out_buf,) if self.stream_tokens else ())
-        vals = self._sync((done, self.state.cache["pos"], *counts, *extra))
+        rows = self._all_rows
+        vals = self._sync((rows(done), rows(self.state.cache["pos"]),
+                           *counts, *map(rows, extra)))
         done_np, pos_np, steps_np = vals[:3]
         if self.spec:
             self.spec_drafted += int(vals[3])
@@ -2119,12 +2361,12 @@ class ServeEngine:
             done = self._decode_step(self._step_noise(self._t))
             self.total_steps += 1
             self._t += 1
-            (done_np,) = self._sync((done,))
+            (done_np,) = self._sync((self._all_rows(done),))
             # parity with the reference's loop (engine.py:2617-2622): no
             # caller can cancel a live slot while this synchronous loop
             # runs, so ``_cancels`` is empty here today
             cancelled = self._apply_cancels(
-                None, self._sync((self.state.n_tok,))[0]) \
+                None, self._sync((self._all_rows(self.state.n_tok),))[0]) \
                 if self._cancels else False
             if done_np.any() or cancelled:
                 for s in np.nonzero(done_np)[0]:
@@ -2234,10 +2476,11 @@ class ServeEngine:
                         self.pool.return_frontier(pages)
                 self.pool.free(self._slot_pages[s])
                 self._slot_pages[s] = []
+                self._drop_mirrors(s)
                 self._reserved_sh[self._slot_shard(s)] -= \
                     int(self._slot_reserved[s])
                 self._slot_reserved[s] = 0
-        idx = torch.as_tensor(slots, device=self.device)
+        idx = torch.as_tensor(self._own(slots)[1], device=self.device)
         self.state.active[idx] = False
         if self.paged:
             self._quarantine_rows(slots)

@@ -55,6 +55,13 @@ class AsyncServeFrontend:
             raise ValueError(
                 "AsyncServeFrontend drives the fused macro-step loop; "
                 "construct the engine with macro_steps >= 1")
+        world = engine.world
+        if world is not None and world.size > 1:
+            # every rank must see the same arrivals at the same launches
+            raise NotImplementedError(
+                f"the async front-end over {world.size} ranks is not "
+                "ported yet (ROADMAP.md Queue 1 item 5, step 7, the "
+                "front-end over ranks)")
         self.engine = engine
         # per-launch deltas only where the one candidate is the answer;
         # the other modes pick at completion

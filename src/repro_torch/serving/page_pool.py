@@ -332,6 +332,12 @@ class PagePool:
     def shard_of(self, page: int) -> int:
         return int(page) // self.pages_per_shard
 
+    def page_offset(self, shard: int) -> int:
+        """The first page id of shard ``shard``'s range: a rank holding
+        the shard keeps page ``page_offset(shard) + i`` at its pool's
+        index i."""
+        return shard * self.pages_per_shard
+
     def quarantine_page(self, shard: int = 0) -> int:
         """The reserved page idle slots of ``shard`` point at."""
         return shard * self.pages_per_shard

@@ -4,12 +4,12 @@ module of the JAX package ``repro``.
 A fresh interpreter installs an import hook that refuses those names,
 then imports every module of the port (the async front-end, the traffic
 module, training, rescoring, the encoder-decoder, the sharding rule
-table and the meshes among them), runs its serve entry point on the CPU,
-closed-loop, open-loop and over a dp-2 mesh with prefill/decode
-disaggregation, and on the encoder-decoder seamless-m4t-large-v2 with
-CAMD and cross-modal rescoring, and its training launcher for two
-reduced steps; the §4.1 theory module (``core.theory``) is among those
-imported.
+table, the rank world and the meshes among them), runs its serve entry
+point on the CPU, closed-loop, open-loop and over a dp-2 mesh with
+prefill/decode disaggregation, and on the encoder-decoder
+seamless-m4t-large-v2 with CAMD and cross-modal rescoring, and its
+training launcher for two reduced steps; the §4.1 theory module
+(``core.theory``) is among those imported.
 """
 import os
 import subprocess
@@ -49,7 +49,7 @@ out = serve.main(["--device", "cpu", "--requests", "2", "--max-new", "4",
                   "--impl", "paged_cuda", "--num-layers", "1",
                   "--serve-dp", "2", "--prefill-shards", "1"])
 assert out["engine"].dp == 2, out["engine"].dp
-assert {"repro_torch.distributed.sharding",
+assert {"repro_torch.distributed.sharding", "repro_torch.distributed.context",
         "repro_torch.launch.mesh"} <= set(names), names
 # the encoder-decoder: its encoder takes the requests' evidence
 assert "repro_torch.models.encdec" in names, names

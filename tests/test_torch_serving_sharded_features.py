@@ -270,14 +270,17 @@ def test_pool_rounds_to_shards_and_keeps_specs(model3):
 
 
 def test_meshes_the_port_cannot_place_raise(model3):
-    """A mesh over several devices or with a model axis above 1 raises
-    NotImplementedError naming the roadmap; so does nothing else."""
+    """A one-process mesh over several devices or with a model axis above
+    1 raises NotImplementedError naming the rank entry point (a rank mesh
+    over torch.distributed) and the roadmap; so does nothing else."""
     model = model3[3]
     cpu = torch.device("cpu")
     two = ServeMesh({"data": 2, "model": 1}, ("data", "model"),
                     (cpu, torch.device("cuda", 0)))
     for mesh in (two, make_serve_mesh(2, model=2, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(NotImplementedError,
+                           match="make_rank_mesh under torch.distributed.*"
+                           "ROADMAP.md"):
             port_engine(model, mode="camd", impl="paged", macro_steps=8,
                         mesh=mesh)
     with pytest.raises(ValueError, match="divide"):

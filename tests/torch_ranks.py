@@ -1,0 +1,277 @@
+"""Spawned gloo ranks on the CPU for the rank tests (not a test module).
+
+``spawn(fn, n, tmp_path, *args)`` runs ``fn(*args)`` in ``n`` fresh
+processes joined in one gloo group through a ``FileStore`` under
+``tmp_path`` (no TCP port, so parallel test workers cannot clash), each
+on one torch thread, and returns the results by rank; a failure in any
+rank raises here with its traceback. The rank functions live in this
+module, which imports neither jax nor the JAX package at import time:
+``RankNoise`` draws the reference engine's Gumbel noise
+(``test_torch_engine_camd.ReferenceNoise``) with jax imported on first
+use, so that only ranks that sample pay for it.
+"""
+from __future__ import annotations
+
+import os
+import queue as queue_mod
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+SPAWN_TIMEOUT = 180
+# the golden harness's CAMD settings (tests/data/make_golden_fifo.py)
+GOLDEN_CAMD = dict(samples_per_round=2, max_rounds=2, min_samples=2,
+                   max_clusters=8)
+PRELOAD = ["torch", "torch.distributed", "numpy", "jax", "jax.numpy",
+           "repro_torch.serving.engine", "repro_torch.launch.mesh",
+           "repro_torch.convert", "torch_ranks"]
+
+
+def _entry(fn, rank, n, store_path, args, queue):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, n),
+                            rank=rank, world_size=n)
+    try:
+        queue.put((rank, True, fn(*args)))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn, n, tmp_path, *args):
+    """``fn(*args)`` on ranks 0..n-1 of one gloo group; [result by rank]."""
+    ctx = mp.get_context("forkserver")
+    # the server imports these once; every rank forks from it
+    ctx.set_forkserver_preload(PRELOAD)
+    queue = ctx.Queue()
+    os.makedirs(str(tmp_path), exist_ok=True)
+    store = os.path.join(str(tmp_path), f"store-{fn.__name__}-{n}")
+    procs = [ctx.Process(target=_entry,
+                         args=(fn, r, n, store, args, queue))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + SPAWN_TIMEOUT
+    try:
+        while len(got) < n:
+            try:
+                r, ok, out = queue.get(timeout=1.0)
+                got[r] = (ok, out)
+                continue
+            except queue_mod.Empty:
+                pass
+            # a rank that died without a result (or a hang) fails at once
+            dead = [r for r, p in enumerate(procs)
+                    if r not in got and p.exitcode is not None]
+            if dead or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"ranks {dead or 'all'} gave no result (exit codes "
+                    f"{[p.exitcode for p in procs]}, {len(got)} of {n} "
+                    "results)")
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [f"rank {r}:\n{out}" for r, (ok, out) in sorted(got.items())
+           if not ok]
+    if bad:
+        raise AssertionError("\n".join(bad))
+    return [got[r][1] for r in range(n)]
+
+
+class RankNoise:
+    """The reference engine's Gumbel draws (``split(key)`` at admission,
+    ``fold_in(decode_key, t)`` a fused step), as the port's noise
+    source; every rank draws every row and keeps its own."""
+
+    def __init__(self, seed: int):
+        import jax
+        self.jax = jax
+        self.key = jax.random.PRNGKey(seed)
+        self.decode_key = jax.random.fold_in(jax.random.PRNGKey(seed),
+                                             0x6d6163)
+
+    def _gumbel(self, key, shape):
+        import jax.numpy as jnp
+        return torch.from_numpy(np.array(self.jax.random.gumbel(
+            key, shape, jnp.float32)))
+
+    def first(self, n, vocab):
+        self.key, *keys = self.jax.random.split(self.key, n + 1)
+        return torch.cat([self._gumbel(k, (1, vocab)) for k in keys])
+
+    def step(self, t, batch, vocab):
+        return self._gumbel(self.jax.random.fold_in(self.decode_key, t),
+                            (batch, vocab))
+
+
+def port_config(fields):
+    from repro_torch import config as tconfig
+    return tconfig.ModelConfig(**fields)
+
+
+def rank_model(cfg, np_params, world):
+    """The rank's model: built for the world, loaded with its blocks of
+    the reference's weights (``convert.rank_params``)."""
+    from repro_torch.convert import rank_params
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, torch.float32, device="cpu", world=world)
+    model.load_state_dict(rank_params(np_params, cfg, world))
+    return model
+
+
+def digest(results):
+    """Each result's tokens, counts and floats, candidates in token
+    order, as plain lists."""
+    out = []
+    for r in sorted(results, key=lambda r: r.uid):
+        cands = sorted(([int(t) for t in c["tokens"]], float(c["sum_lp"]),
+                        float(c["score"])) for c in r.candidates)
+        out.append({"uid": int(r.uid),
+                    "tokens": [int(t) for t in r.tokens],
+                    "tokens_spent": int(r.tokens_spent),
+                    "rounds": int(r.rounds),
+                    "n_candidates": int(r.n_candidates),
+                    "candidates": [c[0] for c in cands],
+                    "sum_lp": [c[1] for c in cands],
+                    "score": [c[2] for c in cands],
+                    "p_star": float(r.p_star),
+                    "best_score": float(r.best_score)})
+    return out
+
+
+def serve_cases(dp, model_ranks, cfg_fields, np_params, cases):
+    """Serve each case ``(name, engine kwargs, requests, prompt length)``
+    on this rank of a (dp, model) mesh, the golden harness's requests
+    (``tests/data/make_golden_fifo.py``'s ``submit``); returns {name:
+    record}: the admissions, streams, pool and scheduler stats and the
+    rank's placement."""
+    from repro_torch import config as tconfig
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.serving.engine import Request, ServeEngine
+    cfg = port_config(cfg_fields)
+    mesh = make_rank_mesh(dp, model_ranks, device="cpu")
+    model = rank_model(cfg, np_params, mesh.world)
+    out = {}
+    for name, kw, n_req, plen in cases:
+        kw = dict(kw)
+        paged_kv = tconfig.PagedKVConfig(page_size=8,
+                                          **kw.pop("paged_kv", {}))
+        camd = tconfig.CAMDConfig(**{**GOLDEN_CAMD, **kw.pop("camd", {})})
+        eng = ServeEngine(
+            model, slots=4, cache_len=32,
+            sampling=tconfig.SamplingConfig(max_new_tokens=6,
+                                            temperature=0.8),
+            camd=camd,
+            n_candidates=3, max_new_tokens=6, eos_id=1, seed=0,
+            paged_kv=paged_kv, noise=RankNoise(0), mesh=mesh, **kw)
+        admitted = []
+        admit = eng._admit
+
+        def spy(req, slot_ids, limit=None, admit=admit):
+            admitted.append([int(req.uid), [int(s) for s in slot_ids]])
+            return admit(req, slot_ids, limit=limit)
+
+        eng._admit = spy
+        rng = np.random.default_rng(0)
+        for i in range(n_req):
+            eng.submit(Request(uid=i, prompt=rng.integers(
+                2, cfg.vocab_size, plen).astype(np.int32)))
+        with torch.inference_mode():
+            res = eng.run()
+        rec = {"admitted": admitted, "streams": digest(res),
+               "sched": eng.sched_stats(), "B_local": eng.B_local,
+               "eager_body": eng._eager_body,
+               "host_syncs": eng.host_syncs,
+               "total_steps": eng.total_steps}
+        if eng.paged:
+            eng.pool.check()
+            rec.update(pool=eng.pool.stats(), mirror_peak=eng.mirror_peak,
+                       pool_pages=int(eng.state.cache["k_pages"].shape[1]),
+                       own_pages=eng._own_pages,
+                       kv_heads=int(eng.state.cache["k_pages"].shape[3]),
+                       reserved=int(eng._reserved))
+        out[name] = rec
+    return out
+
+
+def tp_units(qwen_fields, qwen_params, toks, dec_toks, bias_fields):
+    """Two model ranks (a (1, 2) mesh): the vocab-parallel embedding and
+    unembedding and a row-parallel ``Dense`` on seeded inputs (returned
+    whole, for the parent's expected values), the reduced qwen3's
+    prefill and decode logits on the reference's weights (both impls),
+    and a seeded build's parameters and logits for the reduced qwen3 and
+    the reduced qwen2.5-32b (qkv biases)."""
+    from repro_torch.distributed.context import constrain_logits
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models.layers import Dense, embed
+    from repro_torch.models.model import build_model
+    world = make_rank_mesh(1, 2, device="cpu").world
+    m = world.coords[1]
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn(64, 16, generator=g)
+    tokens = torch.randint(0, 64, (3, 7), generator=g)
+    h = torch.randn(3, 16, generator=g)
+    kernel = torch.randn(24, 8, generator=g)
+    x = torch.randn(5, 24, generator=g)
+    dense = Dense(12, 8)
+    dense.kernel.data = kernel[m * 12:(m + 1) * 12].clone()
+    dense.reduce_world = world
+    rows = table[m * 32:(m + 1) * 32]
+    out = {"inputs": dict(table=table.numpy(), tokens=tokens.numpy(),
+                          h=h.numpy(), kernel=kernel.numpy(), x=x.numpy()),
+           "embed": embed(rows, tokens, m * 32, world).numpy(),
+           "unembed": constrain_logits(h @ rows.T, world).numpy(),
+           "dense": dense(x[:, m * 12:(m + 1) * 12]).numpy()}
+    cfg = port_config(qwen_fields)
+    model = rank_model(cfg, qwen_params, world)
+    B, L = toks.shape
+    with torch.inference_mode():
+        for impl in ("torch", "cuda"):
+            lg, _, cache = model.prefill(
+                torch.as_tensor(toks, dtype=torch.long),
+                model.make_cache(B, 48), impl=impl)
+            steps = [lg.numpy()]
+            for tok in dec_toks:
+                lg, _, cache = model.decode_step(
+                    torch.as_tensor(tok, dtype=torch.long), cache, impl=impl)
+                steps.append(lg.numpy())
+            out[f"logits_{impl}"] = steps
+        out["kv_heads"] = int(cache["k"].shape[3])
+        seeded = {}
+        for name, fields in (("qwen3", qwen_fields),
+                             ("qwen2.5", bias_fields)):
+            built = build_model(port_config(fields), torch.float32,
+                                device="cpu", seed=0, world=world)
+            lg, _, _ = built.prefill(torch.as_tensor(toks, dtype=torch.long),
+                                     built.make_cache(B, 48))
+            seeded[name] = ({k: v.numpy() for k, v in
+                             built.state_dict().items()}, lg.numpy())
+        out["seeded"] = seeded
+    return out
+
+
+def cli_runs(argvs):
+    """``serve.main`` on this rank for each argv (the group is up, so
+    ``--mesh`` serves as ranks); returns [(stdout, streams digest, the
+    engine's eager-body flag, its kernel launches)]."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    out = []
+    for argv in argvs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = serve.main(argv)
+        out.append((buf.getvalue(), digest(res["results"]),
+                    res["engine"]._eager_body, res["launches"]))
+    return out
