@@ -256,9 +256,13 @@ SEAMLESS_DENSE_LAYERS = 4
 # a model rank's heads of qwen3-0.6b at model=2: 8 query over 4 kv heads
 RANK_HEADS = (8, 4)
 RANK_ENTRY = "qwen3-0.6b tp2 rank"
+# a model rank's heads of llava-1.5-7b at model=2: 16 query over 16 kv
+# heads; K2 at the bucket of the vlm ranks phase's two requests
+LLAVA_RANK_HEADS = (16, 16)
+LLAVA_RANK_ENTRY = "llava-1.5-7b tp2 rank"
 NEW_ENTRIES = tuple(LARGE_HEADS) + ("granite-34b int8", "granite-34b fp8",
                                     "internvl2-2b") + HD256_ENTRIES + (
-    SEAMLESS["name"], RANK_ENTRY)
+    SEAMLESS["name"], RANK_ENTRY, LLAVA_RANK_ENTRY)
 # K3's second timing shape: the reference's decode_32k cache length
 # (repro/config.py:263); K3 is timed at each length of the sweep, from
 # one 16-row tile to 2048 of them
@@ -640,10 +644,11 @@ def flash_shape_timing(torch, ops, ref, timer, g, name, B, L, H, Hkv, hd):
 def rank_shape_phase(torch, ops, ref, timer):
     """K1, K3 and K2 at a model rank's shapes of qwen3-0.6b at model=2
     (``RANK_HEADS``: 8 query over 4 kv heads, hd 128): K1 and K3 at B 8,
-    S 288 with the serve phase's lengths, K2 at the 8 x 256 bucket, each
+    S 288 with the serve phase's lengths, K2 at the 8 x 256 bucket; and K1
+    and K2 at llava-1.5-7b's rank shapes (``LLAVA_RANK_HEADS``); each
     held against its plain version and timed beside its bound and SDPA's
     time (``decode_timing``, ``flash_shape_timing``). Returns ({kernel:
-    {RANK_ENTRY: times}}, {kernel: max_abs_err})."""
+    {entry: times}}, {kernel: max_abs_err})."""
     g = torch.Generator(device="cuda").manual_seed(12)
     H, Hkv = RANK_HEADS
     B = SERVE["slots"]
@@ -661,6 +666,22 @@ def rank_shape_phase(torch, ops, ref, timer):
         128)
     entries["flash_attention"] = {RANK_ENTRY: {
         k: t[k] for k in SUB_KEYS + TF32_BOUNDS}}
+    # llava-1.5-7b at model=2 (``LLAVA_RANK_HEADS``): K1 at the serve
+    # phase's decode shape (B 8, S 864), K2 at the vlm ranks phase's
+    # bucket of its two requests (2 x 832)
+    H, Hkv = LLAVA_RANK_HEADS
+    t, err = decode_timing(
+        torch, ops, ref, timer, g, MM_CACHE_LEN, paged=True, H=H, Hkv=Hkv,
+        lengths=[MM_CACHE_LEN - 31 + 4 * i for i in range(B)])
+    errs["paged_decode_attention"] = max(errs["paged_decode_attention"], err)
+    entries["paged_decode_attention"][LLAVA_RANK_ENTRY] = {
+        k: t[k] for k in SUB_KEYS + ("by_kernel", "sdpa_on_gathered_ms")}
+    t, err = flash_shape_timing(
+        torch, ops, ref, timer, g, LLAVA_RANK_ENTRY, VLM_REQUESTS,
+        IMAGE_TOKENS + SERVE["prompt"], H, Hkv, 128)
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    entries["flash_attention"][LLAVA_RANK_ENTRY] = {
+        k: t[k] for k in SUB_KEYS + TF32_BOUNDS}
     return entries, errs
 
 
@@ -1744,12 +1765,16 @@ def mesh_phase(torch, ops, serve, model, card):
 # mesh admits as one device does)
 RANKS_ARGV = with_arg(QWEN_ARGV, "--requests", 2) + [
     "--num-pages", str(MESH_PAGES)]
-# the runs of two gloo ranks on the one card: (mesh, impl), and the run
-# of one process whose streams each must give
-RANK_RUNS = {"(b)": ("1,2", "paged_cuda", "(a)"),
-             "(c)": ("2,1", "paged_cuda", "(a)"),
-             "(d)": ("1,2", "cuda", "(d0)")}
-RANKS_TIMEOUT = 400
+# the runs of two gloo ranks on the one card: (mesh, impl, layers, 0 for
+# all of them), and the run of one process whose streams each must give.
+# (b) and (d), whose ~59 host-staged collectives a step cost ~4 ms each,
+# serve 4 of the 28 layers, against one-process runs of those 4 layers
+# ((a4), (d0)): the vlm ranks phase needs their time
+RANK_LAYERS = 4
+RANK_RUNS = {"(b)": ("1,2", "paged_cuda", RANK_LAYERS, "(a4)"),
+             "(c)": ("2,1", "paged_cuda", 0, "(a)"),
+             "(d)": ("1,2", "cuda", RANK_LAYERS, "(d0)")}
+RANKS_TIMEOUT = 420          # one torchrun for the qwen3 and llava runs
 SPLIT_MARGIN = 1e-4
 
 
@@ -1785,7 +1810,10 @@ def one_nccl_rank():
 def rank_record(torch, out):
     """What a rank's serve run shows: its streams, launches, tokens/s,
     peak device memory, the bytes of its weights and pools, its head and
-    row counts and its pool's pages (own range and mirrors)."""
+    row counts and its pool's pages (own range and mirrors); with a
+    vision tower its image encodes, memo hits, candidates rescored (and
+    parted from rank 0's S_align), the tower's heads and the peak the
+    allocator reserved."""
     eng = out["engine"]
     model = eng.model
     cache = eng.state.cache
@@ -1808,6 +1836,17 @@ def rank_record(torch, out):
         rec.update(pool_pages=int(cache["k_pages"].shape[1]),
                    own_pages=eng._own_pages, num_pages=eng.pool.num_pages,
                    mirror_pages=eng._n_mirror, mirror_peak=eng.mirror_peak)
+    if model.vision is not None:
+        v = eng.cfg.vision
+        rec.update(
+            image_encodes=eng.image_encodes,
+            image_feat_hits=eng.image_feat_hits,
+            encode_ms=eng.image_encode_s * 1e3 / max(eng.image_encodes, 1),
+            rescored=eng.xmodal_rescored, parted=eng.xmodal_parted,
+            candidates=sum(r.n_candidates for r in out["results"]),
+            vision_heads=model.vision.blocks[0].wq.kernel.shape[1] //
+            (v.d_model // v.num_heads),
+            peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
     return rec
 
 
@@ -1856,7 +1895,7 @@ def stream_split(a, b):
 
 def streams_agree(torch, serve, model, argv, got, want, what):
     """``got``'s streams equal ``want``'s, or part where the one-process
-    model's top two logits (after the request's prompt and the
+    model's top two logits (after the request's image, prompt and the
     candidate's common prefix) lie within ``SPLIT_MARGIN``: the step and
     both logits are printed. Fails otherwise."""
     split = stream_split(json.loads(json.dumps(got)),
@@ -1870,7 +1909,12 @@ def streams_agree(torch, serve, model, argv, got, want, what):
     toks = torch.as_tensor(list(req.prompt) + list(prefix),
                            device="cuda")[None]
     with torch.inference_mode():
-        lg, _, _ = model.prefill(toks, model.make_cache(1, toks.shape[1]))
+        # an image request's evidence rows prefill ahead of its tokens
+        ev = None if req.image is None else model.encode_image(
+            torch.as_tensor(req.image, device="cuda")[None])
+        ne = 0 if ev is None else ev.shape[1]
+        lg, _, _ = model.prefill(toks, model.make_cache(1, ne + toks.shape[1]),
+                                 ev)
     top = torch.topk(lg[0].float(), 2).values
     margin = float(top[0] - top[1])
     print(f"{what}: streams part at request {uid}, step {len(prefix)}: "
@@ -1900,17 +1944,11 @@ def ranks_phase(torch, ops, serve, model, card):
     the serve entry point, on the qwen3 serve phase's weights where one
     process serves (``RANKS_ARGV``): (a) one NCCL rank (world 1; the
     macro body captured as one graph with its collectives) against the
-    same run without a group: the same streams and K1/K2 counts; then,
-    through one torchrun launch of two gloo ranks on the card (their
-    bodies eager), (b) ``--mesh 1,2`` (8/4 heads a rank; K2 once a layer
-    a prefill bucket, K1 once a layer a step), (c) ``--mesh 2,1`` (half
-    the slots and pages a rank, with mirror pages for the prompt pages
-    its slots read on the other shard), each with (a)'s streams, and (d)
-    ``--mesh 1,2 --impl cuda`` (K2 and K3) with the streams of the
-    one-process cuda run (d0). Where streams part, ``streams_agree``
-    prints the step and logits. Prints tokens/s, per-rank peak memory and
-    weight and KV bytes beside the card. Returns ({run: launches}, the
-    paged runs, the dense runs)."""
+    same run without a group: the same streams and K1/K2 counts; and the
+    one-process runs (a4) and (d0) at ``RANK_LAYERS`` layers. Returns
+    ({run: launches}, what ``ranks_check`` needs: the gloo runs' spec for
+    ``gloo_ranks``, (b) ``--mesh 1,2``, (c) ``--mesh 2,1`` and (d) ``--mesh
+    1,2 --impl cuda``, and the one-process streams they must give)."""
     t0 = time.perf_counter()
     runs = {}
     runs["qwen3-0.6b ranks one process"], base = serve_phase(
@@ -1937,42 +1975,94 @@ def ranks_phase(torch, ops, serve, model, card):
                        kv_bytes=a["engine"].kv_stats()["bytes_per_page"] *
                        a["engine"].pool.num_pages)}
     del base, a, eng
-    dense_argv = with_arg(RANKS_ARGV, "--impl", "cuda")
-    ops.reset_launches()
-    d0 = serve.main(dense_argv, model=model)
-    torch.cuda.synchronize()
-    runs["qwen3-0.6b ranks (d0)"] = dict(ops.LAUNCHES)
-    one["(d0)"] = dict(streams=stream_digest(d0["results"]),
-                       tps=d0["tokens_per_s"])
-    del d0
+    from repro_torch.models.model import build_model
+    small = build_model(model.cfg.with_overrides(num_layers=RANK_LAYERS),
+                        torch.float32, device="cuda", seed=0)
+    shallow = RANKS_ARGV + ["--num-layers", str(RANK_LAYERS)]
+    for run, impl in (("(a4)", "paged_cuda"), ("(d0)", "cuda")):
+        ops.reset_launches()
+        o = serve.main(with_arg(shallow, "--impl", impl), model=small)
+        torch.cuda.synchronize()
+        runs[f"qwen3-0.6b ranks {run}"] = dict(ops.LAUNCHES)
+        one[run] = dict(streams=stream_digest(o["results"]),
+                        tps=o["tokens_per_s"])
+        del o
+    del small
     free_memory(torch)
-    spec = [(run, with_arg(RANKS_ARGV, "--impl", impl) +
-             ["--mesh", mesh, "--dist-backend", "gloo"])
-            for run, (mesh, impl, _) in RANK_RUNS.items()]
-    t1 = time.perf_counter()
+    spec = [(f"qwen3 {run}", with_arg(RANKS_ARGV, "--impl", impl) +
+             ["--mesh", mesh, "--dist-backend", "gloo"] +
+             (["--num-layers", str(layers)] if layers else []))
+            for run, (mesh, impl, layers, _) in RANK_RUNS.items()]
+    a = one["(a)"]
+    print(f"ranks: (a) one NCCL rank {a['tps']:.1f} tok/s, weights "
+          f"{a['weight_bytes'] / 1e9:.3f} GB, KV {a['kv_bytes'] / 1e6:.1f} MB;"
+          f" {RANK_LAYERS} layers in one process: (a4) paged_cuda "
+          f"{one['(a4)']['tps']:.1f}, (d0) cuda {one['(d0)']['tps']:.1f} "
+          f"tok/s ({card}); in process {time.perf_counter() - t0:.1f} s")
+    return runs, dict(spec=spec, one=one, cfg=model.cfg)
+
+
+def gloo_ranks(spec):
+    """One torchrun launch of two gloo ranks on the card (the
+    ``expandable_segments`` allocator) serving each (run, argv) of
+    ``spec`` in turn through ``ranks_worker``; prints their output and
+    returns their records (one a rank and run). One launch for the qwen3
+    and the llava runs: a launch's start and end cost ~10-20 s."""
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
         cmd = [sys.executable, "-m", "torch.distributed.run",
                "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
                "--master-port", str(free_port()), str(ROOT / "chip_smoke.py"),
                "--ranks-worker", json.dumps(spec), out_dir]
-        print("ranks phase: " + " ".join(cmd[:-2]) + " '<runs>' <dir>")
+        print("gloo ranks: " + " ".join(cmd[:-2]) + " '<runs>' <dir>")
+        env = dict(os.environ,
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=RANKS_TIMEOUT)
+                              timeout=RANKS_TIMEOUT, env=env)
         records = [json.loads(f.read_text())
                    for f in sorted(Path(out_dir).glob("*.json"))]
     for line in proc.stdout.splitlines():
         print(f"  | {line}")
     if proc.returncode != 0:
         print(proc.stderr[-6000:])
-    check(proc.returncode == 0 and len(records) == 2 * len(RANK_RUNS),
-          f"ranks phase: torchrun exited {proc.returncode} with "
+    check(proc.returncode == 0 and len(records) == 2 * len(spec),
+          f"gloo ranks: torchrun exited {proc.returncode} with "
           f"{len(records)} records")
-    print(f"ranks phase: torchrun of two gloo ranks, {len(RANK_RUNS)} runs, "
-          f"{time.perf_counter() - t1:.1f} s")
+    print(f"gloo ranks: torchrun of two gloo ranks, {len(spec)} runs, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return records
+
+
+def agree(torch, serve, cfg, argv, got, want, what, models):
+    """``streams_agree`` on ``cfg``'s seeded model (fp32, on the card),
+    built only when ``got``'s streams part from ``want``'s and kept in
+    ``models`` by (name, layers)."""
+    if stream_split(json.loads(json.dumps(got)),
+                    json.loads(json.dumps(want))) is None:
+        return
+    from repro_torch.models.model import build_model
+    key = (cfg.name, cfg.num_layers)
+    if key not in models:
+        models[key] = build_model(cfg, torch.float32, device="cuda", seed=0)
+    streams_agree(torch, serve, models[key], argv, got, want, what)
+
+
+def ranks_check(torch, serve, pending, records, card):
+    """``ranks_phase``'s gloo runs, from their records: every rank's body
+    eager, its heads, rows and pages, K2 once a layer a prefill bucket
+    and K1 (paged) or K3 (dense) once a layer a step
+    (``rank_launch_checks``), and (a)'s streams for (c), (a4)'s for (b),
+    (d0)'s for (d) (``agree``). Prints tokens/s, per-rank peak memory and
+    weight and KV bytes beside the card. Returns ({run: launches}, the
+    paged runs, the dense runs)."""
+    runs, models = {}, {}
+    one = pending["one"]
     paged_runs, dense_runs = [], []
-    for run, (mesh, impl, ref_run) in RANK_RUNS.items():
-        recs = [r for r in records if r["run"] == run]
+    for run, (mesh, impl, layers, ref_run) in RANK_RUNS.items():
+        recs = [r for r in records if r["run"] == f"qwen3 {run}"]
         dp, mp = (int(x) for x in mesh.split(","))
+        cfg = pending["cfg"].with_overrides(num_layers=layers) if layers \
+            else pending["cfg"]
         for rec in recs:
             what = f"ranks {run} --mesh {mesh} {impl}"
             check(rec["eager"] and rec["graphs"] == 0,
@@ -1988,9 +2078,9 @@ def ranks_phase(torch, ops, serve, model, card):
                       f"{what} rank {rec['rank']}: pool of "
                       f"{rec['pool_pages']} pages, own {rec['own_pages']}")
             rank_launch_checks(rec, what)
-            streams_agree(torch, serve, model, RANKS_ARGV, rec["streams"],
-                          one[ref_run]["streams"],
-                          f"{what} rank {rec['rank']}")
+            agree(torch, serve, cfg, RANKS_ARGV, rec["streams"],
+                  one[ref_run]["streams"], f"{what} rank {rec['rank']}",
+                  models)
             name = f"qwen3-0.6b ranks {run} rank {rec['rank']}"
             runs[name] = rec["launches"]
             (paged_runs if "pool_pages" in rec else dense_runs).append(name)
@@ -2005,12 +2095,168 @@ def ranks_phase(torch, ops, serve, model, card):
                       if "pool_pages" in rec else "") + f", {rec['q_heads']}"
                   f"/{rec['kv_heads']} heads, {rec['B_local']} rows; "
                   f"launches {rec['launches']}")
-    a = one["(a)"]
-    print(f"ranks: (a) one NCCL rank {a['tps']:.1f} tok/s, weights "
-          f"{a['weight_bytes'] / 1e9:.3f} GB, KV {a['kv_bytes'] / 1e6:.1f} MB;"
-          f" (d0) one process cuda {one['(d0)']['tps']:.1f} tok/s ({card})")
-    print(f"ranks phase: {time.perf_counter() - t0:.1f} s")
-    return runs, tuple(paged_runs), tuple(dense_runs)
+    del models
+    free_memory(torch)
+    return runs, tuple(paged_runs) + ("qwen3-0.6b ranks (a4)",), \
+        tuple(dense_runs)
+
+
+# vlm serving over ranks (vlm_ranks_phase): full-width llava-1.5-7b,
+# fp32, CAMD with cross-modal rescoring, 2 requests over the image pool
+# and 16 new tokens (the decode, ~0.4 s a step on two gloo ranks, is the
+# phase's cost), on a pool sized for them: a shard can hold both prompts'
+# 52 pages and its 4 slots' tail pages beside its quarantine page, so
+# that no shard's capacity binds (every mesh admits as one device does)
+VLM_REQUESTS = 2
+VLM_MAX_NEW = 16
+MM_PROMPT_PAGES = (IMAGE_TOKENS + SERVE["prompt"]) // SERVE["page"]
+VLM_PAGES = 2 * (VLM_REQUESTS * MM_PROMPT_PAGES + SERVE["slots"] // 2 *
+                 -(-VLM_MAX_NEW // SERVE["page"]) + 1)
+VLM_RANKS_ARGV = with_arg(with_arg(LLAVA_ARGV, "--requests", VLM_REQUESTS),
+                          "--max-new", VLM_MAX_NEW) + [
+    "--num-pages", str(VLM_PAGES)]
+# the runs of two gloo ranks on the one card: mesh, each rank's LM query
+# and kv heads and the tower's heads
+VLM_RANK_RUNS = {"(b)": ("1,2", (16, 16), 8), "(c)": ("2,1", (32, 32), 16)}
+
+
+def vlm_checks(rec, one, what):
+    """A vlm rank's run: the one-process run's image encodes and memo
+    hits, every candidate it finished rescored by K4 (one K4a and one K4b
+    launch each) with rank 0's S_align its own, and its peak memory under
+    the card's."""
+    check((rec["image_encodes"], rec["image_feat_hits"]) ==
+          (one["image_encodes"], one["image_feat_hits"]),
+          f"{what}: {rec['image_encodes']} encodes and "
+          f"{rec['image_feat_hits']} memo hits, not the one process's "
+          f"{one['image_encodes']} and {one['image_feat_hits']}")
+    check(rec["rescored"] == rec["candidates"] and rec["parted"] == 0,
+          f"{what}: {rec['rescored']} of {rec['candidates']} candidates "
+          f"rescored, {rec['parted']} parted from rank 0's S_align")
+    for name in ("xmodal_score_mean", "xmodal_score_max"):
+        check(rec["launches"][name] == rec["rescored"],
+              f"{what}: {name} launched {rec['launches'][name]} times for "
+              f"{rec['rescored']} rescored candidates")
+    check(rec["peak_reserved_gb"] < one["card_gb"],
+          f"{what}: {rec['peak_reserved_gb']:.1f} GB reserved at peak")
+
+
+def vlm_ranks_phase(torch, ops, serve, card):
+    """Serving full-width llava-1.5-7b image requests in fp32 with CAMD
+    and cross-modal rescoring over torch.distributed ranks, through the
+    serve entry point (``VLM_RANKS_ARGV``): (a) one NCCL rank (world 1;
+    one captured graph with its collectives) against the same run
+    without a group, on one seeded model: the same streams, image encodes
+    and memo hits and K1/K2/K4a/K4b counts. The model is released before
+    the two gloo ranks share the card. Returns ({run: launches}, what
+    ``vlm_ranks_check`` needs: the gloo runs' spec for ``gloo_ranks``, (b)
+    ``--mesh 1,2`` and (c) ``--mesh 2,1``, and (a)'s record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    model = build_model(get_config("llava-1.5-7b").with_overrides(
+        dtype="float32"), torch.float32, device="cuda", seed=0)
+    runs = {}
+    runs["llava-1.5-7b ranks one process"], base = serve_phase(
+        torch, ops, serve, VLM_RANKS_ARGV, LLAVA_KERNELS, model=model)
+    image_checks(torch, serve, VLM_RANKS_ARGV, base)
+    with one_nccl_rank():
+        runs["llava-1.5-7b ranks (a)"], a = serve_phase(
+            torch, ops, serve, VLM_RANKS_ARGV + ["--mesh", "1,1"],
+            LLAVA_KERNELS, model=model)
+    eng = a["engine"]
+    check(eng.world is not None and eng.world.backend == "nccl" and
+          not eng._eager_body and eng._graphs_captured == 1,
+          "vlm ranks (a): not one NCCL rank replaying one captured graph")
+    want = stream_digest(base["results"])
+    check(stream_digest(a["results"]) == want,
+          "vlm ranks (a): streams differ from the run without a group")
+    check((eng.image_encodes, eng.image_feat_hits) ==
+          (base["engine"].image_encodes, base["engine"].image_feat_hits),
+          "vlm ranks (a): image encodes and memo hits differ from the run "
+          "without a group")
+    for name in LLAVA_KERNELS:
+        check(runs["llava-1.5-7b ranks (a)"][name] ==
+              runs["llava-1.5-7b ranks one process"][name],
+              f"vlm ranks (a): {name} launched differently from the run "
+              "without a group")
+    one = dict(streams=want, tps=a["tokens_per_s"], peak_gb=a["peak_gb"],
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+               kv_bytes=eng.kv_stats()["bytes_per_page"] *
+               eng.pool.num_pages, image_encodes=eng.image_encodes,
+               image_feat_hits=eng.image_feat_hits,
+               encode_ms=eng.image_encode_s * 1e3 / max(eng.image_encodes, 1),
+               rescored=eng.xmodal_rescored, card_gb=total_gb,
+               cfg=model.cfg)
+    print(f"vlm ranks: (a) one NCCL rank {one['tps']:.1f} tok/s, without a "
+          f"group {base['tokens_per_s']:.1f} ({card}); weights "
+          f"{one['weight_bytes'] / 1e9:.3f} GB, KV {one['kv_bytes'] / 1e6:.1f}"
+          f" MB, peak {one['peak_gb']:.2f} GB; {one['image_encodes']} "
+          f"encodes ({one['encode_ms']:.1f} ms each, wall), "
+          f"{one['image_feat_hits']} memo hits, "
+          f"{one['rescored']} candidates rescored; in process "
+          f"{time.perf_counter() - t0:.1f} s")
+    del base, a, eng, model
+    check_released(torch, "vlm ranks (a)")
+    spec = [(f"llava {run}", VLM_RANKS_ARGV + ["--mesh", mesh,
+                                               "--dist-backend", "gloo"])
+            for run, (mesh, _, _) in VLM_RANK_RUNS.items()]
+    return runs, dict(spec=spec, one=one)
+
+
+def vlm_ranks_check(torch, serve, pending, records, card):
+    """``vlm_ranks_phase``'s gloo runs, from their records: (b) 16/16 LM
+    heads and 8 tower heads a rank and half the weights, (c) the whole
+    model, half the slots and pages a rank with mirror pages; each rank
+    with (a)'s streams (``agree``), K1/K2 counts (``rank_launch_checks``)
+    and ``vlm_checks``. Prints tokens/s, peak memory with the build,
+    weight and KV bytes, the tower's encode time, encodes, hits and K4
+    launches a rank beside the card. Returns ({run: launches}, the rank
+    runs)."""
+    one = pending["one"]
+    runs, rank_runs, models = {}, [], {}
+    for run, (mesh, (H, Hkv), vh) in VLM_RANK_RUNS.items():
+        dp, mp = (int(x) for x in mesh.split(","))
+        for rec in (r for r in records if r["run"] == f"llava {run}"):
+            what = f"vlm ranks {run} --mesh {mesh} rank {rec['rank']}"
+            check(rec["eager"] and rec["graphs"] == 0,
+                  f"{what}: a gloo rank's body must run eagerly")
+            check((rec["q_heads"], rec["kv_heads"], rec["vision_heads"],
+                   rec["B_local"]) == (H, Hkv, vh, SERVE["slots"] // dp),
+                  f"{what}: {rec['q_heads']}/{rec['kv_heads']} heads, "
+                  f"{rec['vision_heads']} tower heads, {rec['B_local']} rows")
+            share = rec["weight_bytes"] / one["weight_bytes"]
+            check(abs(share - 1 / mp) < 0.01,
+                  f"{what}: holds {share:.4f} of the weights, not 1/{mp}")
+            rank_launch_checks(rec, what)
+            vlm_checks(rec, one, what)
+            agree(torch, serve, one["cfg"], VLM_RANKS_ARGV, rec["streams"],
+                  one["streams"], what, models)
+            name = f"llava-1.5-7b ranks {run} rank {rec['rank']}"
+            runs[name] = rec["launches"]
+            rank_runs.append(name)
+            print(f"{what} at {tuple(rec['coords'])}: "
+                  f"{rec['tokens_per_s']:.1f} tok/s ({card}), peak device "
+                  f"memory {rec['peak_gb']:.2f} GB allocated, "
+                  f"{rec['peak_reserved_gb']:.2f} GB reserved (build "
+                  f"included), weights {rec['weight_bytes'] / 1e9:.3f} GB, "
+                  f"KV {rec['kv_bytes'] / 1e6:.1f} MB ({rec['pool_pages']} "
+                  f"pages: {rec['own_pages']} own of {rec['num_pages']}, "
+                  f"{rec['mirror_pages']} mirror, {rec['mirror_peak']} used "
+                  f"at peak), {rec['q_heads']}/{rec['kv_heads']} heads, "
+                  f"{rec['vision_heads']} tower heads, {rec['B_local']} "
+                  f"rows; {rec['image_encodes']} image encodes "
+                  f"({rec['encode_ms']:.1f} ms each, wall), "
+                  f"{rec['image_feat_hits']} memo hits, K4a/K4b "
+                  f"{rec['launches']['xmodal_score_mean']}/"
+                  f"{rec['launches']['xmodal_score_max']} launches for "
+                  f"{rec['rescored']} rescored candidates; launches "
+                  f"{rec['launches']}")
+    del models
+    free_memory(torch)
+    return runs, tuple(rank_runs)
 
 
 def spec_report(name, out, plain_tps):
@@ -4147,12 +4393,27 @@ def main() -> None:
                                    card).items())
     runs.update(mesh_serves)
     stamp("serving over ranks")
-    # one NCCL rank, then two gloo ranks on the card through torchrun
-    rank_runs, rank_paged, rank_dense = ranks_phase(
-        torch, ops, serve, out["engine"].model, card)
+    # one NCCL rank for qwen3-0.6b, then for full-width llava-1.5-7b image
+    # requests with K4 rescoring; then the two models' gloo runs, two
+    # ranks on the card, in one torchrun
+    rank_runs, rank_pending = ranks_phase(torch, ops, serve,
+                                          out["engine"].model, card)
     runs.update(rank_runs)
     del out
     check_released(torch, "qwen3-0.6b serve")
+    stamp("vlm over ranks")
+    vlm_runs, vlm_pending = vlm_ranks_phase(torch, ops, serve, card)
+    runs.update(vlm_runs)
+    stamp("gloo ranks")
+    records = gloo_ranks(rank_pending["spec"] + vlm_pending["spec"])
+    gloo_runs, rank_paged, rank_dense = ranks_check(
+        torch, serve, rank_pending, records, card)
+    runs.update(gloo_runs)
+    gloo_runs, vlm_rank_runs = vlm_ranks_check(torch, serve, vlm_pending,
+                                               records, card)
+    runs.update(gloo_runs)
+    vlm_runs = tuple(vlm_runs) + vlm_rank_runs
+    check_released(torch, "ranks")
     profile_phase(torch, ops, serve, QWEN_ARGV)
     free_memory(torch)
     runs["qwen3-0.6b dense check"] = dense_check(
@@ -4350,14 +4611,14 @@ def main() -> None:
                   tuple(open_runs) + ("qwen3-0.6b open loop camd",) +
                   new_serves + tuple(run for run, _ in mesh_serves) +
                   ("qwen3-0.6b ranks one process", "qwen3-0.6b ranks (a)") +
-                  rank_paged
+                  rank_paged + tuple(vlm_runs)
                   for name in ("flash_attention", "paged_decode_attention")})
     paths["decode_attention"] += ("qwen3-0.6b ranks (d0)",) + rank_dense
     paths["flash_attention"] += tuple(rescore_runs) + rg_runs + ed_runs + \
         ("qwen3-0.6b ranks (d0)",) + rank_dense
     paths.update({name: serves + spec_runs[1:2] + (
         "internvl2-2b serve", "llava-1.5-7b rescore", ed_runs[0],
-        f"{SEAMLESS['name']} rescore")
+        f"{SEAMLESS['name']} rescore") + tuple(vlm_runs)
         for name in ("xmodal_score_mean", "xmodal_score_max")})
     paths.update({name: serves + spec_runs[2:] +
                   ("granite-moe-3b-a800m rescore",)

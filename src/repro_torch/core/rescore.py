@@ -20,7 +20,6 @@ import torch
 from repro_torch.config import CAMDConfig
 from repro_torch.core import controller as ctrl
 from repro_torch.core import scoring
-from repro_torch.models.layers import dense
 
 
 @torch.no_grad()
@@ -63,7 +62,13 @@ def rescore_candidates(model, cfg: CAMDConfig, prompt, candidates, mask,
                        ) -> Dict[str, torch.Tensor]:
     """Eq. 7-12 evidence-weighted scores of externally generated
     candidates: per candidate ``score``, its terms ``s_gen``, ``s_align``
-    (zero without evidence), ``s_coh``, and ``hidden_mean`` (K, d)."""
+    (zero without evidence), ``s_coh``, and ``hidden_mean`` (K, d). A
+    model cut for a rank of a serving mesh is refused."""
+    if getattr(model, "world", None) is not None:
+        raise NotImplementedError(
+            f"{model.cfg.name}: rescoring with a model cut for a rank is "
+            "not ported (ROADMAP.md Queue 1 item 5); the serving engine "
+            "rescores over ranks")
     token_lp, hidden, token_embs = teacher_forced_stats(
         model, prompt, candidates, mask, evidence, impl=impl)
     s_gen = scoring.generation_confidence(token_lp, mask)
@@ -72,7 +77,7 @@ def rescore_candidates(model, cfg: CAMDConfig, prompt, candidates, mask,
     if evidence is not None and model.cfg.num_evidence_tokens:
         vis = evidence.float()
         if model.evidence_proj is not None:
-            vis = dense(model.evidence_proj.kernel.float(), vis)
+            vis = model.project_evidence(vis)
         txt = model.embed.table[prompt.long()].float()
         # the K4 kernels take (K, ., d) rows of their own
         vis = vis[None].expand((K,) + tuple(vis.shape)).contiguous()

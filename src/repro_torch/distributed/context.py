@@ -13,7 +13,9 @@ collectives. The port places every tensor itself
   reductions (``wo``, ``w_down``), the vocab-parallel embedding's sum
   and the gather of vocab-sharded logits run over it;
 * its data group is the ranks ``(0..dp-1, m)``: the serving engine's
-  exit flags and its per-slot outputs run over it.
+  exit flags and its per-slot outputs run over it;
+* the world (the default group) carries the cross-modal scores rank 0
+  hands every rank (``broadcast``).
 
 A collective over a gloo group on CUDA tensors stages through the host
 here, by name (``_host``): gloo computes on host memory. Without a world
@@ -97,6 +99,15 @@ class RankWorld:
         """The data group's blocks of ``t``, concatenated on ``dim`` in
         data-coordinate order."""
         return self._all_gather(t, self.data_group, self.dp, dim)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank of the world, in place;
+        returns ``t``."""
+        x = self._host(t)
+        dist.broadcast(x, src=src)
+        if x is not t:
+            t.copy_(x)
+        return t
 
     def any_data(self, t: torch.Tensor) -> torch.Tensor:
         """Elementwise max of an int32 tensor over the data group, in

@@ -354,9 +354,12 @@ def check_model_split(cfg: ModelConfig, mesh,
     """Refuse a model axis the port cannot run: its split must cut whole
     heads and keep each query head with its kv head (H and Hkv both
     divide), and a split MLP must be the gated one (column-parallel gate
-    and up, row-parallel down). The reference's rule cuts the flat
-    ``H * hd`` dim, which GSPMD may split mid-head (granite-34b's one kv
-    head under model=2); the port runs heads whole."""
+    and up, row-parallel down). A vision tower's heads must split whole
+    too; its gelu MLP is cut by its own rule (``w_in`` and ``w_out``
+    columns, gathered), so the LM's gelu refusal does not reach it. The
+    reference's rule cuts the flat ``H * hd`` dim, which GSPMD may split
+    mid-head (granite-34b's one kv head under model=2); the port runs
+    heads whole."""
     m = mesh.shape.get(rules.model_axis, 1)
     if m <= 1:
         return
@@ -366,6 +369,12 @@ def check_model_split(cfg: ModelConfig, mesh,
             f"{cfg.name}: {cfg.num_heads} query heads over "
             f"{cfg.num_kv_heads} kv heads do not split whole over "
             f"model={m}; the port splits whole heads only {where}")
+    v = cfg.vision
+    if v is not None and v.num_heads % m:
+        raise NotImplementedError(
+            f"{cfg.name}: the vision tower's {v.num_heads} heads do not "
+            f"split whole over model={m}; the port splits whole heads only "
+            f"{where}")
     if cfg.d_ff and cfg.mlp_activation != "swiglu":
         raise NotImplementedError(
             f"{cfg.name}: a {cfg.mlp_activation} MLP over model={m}: the "

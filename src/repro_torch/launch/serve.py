@@ -71,7 +71,13 @@ model for its rank and serves its data shard's slots and pages::
 NCCL takes one card a rank; ranks sharing a card run over gloo, whose
 macro body runs eagerly (``graph: off (gloo)`` on the ``serving mesh:``
 line). Rank 0 prints the results; every rank prints its kernel launches
-(``rank R launches: {...}``) and returns them under ``launches``.
+(``rank R launches: {...}``, with a vision config its image encodes,
+feature-memo hits and candidates rescored) and returns them under
+``launches``. Image requests and ``--xmodal-rescore`` serve over ranks::
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.serve --device cpu --arch llava-1.5-7b \
+        --xmodal-rescore --mesh 1,2 --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -510,11 +516,16 @@ def _serve(args, cfg, eng, param_dtype, t_build) -> Dict[str, object]:
             f"{a['num_rows']} rows of {a['bytes_per_row'] / 1e3:.1f} kB "
             f"({a['alloc_count']} allocs, {a['sizing_stalls']} stalls)")
     if eng.image_encodes or eng.image_feat_hits:
-        say(f"vision frontend: {eng.image_encodes} tower encodes, "
-            f"{eng.image_feat_hits} feature-memo hits")
+        say(f"vision frontend: {eng.image_encodes} tower encodes "
+            f"({eng.image_encode_s * 1e3:.1f} ms), {eng.image_feat_hits} "
+            "feature-memo hits")
     launches = dict(ops.LAUNCHES)
     if world is not None:
-        print(f"rank {world.rank} launches: {launches}")
+        print(f"rank {world.rank} launches: {launches}" + (
+            f"; image encodes {eng.image_encodes}, feature-memo hits "
+            f"{eng.image_feat_hits}, candidates rescored "
+            f"{eng.xmodal_rescored} ({eng.xmodal_parted} parted from rank "
+            "0's S_align)" if eng.has_evidence else ""))
     return {"engine": eng, "results": results, "seconds": secs,
             "tokens_per_s": eng.total_tokens / secs, "traces": traces,
             "metrics": metrics, "launches": launches}

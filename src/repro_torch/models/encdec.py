@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, Norm, dense, embed, mlp, rmsnorm
+from repro_torch.models.layers import MLP, Norm, embed, mlp, rmsnorm
 from repro_torch.models.transformer import _logits
 
 
@@ -71,9 +71,7 @@ def encode(model, evidence):
     cfg = model.cfg
     x = evidence
     if model.evidence_proj is not None:
-        kernel = model.evidence_proj.kernel
-        dt = torch.promote_types(x.dtype, kernel.dtype)
-        x = dense(kernel.to(dt), x.to(dt))
+        x = model.project_evidence(x)
     x = x.to(model.embed.table.dtype)
     B, L, _ = x.shape
     positions = _positions(B, L, x.device)

@@ -93,7 +93,10 @@ class Dense(nn.Module):
     N(0, 1) * d_in^-0.5 like ``repro.models.layers.dense_init``. A
     row-parallel rank's kernel holds its rows of the contracting dim:
     ``reduce_world`` (a ``distributed.context.RankWorld``) then sums the
-    partial products over the model group, before the bias."""
+    partial products over the model group, before the bias. A
+    column-parallel rank's kernel holds its columns of the output dim:
+    ``gather_world`` then gathers the blocks of the output (bias
+    included) over the model group, for a next op that needs it whole."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  dtype=torch.float32, device=None, gen=None):
@@ -103,8 +106,12 @@ class Dense(nn.Module):
                                              device=device),
                                  requires_grad=False) if bias else None
         self.reduce_world = None
+        self.gather_world = None
 
     def forward(self, x):
+        if self.gather_world is not None:
+            return self.gather_world.all_gather_model(
+                dense(self.kernel, x, self.bias), dim=-1)
         if self.reduce_world is None:
             return dense(self.kernel, x, self.bias)
         y = self.reduce_world.all_reduce_model(x @ self.kernel)

@@ -27,12 +27,15 @@ Built for a rank of a serving mesh (``world``, a
 ``distributed.context.RankWorld``), a model draws every whole tensor
 from the seeded generator in the one-device order and keeps the rank's
 block under the rule table's serving specs
-(``sharding.serve_param_specs``): its query and kv heads, MLP columns
-and vocabulary rows on the model axis, so that the ranks' weights are
-slices of the one-device model's, bit for bit. Row-parallel ``wo`` and
-``w_down`` then sum over the model group, the embedding is
-vocab-parallel and the logits are gathered. Attention-only decoders
-only: the other families raise ``NotImplementedError``.
+(``sharding.serve_param_specs``), a part (the embedding, a layer, the
+vision tower) at a time, so that a rank never holds the whole model:
+its query and kv heads, MLP columns and vocabulary rows on the model
+axis, so that the ranks' weights are slices of the one-device model's,
+bit for bit. Row-parallel ``wo``, ``w_down`` and the tower's
+``out_proj`` then sum over the model group, the tower's other column
+cuts gather, the embedding is vocab-parallel and the logits are
+gathered. Attention-only decoders, with the vlm family's evidence and
+tower: the other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import MLP, Norm, Dense, _normal, embed
+from repro_torch.models.layers import MLP, Dense, Norm, _normal, dense, embed
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU as RGLRUBlock
 from repro_torch.models.ssm import SSM as SSMBlock
@@ -79,8 +82,6 @@ def check_rank_supported(cfg: ModelConfig, world) -> None:
     (``sharding.check_model_split``)."""
     kinds = set(cfg.layer_kinds)
     refused = [
-        ("a vision tower or evidence tokens", "step 1, vlm over ranks",
-         cfg.vision is not None or cfg.num_evidence_tokens > 0),
         ("MoE layers", "step 2, MoE expert parallelism",
          cfg.moe is not None),
         ("recurrent layers", "step 3, the recurrent and hybrid arena over "
@@ -153,38 +154,47 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         kw = dict(dtype=self.param_dtype, device=self.device, gen=gen)
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, **kw)
-        if cfg.is_encoder_decoder:
-            self.enc_layers = nn.ModuleList(
-                encdec_lib.EncoderBlock(cfg, **kw)
-                for _ in range(cfg.num_encoder_layers))
-            self.dec_layers = nn.ModuleList(
-                encdec_lib.DecoderBlock(cfg, **kw)
-                for _ in range(cfg.num_layers))
-            self.enc_norm = Norm(cfg.d_model, dtype=self.param_dtype,
-                                 device=self.device)
-        else:
-            self.layers = nn.ModuleList(Block(cfg, kind, **kw)
-                                        for kind in cfg.layer_kinds)
-        self.final_norm = Norm(cfg.d_model, dtype=self.param_dtype,
-                               device=self.device)
-        if not cfg.tie_embeddings:
-            self.unembed = Dense(cfg.d_model, cfg.vocab_size, **kw)
-        # transformer.py:162-167, encdec.py:61-62
-        self.evidence_proj = Dense(cfg.evidence_dim, cfg.d_model, **kw) \
-            if cfg.num_evidence_tokens and cfg.evidence_dim != cfg.d_model \
-            else None
-        self.vision = VisionTower(cfg, **kw) if cfg.vision is not None \
-            else None
         # the rank world the weights are cut for, the model group the
         # logits gather over (vocab-parallel) and the kv heads a layer
-        # caches
+        # caches; a rank cuts each part as soon as it is drawn, so that it
+        # never holds the whole model
         self.world = world
         self.vocab_world = None
         self.kv_heads = cfg.num_kv_heads
-        self._whole = None
+        self._whole = None if world is None else {}
+        keep = self._keeper(world)
+        self.embed = keep(Embedding(cfg.vocab_size, cfg.d_model, **kw),
+                          "embed")
+        if cfg.is_encoder_decoder:
+            self.enc_layers = nn.ModuleList(
+                keep(encdec_lib.EncoderBlock(cfg, **kw), f"enc_layers.{i}")
+                for i in range(cfg.num_encoder_layers))
+            self.dec_layers = nn.ModuleList(
+                keep(encdec_lib.DecoderBlock(cfg, **kw), f"dec_layers.{i}")
+                for i in range(cfg.num_layers))
+            self.enc_norm = Norm(cfg.d_model, dtype=self.param_dtype,
+                                 device=self.device)
+        else:
+            self.layers = nn.ModuleList(
+                keep(Block(cfg, kind, **kw), f"layers.{i}")
+                for i, kind in enumerate(cfg.layer_kinds))
+        self.final_norm = Norm(cfg.d_model, dtype=self.param_dtype,
+                               device=self.device)
+        if not cfg.tie_embeddings:
+            self.unembed = keep(Dense(cfg.d_model, cfg.vocab_size, **kw),
+                                "unembed")
+        # transformer.py:162-167, encdec.py:61-62
+        self.evidence_proj = keep(
+            Dense(cfg.evidence_dim, cfg.d_model, **kw), "evidence_proj") \
+            if cfg.num_evidence_tokens and cfg.evidence_dim != cfg.d_model \
+            else None
+        self.vision = keep(VisionTower(cfg, **kw), "vision") \
+            if cfg.vision is not None else None
         if world is not None:
-            self._keep_rank_blocks(world)
+            self._whole.update((k, tuple(p.shape))
+                               for k, p in self.named_parameters()
+                               if k not in self._whole)
+            self._wire_rank(world)
 
     def param_shapes(self):
         """Every parameter's whole shape (a rank's model: before its cut),
@@ -192,24 +202,52 @@ class Model(nn.Module):
         return self._whole or {k: tuple(p.shape)
                                for k, p in self.named_parameters()}
 
-    def _keep_rank_blocks(self, world) -> None:
-        """Cut every parameter to the rank's block under the serving specs
-        (``sharding.cut_specs``; new storage, so the whole tensors are
-        freed), and wire the model group into the row-parallel
-        projections, the embedding and the logits."""
-        self._whole = {k: tuple(p.shape) for k, p in self.named_parameters()}
-        specs = shd.serve_param_specs(self.cfg, self._whole, world)
-        cuts = shd.cut_specs(specs)
+    def _keeper(self, world):
+        """What the constructor passes each freshly drawn part through:
+        without a world the part itself; for a rank, the part with every
+        parameter cut to the rank's block under the serving specs
+        (``sharding.cut_specs``) into new storage, so the whole tensors
+        are freed before the next part is drawn. The draws keep the
+        one-device order, so the blocks are the seeded one-device
+        model's, bit for bit."""
+        if world is None:
+            return lambda part, prefix: part
         at = shd.rank_coords(world)
-        for name, p in self.named_parameters():
-            block = shd.local_shard(p.data, cuts[name], world, at)
-            p.data = torch.empty(block.shape, dtype=block.dtype,
-                                 device=block.device).copy_(block)
+
+        def keep(part, prefix):
+            shapes = {f"{prefix}.{k}": tuple(p.shape)
+                      for k, p in part.named_parameters()}
+            self._whole.update(shapes)
+            cuts = shd.cut_specs(shd.serve_param_specs(self.cfg, shapes,
+                                                       world))
+            for k, p in part.named_parameters():
+                block = shd.local_shard(p.data, cuts[f"{prefix}.{k}"],
+                                        world, at)
+                p.data = torch.empty(block.shape, dtype=block.dtype,
+                                     device=block.device).copy_(block)
+            return part
+        return keep
+
+    def _wire_rank(self, world) -> None:
+        """Wire the model group into the cut model: row-parallel
+        projections sum over it, the vision tower's column cuts whose
+        outputs the next op needs whole (``patch_proj``, the gelu MLP's
+        ``w_in`` and ``w_out``; its ``wq``/``wk``/``wv`` keep the rank's
+        heads) and ``evidence_proj`` gather over it, the embedding is
+        vocab-parallel and the logits gather."""
+        specs = shd.serve_param_specs(self.cfg, self._whole, world)
         model_axis = shd.ShardingRules().model_axis
         for name, mod in self.named_modules():
-            if isinstance(mod, Dense) and \
-                    specs[f"{name}.kernel"][0] == model_axis:
+            if not isinstance(mod, Dense):
+                continue
+            spec = specs[f"{name}.kernel"]
+            if spec[0] == model_axis:
                 mod.reduce_world = world           # row-parallel
+            elif spec[1] == model_axis and (
+                    name == "evidence_proj" or
+                    (name.startswith("vision.") and
+                     name.rsplit(".", 1)[-1] not in ("wq", "wk", "wv"))):
+                mod.gather_world = world           # gathered columns
         if specs["embed.table"][0] == model_axis:
             self.embed.start = world.coords[1] * self.embed.table.shape[0]
             self.embed.world = self.vocab_world = world
@@ -295,6 +333,17 @@ class Model(nn.Module):
         self._decoder_only("chunked prefill")
         return tf_lib.transformer_prefill_chunked(self, tokens, cache, chunk,
                                                   impl=impl)
+
+    def project_evidence(self, evidence):
+        """``evidence_proj`` of (.., Ne, De) evidence in the promotion of
+        its dtype and the kernel's (``transformer.py:175``); a rank's
+        column block is gathered over the model group."""
+        proj = self.evidence_proj
+        dt = torch.promote_types(evidence.dtype, proj.kernel.dtype)
+        out = dense(proj.kernel.to(dt), evidence.to(dt))
+        if proj.gather_world is not None:
+            out = proj.gather_world.all_gather_model(out, dim=-1)
+        return out
 
     def encode_image(self, images):
         """Vision-tower encode (``repro/models/model.py:144``): images

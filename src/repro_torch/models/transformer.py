@@ -42,7 +42,7 @@ from repro_torch.distributed.context import constrain_logits
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import dense, mlp, rmsnorm, unembed
+from repro_torch.models.layers import mlp, rmsnorm, unembed
 from repro_torch.models.moe import moe_apply, moe_aux
 
 # the cache leaf of each part of a recurrent kind's state
@@ -199,9 +199,7 @@ def embed_inputs(model, tokens, evidence=None):
     if model.evidence_proj is None:
         ev = evidence.to(x.dtype)
     else:
-        kernel = model.evidence_proj.kernel
-        dt = torch.promote_types(evidence.dtype, kernel.dtype)
-        ev = dense(kernel.to(dt), evidence.to(dt)).to(x.dtype)
+        ev = model.project_evidence(evidence).to(x.dtype)
     return torch.cat([ev, x], dim=1)
 
 

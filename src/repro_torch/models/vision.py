@@ -11,6 +11,13 @@ precomputed kind.
 The reference computes this attention with plain einsums outside any
 Pallas kernel, and the port keeps plain matrix products: the encode runs
 once per distinct image at submit time, memoised by the engine.
+
+On a rank of a model axis (``Model(..., world=)``) the tower holds the
+rule table's blocks: ``wq``/``wk``/``wv`` the rank's heads and ``wo`` their
+rows (summed over the model group), ``patch_proj``, ``w_in`` and
+``w_out`` output columns gathered whole, ``out_proj`` rows of the
+contracting dim (summed); every rank of a model group encodes the same
+evidence.
 """
 from __future__ import annotations
 
@@ -67,16 +74,27 @@ class VisionTower(nn.Module):
 
 
 def _mha(p: VisionBlock, num_heads: int, x):
-    """Bidirectional multi-head attention: every patch sees every patch."""
+    """Bidirectional multi-head attention: every patch sees every patch.
+    A rank runs the heads its ``wq`` columns hold."""
     B, N, d = x.shape
     hd = d // num_heads
-    q = p.wq(x).reshape(B, N, num_heads, hd)
-    k = p.wk(x).reshape(B, N, num_heads, hd)
-    v = p.wv(x).reshape(B, N, num_heads, hd)
+    heads = p.wq.kernel.shape[1] // hd
+    q = p.wq(x).reshape(B, N, heads, hd)
+    k = p.wk(x).reshape(B, N, heads, hd)
+    v = p.wv(x).reshape(B, N, heads, hd)
     att = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     att = torch.softmax(att * hd ** -0.5, dim=-1).to(x.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, N, d)
+    o = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, N, heads * hd)
     return p.wo(o)
+
+
+def _rows_of(dense: Dense, x):
+    """The columns of a whole input that a row-parallel rank's kernel
+    rows take; the whole input elsewhere."""
+    if dense.reduce_world is None:
+        return x
+    k = dense.kernel.shape[0]
+    return x.narrow(-1, dense.reduce_world.coords[1] * k, k)
 
 
 def vision_encode(tower: VisionTower, cfg: ModelConfig, images):
@@ -89,4 +107,4 @@ def vision_encode(tower: VisionTower, cfg: ModelConfig, images):
                                                cfg.norm_eps))
         x = x + mlp(blk.mlp, rmsnorm(blk.ln2.scale, x, cfg.norm_eps))
     x = rmsnorm(tower.final_norm.scale, x, cfg.norm_eps)
-    return tower.out_proj(x)
+    return tower.out_proj(_rows_of(tower.out_proj, x))

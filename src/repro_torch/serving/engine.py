@@ -160,9 +160,13 @@ before the host reads them, and each rank draws its rows of the global
 noise, so a rank samples what one device samples from the same logits.
 On a NCCL group the body is captured as one graph with its collectives;
 on a gloo group (named by the caller) it runs eagerly, since gloo stages
-through the host. Speculation, the prefix cache, chunked prefill,
-prefill shards and cross-modal rescoring over more than one rank raise
-``NotImplementedError``.
+through the host. Image requests: every model group encodes each
+submitted image at submit time through the rank's cut of the tower, so
+every rank holds the same evidence and memo counters; a rank stages its
+own slots' evidence rows. With ``xmodal_rescore`` every rank runs K4 on
+each finished candidate from the same inputs and takes rank 0's S_align
+(``_xmodal_scores``). Speculation, the prefix cache, chunked prefill and
+prefill shards over more than one rank raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -351,8 +355,7 @@ class ServeEngine:
         self._rows = slice(self.row0, self.row0 + self.B_local)
         if self.world is not None:
             self._check_rank_engine(model, spec_k > 1, prefix_cache,
-                                    prefill_chunk > 0, prefill_shards > 0,
-                                    xmodal_rescore)
+                                    prefill_chunk > 0, prefill_shards > 0)
         # a gloo group stages every collective through the host, which a
         # CUDA graph cannot capture: its macro body runs eagerly. A NCCL
         # group makes its communicators now, by one eager collective each,
@@ -473,13 +476,19 @@ class ServeEngine:
         self._image_digest: Dict[int, bytes] = {}
         self.image_encodes = 0
         self.image_feat_hits = 0
+        self.image_encode_s = 0.0       # wall seconds of the tower encodes
         # recompute each finished candidate's S_align by the cross-modal
         # score (Eq. 8-9) instead of the incremental aggregate
         self.xmodal_rescore = bool(xmodal_rescore) and self.has_evidence
-        # (B, Ne, d) normalised evidence rows of each slot's request,
-        # refreshed in place whenever admissions change (``_gather_evid``)
+        # candidates rescored by the cross-modal score (one K4 call each)
+        # and, over ranks, those whose own S_align differed from rank 0's
+        self.xmodal_rescored = 0
+        self.xmodal_parted = 0
+        # (B_local, Ne, d) normalised evidence rows of the request of each
+        # slot this process holds, refreshed in place whenever admissions
+        # change (``_gather_evid``)
         self._evid = torch.zeros(
-            (slots, self.cfg.num_evidence_tokens, self.d),
+            (self.B_local, self.cfg.num_evidence_tokens, self.d),
             device=self.device) if self.has_evidence else None
 
         self._queue: List[Request] = []
@@ -591,7 +600,7 @@ class ServeEngine:
 
     # -- ranks ------------------------------------------------------------
     def _check_rank_engine(self, model, spec, prefix_cache, chunked,
-                           prefill_shards, xmodal) -> None:
+                           prefill_shards) -> None:
         """What a rank engine refuses: a model family no rank holds yet, a
         model not cut for this rank's world, and over more than one rank
         the features that need a sink page a shard or reads of another
@@ -614,8 +623,7 @@ class ServeEngine:
                 ("chunked prefill", "step 6, the prefix cache and "
                  "disaggregated prefill across ranks", chunked),
                 ("prefill shards", "step 6, the prefix cache and "
-                 "disaggregated prefill across ranks", prefill_shards),
-                ("cross-modal rescoring", "step 1, vlm over ranks", xmodal)):
+                 "disaggregated prefill across ranks", prefill_shards)):
             if on:
                 raise NotImplementedError(
                     f"{what} over {world.size} ranks is not ported yet "
@@ -1155,10 +1163,12 @@ class ServeEngine:
         self._image_digest[req.uid] = digest
         feats = self._image_feats.get(digest)
         if feats is None:
+            t0 = time.perf_counter()
             with torch.inference_mode():
                 feats = self.model.encode_image(
                     torch.as_tensor(img, device=self.device)[None])[0]
             feats = feats.float().cpu().numpy()
+            self.image_encode_s += time.perf_counter() - t0
             self.image_encodes += 1
             self._image_feats[digest] = feats
             while len(self._image_feats) > 64:      # FIFO memo
@@ -1529,6 +1539,8 @@ class ServeEngine:
         self.chunk_calls = self.chunk_tokens = 0
         self.cancelled_requests = 0
         self.image_encodes = self.image_feat_hits = 0
+        self.image_encode_s = 0.0
+        self.xmodal_rescored = self.xmodal_parted = 0
         self.starved_uids.clear()
         self.scheduler.reset_stats()
         if self.paged:
@@ -1655,7 +1667,7 @@ class ServeEngine:
             evp = torch.as_tensor(req.evidence, dtype=torch.float32,
                                   device=self.device)
             if self.model.evidence_proj is not None:
-                evp = evp @ self.model.evidence_proj.kernel.float()
+                evp = self.model.project_evidence(evp)
             evn = evp / (torch.linalg.vector_norm(evp, dim=-1, keepdim=True)
                          + 1e-8)
             info["evid_row"] = evn[None]
@@ -2050,20 +2062,36 @@ class ServeEngine:
         return max(0, self.n_candidates - len(info["records"]) - running)
 
     # -- completion ------------------------------------------------------
-    def _xmodal_fn(self, tokens: np.ndarray, evid_row, text_row) -> float:
-        """S_align of one finished candidate by the cross-modal score
-        (``engine.py:2091``): its token embeddings, padded to ``max_new``
-        and masked, against the request's evidence and prompt rows. The
-        kernel impls run K4; the plain impls its plain version."""
-        n = len(tokens)
-        toks = np.zeros(self.max_new, np.int64)
-        toks[:n] = tokens
-        mask = torch.as_tensor(np.arange(self.max_new) < n,
-                               dtype=torch.float32, device=self.device)
+    def _xmodal_scores(self, cands) -> List[float]:
+        """S_align of finished candidates by the cross-modal score
+        (``engine.py:2091``), one K4 call each: ``cands`` holds (tokens,
+        evid_row, text_row), the tokens padded to ``max_new`` and masked
+        and embedded in one call. The kernel impls run K4, the plain ones
+        its plain version. Over ranks every rank scores the same
+        candidates from the same inputs and takes rank 0's values (one
+        broadcast over the world), so that every rank makes the same CAMD
+        decisions; ``xmodal_parted`` counts the candidates whose own value
+        differed."""
+        if not cands:
+            return []
+        toks = np.zeros((len(cands), self.max_new), np.int64)
+        for i, (t, _, _) in enumerate(cands):
+            toks[i, :len(t)] = t
+        lens = np.asarray([len(t) for t, _, _ in cands])
+        mask = torch.as_tensor(np.arange(self.max_new)[None, :] <
+                               lens[:, None], dtype=torch.float32,
+                               device=self.device)
         emb = self._unit_embed(torch.as_tensor(toks, device=self.device))
         fn = ops.xmodal_score if self._model_impl == "cuda" \
             else ref.xmodal_score_ref
-        return float(fn(emb[None], mask[None], evid_row, text_row)[0])
+        vals = torch.cat([fn(emb[i:i + 1], mask[i:i + 1], ev, tx)
+                          for i, (_, ev, tx) in enumerate(cands)])
+        self.xmodal_rescored += len(cands)
+        if self.world is not None and self.world.size > 1:
+            own = vals.clone()
+            self.world.broadcast(vals)
+            self.xmodal_parted += int((own != vals).sum())
+        return vals.tolist()
 
     def _finish_candidates(self, slots: List[int]):
         """Fold finished slots into candidate records with one batched
@@ -2074,6 +2102,15 @@ class ServeEngine:
             self._sync(tuple(self._all_rows(t)[idx] for t in (
                 st.out_buf, st.sum_lp, st.n_tok, st.sum_coh, st.sum_emb,
                 st.align_sum, st.token_counts)))
+        # the cross-modal S_align of every candidate that has one, scored
+        # together
+        rescore = {}
+        for j, slot in enumerate(slots):
+            info = self._reqs[int(self._slot_req[slot])]
+            if self.xmodal_rescore and n_tok[j] > 0 and "text_row" in info:
+                rescore[j] = (out_buf[j][:n_tok[j]], info["evid_row"],
+                              info["text_row"])
+        s_xm = dict(zip(rescore, self._xmodal_scores(list(rescore.values()))))
         uids: List[int] = []
         for j, slot in enumerate(slots):
             uid = int(self._slot_req[slot])
@@ -2091,10 +2128,8 @@ class ServeEngine:
             s_coh = rec["sum_coh"] / max(n - 1, 1)
             s_align = 0.5 * (rec["align"] + info["align_const"]) \
                 if self.has_evidence else 0.0
-            if self.xmodal_rescore and "text_row" in info and n > 0:
-                s_align = self._xmodal_fn(rec["tokens"], info["evid_row"],
-                                          info["text_row"])
-                rec["s_align_xmodal"] = s_align
+            if j in s_xm:
+                s_align = rec["s_align_xmodal"] = s_xm[j]
             rec["score"] = s_gen + self.camd.lambda_g * s_align \
                 + self.camd.lambda_c * s_coh
             info["records"][cand] = rec
@@ -2269,7 +2304,8 @@ class ServeEngine:
 
     # -- run loops -------------------------------------------------------
     def _gather_evid(self) -> torch.Tensor:
-        """(B, Ne, d) evidence rows of each slot's request (zero rows for
+        """(B_local, Ne, d) evidence rows of the request of each slot this
+        process holds (zero rows for
         idle slots and text-only requests, padded to the config's Ne),
         staged for the next launches (``engine.py:2633``). Refreshed after
         every scheduling pass, where the reference's launch loop refreshes
@@ -2277,7 +2313,7 @@ class ServeEngine:
         rows are zero and the rows of a request with evidence are Ne long,
         so each row's alignment mean is the same."""
         rows = []
-        for s in range(self.B):
+        for s in range(self.row0, self.row0 + self.B_local):
             uid = int(self._slot_req[s])
             if uid >= 0 and "evid_row" in self._reqs[uid]:
                 rows.append(self._reqs[uid]["evid_row"][0])

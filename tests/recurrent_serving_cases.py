@@ -2,7 +2,11 @@
 ``test_torch_recurrent_serving_ssm.py`` (mamba2-780m) and
 ``test_torch_recurrent_serving_hybrid.py`` (recurrentgemma-2b), each of
 which defines the session fixture ``arch`` and imports these cases, so
-that the two models' engines land on different test workers.
+that the two models' engines land on different test workers. A star
+import leaves out names with a leading underscore: each file imports
+the one-thread fixture ``torch_ranks._one_torch_thread`` by name (without
+it torch runs its 8-thread pool, whose spinning threads made these files
+20-150x slower beside the other test workers).
 
 The port's ``ServeEngine`` against the JAX package's on the reduced
 config in fp32, the reference's weights carried over: greedy streams
@@ -41,16 +45,6 @@ from test_torch_recurrent_models import make_pair
 
 CAMD = dict(samples_per_round=2, max_rounds=3, min_samples=2, max_clusters=8)
 MAX_NEW = 6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="session")

@@ -43,21 +43,12 @@ from repro_torch.launch import serve
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Request, ServeEngine
 from test_torch_engine_camd import ReferenceNoise
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 NEW = {"internvl2_2b": "internvl2-2b", "qwen2_5_32b": "qwen2.5-32b",
        "yi_34b": "yi-34b", "granite_34b": "granite-34b"}
 TOL = dict(rtol=1e-4, atol=1e-4)
 CAMD = dict(samples_per_round=2, max_rounds=3, min_samples=2, max_clusters=8)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_cfg(jcfg):

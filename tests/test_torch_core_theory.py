@@ -43,6 +43,7 @@ from repro.core import theory as jtheory
 from repro_torch import config as tconfig
 from repro_torch.core import controller as ctrl
 from repro_torch.core import posterior, theory
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 EXACT = dict(rtol=1e-6, atol=1e-7)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -50,16 +51,6 @@ BIAS_TOL = dict(rtol=2e-4, atol=1e-4)
 EI_TOL = dict(rtol=1e-3, atol=1e-6)
 KS_N = 100_000
 KS_BOUND = math.sqrt(-math.log(1e-3 / 2) / 2) * math.sqrt(2 / KS_N)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(x):

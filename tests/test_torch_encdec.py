@@ -49,6 +49,7 @@ from repro_torch.models.layers import rmsnorm as trmsnorm
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Request, ServeEngine
 from test_torch_engine_camd import ReferenceNoise
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 NAME = "seamless-m4t-large-v2"
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -59,16 +60,6 @@ IMPLS = ("torch", "cuda")
 CAMD = dict(samples_per_round=2, max_rounds=3, min_samples=2, max_clusters=8,
             cluster_threshold=0.95)
 MAX_NEW = 6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="session")

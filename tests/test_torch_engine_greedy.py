@@ -23,18 +23,9 @@ from repro_torch import config as tconfig
 from repro_torch.convert import params_from_jax
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Request, ServeEngine
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 PLENS = (6, 6, 20)          # two prompts share a bucket, one goes to 32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from repro.kernels import ref as jref
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-4     # chip_smoke.TOL["float32"]
 

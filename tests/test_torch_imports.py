@@ -73,7 +73,8 @@ print("imported", len(names), "modules")
 
 
 def test_port_imports_neither_jax_nor_repro():
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    # one OpenMP (so one torch) thread: the test workers share the cores
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
     out = subprocess.run([sys.executable, "-c", SCRIPT], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -20,20 +20,11 @@ from repro.kernels.paged_decode_attention import \
     paged_decode_attention as pallas_paged
 from repro.models.attention import kv_quantize as jquantize
 from repro_torch.kernels import ops, ref
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 TOLS = {"float32": dict(rtol=2e-5, atol=2e-5),
         "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(x, dtype):

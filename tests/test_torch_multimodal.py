@@ -34,19 +34,10 @@ from repro_torch.core import scoring as tscoring
 from repro_torch.kernels import ops
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Request, ServeEngine
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 ENC_TOL = dict(rtol=1e-4, atol=1e-4)
 XM_TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_cfg(jcfg):

@@ -19,6 +19,7 @@ from repro.serving.page_pool import PagePool as JPool
 from repro.serving.page_pool import PagePoolError as JError
 from repro_torch.serving.page_pool import (PagePool, PagePoolError,
                                            prefix_page_keys)
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 PS = 4
 

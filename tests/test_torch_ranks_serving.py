@@ -37,7 +37,8 @@ from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.frontend import AsyncServeFrontend
 from test_torch_engine_camd import _one_torch_thread  # noqa: F401
 from test_torch_serving_sharded import model3, port_engine  # noqa: F401
-from torch_ranks import GOLDEN_CAMD, cli_runs, digest, serve_cases, spawn
+from torch_ranks import (GOLDEN_CAMD, FakeWorld, cli_runs, digest,
+                         serve_cases, spawn, subprocess_env)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = ((1, 2), (2, 1), (2, 2))
@@ -59,7 +60,6 @@ FLOAT_TOL = 1e-5
 
 SNIPPET = r"""
 import importlib.util, json, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax, numpy as np
 from repro.config import CAMDConfig, PagedKVConfig
 from repro.launch.mesh import make_serve_mesh
@@ -106,12 +106,10 @@ def _jax_reference(group):
     """The JAX engine's records of a group's (mesh, case)s, in a
     subprocess with four forced host devices (started, not waited
     for)."""
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
-           "JAX_PLATFORMS": "cpu"}
     arg = json.dumps([GOLDEN_CAMD, [(mesh, case, CASES[case])
                                     for mesh, case in group]])
     return subprocess.Popen([sys.executable, "-c", SNIPPET, arg], cwd=ROOT,
-                            env=env, stdout=subprocess.PIPE,
+                            env=subprocess_env(4), stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 
@@ -264,31 +262,6 @@ def test_serve_cli_over_ranks_equals_one_process(tmp_path):
 # refusals and no fallback
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass
-class FakeWorld:
-    """A rank world's shape, coordinates and device, with no group: what
-    the engine's and the model builder's checks read before any
-    collective."""
-    dp: int
-    model: int
-    rank: int = 0
-    backend: str = "gloo"
-    device: torch.device = torch.device("cpu")
-    axis_names = ("data", "model")
-
-    @property
-    def size(self):
-        return self.dp * self.model
-
-    @property
-    def shape(self):
-        return {"data": self.dp, "model": self.model}
-
-    @property
-    def coords(self):
-        return divmod(self.rank, self.model)
-
-
 def _rank_mesh(dp, mp):
     world = FakeWorld(dp, mp)
     return ServeMesh(dict(world.shape), world.axis_names,
@@ -301,8 +274,23 @@ def _rank_mesh(dp, mp):
     ids=["spec", "prefix_cache", "chunks", "prefill_shards", "xmodal"])
 def test_features_over_ranks_raise(model3, feature):
     """Over more than one rank, speculation, the prefix cache, chunked
-    prefill, prefill shards and cross-modal rescoring raise
-    NotImplementedError naming ROADMAP; on one rank they stay."""
+    prefill and prefill shards raise NotImplementedError naming ROADMAP;
+    on one rank they stay. Cross-modal rescoring serves over ranks: a
+    rescoring engine on the reduced llava builds over (2, 1), staging
+    evidence rows for its own slots only."""
+    if "xmodal_rescore" in feature:
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import build_model
+        cfg = get_config("llava-1.5-7b").reduced().with_overrides(
+            dtype="float32")
+        eng = ServeEngine(build_model(cfg, torch.float32, device="cpu"),
+                          slots=4, cache_len=32, mode="camd", impl="paged",
+                          paged_kv=tconfig.PagedKVConfig(page_size=8),
+                          mesh=_rank_mesh(2, 1), **feature)
+        assert eng.xmodal_rescore and eng.B_local == 2
+        assert tuple(eng._evid.shape) == (2, cfg.num_evidence_tokens,
+                                          cfg.d_model)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_engine(model3[3], mode="camd", impl="paged", macro_steps=8,
                     mesh=_rank_mesh(2, 1), **feature)
@@ -322,12 +310,32 @@ def test_frontend_over_ranks_raises(model3):
     "llava-1.5-7b", "granite-moe-3b-a800m", "mamba2-780m",
     "recurrentgemma-2b", "seamless-m4t-large-v2"])
 def test_families_not_placed_raise(arch):
-    """vlm, MoE, recurrent, hybrid and encoder-decoder models are not cut
-    for ranks: NotImplementedError naming their step of ROADMAP's item
-    5, before any weight is drawn."""
+    """MoE, recurrent, hybrid and encoder-decoder models are not cut for
+    ranks: NotImplementedError naming their step of ROADMAP's item 5,
+    before any weight is drawn. The vlm family is: the reduced llava cut
+    for model rank 0 of (1, 2) holds half of each tower block's heads,
+    its row-parallel projections sum and its other column cuts gather
+    over the model group."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = get_config(arch).reduced().with_overrides(dtype="float32")
+    if cfg.vision is not None:
+        world = FakeWorld(1, 2)
+        tower = build_model(cfg, torch.float32, device="cpu",
+                            world=world).vision
+        d = cfg.vision.d_model
+        for blk in tower.blocks:
+            for proj in (blk.wq, blk.wk, blk.wv):
+                assert tuple(proj.kernel.shape) == (d, d // 2)
+                assert proj.gather_world is proj.reduce_world is None
+            assert tuple(blk.wo.kernel.shape) == (d // 2, d)
+            assert blk.wo.reduce_world is world
+            assert blk.mlp.w_in.gather_world is world
+            assert blk.mlp.w_out.gather_world is world
+        assert tower.patch_proj.gather_world is world
+        assert tower.out_proj.reduce_world is world
+        assert tuple(tower.out_proj.kernel.shape) == (d // 2, cfg.d_model)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
         build_model(cfg, torch.float32, device="cpu", world=FakeWorld(1, 2))
 

@@ -37,19 +37,10 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import params_from_jax
 from repro_torch.models import rglru as trglru
 from repro_torch.models.model import build_model
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 ARCHS = ("mamba2-780m", "recurrentgemma-2b")
 TOL = dict(rtol=1e-4, atol=1e-4)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_cfg(jcfg):

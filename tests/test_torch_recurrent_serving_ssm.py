@@ -4,6 +4,7 @@ those of ``recurrent_serving_cases.py``."""
 import pytest
 
 from recurrent_serving_cases import *  # noqa: F401,F403
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="session")

@@ -38,21 +38,12 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import controller as ctrl
 from repro_torch.core import rescore
 from repro_torch.models.model import build_model
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DECODE_TOL = dict(rtol=2e-4, atol=2e-4)
 BIAS_TOL = dict(rtol=2e-4, atol=1e-4)
 IMPLS = ("torch", "cuda")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(x):

@@ -21,6 +21,7 @@ from repro_torch.config import CAMDConfig, SamplingConfig
 from repro_torch.core import controller as tctrl
 from repro_torch.core import scoring as tscoring
 from repro_torch.sampling import samplers as tsamp
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CONFIGS = [
@@ -29,16 +30,6 @@ CONFIGS = [
     dict(temperature=1.3, top_k=5, top_p=0.8, min_p=0.05),
     dict(temperature=0.0),                                # greedy
 ]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(x):

@@ -19,7 +19,6 @@ same candidates per shard, give the same streams and end with the same
 pool stats, per-shard counters included.
 """
 import json
-import os
 import subprocess
 import sys
 
@@ -28,6 +27,7 @@ import torch
 
 from repro_torch import config as tconfig
 from test_torch_engine_camd import _one_torch_thread  # noqa: F401
+from torch_ranks import ROOT, subprocess_env
 from test_torch_serving_sharded import (_golden_requests, model3,  # noqa
                                         port_engine, _conserved, _streams)
 
@@ -38,7 +38,6 @@ PLEN = 12
 
 SNIPPET = r"""
 import importlib.util, json, os
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
 import jax, numpy as np
 from repro.config import PagedKVConfig
 from repro.launch.mesh import make_serve_mesh
@@ -72,10 +71,8 @@ print(json.dumps({"admitted": admitted, "streams": streams,
 
 
 def test_pressure_admissions_equal_two_device_reference(model3):
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src"),
-           "JAX_PLATFORMS": "cpu"}
-    r = subprocess.run([sys.executable, "-c", SNIPPET], cwd=root, env=env,
+    r = subprocess.run([sys.executable, "-c", SNIPPET], cwd=ROOT,
+                       env=subprocess_env(2),
                        capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr[-3000:]
     ref = json.loads(r.stdout.strip().splitlines()[-1])

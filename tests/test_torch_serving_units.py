@@ -18,6 +18,7 @@ from repro.serving import page_pool as jpool
 from repro.serving import scheduler as jsched
 from repro_torch.serving import page_pool as tpool
 from repro_torch.serving import scheduler as tsched
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 OPS = st.lists(st.tuples(st.sampled_from(["alloc", "share", "free",
                                           "stage", "return"]),

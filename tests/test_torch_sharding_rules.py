@@ -35,6 +35,7 @@ from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tf_lib
 from repro_torch.models.model import build_model
 from repro_torch.training.optimizer import OptState
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 ARCHS = ["qwen3-0.6b", "llava-1.5-7b", "granite-moe-3b-a800m",
          "internvl2-2b", "qwen2.5-32b", "yi-34b", "granite-34b",

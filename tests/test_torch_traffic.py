@@ -12,6 +12,7 @@ import pytest
 
 from repro.serving import traffic as jtraffic
 from repro_torch.serving import traffic
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["poisson", "bursty"])

@@ -56,6 +56,7 @@ from repro_torch.training.loss import cross_entropy, total_loss
 from repro_torch.training.optimizer import (OptState, adamw_update,
                                             clip_by_global_norm)
 from repro_torch.training.train_loop import _grads, batch_to, make_loss_fn
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 EXACT = dict(rtol=1e-6, atol=1e-7)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -64,16 +65,6 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 METRIC_TOL = dict(rtol=1e-4, atol=1e-5)
 PARAM_ATOL, PARAM_OUTLIER_ATOL, OUTLIER_SHARE = 2e-5, 1e-4, 1e-4
 B, L = 4, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(x, dtype=None):

@@ -54,21 +54,12 @@ from repro_torch.training.train_loop import _grads, batch_to, make_loss_fn
 from test_torch_training import (GRAD_TOL, METRIC_TOL, PARAM_ATOL,
                                  PARAM_OUTLIER_ATOL, close, close_but_few,
                                  jbatch, port_cfg)
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 ARCHS = ("mamba2-780m", "recurrentgemma-2b", "seamless-m4t-large-v2")
 B, L = 2, 16
 STEPS = 3
 STEP_KW = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU shapes gain nothing from torch's thread pool, and its
-    threads contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_model(jcfg, jparams):

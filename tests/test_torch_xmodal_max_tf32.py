@@ -46,6 +46,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.xmodal_score import xmodal_score as pallas_xmodal
 from repro_torch.kernels import ops
+from torch_ranks import _one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-4          # chip_smoke.TOL["float32"]
 EPS = np.float32(1e-8)

@@ -3,26 +3,76 @@
 ``spawn(fn, n, tmp_path, *args)`` runs ``fn(*args)`` in ``n`` fresh
 processes joined in one gloo group through a ``FileStore`` under
 ``tmp_path`` (no TCP port, so parallel test workers cannot clash), each
-on one torch thread, and returns the results by rank; a failure in any
-rank raises here with its traceback. The rank functions live in this
-module, which imports neither jax nor the JAX package at import time:
-``RankNoise`` draws the reference engine's Gumbel noise
-(``test_torch_engine_camd.ReferenceNoise``) with jax imported on first
-use, so that only ranks that sample pay for it.
+on one torch thread and one BLAS thread, and returns the results by
+rank; a failure in any rank raises here with its traceback. The rank
+functions live in this module, which imports neither jax nor the JAX
+package at import time: ``RankNoise`` draws the reference engine's
+Gumbel noise (``test_torch_engine_camd.ReferenceNoise``) with jax
+imported on first use, so that only ranks that sample pay for it.
+
+The module also holds what every port test module shares to keep the
+test workers off each other's cores: the session fixture
+``_one_torch_thread`` (one torch and one BLAS thread) and
+``subprocess_env`` (one OpenMP and one XLA thread in a subprocess, and
+forced XLA host devices in it only).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import queue as queue_mod
 import time
 import traceback
 
 import numpy as np
+import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 SPAWN_TIMEOUT = 180
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def subprocess_env(host_devices: int = 0):
+    """The environment of a subprocess a port test starts: the
+    repository's ``src`` on the path, jax on the CPU, one OpenMP (so one
+    torch) thread and one XLA CPU thread, so that it does not contend
+    with the other test workers for cores; ``host_devices`` forces that
+    many XLA host devices in it (and in it only)."""
+    flags = "--xla_cpu_multi_thread_eigen=false " \
+        "intra_op_parallelism_threads=1"
+    if host_devices:
+        flags = f"--xla_force_host_platform_device_count={host_devices} " \
+            + flags
+    return {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+            "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1",
+            "MKL_NUM_THREADS": "1", "XLA_FLAGS": flags}
+
+
+@pytest.fixture(autouse=True, scope="session")
+def _one_torch_thread():
+    """Small CPU shapes gain nothing from torch's thread pool or numpy's
+    BLAS pool, and their spinning threads contend with the other test
+    workers' (beside six busy workers on eight cores, a 200 x 200 matrix
+    product on eight BLAS threads took ~30 ms): every port test module
+    imports this fixture, so that it runs on one torch thread and one
+    BLAS thread. Session-scoped, it is set before the session
+    fixtures (the models and JAX references the modules share) are
+    built, and it stays for the rest of the worker's session."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:            # numpy keeps its pool
+        limits = None
+    else:
+        limits = threadpool_limits(1, user_api="blas")
+    yield
+    if limits is not None:
+        limits.restore_original_limits()
+    torch.set_num_threads(n)
+
 # the golden harness's CAMD settings (tests/data/make_golden_fifo.py)
 GOLDEN_CAMD = dict(samples_per_round=2, max_rounds=2, min_samples=2,
                    max_clusters=8)
@@ -33,6 +83,12 @@ PRELOAD = ["torch", "torch.distributed", "numpy", "jax", "jax.numpy",
 
 def _entry(fn, rank, n, store_path, args, queue):
     torch.set_num_threads(1)
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        pass
+    else:
+        threadpool_limits(1, user_api="blas")
     dist.init_process_group("gloo", store=dist.FileStore(store_path, n),
                             rank=rank, world_size=n)
     try:
@@ -113,8 +169,46 @@ class RankNoise:
                             (batch, vocab))
 
 
+@dataclasses.dataclass
+class FakeWorld:
+    """A rank world's shape, coordinates and device, with no group: what
+    the engine's and the model builder's checks and cuts read before any
+    collective."""
+    dp: int
+    model: int
+    rank: int = 0
+    backend: str = "gloo"
+    device: torch.device = torch.device("cpu")
+    axis_names = ("data", "model")
+
+    @property
+    def size(self):
+        return self.dp * self.model
+
+    @property
+    def shape(self):
+        return {"data": self.dp, "model": self.model}
+
+    @property
+    def coords(self):
+        return divmod(self.rank, self.model)
+
+
+def config_fields(cfg):
+    """A (JAX or port) config's fields as plain values, its vision tower
+    as a dict: what ``port_config`` takes in a spawned rank."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(cfg)}
+    if fields.get("vision") is not None:
+        fields["vision"] = dataclasses.asdict(fields["vision"])
+    return fields
+
+
 def port_config(fields):
     from repro_torch import config as tconfig
+    fields = dict(fields)
+    if isinstance(fields.get("vision"), dict):
+        fields["vision"] = tconfig.VisionConfig(**fields["vision"])
     return tconfig.ModelConfig(**fields)
 
 
@@ -275,3 +369,79 @@ def cli_runs(argvs):
         out.append((buf.getvalue(), digest(res["results"]),
                     res["engine"]._eager_body, res["launches"]))
     return out
+
+
+def vlm_requests(cfg, req_cls, n_req=3, n_img=2):
+    """``n_req`` image requests over ``n_img`` seeded images (a repeated
+    image hits the feature memo), prompts of 5-9 tokens."""
+    v = cfg.vision
+    rng = np.random.default_rng(7)
+    imgs = rng.standard_normal((n_img, v.image_h, v.image_w,
+                                v.channels)).astype(np.float32)
+    return [req_cls(uid=i, prompt=rng.integers(
+        2, cfg.vocab_size, 6).astype(np.int32),
+        image=imgs[i % n_img]) for i in range(n_req)]
+
+
+def vlm_digest(results):
+    """``digest`` with each request's candidates' cross-modal S_align,
+    candidates in token order."""
+    out = digest(results)
+    for rec, r in zip(out, sorted(results, key=lambda r: r.uid)):
+        cands = sorted(([int(t) for t in c["tokens"]],
+                        c.get("s_align_xmodal")) for c in r.candidates)
+        rec["s_align_xmodal"] = [None if c[1] is None else float(c[1])
+                                 for c in cands]
+    return out
+
+
+# the vlm engine cases' settings (both packages)
+VLM_ENGINE = dict(slots=4, cache_len=32, mode="camd", n_candidates=3,
+                  max_new_tokens=6, eos_id=1, seed=0, macro_steps=8,
+                  xmodal_rescore=True)
+VLM_CAMD = dict(GOLDEN_CAMD, samples_per_round=3)   # rounds span shards
+
+
+def vlm_ranks(dp, model_ranks, cfg_fields, np_params, images):
+    """This rank of a (dp, model) mesh on the reduced llava with the
+    reference's weights: the tower's encode of ``images`` and the rank's
+    ``vision.*`` blocks, then CAMD on ``paged_cuda`` (the kernels' plain
+    versions on the CPU) with cross-modal rescoring over
+    ``vlm_requests``; returns the encode, the blocks, the admissions,
+    streams and the engine's image and rescoring counters."""
+    from repro_torch import config as tconfig
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.serving.engine import Request, ServeEngine
+    cfg = port_config(cfg_fields)
+    mesh = make_rank_mesh(dp, model_ranks, device="cpu")
+    model = rank_model(cfg, np_params, mesh.world)
+    with torch.inference_mode():
+        enc = model.encode_image(torch.from_numpy(images)).numpy()
+    eng = ServeEngine(
+        model, impl="paged_cuda", mesh=mesh, noise=RankNoise(0),
+        sampling=tconfig.SamplingConfig(max_new_tokens=6, temperature=0.8),
+        camd=tconfig.CAMDConfig(**VLM_CAMD),
+        paged_kv=tconfig.PagedKVConfig(page_size=8), **VLM_ENGINE)
+    admitted = []
+    admit = eng._admit
+
+    def spy(req, slot_ids, limit=None):
+        admitted.append([int(req.uid), [int(s) for s in slot_ids]])
+        return admit(req, slot_ids, limit=limit)
+
+    eng._admit = spy
+    for req in vlm_requests(cfg, Request):
+        eng.submit(req)
+    with torch.inference_mode():
+        res = eng.run()
+    eng.pool.check()
+    return {"encode": enc,
+            "vision": {k: v.numpy() for k, v in model.state_dict().items()
+                       if k.startswith("vision.")},
+            "admitted": admitted, "streams": vlm_digest(res),
+            "image_encodes": eng.image_encodes,
+            "image_feat_hits": eng.image_feat_hits,
+            "rescored": eng.xmodal_rescored, "parted": eng.xmodal_parted,
+            "evid_rows": int(eng._evid.shape[0]),
+            "total_steps": eng.total_steps, "host_syncs": eng.host_syncs,
+            "pool": eng.pool.stats(), "reserved": int(eng._reserved)}
