@@ -47,15 +47,27 @@ Run from the root of a checkout. It
      requests through the entry point as torch.distributed ranks: (a)
      one NCCL rank (world 1, the macro body and its collectives one
      captured graph) with the streams and K1/K2 counts of the run
-     without a group, and through one torchrun launch of two gloo ranks
-     sharing the card (eager bodies) (b) ``--mesh 1,2`` (8/4 heads a
+     without a group, and as two gloo ranks sharing the card (eager
+     bodies; every gloo run of this script is one torchrun launch of four
+     worker processes, started before the in-process runs, a run of n
+     ranks on its first n) (b) ``--mesh 1,2`` (8/4 heads a
      rank, K2 once a layer a prefill bucket, K1 once a layer a step), (c)
      ``--mesh 2,1`` (half the slots and pages a rank, plus mirror pages)
      with (a)'s streams and (d) ``--mesh 1,2 --impl cuda`` (K2, K3) with
      the one-process cuda run's; a parting stream must part at a top-two
      logit margin below 1e-4; it prints tokens/s, per-rank peak memory
      and weight and KV bytes; the kernel phase holds and times K1, K3 and
-     K2 at a rank's 8/4 heads;
+     K2 at a rank's 8/4 heads; then full-width llava-1.5-7b image
+     requests (``vlm_ranks_phase``) and granite-moe-3b-a800m
+     (``moe_ranks_phase``) likewise: granite's (a) one NCCL rank whose
+     captured graph holds its MoE layers' collectives, (b) ``--mesh 1,2``
+     (f 256 of each expert's 512 a rank) and (c) ``--mesh 2,1`` (all 40
+     experts, half the slots) on two gloo ranks, and (d) ``--mesh 2,2``
+     (20 experts at f 256 a rank) on four, each rank's K5a/K5b once a
+     layer a forward, with the
+     expert-parallel ``moe_apply_shard_map`` on the same four ranks held
+     against its plain version and the dense oracle; the kernel phase
+     holds and times K5a/K5b on a (2, 2) rank's 20 experts;
   5. profile: a shorter serve run of the same shapes under torch.profiler
      — device time by kernel and the device's idle share;
   6. dense check: at reduced depth, greedy streams of the plain (torch),
@@ -197,10 +209,12 @@ a checkout of the repository.
 import asyncio
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -260,9 +274,13 @@ RANK_ENTRY = "qwen3-0.6b tp2 rank"
 # heads; K2 at the bucket of the vlm ranks phase's two requests
 LLAVA_RANK_HEADS = (16, 16)
 LLAVA_RANK_ENTRY = "llava-1.5-7b tp2 rank"
+# a (2, 2) rank of granite-moe-3b-a800m: its data rank's 20 of the 40
+# experts at a decode step of the 8 slots (G 1, g 8, k 8, C 8)
+MOE_RANK_EXPERTS = 20
+MOE_RANK_ENTRY = "granite-moe-3b-a800m 2x2 rank"
 NEW_ENTRIES = tuple(LARGE_HEADS) + ("granite-34b int8", "granite-34b fp8",
                                     "internvl2-2b") + HD256_ENTRIES + (
-    SEAMLESS["name"], RANK_ENTRY, LLAVA_RANK_ENTRY)
+    SEAMLESS["name"], RANK_ENTRY, LLAVA_RANK_ENTRY, MOE_RANK_ENTRY)
 # K3's second timing shape: the reference's decode_32k cache length
 # (repro/config.py:263); K3 is timed at each length of the sweep, from
 # one 16-row tile to 2048 of them
@@ -319,6 +337,9 @@ def device_records(torch, prof):
 # drops the first records of later windows (~30 late in this script, more
 # the more it has profiled; ``timer_check``), and these take their place
 HEAD_RECORDS = 500
+# windows a profiled timing tries before it fails: a window that lost
+# records of the call (or all of them) is profiled again
+PROFILE_TRIES = 3
 
 
 class Timer:
@@ -377,41 +398,50 @@ class Timer:
         own = self._flush_keys | (self._pad_keys if pad else set())
         return {k: v for k, v in times.items() if k not in own}
 
+    def kernel_times(self, fn, reps: int, flush: bool = True,
+                     pad: bool = True, kernel: str = None) -> dict:
+        """``_kernel_times`` of the call's kernels (only those whose name
+        holds ``kernel``, when given) from a window in which each ran at
+        least once a call: every kernel of the call runs once a call, so
+        fewer records mean the profiler lost some, and a window with none
+        of the call's records lost them all; such a window is profiled
+        again, up to ``PROFILE_TRIES`` windows, and then the timing
+        fails."""
+        for _ in range(PROFILE_TRIES):
+            times = {k: v for k, v in
+                     self._kernel_times(fn, reps, flush, pad).items()
+                     if kernel is None or kernel in k}
+            if times and all(self.counts[k] >= reps for k in times):
+                return times
+        check(bool(times), f"timer: the profiler saw no kernel "
+              f"{kernel or ''} in the call in {PROFILE_TRIES} windows")
+        kept = _window_records(self.torch, self.prof, kernel or "")
+        print(f"timer: {kernel or 'the call'}: kept {kept['head']} of "
+              f"{HEAD_RECORDS if pad else 0} head, {kept['flush']} flush "
+              f"and {kept['call']} call records of {reps} calls",
+              file=sys.stderr)
+        check(False, f"timer: the profiler lost records of "
+              f"{kernel or 'the call'} in {PROFILE_TRIES} windows")
+
     def device_ms(self, fn, kernel: str = None, reps: int = 20,
                   warmup: int = 3, flush: bool = True,
                   pad: bool = True) -> float:
         """Device time per call: the call's kernels (only those whose name
-        holds ``kernel``, when given), the flush left out; with ``flush``
-        false the call finds in the L2 what its previous call left; with
+        holds ``kernel``, when given), the flush left out, from a window
+        that kept every record (``kernel_times``); with ``flush`` false
+        the call finds in the L2 what its previous call left; with
         ``pad`` false the window is not padded (to time the pad's own
         kernel)."""
         for _ in range(warmup):
             fn()
-        for _ in range(3):
-            times = {k: v for k, v in
-                     self._kernel_times(fn, reps, flush, pad).items()
-                     if kernel is None or kernel in k}
-            # every kernel of the call runs at least once a call: fewer
-            # records mean the profiler lost some, so profile again
-            if all(self.counts[k] >= reps for k in times):
-                break
-        check(bool(times), f"timer: the profiler saw no kernel "
-              f"{kernel or ''} in the call")
-        if not all(self.counts[k] >= reps for k in times):
-            kept = _window_records(self.torch, self.prof, kernel or "")
-            print(f"timer: {kernel or 'the call'}: kept {kept['head']} of "
-                  f"{HEAD_RECORDS if pad else 0} head, {kept['flush']} flush "
-                  f"and {kept['call']} call records of {reps} calls",
-                  file=sys.stderr)
-        check(all(self.counts[k] >= reps for k in times),
-              f"timer: the profiler lost records of {kernel or 'the call'}")
-        return sum(times.values()) / reps / 1e3
+        return sum(self.kernel_times(fn, reps, flush, pad,
+                                     kernel).values()) / reps / 1e3
 
     def by_kernel(self, fn, reps: int = 20) -> dict:
         """Device ms per call of each kernel the call runs, the flush
-        left out."""
+        left out, from a window that kept every record."""
         return {k: v / reps / 1e3 for k, v in
-                self._kernel_times(fn, reps).items()}
+                self.kernel_times(fn, reps).items()}
 
     def ms(self, fn, reps: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -647,8 +677,9 @@ def rank_shape_phase(torch, ops, ref, timer):
     S 288 with the serve phase's lengths, K2 at the 8 x 256 bucket; and K1
     and K2 at llava-1.5-7b's rank shapes (``LLAVA_RANK_HEADS``); each
     held against its plain version and timed beside its bound and SDPA's
-    time (``decode_timing``, ``flash_shape_timing``). Returns ({kernel:
-    {entry: times}}, {kernel: max_abs_err})."""
+    time (``decode_timing``, ``flash_shape_timing``); K5a and K5b at a
+    (2, 2) rank of granite-moe-3b-a800m (``moe_rank_timing``). Returns
+    ({kernel: {entry: times}}, {kernel: max_abs_err})."""
     g = torch.Generator(device="cuda").manual_seed(12)
     H, Hkv = RANK_HEADS
     B = SERVE["slots"]
@@ -682,7 +713,65 @@ def rank_shape_phase(torch, ops, ref, timer):
     errs["flash_attention"] = max(errs["flash_attention"], err)
     entries["flash_attention"][LLAVA_RANK_ENTRY] = {
         k: t[k] for k in SUB_KEYS + TF32_BOUNDS}
+    # granite-moe-3b-a800m at (2, 2): K5a/K5b on the second data rank's
+    # 20 experts of a decode step's global tables
+    for name, (t, err) in moe_rank_timing(torch, ops, ref, timer, g).items():
+        entries[name] = {MOE_RANK_ENTRY: t}
+        errs[name] = err
     return entries, errs
+
+
+def moe_rank_timing(torch, ops, ref, timer, gen):
+    """K5a and K5b as a (2, 2) rank of granite-moe-3b-a800m runs them at a
+    decode step (``GRANITE_DECODE``): the global step's tables, the
+    dispatch on the data rank's experts ``[20, 40)`` (``idx[:, 20:]``),
+    the combine through the slot table shifted by ``-20 * C`` over those
+    experts' slot rows. Each held against its plain version (K5a bit for
+    bit) and timed beside its bound and the one-hot einsum of the same
+    tables. Returns {kernel: (times, max_abs_err)}."""
+    E, k, d = GRANITE_MOE["E"], GRANITE_MOE["k"], GRANITE_MOE["d"]
+    G, g, C = GRANITE_DECODE["G"], GRANITE_DECODE["g"], GRANITE_DECODE["C"]
+    E_loc = MOE_RANK_EXPERTS
+    e0 = E - E_loc
+    idx, slot, gates, _ = moe_tables(torch, gen, G, g, E, C, k)
+    idx = idx[:, e0:].contiguous()
+    slot = (slot - e0 * C).contiguous()
+    mine = (slot >= 0) & (slot < E_loc * C)
+    kept = int(mine.sum())
+    x = torch.randn(G, g, d, generator=gen, device="cuda")
+    eo = torch.randn(G, E_loc, C, d, generator=gen, device="cuda")
+    shape = f"fp32 G{G} g{g} E{E_loc} of {E} C{C} k{k} d{d}, {kept} of " \
+        f"{G * g * k} choices on the rank's experts"
+    out = ops.moe_dispatch(idx, x)
+    check(torch.equal(out, ref.moe_dispatch_ref(idx, x)),
+          f"moe_dispatch {shape}: differs from the plain version")
+    print(f"  {'moe_dispatch':24s} {shape:44s} bit for bit ok")
+    err_c = compare(torch, "moe_combine", shape,
+                    ops.moe_combine(slot, gates, eo),
+                    ref.moe_combine_ref(slot, gates, eo), "float32")
+    comb = torch.zeros(G, g, E_loc * C + 1, device="cuda")
+    comb.scatter_(2, torch.where(mine, slot, E_loc * C).long(),
+                  torch.where(mine, gates, torch.zeros_like(gates)))
+    comb = comb[..., :E_loc * C].reshape(G, g, E_loc, C).contiguous()
+    disp = torch.zeros(G, E_loc, C, g + 1, device="cuda")
+    disp.scatter_(3, torch.where(idx >= 0, idx, g).long()[..., None], 1.0)
+    disp = disp[..., :g].permute(0, 3, 1, 2).contiguous()    # (G, g, E, C)
+    tk = times(timer, lambda: ops.moe_dispatch(idx, x), "moe_dispatch_kernel",
+               lambda: ref.moe_dispatch_ref(idx, x),
+               lambda: torch.einsum("gsec,gsd->gecd", disp, x))
+    tokens = torch.unique(idx[idx >= 0]).numel()
+    tk["bound_ms"], tk["bound_by"] = bound_ms(
+        4 * (tokens * d + idx.numel() + idx.numel() * d), 0, "float32")
+    tc = times(timer, lambda: ops.moe_combine(slot, gates, eo),
+               "moe_combine_kernel", lambda: ref.moe_combine_ref(slot, gates, eo),
+               lambda: torch.einsum("gsec,gecd->gsd", comb, eo))
+    tc["bound_ms"], tc["bound_by"] = bound_ms(
+        4 * (kept * d + 2 * slot.numel() + G * g * d), 2 * kept * d,
+        "float32")
+    return {name: (dict(shape=shape, **{k_: t[k_] for k_ in SUB_KEYS
+                                          if k_ in t}), err)
+            for name, t, err in (("moe_dispatch", tk, 0.0),
+                                 ("moe_combine", tc, err_c))}
 
 
 def ring_mask(torch, pos, S):
@@ -1474,6 +1563,7 @@ def with_arg(argv, flag, value):
 IMAGE_EXTRA = ("--xmodal-rescore", "--image-pool", "2")
 QWEN_ARGV = serve_argv("qwen3-0.6b", CACHE_LEN, 151936)
 LLAVA_ARGV = serve_argv("llava-1.5-7b", MM_CACHE_LEN, 32000, IMAGE_EXTRA)
+GRANITE_ARGV = serve_argv("granite-moe-3b-a800m", CACHE_LEN, 49155)
 
 
 @contextlib.contextmanager
@@ -1774,7 +1864,12 @@ RANK_LAYERS = 4
 RANK_RUNS = {"(b)": ("1,2", "paged_cuda", RANK_LAYERS, "(a4)"),
              "(c)": ("2,1", "paged_cuda", 0, "(a)"),
              "(d)": ("1,2", "cuda", RANK_LAYERS, "(d0)")}
-RANKS_TIMEOUT = 420          # one torchrun for the qwen3 and llava runs
+RANKS_TIMEOUT = 420          # the gloo runs of the three models, after the go
+# the torchrun launch of every gloo run: a run of n ranks takes its first
+# n workers (the others wait), each run a gloo group of its own; one
+# launch, as its start and end cost ~12 s
+GLOO_PROCS = 4
+GLOO_WAIT = 900              # how long a worker waits for its go
 SPLIT_MARGIN = 1e-4
 
 
@@ -1836,6 +1931,12 @@ def rank_record(torch, out):
         rec.update(pool_pages=int(cache["k_pages"].shape[1]),
                    own_pages=eng._own_pages, num_pages=eng.pool.num_pages,
                    mirror_pages=eng._n_mirror, mirror_peak=eng.mirror_peak)
+    moe = model.layers[0].moe
+    if moe is not None:
+        from repro_torch.models.moe import expert_range
+        rec.update(experts=list(expert_range(moe, eng.cfg, eng.world)),
+                   expert_f=int(moe.w_gate.shape[2]),
+                   peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
     if model.vision is not None:
         v = eng.cfg.vision
         rec.update(
@@ -1850,31 +1951,50 @@ def rank_record(torch, out):
     return rec
 
 
-def ranks_worker(spec: str, out_dir: str) -> None:
-    """One rank of ``ranks_phase``'s torchrun launch: joins the gloo group
-    (env://), serves each (run, argv) of ``spec`` (JSON) through the serve
-    entry point, and writes each run's record to ``out_dir`` (a file a
-    rank and run: the ranks' standard outputs interleave)."""
+def ranks_worker(arg: str, out_dir: str) -> None:
+    """One worker of ``start_gloo_ranks``' launch (torchrun's rank RANK):
+    waits for the go file in ``out_dir``, then for each (run, argv,
+    ranks) of the spec in which it is one of the first ``ranks`` workers
+    joins the run's gloo group (a file store in ``out_dir``), serves argv
+    through the serve entry point (``shard_map_rank`` when argv is null),
+    writes the run's record to ``out_dir`` (a file a rank and run: the
+    workers' standard outputs interleave) and leaves the group. It gives
+    up waiting once the script that started it is gone."""
+    parent, spec = json.loads(arg)
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    dist.init_process_group("gloo", init_method="env://")
-    try:
-        for run, argv in json.loads(spec):
+    rank = int(os.environ["RANK"])
+    go, deadline = Path(out_dir, "go"), time.monotonic() + GLOO_WAIT
+    while not go.exists():
+        os.kill(parent, 0)                  # raises once the script is gone
+        if time.monotonic() > deadline:
+            raise SystemExit(f"gloo worker {rank}: no go in {GLOO_WAIT} s")
+        time.sleep(0.05)
+    for i, (run, argv, ranks) in enumerate(spec):
+        if rank >= ranks:
+            continue
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(str(Path(out_dir, f"store-{i}")),
+                                         ranks), rank=rank, world_size=ranks)
+        try:
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launches()
-            out = serve.main(argv)
-            torch.cuda.synchronize()
-            rec = dict(run=run, **rank_record(torch, out))
+            if argv is None:            # the expert-parallel check
+                rec = shard_map_rank(torch, ops)
+            else:
+                out = serve.main(argv)
+                torch.cuda.synchronize()
+                rec = rank_record(torch, out)
+                del out
             Path(out_dir, f"{run}-{rec['rank']}.json").write_text(
-                json.dumps(rec))
-            del out
-            free_memory(torch)
-    finally:
-        dist.destroy_process_group()
+                json.dumps(dict(run=run, **rec)))
+        finally:
+            dist.destroy_process_group()
+        free_memory(torch)
 
 
 def stream_split(a, b):
@@ -1946,9 +2066,9 @@ def ranks_phase(torch, ops, serve, model, card):
     macro body captured as one graph with its collectives) against the
     same run without a group: the same streams and K1/K2 counts; and the
     one-process runs (a4) and (d0) at ``RANK_LAYERS`` layers. Returns
-    ({run: launches}, what ``ranks_check`` needs: the gloo runs' spec for
-    ``gloo_ranks``, (b) ``--mesh 1,2``, (c) ``--mesh 2,1`` and (d) ``--mesh
-    1,2 --impl cuda``, and the one-process streams they must give)."""
+    ({run: launches}, what ``ranks_check`` needs to hold the gloo runs
+    (b) ``--mesh 1,2``, (c) ``--mesh 2,1`` and (d) ``--mesh 1,2 --impl
+    cuda``: the one-process streams they must give)."""
     t0 = time.perf_counter()
     runs = {}
     runs["qwen3-0.6b ranks one process"], base = serve_phase(
@@ -1989,47 +2109,96 @@ def ranks_phase(torch, ops, serve, model, card):
         del o
     del small
     free_memory(torch)
-    spec = [(f"qwen3 {run}", with_arg(RANKS_ARGV, "--impl", impl) +
-             ["--mesh", mesh, "--dist-backend", "gloo"] +
-             (["--num-layers", str(layers)] if layers else []))
-            for run, (mesh, impl, layers, _) in RANK_RUNS.items()]
     a = one["(a)"]
     print(f"ranks: (a) one NCCL rank {a['tps']:.1f} tok/s, weights "
           f"{a['weight_bytes'] / 1e9:.3f} GB, KV {a['kv_bytes'] / 1e6:.1f} MB;"
           f" {RANK_LAYERS} layers in one process: (a4) paged_cuda "
           f"{one['(a4)']['tps']:.1f}, (d0) cuda {one['(d0)']['tps']:.1f} "
           f"tok/s ({card}); in process {time.perf_counter() - t0:.1f} s")
-    return runs, dict(spec=spec, one=one, cfg=model.cfg)
+    return runs, dict(one=one, cfg=model.cfg)
 
 
-def gloo_ranks(spec):
-    """One torchrun launch of two gloo ranks on the card (the
-    ``expandable_segments`` allocator) serving each (run, argv) of
-    ``spec`` in turn through ``ranks_worker``; prints their output and
-    returns their records (one a rank and run). One launch for the qwen3
-    and the llava runs: a launch's start and end cost ~10-20 s."""
+def gloo_spec():
+    """Every gloo run of the rank phases, in order: (run, argv, ranks),
+    the argv of ``serve.main`` (None: ``shard_map_rank``) on the first
+    ``ranks`` workers of the launch."""
+    def argv(base, mesh, layers):
+        return base + ["--mesh", mesh, "--dist-backend", "gloo"] + (
+            ["--num-layers", str(layers)] if layers else [])
+
+    def ranks(mesh):
+        dp, mp = (int(x) for x in mesh.split(","))
+        return dp * mp
+    return [(f"qwen3 {run}", argv(with_arg(RANKS_ARGV, "--impl", impl), mesh,
+                                  layers), ranks(mesh))
+            for run, (mesh, impl, layers, _) in RANK_RUNS.items()] + [
+        (f"llava {run}", argv(VLM_RANKS_ARGV, mesh, 0), ranks(mesh))
+        for run, (mesh, _, _) in VLM_RANK_RUNS.items()] + [
+        (f"granite {run}", argv(MOE_RANKS_ARGV, mesh, layers), ranks(mesh))
+        for run, (mesh, layers, _) in MOE_RANK_RUNS.items()] + [
+        ("granite shard_map", None, 4)]
+
+
+def start_gloo_ranks(spec):
+    """Starts one torchrun launch of ``GLOO_PROCS`` gloo worker processes
+    on the card (the ``expandable_segments`` allocator) for the runs of
+    ``spec`` (``ranks_worker``). The workers import and then wait for the
+    go that ``gloo_ranks`` gives, so that the launch's start overlaps the
+    in-process runs before it. Returns the launch."""
+    out_dir = tempfile.mkdtemp(prefix="gloo-ranks-")
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc-per-node", str(GLOO_PROCS), "--master-addr", "127.0.0.1",
+           "--master-port", str(free_port()), str(ROOT / "chip_smoke.py"),
+           "--ranks-worker", json.dumps([os.getpid(), spec]), out_dir]
+    print("gloo ranks: " + " ".join(cmd[:-2]) + " '<runs>' <dir>")
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    log = open(Path(out_dir, "torchrun.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    log.close()
+    return dict(proc=proc, out_dir=out_dir, spec=spec,
+                t0=time.perf_counter())
+
+
+def stop_gloo_ranks(launch) -> None:
+    """Ends a launch (its processes, if a phase failed before their go or
+    while they ran) and removes its directory."""
+    proc = launch["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(launch["out_dir"], ignore_errors=True)
+
+
+def gloo_ranks(launch):
+    """Gives the launch's workers their go, waits for them (at most
+    ``RANKS_TIMEOUT``), prints their output and returns their records
+    (one a rank and run). One launch serves the qwen3, llava and granite
+    runs: a launch's start and end cost ~12 s."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out_dir:
-        cmd = [sys.executable, "-m", "torch.distributed.run",
-               "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
-               "--master-port", str(free_port()), str(ROOT / "chip_smoke.py"),
-               "--ranks-worker", json.dumps(spec), out_dir]
-        print("gloo ranks: " + " ".join(cmd[:-2]) + " '<runs>' <dir>")
-        env = dict(os.environ,
-                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=RANKS_TIMEOUT, env=env)
+    out_dir, proc = launch["out_dir"], launch["proc"]
+    Path(out_dir, "go").touch()
+    try:
+        proc.wait(timeout=RANKS_TIMEOUT)
+    finally:
+        output = Path(out_dir, "torchrun.log").read_text()
         records = [json.loads(f.read_text())
                    for f in sorted(Path(out_dir).glob("*.json"))]
-    for line in proc.stdout.splitlines():
+        stop_gloo_ranks(launch)
+    for line in output.splitlines():
         print(f"  | {line}")
-    if proc.returncode != 0:
-        print(proc.stderr[-6000:])
-    check(proc.returncode == 0 and len(records) == 2 * len(spec),
+    want = sum(n for _, _, n in launch["spec"])
+    check(proc.returncode == 0 and len(records) == want,
           f"gloo ranks: torchrun exited {proc.returncode} with "
-          f"{len(records)} records")
-    print(f"gloo ranks: torchrun of two gloo ranks, {len(spec)} runs, "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{len(records)} of {want} records")
+    print(f"gloo ranks: torchrun of {GLOO_PROCS} gloo workers, "
+          f"{len(launch['spec'])} runs, {time.perf_counter() - t0:.1f} s "
+          f"after the go, {time.perf_counter() - launch['t0']:.1f} s since "
+          "the launch")
     return records
 
 
@@ -2148,9 +2317,9 @@ def vlm_ranks_phase(torch, ops, serve, card):
     one captured graph with its collectives) against the same run
     without a group, on one seeded model: the same streams, image encodes
     and memo hits and K1/K2/K4a/K4b counts. The model is released before
-    the two gloo ranks share the card. Returns ({run: launches}, what
-    ``vlm_ranks_check`` needs: the gloo runs' spec for ``gloo_ranks``, (b)
-    ``--mesh 1,2`` and (c) ``--mesh 2,1``, and (a)'s record)."""
+    the gloo ranks share the card. Returns ({run: launches}, what
+    ``vlm_ranks_check`` needs to hold the gloo runs (b) ``--mesh 1,2``
+    and (c) ``--mesh 2,1``: (a)'s record)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     t0 = time.perf_counter()
@@ -2200,10 +2369,7 @@ def vlm_ranks_phase(torch, ops, serve, card):
           f"{time.perf_counter() - t0:.1f} s")
     del base, a, eng, model
     check_released(torch, "vlm ranks (a)")
-    spec = [(f"llava {run}", VLM_RANKS_ARGV + ["--mesh", mesh,
-                                               "--dist-backend", "gloo"])
-            for run, (mesh, _, _) in VLM_RANK_RUNS.items()]
-    return runs, dict(spec=spec, one=one)
+    return runs, dict(one=one)
 
 
 def vlm_ranks_check(torch, serve, pending, records, card):
@@ -2259,6 +2425,259 @@ def vlm_ranks_check(torch, serve, pending, records, card):
     return runs, tuple(rank_runs)
 
 
+# MoE serving over ranks (moe_ranks_phase): full-width
+# granite-moe-3b-a800m, fp32, CAMD, the ranks phase's 2 requests on its
+# 290-page pool. (b) and (d), whose ~2-3 host-staged collectives a layer
+# and step cost ~4 ms each, serve 4 of the 32 layers against a
+# one-process run of those 4 layers ((a4)); (c) serves all 32
+MOE_RANKS_ARGV = with_arg(GRANITE_ARGV, "--requests", 2) + [
+    "--num-pages", str(MESH_PAGES)]
+MOE_RANK_LAYERS = 4
+GRANITE_KERNELS = ("flash_attention", "paged_decode_attention",
+                   "moe_dispatch", "moe_combine")
+# the gloo runs: (mesh, layers (0: all of them), the one-process run
+# whose streams each must give); (d) on four ranks, then the
+# expert-parallel check on the same four
+MOE_RANK_RUNS = {"(b)": ("1,2", MOE_RANK_LAYERS, "(a4)"),
+                 "(c)": ("2,1", 0, "(a)"),
+                 "(d)": ("2,2", MOE_RANK_LAYERS, "(a4)")}
+# moe_apply_shard_map on four gloo ranks: one granite layer
+# at full width, 512 global tokens, a capacity factor of E / k, at which
+# C_s is a rank's token count and nothing can drop
+SHARD_MAP_TOKENS = 512
+
+
+def shard_map_rank(torch, ops):
+    """``moe_apply_shard_map`` on this rank of a (2, 2) world of the four
+    gloo ranks: one seeded full-width granite-moe-3b-a800m MoE layer,
+    the rank holding the router, its data rank's 20 experts at its model
+    rank's 256 of their 512 hidden columns, and its 256 of 512 seeded
+    global tokens. Through K5a/K5b (``impl="cuda"``, launches counted)
+    and their plain versions, against each other and against
+    ``moe_apply_dense`` on the whole layer; every aux term alike on every
+    rank and nothing dropped. Returns the rank's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import release_world
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models.moe import MoE, moe_apply_dense
+    from repro_torch.models.moe_shard_map import moe_apply_shard_map
+    cfg = get_config("granite-moe-3b-a800m").with_overrides(dtype="float32")
+    e = cfg.moe
+    world = make_rank_mesh(2, 2).world
+    d, m = world.coords
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    whole = MoE(cfg, device="cuda", gen=gen)
+    x = torch.randn(SHARD_MAP_TOKENS, cfg.d_model, generator=gen,
+                    device="cuda")
+    E_loc, f_loc, n = e.num_experts // 2, e.expert_d_ff // 2, \
+        SHARD_MAP_TOKENS // 2
+    p = MoE(cfg.with_overrides(moe=dataclasses.replace(
+        e, num_experts=E_loc, expert_d_ff=f_loc)), device="cuda")
+    p.router = whole.router                 # (d, 40), whole on every rank
+    eb, fb = slice(d * E_loc, (d + 1) * E_loc), slice(m * f_loc,
+                                                      (m + 1) * f_loc)
+    p.w_gate.copy_(whole.w_gate[eb, :, fb])
+    p.w_up.copy_(whole.w_up[eb, :, fb])
+    p.w_down.copy_(whole.w_down[eb, fb])
+    x_loc = x[d * n:(d + 1) * n]
+    cf = e.num_experts / e.top_k
+    with torch.inference_mode():
+        ops.reset_launches()
+        got, aux = moe_apply_shard_map(p, cfg, x_loc, world, model_axis=True,
+                                       capacity_factor=cf, impl="cuda")
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        plain, plain_aux = moe_apply_shard_map(
+            p, cfg, x_loc, world, model_axis=True, capacity_factor=cf,
+            impl="torch")
+        dense = moe_apply_dense(whole, cfg, x)[d * n:(d + 1) * n]
+    release_world(world)
+    atol, rtol = TOL["float32"]
+    return dict(
+        rank=world.rank, coords=[d, m], experts=[eb.start, eb.stop],
+        f=[fb.start, fb.stop], tokens=n, launches=launches,
+        finite=bool(torch.isfinite(got).all()),
+        err_plain=float((got - plain).abs().max()),
+        err_dense=float((got - dense).abs().max()),
+        ok_plain=bool(((got - plain).abs() <=
+                       atol + rtol * plain.abs()).all()),
+        ok_dense=bool(((got - dense).abs() <=
+                       atol + rtol * dense.abs()).all()),
+        aux={k: float(v) for k, v in aux.items()},
+        plain_aux={k: float(v) for k, v in plain_aux.items()})
+
+
+def moe_ranks_phase(torch, ops, serve, card):
+    """Serving full-width granite-moe-3b-a800m in fp32 with CAMD over
+    torch.distributed ranks, through the serve entry point
+    (``MOE_RANKS_ARGV``): (a) one NCCL rank (world 1, its model built by
+    the entry point for that world; one captured graph with its
+    collectives, the MoE layers' gather of the decode rows among them)
+    against the same run without a group on the same seeded weights: the
+    same streams and K1/K2/K5a/K5b counts; and the one-process run (a4) of
+    ``MOE_RANK_LAYERS`` layers. The models are released before the gloo
+    ranks share the card. Returns ({run: launches}, what
+    ``moe_ranks_check`` needs to hold the gloo runs (b) ``--mesh 1,2``,
+    (c) ``--mesh 2,1`` and (d) ``--mesh 2,2``: the one-process streams
+    they must give)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    cfg = get_config("granite-moe-3b-a800m").with_overrides(dtype="float32")
+    model = build_model(cfg, torch.float32, device="cuda", seed=0)
+    runs = {}
+    runs["granite-moe-3b-a800m ranks one process"], base = serve_phase(
+        torch, ops, serve, MOE_RANKS_ARGV, GRANITE_KERNELS, model=model)
+    moe_launch_checks(base, runs["granite-moe-3b-a800m ranks one process"])
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    base_tps, base_streams = base["tokens_per_s"], \
+        stream_digest(base["results"])
+    del base, model
+    free_memory(torch)
+    # the entry point builds (a)'s model for its world of one (the same
+    # seeded weights), so that its MoE layers run their collectives
+    with one_nccl_rank():
+        runs["granite-moe-3b-a800m ranks (a)"], a = serve_phase(
+            torch, ops, serve, MOE_RANKS_ARGV + ["--mesh", "1,1"],
+            GRANITE_KERNELS)
+    moe_launch_checks(a, runs["granite-moe-3b-a800m ranks (a)"])
+    eng = a["engine"]
+    check(eng.world is not None and eng.world.backend == "nccl" and
+          not eng._eager_body and eng._graphs_captured == 1 and
+          eng.model.layers[0].moe.world is eng.world,
+          "moe ranks (a): not one NCCL rank replaying one captured graph "
+          "with its MoE layers' collectives")
+    check(stream_digest(a["results"]) == base_streams,
+          "moe ranks (a): streams differ from the run without a group")
+    for name in GRANITE_KERNELS:
+        check(runs["granite-moe-3b-a800m ranks (a)"][name] ==
+              runs["granite-moe-3b-a800m ranks one process"][name],
+              f"moe ranks (a): {name} launched differently from the run "
+              "without a group")
+    one = {"(a)": dict(streams=base_streams, tps=a["tokens_per_s"],
+                       peak_gb=a["peak_gb"], weight_bytes=weight_bytes,
+                       card_gb=torch.cuda.get_device_properties(0)
+                       .total_memory / 1e9),
+           "cfg": cfg}
+    print(f"moe ranks: (a) one NCCL rank {one['(a)']['tps']:.1f} tok/s, "
+          f"without a group {base_tps:.1f} ({card}); weights "
+          f"{weight_bytes / 1e9:.3f} GB, peak {one['(a)']['peak_gb']:.2f} "
+          "GB")
+    del a, eng
+    free_memory(torch)
+    small = build_model(cfg.with_overrides(num_layers=MOE_RANK_LAYERS),
+                        torch.float32, device="cuda", seed=0)
+    ops.reset_launches()
+    o = serve.main(MOE_RANKS_ARGV + ["--num-layers", str(MOE_RANK_LAYERS)],
+                   model=small)
+    torch.cuda.synchronize()
+    runs["granite-moe-3b-a800m ranks (a4)"] = dict(ops.LAUNCHES)
+    one["(a4)"] = dict(streams=stream_digest(o["results"]),
+                       tps=o["tokens_per_s"])
+    print(f"moe ranks: {MOE_RANK_LAYERS} layers in one process (a4) "
+          f"{one['(a4)']['tps']:.1f} tok/s; in process "
+          f"{time.perf_counter() - t0:.1f} s")
+    del o, small
+    check_released(torch, "moe ranks (a)")
+    return runs, dict(one=one)
+
+
+def moe_ranks_check(torch, serve, pending, records, card):
+    """``moe_ranks_phase``'s gloo runs (``MOE_RANK_RUNS``), from their
+    records:
+    every rank's body eager, its heads (24/8 over the model axis), rows
+    and the experts the rule table gives it (all 40 at model 1, else the
+    data rank's block) at its share of their width, its weights against
+    the one-process model's, K1/K2 once a layer a prefill bucket and a
+    step (``rank_launch_checks``) and K5a/K5b once each a layer a forward,
+    and the streams of (a) for (c), of (a4) for (b) and (d) (``agree``).
+    Prints tokens/s, per-rank peak memory, weight bytes, experts and
+    heads beside the card. Returns ({run: launches}, the rank runs)."""
+    one = pending["one"]
+    E, f = one["cfg"].moe.num_experts, one["cfg"].moe.expert_d_ff
+    runs, rank_runs, models = {}, [], {}
+    for run, (mesh, layers, ref_run) in MOE_RANK_RUNS.items():
+        dp, mp = (int(x) for x in mesh.split(","))
+        cfg = one["cfg"].with_overrides(num_layers=layers) if layers \
+            else one["cfg"]
+        E_loc = E // dp if mp > 1 else E
+        for rec in (r for r in records if r["run"] == f"granite {run}"):
+            what = f"moe ranks {run} --mesh {mesh} rank {rec['rank']}"
+            d = rec["coords"][0]
+            e0 = d * E_loc if E_loc < E else 0
+            check(rec["eager"] and rec["graphs"] == 0,
+                  f"{what}: a gloo rank's body must run eagerly")
+            check((rec["q_heads"], rec["kv_heads"], rec["B_local"],
+                   rec["experts"], rec["expert_f"]) ==
+                  (24 // mp, 8 // mp, SERVE["slots"] // dp,
+                   [e0, e0 + E_loc], f // mp),
+                  f"{what}: {rec['q_heads']}/{rec['kv_heads']} heads, "
+                  f"{rec['B_local']} rows, experts {rec['experts']} at f "
+                  f"{rec['expert_f']}")
+            rank_launch_checks(rec, what)
+            forwards = rec["prefill_calls"] + \
+                rec["macro_launches"] * rec["macro_steps"]
+            for name in ("moe_dispatch", "moe_combine"):
+                check(rec["launches"][name] == rec["layers"] * forwards,
+                      f"{what}: {name} launched {rec['launches'][name]} "
+                      f"times, not {rec['layers']} x {forwards} forwards")
+            check(rec["peak_reserved_gb"] < one["(a)"]["card_gb"],
+                  f"{what}: {rec['peak_reserved_gb']:.1f} GB reserved")
+            agree(torch, serve, cfg, MOE_RANKS_ARGV, rec["streams"],
+                  one[ref_run]["streams"], what, models)
+            name = f"granite-moe-3b-a800m ranks {run} rank {rec['rank']}"
+            runs[name] = rec["launches"]
+            rank_runs.append(name)
+            print(f"{what} at {tuple(rec['coords'])}: "
+                  f"{rec['tokens_per_s']:.1f} tok/s ({card}), peak device "
+                  f"memory {rec['peak_gb']:.2f} GB allocated, "
+                  f"{rec['peak_reserved_gb']:.2f} GB reserved (build "
+                  f"included), weights {rec['weight_bytes'] / 1e9:.3f} GB "
+                  f"({layers or cfg.num_layers} layers), experts "
+                  f"[{rec['experts'][0]}, {rec['experts'][1]}) of {E} at f "
+                  f"{rec['expert_f']} of {f}, {rec['q_heads']}/"
+                  f"{rec['kv_heads']} heads, {rec['B_local']} rows; K5a/K5b "
+                  f"{rec['launches']['moe_dispatch']}/"
+                  f"{rec['launches']['moe_combine']} launches for "
+                  f"{forwards} forwards of {rec['layers']} layers; launches "
+                  f"{rec['launches']}")
+    del models
+    free_memory(torch)
+    return runs, tuple(rank_runs)
+
+
+def shard_map_check(records, card):
+    """The four ranks' ``shard_map_rank`` records: each within fp32
+    tolerance of the plain version and of the dense oracle, finite,
+    K5a/K5b once each, nothing dropped, the aux alike on every rank and
+    impl."""
+    recs = [r for r in records if r["run"] == "granite shard_map"]
+    check(len(recs) == 4, f"shard_map: {len(recs)} records")
+    for rec in recs:
+        what = f"shard_map rank {rec['rank']} at {tuple(rec['coords'])}"
+        check(rec["finite"] and rec["ok_plain"] and rec["ok_dense"],
+              f"{what}: max |err| {rec['err_plain']:.3e} against the plain "
+              f"version, {rec['err_dense']:.3e} against the dense oracle")
+        check(rec["launches"]["moe_dispatch"] == 1 ==
+              rec["launches"]["moe_combine"],
+              f"{what}: launches {rec['launches']}")
+        check(rec["aux"] == recs[0]["aux"] and
+              rec["aux"]["moe_drop_frac"] == 0.0,
+              f"{what}: aux {rec['aux']} against rank 0's {recs[0]['aux']}")
+        for k, v in rec["aux"].items():
+            check(abs(v - rec["plain_aux"][k]) <= 1e-5,
+                  f"{what}: {k} {v} against the plain {rec['plain_aux'][k]}")
+        print(f"{what}: experts [{rec['experts'][0]}, {rec['experts'][1]}) "
+              f"at f [{rec['f'][0]}, {rec['f'][1]}), {rec['tokens']} of "
+              f"{SHARD_MAP_TOKENS} tokens; max |err| {rec['err_plain']:.3e} "
+              f"against the plain version, {rec['err_dense']:.3e} against "
+              f"moe_apply_dense; aux {rec['aux']}; K5a/K5b "
+              f"{rec['launches']['moe_dispatch']}/"
+              f"{rec['launches']['moe_combine']} ({card})")
+    return {"granite-moe-3b-a800m shard_map": recs[0]["launches"]}
+
+
 def spec_report(name, out, plain_tps):
     """A speculative serve run against the plain one of the same shapes:
     drafts proposed and accepted, tokens emitted per verify iteration and
@@ -2302,9 +2721,11 @@ def graph_phase(torch, name, out, timer):
     one macro launch at the serve shape on the engine's idle slots (every
     iteration masked; the same kernels and shapes as a real launch):
     replayed against the same body run eagerly, each as host wall time,
-    CUDA-event window and device busy time (the profiler's kernel sum):
-    the replay over 5 calls (3 profiled), the eager body, which takes up to
-    1.2 s a call on the 32-34B models, over 2 (1 profiled)."""
+    CUDA-event window and device busy time (the profiler's kernel sum,
+    ``Timer.device_ms``: a window that lost a kernel's records is
+    profiled again): the replay over 5 calls (3 profiled), the eager
+    body, which takes up to 1.2 s a call on the 32-34B models, over 2 (1
+    profiled)."""
     eng = out["engine"]
     K = max(eng.macro_steps, 1)
     masked = 1 - eng.total_steps / max(eng._steps_launched, 1)
@@ -2320,8 +2741,10 @@ def graph_phase(torch, name, out, timer):
                 ("replay", eng._graph.replay, 5, 3),
                 ("eager body", eng._macro_step, 2, 1)):
             wall, ev = wall_event_ms(torch, fn, reps)
-            busy = sum(timer._kernel_times(
-                fn, prof_reps, flush=False).values()) / prof_reps / 1e3
+            # every kernel of the launch at least once a call in the
+            # window, as the timer checks, or profiled again
+            busy = timer.device_ms(fn, reps=prof_reps, warmup=0,
+                                   flush=False)
             rows[how] = (wall, ev, busy)
     print(f"graph [{name}]: noise fill {fill_wall:.3f} ms wall, "
           f"{fill_ev:.3f} ms CUDA events a launch; one macro launch "
@@ -2405,12 +2828,15 @@ def check_released(torch, phase: str) -> None:
           "its graph was not released")
 
 
-def profile_phase(torch, ops, serve, argv):
+def profile_phase(torch, ops, serve, argv, timer):
     """Where the serve phase's time goes, on a shorter run of the same
     shapes (2 requests fill the 8 slots): device busy time by kernel under
     torch.profiler, and the device's idle share against the same run's
     unprofiled wall time. (Processing the trace of the full 8-request run
-    took minutes.)"""
+    took minutes.) The window opens with the timer's head records, and
+    must keep a record of every paged decode launch the run made, or the
+    run is profiled again (``PROFILE_TRIES`` windows), as the timer's
+    windows are."""
     from torch.profiler import ProfilerActivity, profile
     argv = list(argv)
     argv[argv.index("--requests") + 1] = "2"
@@ -2418,22 +2844,33 @@ def profile_phase(torch, ops, serve, argv):
     wall_s, capture_s = first["seconds"], first["engine"]._capture_s
     del first
     free_memory(torch)
-    ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = serve.main(argv)
-        torch.cuda.synchronize()
-    times, counts = device_records(torch, prof)
+    for _ in range(PROFILE_TRIES):
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            timer._pad()
+            out = serve.main(argv)
+            torch.cuda.synchronize()
+        times, counts = device_records(torch, prof)
+        for k in timer._pad_keys:
+            times.pop(k, None)
+        # K1's split kernel runs once a launch: the records the profiler
+        # kept against the launches the run made, the graph's replays and
+        # its warm-up included
+        eng = out["engine"]
+        k1 = ops.LAUNCHES["paged_decode_attention"] + \
+            eng._warmup_launches.get("paged_decode_attention", 0)
+        seen = sum(n for k, n in counts.items()
+                   if "split_decode_kernel" in k)
+        print(f"profile: {seen} split_decode_kernel records for {k1} paged "
+              f"decode launches ({eng.macro_launches} graph replays)")
+        if seen == k1:
+            break
+        del out, eng
+        free_memory(torch)
+    check(seen == k1, f"profile: the profiler kept {seen} of {k1} paged "
+          f"decode launches' records in {PROFILE_TRIES} windows")
     busy_us = sum(times.values())
     check(busy_us > 0, "profile: the profiler saw no device time")
-    # K1's split kernel runs once a launch: the records the profiler kept
-    # against the launches the run made, the graph's replays and its
-    # warm-up included
-    eng = out["engine"]
-    k1 = ops.LAUNCHES["paged_decode_attention"] + \
-        eng._warmup_launches.get("paged_decode_attention", 0)
-    seen = sum(n for k, n in counts.items() if "split_decode_kernel" in k)
-    print(f"profile: {seen} split_decode_kernel records for {k1} paged "
-          f"decode launches ({eng.macro_launches} graph replays)")
     print(f"profile: device busy {busy_us / 1e3:.1f} ms; profiled wall "
           f"{out['seconds'] * 1e3:.1f} ms, unprofiled wall "
           f"{wall_s * 1e3:.1f} ms -> device idle share "
@@ -2445,7 +2882,6 @@ def profile_phase(torch, ops, serve, argv):
               f"x{counts[k]:<6d} {k[:90]}")
 
 
-GRANITE_ARGV = serve_argv("granite-moe-3b-a800m", CACHE_LEN, 49155)
 
 
 def moe_launch_checks(out, launches):
@@ -2492,7 +2928,7 @@ def granite_timing(torch, out, timer):
             model.decode_step(tok, paged, impl="cuda")
 
         decode_ms = timer.ms(step, reps=5, warmup=2)
-        by_kernel = timer._kernel_times(step, 5)
+        by_kernel = timer.kernel_times(step, 5)
     busy = sum(by_kernel.values()) / 5 / 1e3
     print(f"granite: one bucketed prefill of {B} x {L} tokens "
           f"{prefill_ms:.2f} ms; one decode forward of {B} slots "
@@ -4394,18 +4830,26 @@ def main() -> None:
     runs.update(mesh_serves)
     stamp("serving over ranks")
     # one NCCL rank for qwen3-0.6b, then for full-width llava-1.5-7b image
-    # requests with K4 rescoring; then the two models' gloo runs, two
-    # ranks on the card, in one torchrun
-    rank_runs, rank_pending = ranks_phase(torch, ops, serve,
-                                          out["engine"].model, card)
-    runs.update(rank_runs)
-    del out
-    check_released(torch, "qwen3-0.6b serve")
-    stamp("vlm over ranks")
-    vlm_runs, vlm_pending = vlm_ranks_phase(torch, ops, serve, card)
-    runs.update(vlm_runs)
-    stamp("gloo ranks")
-    records = gloo_ranks(rank_pending["spec"] + vlm_pending["spec"])
+    # requests with K4 rescoring and for full-width granite-moe; then the
+    # three models' gloo runs on the card, in one torchrun of four worker
+    # processes started now, its start beside the in-process runs
+    launch = start_gloo_ranks(gloo_spec())
+    try:
+        rank_runs, rank_pending = ranks_phase(torch, ops, serve,
+                                              out["engine"].model, card)
+        runs.update(rank_runs)
+        del out
+        check_released(torch, "qwen3-0.6b serve")
+        stamp("vlm over ranks")
+        vlm_runs, vlm_pending = vlm_ranks_phase(torch, ops, serve, card)
+        runs.update(vlm_runs)
+        stamp("moe over ranks")
+        moe_runs, moe_pending = moe_ranks_phase(torch, ops, serve, card)
+        runs.update(moe_runs)
+        stamp("gloo ranks")
+        records = gloo_ranks(launch)
+    finally:
+        stop_gloo_ranks(launch)
     gloo_runs, rank_paged, rank_dense = ranks_check(
         torch, serve, rank_pending, records, card)
     runs.update(gloo_runs)
@@ -4413,8 +4857,13 @@ def main() -> None:
                                                records, card)
     runs.update(gloo_runs)
     vlm_runs = tuple(vlm_runs) + vlm_rank_runs
+    gloo_runs, moe_rank_runs = moe_ranks_check(torch, serve, moe_pending,
+                                               records, card)
+    runs.update(gloo_runs)
+    runs.update(shard_map_check(records, card))
+    moe_runs = tuple(moe_runs) + moe_rank_runs
     check_released(torch, "ranks")
-    profile_phase(torch, ops, serve, QWEN_ARGV)
+    profile_phase(torch, ops, serve, QWEN_ARGV, timer)
     free_memory(torch)
     runs["qwen3-0.6b dense check"] = dense_check(
         torch, ops, serve, QWEN_DENSE_ARGV,
@@ -4431,7 +4880,7 @@ def main() -> None:
     image_prefill_timing(torch, out, timer)
     del out
     check_released(torch, "llava-1.5-7b serve")
-    profile_phase(torch, ops, serve, LLAVA_ARGV)
+    profile_phase(torch, ops, serve, LLAVA_ARGV, timer)
     free_memory(torch)
     runs["llava-1.5-7b dense check"] = dense_check(
         torch, ops, serve, LLAVA_DENSE_ARGV,
@@ -4467,7 +4916,7 @@ def main() -> None:
     granite_timing(torch, out, timer)
     del out
     check_released(torch, "granite-moe-3b-a800m serve")
-    profile_phase(torch, ops, serve, GRANITE_ARGV)
+    profile_phase(torch, ops, serve, GRANITE_ARGV, timer)
     free_memory(torch)
     runs["granite-moe-3b-a800m dense check"] = dense_check(
         torch, ops, serve, GRANITE_DENSE_ARGV,
@@ -4611,7 +5060,7 @@ def main() -> None:
                   tuple(open_runs) + ("qwen3-0.6b open loop camd",) +
                   new_serves + tuple(run for run, _ in mesh_serves) +
                   ("qwen3-0.6b ranks one process", "qwen3-0.6b ranks (a)") +
-                  rank_paged + tuple(vlm_runs)
+                  rank_paged + tuple(vlm_runs) + moe_runs
                   for name in ("flash_attention", "paged_decode_attention")})
     paths["decode_attention"] += ("qwen3-0.6b ranks (d0)",) + rank_dense
     paths["flash_attention"] += tuple(rescore_runs) + rg_runs + ed_runs + \
@@ -4621,7 +5070,8 @@ def main() -> None:
         f"{SEAMLESS['name']} rescore") + tuple(vlm_runs)
         for name in ("xmodal_score_mean", "xmodal_score_max")})
     paths.update({name: serves + spec_runs[2:] +
-                  ("granite-moe-3b-a800m rescore",)
+                  ("granite-moe-3b-a800m rescore",) + moe_runs +
+                  ("granite-moe-3b-a800m shard_map",)
                   for name in ("moe_dispatch", "moe_combine")})
     meta = {
         "flash_attention": ("flash_attention",

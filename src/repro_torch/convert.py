@@ -59,7 +59,9 @@ def params_from_jax(np_tree: Mapping[str, Any],
 def rank_params(np_tree: Mapping[str, Any], cfg: ModelConfig,
                 world) -> Dict[str, torch.Tensor]:
     """The rank's blocks of ``params_from_jax``: each parameter cut by
-    the serving specs of the world's mesh (``sharding.cut_specs``)."""
+    the serving specs of the world's mesh (``sharding.cut_specs``), MoE
+    experts on dim 0 over the data axis and their ``f`` over the model
+    axis where the specs cut them."""
     full = params_from_jax(np_tree, cfg)
     specs = shd.cut_specs(shd.serve_param_specs(cfg, full, world))
     return shd.place(full, specs, world, shd.rank_coords(world))

@@ -13,9 +13,13 @@ collectives. The port places every tensor itself
   reductions (``wo``, ``w_down``), the vocab-parallel embedding's sum
   and the gather of vocab-sharded logits run over it;
 * its data group is the ranks ``(0..dp-1, m)``: the serving engine's
-  exit flags and its per-slot outputs run over it;
+  exit flags and its per-slot outputs run over it, and so do an MoE
+  layer's gather of the decode rows, its sum over the experts split on
+  the data axis and the expert-parallel all-to-alls
+  (``models/moe.py``, ``models/moe_shard_map.py``);
 * the world (the default group) carries the cross-modal scores rank 0
-  hands every rank (``broadcast``).
+  hands every rank (``broadcast``) and an MoE layer's sum over both
+  axes (``all_reduce_world``).
 
 A collective over a gloo group on CUDA tensors stages through the host
 here, by name (``_host``): gloo computes on host memory. Without a world
@@ -86,6 +90,14 @@ class RankWorld:
         dist.all_gather(parts, x, group=group)
         return torch.cat(parts, dim=dim).to(t.device)
 
+    def all_reduce_world(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over every rank, in place; returns ``t``."""
+        return self._all_reduce(t, None)
+
+    def all_reduce_data(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the data group, in place; returns ``t``."""
+        return self._all_reduce(t, self.data_group)
+
     def all_reduce_model(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the model group, in place; returns ``t``."""
         return self._all_reduce(t, self.model_group)
@@ -99,6 +111,22 @@ class RankWorld:
         """The data group's blocks of ``t``, concatenated on ``dim`` in
         data-coordinate order."""
         return self._all_gather(t, self.data_group, self.dp, dim)
+
+    def reduce_scatter_data(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the data group, cut into ``dp`` equal
+        blocks on dim 0 in data-coordinate order: this rank's block."""
+        x = self._host(t)
+        out = x.new_empty((x.shape[0] // self.dp,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=self.data_group)
+        return out.to(t.device)
+
+    def all_to_all_data(self, t: torch.Tensor) -> torch.Tensor:
+        """Block j of ``t``'s ``dp`` equal blocks on dim 0 goes to data
+        rank j; returns the blocks received, block j from data rank j."""
+        x = self._host(t)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.data_group)
+        return out.to(t.device)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank of the world, in place;

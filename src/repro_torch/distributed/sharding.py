@@ -359,7 +359,11 @@ def check_model_split(cfg: ModelConfig, mesh,
     columns, gathered), so the LM's gelu refusal does not reach it. The
     reference's rule cuts the flat ``H * hd`` dim, which GSPMD may split
     mid-head (granite-34b's one kv head under model=2); the port runs
-    heads whole."""
+    heads whole. MoE experts run as the rule table cuts them at model >
+    1: on the data axis where E divides dp (else each data rank holds
+    them all) and their hidden width ``f`` on the model axis, which must
+    divide: the port does not hold every expert whole on every model
+    rank, as the table's fallback would."""
     m = mesh.shape.get(rules.model_axis, 1)
     if m <= 1:
         return
@@ -375,6 +379,11 @@ def check_model_split(cfg: ModelConfig, mesh,
             f"{cfg.name}: the vision tower's {v.num_heads} heads do not "
             f"split whole over model={m}; the port splits whole heads only "
             f"{where}")
+    if cfg.moe is not None and cfg.moe.expert_d_ff % m:
+        raise NotImplementedError(
+            f"{cfg.name}: the experts' hidden width {cfg.moe.expert_d_ff} "
+            f"does not split over model={m}; the port cuts it in equal "
+            f"blocks only {where}")
     if cfg.d_ff and cfg.mlp_activation != "swiglu":
         raise NotImplementedError(
             f"{cfg.name}: a {cfg.mlp_activation} MLP over model={m}: the "

@@ -78,6 +78,14 @@ feature-memo hits and candidates rescored) and returns them under
     python -m torch.distributed.run --nproc-per-node 2 \
         -m repro_torch.launch.serve --device cpu --arch llava-1.5-7b \
         --xmodal-rescore --mesh 1,2 --dist-backend gloo
+
+and so do MoE models, each rank holding the experts and the share of
+their hidden width the rule table gives it (``--mesh 2,2``: half the
+experts and half of each one's width), which its launch line prints::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+        --no-reduced --impl paged_cuda --mesh 2,2 --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -98,6 +106,7 @@ from repro_torch.distributed import context
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_rank_mesh, make_serve_mesh
 from repro_torch.models.model import build_model
+from repro_torch.models.moe import expert_range
 from repro_torch.serving.engine import IMPLS, Request, ServeEngine
 from repro_torch.serving.traffic import ARRIVALS, run_open_loop
 
@@ -521,11 +530,18 @@ def _serve(args, cfg, eng, param_dtype, t_build) -> Dict[str, object]:
             "feature-memo hits")
     launches = dict(ops.LAUNCHES)
     if world is not None:
-        print(f"rank {world.rank} launches: {launches}" + (
-            f"; image encodes {eng.image_encodes}, feature-memo hits "
-            f"{eng.image_feat_hits}, candidates rescored "
-            f"{eng.xmodal_rescored} ({eng.xmodal_parted} parted from rank "
-            "0's S_align)" if eng.has_evidence else ""))
+        line = f"rank {world.rank} launches: {launches}"
+        if eng.has_evidence:
+            line += (f"; image encodes {eng.image_encodes}, feature-memo "
+                     f"hits {eng.image_feat_hits}, candidates rescored "
+                     f"{eng.xmodal_rescored} ({eng.xmodal_parted} parted "
+                     "from rank 0's S_align)")
+        if cfg.moe is not None:
+            moe = model.layers[0].moe
+            e0, e1 = expert_range(moe, cfg, world)
+            line += (f"; experts [{e0}, {e1}) of {cfg.moe.num_experts}, f "
+                     f"{moe.w_gate.shape[2]} of {cfg.moe.expert_d_ff}")
+        print(line)
     return {"engine": eng, "results": results, "seconds": secs,
             "tokens_per_s": eng.total_tokens / secs, "traces": traces,
             "metrics": metrics, "launches": launches}

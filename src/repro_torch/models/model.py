@@ -30,12 +30,15 @@ block under the rule table's serving specs
 (``sharding.serve_param_specs``), a part (the embedding, a layer, the
 vision tower) at a time, so that a rank never holds the whole model:
 its query and kv heads, MLP columns and vocabulary rows on the model
-axis, so that the ranks' weights are slices of the one-device model's,
-bit for bit. Row-parallel ``wo``, ``w_down`` and the tower's
-``out_proj`` then sum over the model group, the tower's other column
-cuts gather, the embedding is vocab-parallel and the logits are
-gathered. Attention-only decoders, with the vlm family's evidence and
-tower: the other families raise ``NotImplementedError``.
+axis, and an MoE layer's experts on the data axis and their hidden
+width on the model axis where the table cuts them, so that the ranks'
+weights are slices of the one-device model's, bit for bit. Row-parallel
+``wo``, ``w_down`` and the tower's ``out_proj`` then sum over the model
+group, the tower's other column cuts gather, an MoE layer sums its
+partial outputs over the ranks that share them, the embedding is
+vocab-parallel and the logits are gathered. Attention-only decoders with
+dense or MoE MLPs, with the vlm family's evidence and tower: the other
+families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -82,8 +85,6 @@ def check_rank_supported(cfg: ModelConfig, world) -> None:
     (``sharding.check_model_split``)."""
     kinds = set(cfg.layer_kinds)
     refused = [
-        ("MoE layers", "step 2, MoE expert parallelism",
-         cfg.moe is not None),
         ("recurrent layers", "step 3, the recurrent and hybrid arena over "
          "ranks", not cfg.is_encoder_decoder and
          bool(kinds - {ATTN, LOCAL_ATTN})),
@@ -95,7 +96,7 @@ def check_rank_supported(cfg: ModelConfig, world) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {what} over ranks are not ported yet "
                 f"(ROADMAP.md Queue 1 item 5, {step}); a rank holds "
-                "attention-only decoders")
+                "attention-only decoders, with dense or MoE MLPs")
     shd.check_model_split(cfg, world)
 
 
@@ -234,10 +235,14 @@ class Model(nn.Module):
         outputs the next op needs whole (``patch_proj``, the gelu MLP's
         ``w_in`` and ``w_out``; its ``wq``/``wk``/``wv`` keep the rank's
         heads) and ``evidence_proj`` gather over it, the embedding is
-        vocab-parallel and the logits gather."""
+        vocab-parallel and the logits gather. An MoE layer takes the
+        world: it sums its experts' partial outputs itself
+        (``moe.moe_apply``)."""
         specs = shd.serve_param_specs(self.cfg, self._whole, world)
         model_axis = shd.ShardingRules().model_axis
         for name, mod in self.named_modules():
+            if isinstance(mod, MoE):
+                mod.world = world
             if not isinstance(mod, Dense):
                 continue
             spec = specs[f"{name}.kernel"]

@@ -153,23 +153,28 @@ def make_paged_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     return cache
 
 
-def _mlp_routed(blk, cfg: ModelConfig, x, impl: str):
+def _mlp_routed(blk, cfg: ModelConfig, x, impl: str,
+                split_rows: bool = False):
     """The MLP sub-block (``transformer.py:61``): dense, or MoE with its
-    dispatch and combine through ``impl``. Returns (x + its output, the
-    MoE's routing for ``moe_aux``, None in a dense block)."""
+    dispatch and combine through ``impl``. ``split_rows``: on a rank, x
+    holds its data shard's rows of the batch (a decode step's slot rows),
+    not rows every data rank holds alike; the MoE routes the global batch
+    either way (``moe.moe_apply``). Returns (x + its output, the MoE's
+    routing for ``moe_aux``, None in a dense block)."""
     if blk.ln2 is None:        # an SSD block, or d_ff == 0: no MLP
         return x, None
     h = rmsnorm(blk.ln2.scale, x, cfg.norm_eps)
     if blk.moe is not None:
-        y, routing = moe_apply(blk.moe, cfg, h, impl=impl)
+        y, routing = moe_apply(blk.moe, cfg, h, impl=impl,
+                               split_rows=split_rows)
         return x + y, routing
     return x + mlp(blk.mlp, h), None
 
 
-def _mlp_part(blk, cfg: ModelConfig, x, impl: str):
+def _mlp_part(blk, cfg: ModelConfig, x, impl: str, split_rows: bool = False):
     """``_mlp_routed`` without the routing: serving drops the MoE's router
     losses, as the reference's prefill and decode do."""
-    return _mlp_routed(blk, cfg, x, impl)[0]
+    return _mlp_routed(blk, cfg, x, impl, split_rows)[0]
 
 
 def _logits(model, h):
@@ -401,7 +406,10 @@ def transformer_decode(model, token, cache, *, impl: str = "torch",
     ``go``: optional 0-dim bool tensor; when False, recurrent state keeps
     its value (the macro body's masked steps; the caller winds ``pos``
     back, and the KV written at ``pos`` is written again by the next
-    real step). Returns (logits (B, V), hidden (B, d), cache)."""
+    real step). On a rank of a mesh with several data ranks the B rows
+    are the rank's slot rows (its data shard of the batch), as the
+    serving engine holds them. Returns (logits (B, V), hidden (B, d),
+    cache)."""
     cfg = model.cfg
     if token.dim() == 1:
         token = token[:, None]
@@ -427,7 +435,7 @@ def transformer_decode(model, token, cache, *, impl: str = "torch",
             y = attn_lib.attn_decode(blk.attn, cfg, h, cache["k"][j],
                                      cache["v"][j], pos,
                                      window=window_for(cfg, kind), impl=impl)
-        x = _mlp_part(blk, cfg, x + y, impl)
+        x = _mlp_part(blk, cfg, x + y, impl, split_rows=True)
     logits, hidden = _logits(model, x)
     pos += 1        # in place: a captured decode step keeps its addresses
     return logits[:, 0], hidden[:, 0], cache

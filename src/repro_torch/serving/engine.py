@@ -165,7 +165,12 @@ submitted image at submit time through the rank's cut of the tower, so
 every rank holds the same evidence and memo counters; a rank stages its
 own slots' evidence rows. With ``xmodal_rescore`` every rank runs K4 on
 each finished candidate from the same inputs and takes rank 0's S_align
-(``_xmodal_scores``). Speculation, the prefix cache, chunked prefill and
+(``_xmodal_scores``). An MoE model's layers route the global batch on
+every rank, as one device routes it: a decode step's MoE gathers its
+slot rows over the data group, runs the rank's experts on its cut of
+their width and sums the partial outputs back to the rank's rows
+(``models/moe.py``); on a NCCL group those collectives are part of the
+captured body too. Speculation, the prefix cache, chunked prefill and
 prefill shards over more than one rank raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -601,10 +606,12 @@ class ServeEngine:
     # -- ranks ------------------------------------------------------------
     def _check_rank_engine(self, model, spec, prefix_cache, chunked,
                            prefill_shards) -> None:
-        """What a rank engine refuses: a model family no rank holds yet, a
-        model not cut for this rank's world, and over more than one rank
-        the features that need a sink page a shard or reads of another
-        rank's pages (ROADMAP.md Queue 1 item 5's later steps)."""
+        """What a rank engine refuses: a model family no rank holds yet
+        (recurrent, hybrid, encoder-decoder; attention-only decoders with
+        dense or MoE MLPs are served), a model not cut for this rank's
+        world, and over more than one rank the features that need a sink
+        page a shard or reads of another rank's pages (ROADMAP.md Queue 1
+        item 5's later steps)."""
         world = self.world
         check_rank_supported(model.cfg, world)
         if model.world is not None and model.world is not world:

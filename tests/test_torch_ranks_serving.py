@@ -306,19 +306,44 @@ def test_frontend_over_ranks_raises(model3):
         AsyncServeFrontend(eng)
 
 
+# the step of ROADMAP.md Queue 1 item 5 each refused family waits for
+REFUSED_STEP = {"mamba2-780m": 3, "recurrentgemma-2b": 3,
+                "seamless-m4t-large-v2": 4}
+
+
 @pytest.mark.parametrize("arch", [
     "llava-1.5-7b", "granite-moe-3b-a800m", "mamba2-780m",
     "recurrentgemma-2b", "seamless-m4t-large-v2"])
 def test_families_not_placed_raise(arch):
-    """MoE, recurrent, hybrid and encoder-decoder models are not cut for
+    """Recurrent, hybrid and encoder-decoder models are not cut for
     ranks: NotImplementedError naming their step of ROADMAP's item 5,
     before any weight is drawn. The vlm family is: the reduced llava cut
     for model rank 0 of (1, 2) holds half of each tower block's heads,
     its row-parallel projections sum and its other column cuts gather
-    over the model group."""
+    over the model group. So is the MoE family: the reduced granite cut
+    for rank (1, 1) of (2, 2) holds experts 2-3 at f 64 of 128, every
+    block a slice of the seeded one-device model's, and its MoE layers
+    take the world."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     cfg = get_config(arch).reduced().with_overrides(dtype="float32")
+    if cfg.moe is not None:
+        world = FakeWorld(2, 2, rank=3)
+        rank = build_model(cfg, torch.float32, device="cpu", seed=0,
+                           world=world)
+        whole = build_model(cfg, torch.float32, device="cpu", seed=0)
+        for got, want in zip(rank.layers, whole.layers):
+            moe, ref = got.moe, want.moe
+            assert moe.world is world
+            assert tuple(moe.w_gate.shape) == (2, cfg.d_model, 64)
+            for name in ("w_gate", "w_up"):
+                assert torch.equal(getattr(moe, name),
+                                   getattr(ref, name)[2:4, :, 64:])
+            assert torch.equal(moe.w_down, ref.w_down[2:4, 64:])
+            assert torch.equal(moe.router.kernel, ref.router.kernel)
+            assert torch.equal(got.attn.wq.kernel,
+                               want.attn.wq.kernel[:, cfg.d_model // 2:])
+        return
     if cfg.vision is not None:
         world = FakeWorld(1, 2)
         tower = build_model(cfg, torch.float32, device="cpu",
@@ -336,7 +361,9 @@ def test_families_not_placed_raise(arch):
         assert tower.out_proj.reduce_world is world
         assert tuple(tower.out_proj.kernel.shape) == (d // 2, cfg.d_model)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue 1 item 5, step "
+                       f"{REFUSED_STEP[arch]}"):
         build_model(cfg, torch.float32, device="cpu", world=FakeWorld(1, 2))
 
 

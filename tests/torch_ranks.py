@@ -145,15 +145,18 @@ def spawn(fn, n, tmp_path, *args):
 
 class RankNoise:
     """The reference engine's Gumbel draws (``split(key)`` at admission,
-    ``fold_in(decode_key, t)`` a fused step), as the port's noise
+    ``fold_in(decode_key, t)`` a fused step, or with ``legacy`` a
+    ``split(key)`` a step of the per-token loop, as
+    ``test_torch_engine_camd.ReferenceNoise``), as the port's noise
     source; every rank draws every row and keeps its own."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, legacy: bool = False):
         import jax
         self.jax = jax
         self.key = jax.random.PRNGKey(seed)
         self.decode_key = jax.random.fold_in(jax.random.PRNGKey(seed),
                                              0x6d6163)
+        self.legacy = legacy
 
     def _gumbel(self, key, shape):
         import jax.numpy as jnp
@@ -165,8 +168,11 @@ class RankNoise:
         return torch.cat([self._gumbel(k, (1, vocab)) for k in keys])
 
     def step(self, t, batch, vocab):
-        return self._gumbel(self.jax.random.fold_in(self.decode_key, t),
-                            (batch, vocab))
+        if self.legacy:
+            self.key, k = self.jax.random.split(self.key)
+        else:
+            k = self.jax.random.fold_in(self.decode_key, t)
+        return self._gumbel(k, (batch, vocab))
 
 
 @dataclasses.dataclass
@@ -194,21 +200,28 @@ class FakeWorld:
         return divmod(self.rank, self.model)
 
 
+# a config's sub-configs, by field, as plain dicts in a spawned rank
+_SUB_CONFIGS = {"vision": "VisionConfig", "moe": "MoEConfig"}
+
+
 def config_fields(cfg):
     """A (JAX or port) config's fields as plain values, its vision tower
-    as a dict: what ``port_config`` takes in a spawned rank."""
+    and MoE settings as dicts: what ``port_config`` takes in a spawned
+    rank."""
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(cfg)}
-    if fields.get("vision") is not None:
-        fields["vision"] = dataclasses.asdict(fields["vision"])
+    for name in _SUB_CONFIGS:
+        if fields.get(name) is not None:
+            fields[name] = dataclasses.asdict(fields[name])
     return fields
 
 
 def port_config(fields):
     from repro_torch import config as tconfig
     fields = dict(fields)
-    if isinstance(fields.get("vision"), dict):
-        fields["vision"] = tconfig.VisionConfig(**fields["vision"])
+    for name, cls in _SUB_CONFIGS.items():
+        if isinstance(fields.get(name), dict):
+            fields[name] = getattr(tconfig, cls)(**fields[name])
     return tconfig.ModelConfig(**fields)
 
 
@@ -266,7 +279,8 @@ def serve_cases(dp, model_ranks, cfg_fields, np_params, cases):
                                             temperature=0.8),
             camd=camd,
             n_candidates=3, max_new_tokens=6, eos_id=1, seed=0,
-            paged_kv=paged_kv, noise=RankNoise(0), mesh=mesh, **kw)
+            paged_kv=paged_kv, mesh=mesh,
+            noise=RankNoise(0, legacy=kw.get("macro_steps") == 0), **kw)
         admitted = []
         admit = eng._admit
 
@@ -283,6 +297,8 @@ def serve_cases(dp, model_ranks, cfg_fields, np_params, cases):
             res = eng.run()
         rec = {"admitted": admitted, "streams": digest(res),
                "sched": eng.sched_stats(), "B_local": eng.B_local,
+               "experts": None if model.layers[0].moe is None else
+               list(model.layers[0].moe.w_gate.shape),
                "eager_body": eng._eager_body,
                "host_syncs": eng.host_syncs,
                "total_steps": eng.total_steps}
@@ -445,3 +461,120 @@ def vlm_ranks(dp, model_ranks, cfg_fields, np_params, images):
             "evid_rows": int(eng._evid.shape[0]),
             "total_steps": eng.total_steps, "host_syncs": eng.host_syncs,
             "pool": eng.pool.stats(), "reserved": int(eng._reserved)}
+
+
+def moe_units(dp, model_ranks, cfg_fields, np_params, cases):
+    """This rank of a (dp, model) mesh on the reduced granite with the
+    reference's weights: its layer 0 MoE (cut by the rank build) on each
+    case ``(name, x, split, MoE overrides)``: the whole x, or with
+    ``split`` the rank's data block of its rows, through ``moe_apply``
+    on both impls; returns {name: (output rows, aux)}, the expert block
+    the rank holds and, under "shared", a seeded variant with a shared
+    expert on the "decode drops" rows in both layouts (its shared MLP's
+    gate shape, the whole rows' output, the rank's rows' output)."""
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.distributed.context import release_world
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import moe_apply, moe_aux
+    cfg = port_config(cfg_fields)
+    world = make_rank_mesh(dp, model_ranks, device="cpu").world
+    moe = rank_model(cfg, np_params, world).layers[0].moe
+    d = world.coords[0]
+    out = {"experts": list(moe.w_gate.shape),
+           "w_down": list(moe.w_down.shape)}
+    with torch.inference_mode():
+        for name, x, split, over in cases:
+            c = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **over))
+            xt = torch.from_numpy(x)
+            if split:
+                n = x.shape[0] // dp
+                xt = xt[d * n:(d + 1) * n]
+            got = {}
+            for impl in ("torch", "cuda"):
+                y, routing = moe_apply(moe, c, xt, impl=impl,
+                                       split_rows=split)
+                got[impl] = (y.numpy(), {k: float(v) for k, v in
+                                         moe_aux(*routing).items()})
+            assert np.array_equal(got["torch"][0], got["cuda"][0])
+            out[name] = got["cuda"]
+        # a shared expert (kimi-k2's kind), cut as the dense gated MLP:
+        # the seeded model's layer 0 on the decode drop case's rows
+        name, x, _, over = next(c for c in cases if c[0] == "decode drops")
+        c = cfg.with_overrides(moe=dataclasses.replace(
+            cfg.moe, num_shared_experts=1, **over))
+        shared = build_model(c, torch.float32, device="cpu", seed=0,
+                             world=world).layers[0].moe
+        n = x.shape[0] // dp
+        out["shared"] = (
+            list(shared.shared.w_gate.kernel.shape),
+            moe_apply(shared, c, torch.from_numpy(x), impl="cuda")[0].numpy(),
+            moe_apply(shared, c, torch.from_numpy(x[d * n:(d + 1) * n]),
+                      impl="cuda", split_rows=True)[0].numpy())
+    release_world(world)
+    return out
+
+
+def shard_map_ranks(cfg_fields, moe_params, x, meshes):
+    """``moe_apply_shard_map`` on this rank of each ``(dp, model,
+    model_axis)`` mesh: the rank holds the router and shared MLP whole,
+    its data block of the experts (with ``model_axis`` its model block of
+    their ``f``) and its data block of x's rows. Returns {mesh: (output
+    rows, aux)} on both impls, which must agree."""
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.distributed.context import release_world
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.moe_shard_map import moe_apply_shard_map
+    cfg = port_config(cfg_fields)
+    E = cfg.moe.num_experts
+    out = {}
+    for dp, mp, model_axis in meshes:
+        world = make_rank_mesh(dp, mp, device="cpu").world
+        d, m = world.coords
+        p = MoE(cfg, device="cpu")
+        e_blk = slice(d * E // dp, (d + 1) * E // dp)
+        f = cfg.moe.expert_d_ff
+        f_blk = slice(m * f // mp, (m + 1) * f // mp) if model_axis \
+            else slice(0, f)
+        p.router.kernel.data = torch.from_numpy(moe_params["router"]["kernel"])
+        for name in ("w_gate", "w_up"):
+            getattr(p, name).data = torch.from_numpy(
+                moe_params[name][e_blk][:, :, f_blk].copy())
+        p.w_down.data = torch.from_numpy(
+            moe_params["w_down"][e_blk][:, f_blk].copy())
+        for name in ("w_gate", "w_up", "w_down") if p.shared else ():
+            getattr(p.shared, name).kernel.data = torch.from_numpy(
+                moe_params["shared"][name]["kernel"])
+        n = x.shape[0] // dp
+        x_loc = torch.from_numpy(x[d * n:(d + 1) * n])
+        got = {}
+        with torch.inference_mode():
+            for impl in ("torch", "cuda"):
+                y, aux = moe_apply_shard_map(p, cfg, x_loc, world,
+                                             model_axis=model_axis,
+                                             impl=impl)
+                got[impl] = (y.numpy(), {k: float(v) for k, v in
+                                         aux.items()})
+        assert np.array_equal(got["torch"][0], got["cuda"][0])
+        out[(dp, mp)] = got["cuda"]
+        release_world(world)
+    return out
+
+
+def moe_ranks(units, shard_maps, serves):
+    """One spawn's MoE work on this rank, its worlds one after another:
+    ``moe_units`` on each mesh of ``units`` ((cfg fields, params, meshes,
+    cases)), ``shard_map_ranks`` on ``shard_maps`` ((cfg fields, MoE
+    params, x, meshes), or None) and ``serve_cases`` on each (mesh,
+    cases) of ``serves`` ((cfg fields, params, [(mesh, cases)]))."""
+    from repro_torch.distributed.context import get_world, release_world
+    fields, params, meshes, cases = units
+    out = {"units": {mesh: moe_units(*mesh, fields, params, cases)
+                     for mesh in meshes}}
+    if shard_maps is not None:
+        out["shard_map"] = shard_map_ranks(*shard_maps)
+    fields, params, runs = serves
+    out["serve"] = {}
+    for mesh, cases in runs:
+        out["serve"][mesh] = serve_cases(*mesh, fields, params, cases)
+        release_world(get_world())
+    return out
