@@ -278,9 +278,17 @@ LLAVA_RANK_ENTRY = "llava-1.5-7b tp2 rank"
 # experts at a decode step of the 8 slots (G 1, g 8, k 8, C 8)
 MOE_RANK_EXPERTS = 20
 MOE_RANK_ENTRY = "granite-moe-3b-a800m 2x2 rank"
+# a model rank of recurrentgemma-2b at model=2: 5 query heads beside the
+# one kv head, which every model rank holds whole; K2 at a request's
+# one-row prefill, K3 at a decode step of the 8 slots on one data rank
+# (``--mesh 1,2``) and of a data rank's 4 (``--mesh 2,2``)
+RG_RANK_HEADS = (5, 1)
+RG_RANK_ENTRY = "recurrentgemma-2b tp2 rank"
+RG_RANK_DP2_ENTRY = "recurrentgemma-2b 2x2 rank"
 NEW_ENTRIES = tuple(LARGE_HEADS) + ("granite-34b int8", "granite-34b fp8",
                                     "internvl2-2b") + HD256_ENTRIES + (
-    SEAMLESS["name"], RANK_ENTRY, LLAVA_RANK_ENTRY, MOE_RANK_ENTRY)
+    SEAMLESS["name"], RANK_ENTRY, LLAVA_RANK_ENTRY, MOE_RANK_ENTRY,
+    RG_RANK_ENTRY, RG_RANK_DP2_ENTRY)
 # K3's second timing shape: the reference's decode_32k cache length
 # (repro/config.py:263); K3 is timed at each length of the sweep, from
 # one 16-row tile to 2048 of them
@@ -678,7 +686,9 @@ def rank_shape_phase(torch, ops, ref, timer):
     and K2 at llava-1.5-7b's rank shapes (``LLAVA_RANK_HEADS``); each
     held against its plain version and timed beside its bound and SDPA's
     time (``decode_timing``, ``flash_shape_timing``); K5a and K5b at a
-    (2, 2) rank of granite-moe-3b-a800m (``moe_rank_timing``). Returns
+    (2, 2) rank of granite-moe-3b-a800m (``moe_rank_timing``); K2 and K3
+    at a model rank of recurrentgemma-2b (``RG_RANK_HEADS``, hd 256:
+    ``windowed_flash_timing``, ``decode_timing`` at B 8 and 4). Returns
     ({kernel: {entry: times}}, {kernel: max_abs_err})."""
     g = torch.Generator(device="cuda").manual_seed(12)
     H, Hkv = RANK_HEADS
@@ -718,6 +728,21 @@ def rank_shape_phase(torch, ops, ref, timer):
     for name, (t, err) in moe_rank_timing(torch, ops, ref, timer, g).items():
         entries[name] = {MOE_RANK_ENTRY: t}
         errs[name] = err
+    # recurrentgemma-2b at model=2 (``RG_RANK_HEADS``: 5 query heads
+    # beside the whole kv head, hd 256): K2 at a request's one-row
+    # prefill in its window, K3 at a decode step of the 8 slots of a
+    # ``1,2`` rank and the 4 of a ``2,2`` rank, G 5 in one group
+    H, Hkv = RG_RANK_HEADS
+    entries["flash_attention"][RG_RANK_ENTRY], err = windowed_flash_timing(
+        torch, ops, ref, timer, g, RG_RANK_ENTRY, SERVE["prompt"], H, Hkv,
+        "float32")
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    for key, rows in ((RG_RANK_ENTRY, B), (RG_RANK_DP2_ENTRY, B // 2)):
+        t, err = decode_timing(torch, ops, ref, timer, g, CACHE_LEN, B=rows,
+                               H=H, Hkv=Hkv, hd=RG_ATTN["hd"])
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        entries["decode_attention"][key] = {
+            k: t[k] for k in SUB_KEYS + ("by_kernel",)}
     return entries, errs
 
 
@@ -1177,7 +1202,6 @@ def hd256_phase(torch, ops, ref, timer):
     pairs over the 3xTF32 or bf16 tensor-core rate), K3 at the served
     decode (``decode_timing``). Returns ({kernel: {entry: times}},
     {kernel: max_abs_err})."""
-    F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(9)
     H, Hkv, hd, W = (RG_ATTN[k] for k in ("H", "Hkv", "hd", "window"))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1234,44 +1258,56 @@ def hd256_phase(torch, ops, ref, timer):
                           ("recurrentgemma-2b bf16", SERVE["prompt"],
                            "bfloat16"),
                           ("recurrentgemma-2b L3072", 3072, "float32")):
-        dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(1, L, h, hd, generator=g,
-                               device="cuda").to(dt) for h in (H, Hkv, Hkv))
-        shape = f"{DT_NAMES[dtype]} B1 L{L} H{H} Hkv{Hkv} hd{hd} causal " \
-            f"window {W}"
-        errs["flash_attention"].append(compare(
-            torch, "flash_attention", f"{shape} (timed)",
-            ops.flash_attention(q, k, v, window=W),
-            ref.flash_attention_ref(q, k, v, window=W), dtype))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        band = torch.ones(L, L, dtype=torch.bool, device="cuda").tril() & \
-            ~torch.ones(L, L, dtype=torch.bool, device="cuda").tril(-W)
-        t = times(timer, lambda: ops.flash_attention(q, k, v, window=W),
-                  "flash_kernel",
-                  lambda: ref.flash_attention_ref(q, k, v, window=W),
-                  lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, attn_mask=band, enable_gqa=True))
-        nbytes = dt.itemsize * (2 * L * H * hd + 2 * L * Hkv * hd)
-        flops = 4 * H * hd * window_pairs(L, W)
-        if dtype == "float32":
-            t["bound_ms"], t["bound_by"], b = tf32_bounds(nbytes, flops)
-            t.update({f"bound_{k_}_ms": val for k_, val in b.items()})
-        else:
-            t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, dtype)
-        t["shape"] = shape
-        print(f"  flash_attention {key}: kernel {t['ms']:.4f} ms (call "
-              f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
-              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} ms "
-              f"({t['bound_by']}; {shape})")
-        timed["flash_attention"][key] = {
-            k_: t[k_] for k_ in SUB_KEYS + TF32_BOUNDS if k_ in t}
-        del q, k, v, qt, kt, vt
+        timed["flash_attention"][key], err = windowed_flash_timing(
+            torch, ops, ref, timer, g, key, L, H, Hkv, dtype)
+        errs["flash_attention"].append(err)
     t, err = decode_timing(torch, ops, ref, timer, g, CACHE_LEN, H=H,
                            Hkv=Hkv, hd=hd)
     errs["decode_attention"].append(err)
     timed["decode_attention"]["recurrentgemma-2b"] = {
         k_: t[k_] for k_ in SUB_KEYS + ("by_kernel",)}
     return timed, {k_: max(v_) for k_, v_ in errs.items()}
+
+
+def windowed_flash_timing(torch, ops, ref, timer, g, key, L, H, Hkv,
+                          dtype):
+    """K2 at a one-row prefill of recurrentgemma-2b's local attention (B 1,
+    L tokens, H over Hkv heads of 256, its window of 2048), in ``dtype``:
+    held against its plain version, then timed beside SDPA under the
+    window's band mask and its bounds (bytes; the window's causal pairs
+    over the 3xTF32 or bf16 tensor-core rate). Returns (its entry,
+    max_abs_err)."""
+    F = torch.nn.functional
+    hd, W = RG_ATTN["hd"], RG_ATTN["window"]
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(1, L, h, hd, generator=g, device="cuda").to(dt)
+               for h in (H, Hkv, Hkv))
+    shape = f"{DT_NAMES[dtype]} B1 L{L} H{H} Hkv{Hkv} hd{hd} causal " \
+        f"window {W}"
+    err = compare(torch, "flash_attention", f"{shape} (timed)",
+                  ops.flash_attention(q, k, v, window=W),
+                  ref.flash_attention_ref(q, k, v, window=W), dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    band = torch.ones(L, L, dtype=torch.bool, device="cuda").tril() & \
+        ~torch.ones(L, L, dtype=torch.bool, device="cuda").tril(-W)
+    t = times(timer, lambda: ops.flash_attention(q, k, v, window=W),
+              "flash_kernel",
+              lambda: ref.flash_attention_ref(q, k, v, window=W),
+              lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, attn_mask=band, enable_gqa=True))
+    nbytes = dt.itemsize * (2 * L * H * hd + 2 * L * Hkv * hd)
+    flops = 4 * H * hd * window_pairs(L, W)
+    if dtype == "float32":
+        t["bound_ms"], t["bound_by"], b = tf32_bounds(nbytes, flops)
+        t.update({f"bound_{k_}_ms": val for k_, val in b.items()})
+    else:
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, flops, dtype)
+    t["shape"] = shape
+    print(f"  flash_attention {key}: kernel {t['ms']:.4f} ms (call "
+          f"{t['call_ms']:.4f}), plain {t['plain_ms']:.4f}, SDPA "
+          f"{t['library_ms']:.4f}, bound {t['bound_ms']:.5f} ms "
+          f"({t['bound_by']}; {shape})")
+    return {k_: t[k_] for k_ in SUB_KEYS + TF32_BOUNDS if k_ in t}, err
 
 
 def xmodal_max_bounds(B, Nt, Nv, d):
@@ -1905,13 +1941,17 @@ def one_nccl_rank():
 def rank_record(torch, out):
     """What a rank's serve run shows: its streams, launches, tokens/s,
     peak device memory, the bytes of its weights and pools, its head and
-    row counts and its pool's pages (own range and mirrors); with a
+    row counts, the collectives of its macro bodies and its pool's pages
+    (own range and mirrors); with a recurrent or hybrid model its arena's
+    stats (the rank's rows and mirror rows), SSD heads, RG-LRU width and
+    local layers; with a
     vision tower its image encodes, memo hits, candidates rescored (and
     parted from rank 0's S_align), the tower's heads and the peak the
     allocator reserved."""
     eng = out["engine"]
     model = eng.model
     cache = eng.state.cache
+    attn = next((b.attn for b in model.layers if hasattr(b, "attn")), None)
     rec = dict(
         rank=eng.world.rank, coords=list(eng.world.coords),
         streams=stream_digest(out["results"]), launches=out["launches"],
@@ -1925,8 +1965,16 @@ def rank_record(torch, out):
         macro_launches=eng.macro_launches, macro_steps=eng.macro_steps,
         prefill_calls=eng.prefill_calls, layers=eng.cfg.num_layers,
         B_local=eng.B_local, kv_heads=model.kv_heads,
-        q_heads=model.layers[0].attn.wq.kernel.shape[1] //
-        eng.cfg.resolved_head_dim)
+        q_heads=0 if attn is None else attn.wq.kernel.shape[1] //
+        eng.cfg.resolved_head_dim, collectives=out.get("collectives"))
+    if eng.arena is not None:
+        blk = {b.kind: b for b in model.layers}
+        rec.update(arena=eng.arena_stats(),
+                   ssd_heads=int(blk["ssm"].ssm.A_log.shape[0])
+                   if "ssm" in blk else 0,
+                   rglru_width=int(blk["rglru"].rglru.lam.shape[0])
+                   if "rglru" in blk else 0,
+                   n_local=sum(k == "local" for k in eng.cfg.layer_kinds))
     if eng.paged:
         rec.update(pool_pages=int(cache["k_pages"].shape[1]),
                    own_pages=eng._own_pages, num_pages=eng.pool.num_pages,
@@ -1954,8 +2002,9 @@ def rank_record(torch, out):
 def ranks_worker(arg: str, out_dir: str) -> None:
     """One worker of ``start_gloo_ranks``' launch (torchrun's rank RANK):
     waits for the go file in ``out_dir``, then for each (run, argv,
-    ranks) of the spec in which it is one of the first ``ranks`` workers
-    joins the run's gloo group (a file store in ``out_dir``), serves argv
+    ranks, first) of the spec in which it is one of the ``ranks`` workers
+    from ``first`` joins the run's gloo group (a file store in
+    ``out_dir``, its rank there RANK - first), serves argv
     through the serve entry point (``shard_map_rank`` when argv is null),
     writes the run's record to ``out_dir`` (a file a rank and run: the
     workers' standard outputs interleave) and leaves the group. It gives
@@ -1974,19 +2023,22 @@ def ranks_worker(arg: str, out_dir: str) -> None:
         if time.monotonic() > deadline:
             raise SystemExit(f"gloo worker {rank}: no go in {GLOO_WAIT} s")
         time.sleep(0.05)
-    for i, (run, argv, ranks) in enumerate(spec):
-        if rank >= ranks:
+    for i, (run, argv, ranks, first) in enumerate(spec):
+        if not first <= rank < first + ranks:
             continue
         dist.init_process_group(
             "gloo", store=dist.FileStore(str(Path(out_dir, f"store-{i}")),
-                                         ranks), rank=rank, world_size=ranks)
+                                         ranks), rank=rank - first,
+            world_size=ranks)
         try:
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launches()
             if argv is None:            # the expert-parallel check
                 rec = shard_map_rank(torch, ops)
             else:
-                out = serve.main(argv)
+                with counting_collectives() as counts:
+                    out = serve.main(argv)
+                out["collectives"] = dict(counts)
                 torch.cuda.synchronize()
                 rec = rank_record(torch, out)
                 del out
@@ -1995,6 +2047,47 @@ def ranks_worker(arg: str, out_dir: str) -> None:
         finally:
             dist.destroy_process_group()
         free_memory(torch)
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Counts the ``torch.distributed`` collectives a rank calls while
+    open ("all") and those inside its engine's macro bodies ("body"),
+    with the decode steps those bodies ran, masked ones included
+    ("steps": K a launch): "body" / "steps" is a decode step's
+    collectives, the exit flags' OR among them."""
+    import torch.distributed as dist
+    from repro_torch.serving.engine import ServeEngine
+    counts = {"all": 0, "body": 0, "steps": 0}
+    names = ("all_reduce", "all_gather", "broadcast",
+             "reduce_scatter_tensor", "all_to_all_single")
+    saved = {n: getattr(dist, n) for n in names}
+    saved_body = ServeEngine._macro_step
+    depth = [0]
+
+    def counted(fn):
+        def call(*args, **kw):
+            counts["all"] += 1
+            counts["body"] += depth[0] > 0
+            return fn(*args, **kw)
+        return call
+
+    def body(self):
+        depth[0] += 1
+        counts["steps"] += max(self.macro_steps, 1)
+        try:
+            return saved_body(self)
+        finally:
+            depth[0] -= 1
+    for n in names:
+        setattr(dist, n, counted(saved[n]))
+    ServeEngine._macro_step = body
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
+        ServeEngine._macro_step = saved_body
 
 
 def stream_split(a, b):
@@ -2119,9 +2212,14 @@ def ranks_phase(torch, ops, serve, model, card):
 
 
 def gloo_spec():
-    """Every gloo run of the rank phases, in order: (run, argv, ranks),
-    the argv of ``serve.main`` (None: ``shard_map_rank``) on the first
-    ``ranks`` workers of the launch."""
+    """Every gloo run of the rank phases: (run, argv, ranks, first), the
+    argv of ``serve.main`` (None: ``shard_map_rank``) on workers
+    ``first .. first + ranks - 1`` of the launch, each worker taking its
+    runs in this order. The two-rank runs go in two lanes beside each
+    other, workers 0-1 (qwen3's, granite-moe's) and 2-3 (recurrentgemma's
+    and mamba2's, ~20 GB at most beside granite's (c) ~28 GB); the
+    four-rank runs follow, then llava's runs alone on workers 0-1 (its
+    (c) holds ~71 GB)."""
     def argv(base, mesh, layers):
         return base + ["--mesh", mesh, "--dist-backend", "gloo"] + (
             ["--num-layers", str(layers)] if layers else [])
@@ -2129,14 +2227,26 @@ def gloo_spec():
     def ranks(mesh):
         dp, mp = (int(x) for x in mesh.split(","))
         return dp * mp
-    return [(f"qwen3 {run}", argv(with_arg(RANKS_ARGV, "--impl", impl), mesh,
-                                  layers), ranks(mesh))
-            for run, (mesh, impl, layers, _) in RANK_RUNS.items()] + [
-        (f"llava {run}", argv(VLM_RANKS_ARGV, mesh, 0), ranks(mesh))
-        for run, (mesh, _, _) in VLM_RANK_RUNS.items()] + [
-        (f"granite {run}", argv(MOE_RANKS_ARGV, mesh, layers), ranks(mesh))
-        for run, (mesh, layers, _) in MOE_RANK_RUNS.items()] + [
+
+    def lane(runs, first):
+        return [(run, a, n, first if n == 2 else 0) for run, a, n in runs]
+    qwen = [(f"qwen3 {run}", argv(with_arg(RANKS_ARGV, "--impl", impl),
+                                  mesh, layers), ranks(mesh))
+            for run, (mesh, impl, layers, _) in RANK_RUNS.items()]
+    llava = [(f"llava {run}", argv(VLM_RANKS_ARGV, mesh, 0), ranks(mesh))
+             for run, (mesh, _, _) in VLM_RANK_RUNS.items()]
+    granite = [(f"granite {run}", argv(MOE_RANKS_ARGV, mesh, layers),
+                ranks(mesh))
+               for run, (mesh, layers, _) in MOE_RANK_RUNS.items()] + [
         ("granite shard_map", None, 4)]
+    recurrent = [(f"recurrent {run}", argv(recurrent_ranks_argv(name, mode),
+                                          mesh, layers), ranks(mesh))
+                 for run, (name, mesh, mode, layers)
+                 in RECURRENT_RANK_RUNS.items()]
+    two = lane([r for r in qwen + granite if r[2] == 2], 0) + \
+        lane([r for r in recurrent if r[2] == 2], 2)
+    four = lane([r for r in granite + recurrent if r[2] == 4], 0)
+    return two + four + lane(llava, 0)
 
 
 def start_gloo_ranks(spec):
@@ -2177,8 +2287,9 @@ def stop_gloo_ranks(launch) -> None:
 def gloo_ranks(launch):
     """Gives the launch's workers their go, waits for them (at most
     ``RANKS_TIMEOUT``), prints their output and returns their records
-    (one a rank and run). One launch serves the qwen3, llava and granite
-    runs: a launch's start and end cost ~12 s."""
+    (one a rank and run). One launch serves the qwen3, llava, granite,
+    recurrentgemma and mamba2 runs: a launch's start and end cost ~12
+    s."""
     t0 = time.perf_counter()
     out_dir, proc = launch["out_dir"], launch["proc"]
     Path(out_dir, "go").touch()
@@ -2191,7 +2302,7 @@ def gloo_ranks(launch):
         stop_gloo_ranks(launch)
     for line in output.splitlines():
         print(f"  | {line}")
-    want = sum(n for _, _, n in launch["spec"])
+    want = sum(n for _, _, n, _ in launch["spec"])
     check(proc.returncode == 0 and len(records) == want,
           f"gloo ranks: torchrun exited {proc.returncode} with "
           f"{len(records)} of {want} records")
@@ -2676,6 +2787,268 @@ def shard_map_check(records, card):
               f"{rec['launches']['moe_dispatch']}/"
               f"{rec['launches']['moe_combine']} ({card})")
     return {"granite-moe-3b-a800m shard_map": recs[0]["launches"]}
+
+
+# recurrent and hybrid serving over ranks (recurrent_ranks_phase):
+# full-width recurrentgemma-2b and mamba2-780m, fp32, ``--impl cuda``,
+# the serve phases' 8 slots and 2 requests of 256 + 32 tokens, CAMD.
+# Each recurrent request is prefilled alone and its state kept in an
+# arena row of its own shard; CAMD's two rounds of 4 fill each shard's 4
+# slots from its own rows, while greedy's one candidate a request puts
+# request 1's in slot 1, on shard 0, its row on shard 1: the greedy runs
+# of (b) and (d) seed a slot from a mirror row. (c) and (d) at 3 layers,
+# one (RG-LRU, RG-LRU, local) period, the mamba2 (e) at 1,2 at 4 layers,
+# against one-process runs of as many layers; (b) and (e) at 2,1 whole
+RECURRENT_RANK_REQUESTS = 2
+RECURRENT_RANK_LAYERS = {"recurrentgemma-2b": 3, "mamba2-780m": 4}
+# run: (model, mesh, mode, layers (0: all of them))
+RECURRENT_RANK_RUNS = {
+    "(b)": ("recurrentgemma-2b", "2,1", "camd", 0),
+    "(b) greedy": ("recurrentgemma-2b", "2,1", "greedy", 0),
+    "(c)": ("recurrentgemma-2b", "1,2", "camd", 3),
+    "(d)": ("recurrentgemma-2b", "2,2", "camd", 3),
+    "(d) greedy": ("recurrentgemma-2b", "2,2", "greedy", 3),
+    "(e)": ("mamba2-780m", "2,1", "camd", 0),
+    "(e) 1,2": ("mamba2-780m", "1,2", "camd", 4),
+}
+# the runs whose streams must read an arena row across shards
+RECURRENT_MIRROR_RUNS = ("(b) greedy", "(d) greedy")
+
+
+def recurrent_ranks_argv(name, mode="camd", layers=0):
+    """``name`` at the serve phases' shapes through ``--impl cuda``, with
+    ``RECURRENT_RANK_REQUESTS`` requests, in ``mode``, at ``layers``
+    layers (0: all of them)."""
+    argv = with_arg(with_arg(with_arg(
+        serve_argv(name, CACHE_LEN, RECURRENT_EOS[name]), "--impl", "cuda"),
+        "--requests", RECURRENT_RANK_REQUESTS), "--mode", mode)
+    return argv + (["--num-layers", str(layers)] if layers else [])
+
+
+def recurrent_launch_want(eng, launches):
+    """A recurrent or hybrid run's kernel launches: K2 once a local
+    layer a prefill call, K3 once a local layer a decode step of every
+    launch (masked steps included: a graph replays them, an eager body
+    runs them), nothing else (mamba2: nothing at all)."""
+    n_local = sum(k == "local" for k in eng.cfg.layer_kinds)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = n_local * eng.prefill_calls
+    want["decode_attention"] = n_local * eng.macro_launches * \
+        eng.macro_steps
+    return want
+
+
+def recurrent_run(torch, ops, serve, argv, model, what):
+    """One recurrent or hybrid serve through the entry point on ``model``
+    (launch counts set to 0 just before and read just after): every
+    request resolved with a usable candidate, one graph captured, the
+    launches ``recurrent_launch_want`` gives, the arena empty and
+    audited. Returns (launches, output of serve.main, its peak device
+    memory under "peak_gb")."""
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve.main(argv, model=model)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    eng = out["engine"]
+    check(len(out["results"]) == RECURRENT_RANK_REQUESTS,
+          f"{what}: {len(out['results'])} results")
+    for r in out["results"]:
+        check(r.n_candidates > 0 and 0 < len(r.tokens) <= SERVE["max_new"]
+              and all(0 <= int(t) < eng.V for t in r.tokens) and
+              math.isfinite(r.best_score),
+              f"{what}: request {r.uid} has no usable candidate")
+    check(eng._graphs_captured == 1 and eng.macro_launches > 0,
+          f"{what}: {eng._graphs_captured} graphs captured")
+    want = recurrent_launch_want(eng, launches)
+    check(launches == want, f"{what}: launches {launches}, not {want}")
+    eng.arena.check()
+    check(eng.arena.in_use == 0, f"{what}: {eng.arena.in_use} rows held")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return launches, out
+
+
+def recurrent_ranks_phase(torch, ops, serve, card):
+    """Serving full-width recurrentgemma-2b and mamba2-780m in fp32 over
+    torch.distributed ranks, through the serve entry point
+    (``recurrent_ranks_argv``), in process: (a) recurrentgemma-2b as one
+    NCCL rank (world 1; one captured graph with its collectives) against
+    the same run without a group on one seeded model: the same streams
+    and K2/K3 counts; then the one-process runs whose streams the gloo
+    runs (``RECURRENT_RANK_RUNS``) must give: recurrentgemma-2b greedy at
+    full depth, CAMD and greedy at 3 layers, mamba2-780m CAMD at full
+    depth and at 4 layers. Each model is released before the next.
+    Returns ({run: launches}, what ``recurrent_ranks_check`` needs: the
+    one-process records by (model, mode, layers))."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    t0 = time.perf_counter()
+    runs, one, cfgs = {}, {}, {}
+
+    def keep(key, out):
+        eng = out["engine"]
+        one[key] = dict(streams=stream_digest(out["results"]),
+                        tps=out["tokens_per_s"], peak_gb=out["peak_gb"],
+                        arena=eng.arena_stats(),
+                        weight_bytes=sum(p.numel() * p.element_size()
+                                         for p in eng.model.parameters()))
+    for name in RECURRENT_EOS:
+        cfg = get_config(name).with_overrides(dtype="float32")
+        cfgs[name] = cfg
+        small = RECURRENT_RANK_LAYERS[name]
+        modes = {0: ("camd", "greedy"), small: ("camd", "greedy")} \
+            if name == "recurrentgemma-2b" else {0: ("camd",),
+                                                 small: ("camd",)}
+        for layers, wanted in modes.items():
+            model = build_model(cfg.with_overrides(num_layers=layers)
+                                if layers else cfg, torch.float32,
+                                device="cuda", seed=0)
+            for mode in wanted:
+                argv = recurrent_ranks_argv(name, mode, layers)
+                run = f"{name} ranks one process {mode}" + (
+                    f" {layers} layers" if layers else "")
+                runs[run], out = recurrent_run(torch, ops, serve, argv,
+                                               model, run)
+                keep((name, mode, layers), out)
+                if name != "recurrentgemma-2b" or layers or mode != "camd":
+                    del out
+                    continue
+                with one_nccl_rank():
+                    runs[f"{name} ranks (a)"], a = recurrent_run(
+                        torch, ops, serve, argv + ["--mesh", "1,1"], model,
+                        f"recurrent ranks (a) [{name}]")
+                eng = a["engine"]
+                check(eng.world is not None and eng.world.backend == "nccl"
+                      and not eng._eager_body and eng._graphs_captured == 1,
+                      "recurrent ranks (a): not one NCCL rank replaying one "
+                      "captured graph")
+                check(stream_digest(a["results"]) ==
+                      one[name, mode, 0]["streams"],
+                      "recurrent ranks (a): streams differ from the run "
+                      "without a group")
+                check(runs[f"{name} ranks (a)"] == runs[run],
+                      "recurrent ranks (a): K2/K3 launched differently from "
+                      "the run without a group")
+                print(f"recurrent ranks: (a) [{name}] one NCCL rank "
+                      f"{a['tokens_per_s']:.1f} tok/s, without a group "
+                      f"{out['tokens_per_s']:.1f} ({card}); peak "
+                      f"{a['peak_gb']:.2f} GB; launches "
+                      f"{runs[f'{name} ranks (a)']}")
+                del a, eng, out
+            del model
+            free_memory(torch)
+    for (name, mode, layers), rec in one.items():
+        print(f"recurrent ranks: one process [{name}, {mode}, "
+              f"{layers or cfgs[name].num_layers} layers] "
+              f"{rec['tps']:.1f} tok/s, weights "
+              f"{rec['weight_bytes'] / 1e9:.3f} GB, peak {rec['peak_gb']:.2f}"
+              f" GB ({card})")
+    print(f"recurrent ranks: in process {time.perf_counter() - t0:.1f} s")
+    check_released(torch, "recurrent ranks in process")
+    return runs, dict(one=one, cfgs=cfgs)
+
+
+# the reference's keys of ``arena_stats``, alike on every rank
+ARENA_KEYS = ("num_rows", "num_shards", "free_rows", "in_use", "max_in_use",
+              "alloc_count", "free_count", "sizing_stalls", "free_per_shard",
+              "state_kind", "bytes_per_row", "resident_state_bytes")
+
+
+def recurrent_ranks_check(torch, serve, pending, records, card):
+    """``recurrent_ranks_phase``'s gloo runs (``RECURRENT_RANK_RUNS``),
+    from their records: every rank's body eager, its rows, heads, SSD
+    heads or RG-LRU width (a model rank's share; the one kv head whole),
+    its arena rows (its shard's block and a mirror row a slot of its
+    shard) and the arena's stats alike on every rank; K2 once a local
+    layer a prefill call and K3 once a local layer a decode step on
+    every recurrentgemma-2b rank, nothing on mamba2-780m's; the streams
+    of the one-process run at the same depth and mode (``agree``); in
+    ``RECURRENT_MIRROR_RUNS`` a row fetched across shards and held in a
+    mirror. Prints tokens/s, per-rank weights and peak memory, the
+    arena, collectives a decode step and heads beside the card. Returns
+    ({run: launches}, the recurrentgemma-2b rank runs)."""
+    one, cfgs = pending["one"], pending["cfgs"]
+    runs, rg_runs, models = {}, [], {}
+    for run, (name, mesh, mode, layers) in RECURRENT_RANK_RUNS.items():
+        dp, mp = (int(x) for x in mesh.split(","))
+        cfg = cfgs[name].with_overrides(num_layers=layers) if layers \
+            else cfgs[name]
+        ref_rec = one[name, mode, layers]
+        recs = [r for r in records if r["run"] == f"recurrent {run}"]
+        check(len(recs) == dp * mp, f"recurrent ranks {run}: {len(recs)} "
+              "records")
+        per_shard = 2 * SERVE["slots"] // dp + 4
+        for rec in recs:
+            what = f"recurrent ranks {run} [{name}] --mesh {mesh} rank " \
+                f"{rec['rank']}"
+            check(rec["eager"] and rec["graphs"] == 0,
+                  f"{what}: a gloo rank's body must run eagerly")
+            a = rec["arena"]
+            widths = (rec["B_local"], rec["q_heads"], rec["kv_heads"],
+                      rec["ssd_heads"], rec["rglru_width"])
+            if name == "recurrentgemma-2b":
+                want = (SERVE["slots"] // dp, 10 // mp, 1, 0, 2560 // mp)
+            else:
+                want = (SERVE["slots"] // dp, 0, 0, 48 // mp, 0)
+            check(widths == want, f"{what}: rows, heads, SSD heads, RG-LRU "
+                  f"width {widths}, not {want}")
+            check(a["rank"]["rows"] == per_shard and
+                  a["rank"]["mirror_rows"] ==
+                  (SERVE["slots"] // dp if dp > 1 else 0),
+                  f"{what}: arena rows {a['rank']}")
+            check({k: a[k] for k in ARENA_KEYS} ==
+                  {k: recs[0]["arena"][k] for k in ARENA_KEYS},
+                  f"{what}: arena stats differ from rank 0's")
+            check(a["num_rows"] == per_shard * dp and a["in_use"] == 0 and
+                  a["bytes_per_row"] == ref_rec["arena"]["bytes_per_row"],
+                  f"{what}: arena {a}")
+            if mp == 1:
+                check(rec["weight_bytes"] == ref_rec["weight_bytes"],
+                      f"{what}: weights {rec['weight_bytes']} bytes, not the "
+                      f"one process's {ref_rec['weight_bytes']}")
+            n_local = rec["n_local"]
+            steps = rec["macro_launches"] * rec["macro_steps"]
+            want_l = {k: 0 for k in rec["launches"]}
+            want_l["flash_attention"] = n_local * rec["prefill_calls"]
+            want_l["decode_attention"] = n_local * steps
+            check(rec["launches"] == want_l, f"{what}: launches "
+                  f"{rec['launches']}, not {want_l}")
+            check(rec["prefill_calls"] == RECURRENT_RANK_REQUESTS,
+                  f"{what}: {rec['prefill_calls']} prefill calls")
+            agree(torch, serve, cfg, recurrent_ranks_argv(name, mode, layers),
+                  rec["streams"], ref_rec["streams"], what, models)
+            key = f"{name} ranks {run} rank {rec['rank']}"
+            runs[key] = rec["launches"]
+            if n_local:
+                rg_runs.append(key)
+            c = rec["collectives"]
+            print(f"{what} at {tuple(rec['coords'])}: "
+                  f"{rec['tokens_per_s']:.1f} tok/s ({card}; one process "
+                  f"{ref_rec['tps']:.1f}), peak device memory "
+                  f"{rec['peak_gb']:.2f} GB (build included), weights "
+                  f"{rec['weight_bytes'] / 1e9:.3f} GB "
+                  f"({layers or cfg.num_layers} layers; one process "
+                  f"{ref_rec['weight_bytes'] / 1e9:.3f}), {rec['B_local']} "
+                  f"rows, {rec['q_heads']}/{rec['kv_heads']} heads, SSD heads"
+                  f" {rec['ssd_heads']}, RG-LRU width {rec['rglru_width']}; "
+                  f"arena {a['rank']['rows']} + {a['rank']['mirror_rows']} "
+                  f"mirror rows of {a['rank']['bytes_per_row'] / 1e6:.3f} MB"
+                  f" ({a['rank']['resident_state_bytes'] / 1e6:.1f} MB "
+                  f"resident; whole rows {a['bytes_per_row'] / 1e6:.3f} MB, "
+                  f"{a['num_rows']} of them), mirrors at peak "
+                  f"{a['rank']['mirror_peak']}, rows fetched "
+                  f"{a['rank']['row_fetches']}; collectives "
+                  f"{c['body'] / max(c['steps'], 1):.2f} a decode step "
+                  f"({c['body']} over {c['steps']} steps, {c['all']} in "
+                  f"all); launches {rec['launches']}")
+        if run in RECURRENT_MIRROR_RUNS:
+            check(max(r["arena"]["rank"]["mirror_peak"] for r in recs) >= 1
+                  and all(r["arena"]["rank"]["row_fetches"] >= 1
+                          for r in recs),
+                  f"recurrent ranks {run}: no arena row read across shards")
+    del models
+    free_memory(torch)
+    return runs, tuple(rg_runs)
 
 
 def spec_report(name, out, plain_tps):
@@ -4830,9 +5203,11 @@ def main() -> None:
     runs.update(mesh_serves)
     stamp("serving over ranks")
     # one NCCL rank for qwen3-0.6b, then for full-width llava-1.5-7b image
-    # requests with K4 rescoring and for full-width granite-moe; then the
-    # three models' gloo runs on the card, in one torchrun of four worker
-    # processes started now, its start beside the in-process runs
+    # requests with K4 rescoring, for full-width granite-moe and for
+    # full-width recurrentgemma-2b (with the one-process runs of it and of
+    # mamba2-780m the gloo ranks are held to); then the five models' gloo
+    # runs on the card, in one torchrun of four worker processes started
+    # now, its start beside the in-process runs
     launch = start_gloo_ranks(gloo_spec())
     try:
         rank_runs, rank_pending = ranks_phase(torch, ops, serve,
@@ -4846,6 +5221,10 @@ def main() -> None:
         stamp("moe over ranks")
         moe_runs, moe_pending = moe_ranks_phase(torch, ops, serve, card)
         runs.update(moe_runs)
+        stamp("recurrent and hybrid over ranks")
+        rec_runs, rec_pending = recurrent_ranks_phase(torch, ops, serve,
+                                                      card)
+        runs.update(rec_runs)
         stamp("gloo ranks")
         records = gloo_ranks(launch)
     finally:
@@ -4862,6 +5241,13 @@ def main() -> None:
     runs.update(gloo_runs)
     runs.update(shard_map_check(records, card))
     moe_runs = tuple(moe_runs) + moe_rank_runs
+    gloo_runs, rg_rank_runs = recurrent_ranks_check(
+        torch, serve, rec_pending, records, card)
+    runs.update(gloo_runs)
+    # recurrentgemma-2b's runs over ranks, in process and on every gloo
+    # rank: K2 and K3 in its local layers
+    rg_rank_runs = tuple(r for r in rec_runs
+                         if r.startswith("recurrentgemma-2b")) + rg_rank_runs
     check_released(torch, "ranks")
     profile_phase(torch, ops, serve, QWEN_ARGV, timer)
     free_memory(torch)
@@ -5062,9 +5448,10 @@ def main() -> None:
                   ("qwen3-0.6b ranks one process", "qwen3-0.6b ranks (a)") +
                   rank_paged + tuple(vlm_runs) + moe_runs
                   for name in ("flash_attention", "paged_decode_attention")})
-    paths["decode_attention"] += ("qwen3-0.6b ranks (d0)",) + rank_dense
+    paths["decode_attention"] += ("qwen3-0.6b ranks (d0)",) + rank_dense + \
+        rg_rank_runs
     paths["flash_attention"] += tuple(rescore_runs) + rg_runs + ed_runs + \
-        ("qwen3-0.6b ranks (d0)",) + rank_dense
+        ("qwen3-0.6b ranks (d0)",) + rank_dense + rg_rank_runs
     paths.update({name: serves + spec_runs[1:2] + (
         "internvl2-2b serve", "llava-1.5-7b rescore", ed_runs[0],
         f"{SEAMLESS['name']} rescore") + tuple(vlm_runs)

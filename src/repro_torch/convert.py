@@ -22,7 +22,7 @@ encoder layers in ``enc_super`` and its decoder layers, cross-attention
 ``enc_layers.<i>.*`` and ``dec_layers.<i>.*``, and ``enc_norm`` as it is.
 ``opt_state_from_jax`` carries an optimizer state's moments the same way.
 ``rank_params`` is ``params_from_jax`` cut to a rank's blocks
-(``sharding.place`` under the serving specs), the state dict of a model
+(``sharding.place`` under ``sharding.rank_specs``), the state dict of a model
 built for that rank (``build_model(..., world=)``).
 ``flat_from_jax`` is the same walk without the tensor conversion: any
 tree of array-likes with a ``shape`` (broadcast views, object arrays of
@@ -59,11 +59,12 @@ def params_from_jax(np_tree: Mapping[str, Any],
 def rank_params(np_tree: Mapping[str, Any], cfg: ModelConfig,
                 world) -> Dict[str, torch.Tensor]:
     """The rank's blocks of ``params_from_jax``: each parameter cut by
-    the serving specs of the world's mesh (``sharding.cut_specs``), MoE
+    the serving specs of the world's mesh as the port cuts them
+    (``sharding.rank_specs``, which ``Model._keeper`` reads too), MoE
     experts on dim 0 over the data axis and their ``f`` over the model
-    axis where the specs cut them."""
+    axis where the specs cut them, an SSD block's ``in_proj`` by part."""
     full = params_from_jax(np_tree, cfg)
-    specs = shd.cut_specs(shd.serve_param_specs(cfg, full, world))
+    specs = shd.rank_specs(cfg, full, world)
     return shd.place(full, specs, world, shd.rank_coords(world))
 
 

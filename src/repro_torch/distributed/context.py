@@ -19,7 +19,9 @@ collectives. The port places every tensor itself
   (``models/moe.py``, ``models/moe_shard_map.py``);
 * the world (the default group) carries the cross-modal scores rank 0
   hands every rank (``broadcast``) and an MoE layer's sum over both
-  axes (``all_reduce_world``).
+  axes (``all_reduce_world``); a recurrent engine's arena row goes from
+  its shard's data rank to the others over the data group
+  (``broadcast_data``).
 
 A collective over a gloo group on CUDA tensors stages through the host
 here, by name (``_host``): gloo computes on host memory. Without a world
@@ -133,6 +135,16 @@ class RankWorld:
         returns ``t``."""
         x = self._host(t)
         dist.broadcast(x, src=src)
+        if x is not t:
+            t.copy_(x)
+        return t
+
+    def broadcast_data(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Data rank ``src``'s ``t`` on every rank of the data group, in
+        place; returns ``t``."""
+        x = self._host(t)
+        dist.broadcast(x, src=src * self.model + self.coords[1],
+                       group=self.data_group)
         if x is not t:
             t.copy_(x)
         return t

@@ -34,8 +34,9 @@ import dataclasses
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.config import RGLRU, SSM, ModelConfig, ShapeConfig
 
 Spec = Tuple[Any, ...]
 
@@ -304,21 +305,51 @@ def _block(mesh, axes, coords: Mapping[str, int]) -> Tuple[int, int]:
     return idx, n
 
 
+@dataclasses.dataclass(frozen=True)
+class Parts:
+    """A spec entry of a dim laid out as consecutive parts of ``sizes``:
+    the parts whose ``cut`` is true are each cut into equal blocks over
+    ``axes`` (a position keeps its block of each), the others are held
+    whole by every position. The SSD block's ``in_proj`` columns ``(z |
+    x | B | C | dt)`` are one: the heads' parts cut, the one group's B
+    and C whole."""
+    axes: Any
+    sizes: Tuple[int, ...]
+    cut: Tuple[bool, ...]
+
+
+def _narrow(tensor, dim: int, start: int, size: int, n: int, what):
+    if size % n:
+        raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
+                         f"divide over {what} ({n} blocks)")
+    return tensor.narrow(dim, start, size // n)
+
+
 def local_shard(tensor, spec: Spec, mesh, coords: Mapping[str, int]):
     """A position's block of a whole tensor under ``spec``: every dim
     sharded on axes is cut into their product of equal blocks and the
-    block at ``coords`` (axis name to index) is kept. A view where the
-    cut allows one."""
+    block at ``coords`` (axis name to index) is kept; a ``Parts`` dim
+    keeps its block of each cut part and every whole part, in order. A
+    view where the cut allows one."""
     out = tensor
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
+        if isinstance(axes, Parts):
+            idx, n = _block(mesh, axes.axes, coords)
+            pieces, start = [], 0
+            for size, cut in zip(axes.sizes, axes.cut):
+                pieces.append(
+                    _narrow(out, dim, start + idx * (size // n), size, n,
+                            axes.axes) if cut else out.narrow(dim, start,
+                                                              size))
+                start += size
+            out = pieces[0] if len(pieces) == 1 else \
+                torch.cat(pieces, dim=dim)
+            continue
         idx, n = _block(mesh, axes, coords)
         size = out.shape[dim]
-        if size % n:
-            raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
-                             f"divide over {axes} ({n} blocks)")
-        out = out.narrow(dim, idx * (size // n), size // n)
+        out = _narrow(out, dim, idx * (size // n), size, n, axes)
     return out
 
 
@@ -343,6 +374,83 @@ def cut_specs(specs: Mapping[str, Spec]) -> Dict[str, Spec]:
     return out
 
 
+def _model_size(mesh, rules: ShardingRules) -> int:
+    if rules.model_axis not in mesh.axis_names:
+        return 1
+    return int(mesh.shape[rules.model_axis])
+
+
+def _ssm_dims(cfg: ModelConfig):
+    """(inner, heads, N) of the config's SSD block."""
+    s = cfg.ssm
+    inner = s.expand * cfg.d_model
+    return inner, inner // s.head_dim, s.state_dim
+
+
+def rank_specs(cfg: ModelConfig, params: Mapping[str, Any], mesh,
+               rules: ShardingRules = ShardingRules()) -> Dict[str, Spec]:
+    """The specs a rank cuts its parameters by (``Model._keeper``,
+    ``convert.rank_params``): ``cut_specs`` of the serving specs, but
+    where the rule table would cut a decoder layer mid-part or leave a
+    per-channel vector whole beside its cut channels, on a model axis
+    above 1:
+
+    * an SSD block's ``in_proj`` columns ``(z | x | B | C | dt)`` are cut
+      by part (``Parts``): z, x and dt take the rank's heads, the one
+      group's B and C stay whole on every model rank (the table cuts the
+      flat columns, 6448 into halves of 3224 at mamba2's width, across
+      the parts); its ``conv_w``/``conv_b`` channels likewise (x cut, B
+      and C whole), and ``A_log``, ``D``, ``dt_bias`` and the gated
+      norm's ``norm`` take the rank's heads or channels (the table
+      replicates them); ``out_proj`` stays row-parallel;
+    * an RG-LRU block's ``conv_b`` and ``lam`` take the rank's block of
+      the width (replicated in the table); its ``w_x``, ``w_gate``,
+      ``conv_w``, the columns of ``w_a`` and ``w_i`` and the rows of
+      ``out_proj`` are the table's cuts;
+    * a non-gated (gelu, relu) LM MLP's ``w_out`` is row-parallel, its
+      rows with ``w_in``'s columns, so that a layer sums once over the
+      model group as the gated MLP does; the table cuts ``w_out``'s
+      output dim (divergence D5, placement only);
+    * attention with fewer kv heads than the model axis (one kv head:
+      ``check_model_split``) keeps ``wk``/``wv`` whole on every model
+      rank beside its ``H / model`` query heads; the table cuts their
+      columns mid-head and the cache's sequence (divergence D6).
+
+    The vision tower's and the MoE's parameters keep ``cut_specs``."""
+    specs = cut_specs(serve_param_specs(cfg, params, mesh, rules))
+    m = _model_size(mesh, rules)
+    if m <= 1:
+        return specs
+    model = rules.model_axis
+    kv_whole = 0 < cfg.num_kv_heads < m
+    for key in specs:
+        names = key.split(".")
+        if names[0] != "layers" or len(names) < 4:
+            continue
+        block, leaf = names[2], ".".join(names[3:])
+        nd = len(_shape(params[key]))
+        if block == "ssm":
+            inner, heads, N = _ssm_dims(cfg)
+            conv = Parts(model, (inner, N, N), (True, False, False))
+            if leaf == "in_proj.kernel":
+                specs[key] = (None, Parts(model, (inner, inner, N, N, heads),
+                                          (True, True, False, False, True)))
+            elif leaf == "conv_w":
+                specs[key] = (None, conv)
+            elif leaf == "conv_b":
+                specs[key] = (conv,)
+            elif leaf in ("A_log", "D", "dt_bias", "norm"):
+                specs[key] = (model,)
+        elif block == "rglru" and leaf in ("conv_b", "lam"):
+            specs[key] = (model,)
+        elif block == "mlp" and leaf == "w_out.kernel":
+            specs[key] = (_maybe(mesh, _shape(params[key])[0], model), None)
+        elif block == "attn" and kv_whole and \
+                leaf.split(".")[0] in ("wk", "wv"):
+            specs[key] = replicated(nd)
+    return specs
+
+
 def rank_coords(world) -> Dict[str, int]:
     """A rank world's position by axis name (the ``coords`` of
     ``local_shard``)."""
@@ -351,28 +459,31 @@ def rank_coords(world) -> Dict[str, int]:
 
 def check_model_split(cfg: ModelConfig, mesh,
                       rules: ShardingRules = ShardingRules()) -> None:
-    """Refuse a model axis the port cannot run: its split must cut whole
-    heads and keep each query head with its kv head (H and Hkv both
-    divide), and a split MLP must be the gated one (column-parallel gate
-    and up, row-parallel down). A vision tower's heads must split whole
-    too; its gelu MLP is cut by its own rule (``w_in`` and ``w_out``
-    columns, gathered), so the LM's gelu refusal does not reach it. The
-    reference's rule cuts the flat ``H * hd`` dim, which GSPMD may split
-    mid-head (granite-34b's one kv head under model=2); the port runs
-    heads whole. MoE experts run as the rule table cuts them at model >
-    1: on the data axis where E divides dp (else each data rank holds
-    them all) and their hidden width ``f`` on the model axis, which must
-    divide: the port does not hold every expert whole on every model
-    rank, as the table's fallback would."""
+    """Refuse a model axis the port cannot run. The split must cut whole
+    heads and keep each query head with its kv head: H must divide, and
+    Hkv divide or be one kv head, which every model rank then holds
+    whole beside its ``H / model`` query heads (``rank_specs``; the
+    reference's rule cuts the flat ``H * hd`` dims, which GSPMD may
+    split mid-head: granite-34b's and recurrentgemma-2b's one kv head
+    under model=2). A vision tower's heads must split whole too. An SSD
+    block's heads and an RG-LRU block's width must divide, as
+    ``rank_specs`` cuts them in equal blocks. MoE experts run as the rule
+    table cuts them at model > 1: on the data axis where E divides dp
+    (else each data rank holds them all) and their hidden width ``f`` on
+    the model axis, which must divide: the port does not hold every
+    expert whole on every model rank, as the table's fallback would. A
+    gated MLP is the table's column and row cuts, a non-gated one
+    ``rank_specs``' (``w_out`` row-parallel)."""
     m = mesh.shape.get(rules.model_axis, 1)
     if m <= 1:
         return
     where = "(ROADMAP.md Queue 1 item 5)"
-    if cfg.num_heads % m or cfg.num_kv_heads % m:
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    if H % m or (Hkv % m and Hkv != 1):
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_heads} query heads over "
-            f"{cfg.num_kv_heads} kv heads do not split whole over "
-            f"model={m}; the port splits whole heads only {where}")
+            f"{cfg.name}: {H} query heads over {Hkv} kv heads do not split "
+            f"whole over model={m}; the port splits whole query heads, each "
+            f"with its kv head or beside the one kv head {where}")
     v = cfg.vision
     if v is not None and v.num_heads % m:
         raise NotImplementedError(
@@ -384,8 +495,13 @@ def check_model_split(cfg: ModelConfig, mesh,
             f"{cfg.name}: the experts' hidden width {cfg.moe.expert_d_ff} "
             f"does not split over model={m}; the port cuts it in equal "
             f"blocks only {where}")
-    if cfg.d_ff and cfg.mlp_activation != "swiglu":
+    kinds = set(cfg.layer_kinds)
+    if SSM in kinds and _ssm_dims(cfg)[1] % m:
         raise NotImplementedError(
-            f"{cfg.name}: a {cfg.mlp_activation} MLP over model={m}: the "
-            f"rule table splits w_out's output dim, which the port does not "
-            f"run {where}")
+            f"{cfg.name}: {_ssm_dims(cfg)[1]} SSD heads do not split whole "
+            f"over model={m} {where}")
+    width = (cfg.rglru.lru_width or cfg.d_model) if cfg.rglru else 0
+    if RGLRU in kinds and width % m:
+        raise NotImplementedError(
+            f"{cfg.name}: the RG-LRU width {width} does not split over "
+            f"model={m}; the port cuts it in equal blocks only {where}")

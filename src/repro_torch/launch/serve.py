@@ -86,6 +86,15 @@ experts and half of each one's width), which its launch line prints::
     python -m torch.distributed.run --nproc-per-node 4 \
         -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
         --no-reduced --impl paged_cuda --mesh 2,2 --dist-backend gloo
+
+and so do the recurrent and hybrid models on the dense impls, each data
+rank holding its shard's rows of the state arena and each model rank its
+SSD heads or RG-LRU width and its query heads beside the one kv head
+(the ``serving mesh:`` and launch lines print them)::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --no-reduced --impl cuda --mesh 2,2 --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -99,8 +108,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import device_memory_bytes, resolve_device
-from repro_torch.config import (CAMDConfig, PagedKVConfig, SamplingConfig,
-                                VisionConfig)
+from repro_torch.config import (ATTN, LOCAL_ATTN, RGLRU, SSM, CAMDConfig,
+                                PagedKVConfig, SamplingConfig, VisionConfig)
 from repro_torch.configs import get_config
 from repro_torch.distributed import context
 from repro_torch.kernels import ops
@@ -415,6 +424,31 @@ def main(argv: Optional[List[str]] = None, param_dtype=torch.float32,
             context.release_world(eng.world)
 
 
+def rank_widths(eng) -> str:
+    """What a rank holds of a model's widths (its query and kv heads, SSD
+    heads, RG-LRU width) and of a recurrent engine's arena (its shard's
+    rows and mirror rows), for the ``serving mesh:`` and launches
+    lines."""
+    cfg, model = eng.cfg, eng.model
+    parts = []
+    for blk in model.layers:
+        if blk.kind in (ATTN, LOCAL_ATTN) and "heads" not in parts:
+            q = blk.attn.wq.kernel.shape[1] // cfg.resolved_head_dim
+            parts += ["heads", f"query heads {q} of {cfg.num_heads}, kv "
+                      f"heads {model.kv_heads} of {cfg.num_kv_heads}"]
+        elif blk.kind == SSM and "ssd" not in parts:
+            parts += ["ssd", f"SSD heads {blk.ssm.A_log.shape[0]} of "
+                      f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim}"]
+        elif blk.kind == RGLRU and "rglru" not in parts:
+            parts += ["rglru", f"RG-LRU width {blk.rglru.lam.shape[0]} of "
+                      f"{cfg.rglru.lru_width or cfg.d_model}"]
+    out = parts[1::2]
+    if eng.arena is not None:
+        out.append(f"arena rows {eng._arena_own} of {eng.arena.num_rows} "
+                   f"+ {eng._n_row_mirror} mirror rows")
+    return "".join(f"; {p}" for p in out)
+
+
 def _serve(args, cfg, eng, param_dtype, t_build) -> Dict[str, object]:
     """``main`` once the engine is built. Rank 0 of a rank mesh prints the
     run; every rank prints its kernel launches."""
@@ -434,7 +468,8 @@ def _serve(args, cfg, eng, param_dtype, t_build) -> Dict[str, object]:
             ("off (gloo)" if eng._eager_body else
              "on" if model.device.type == "cuda" else "off (cpu)"))
         say(f"serving mesh: {dict(eng.mesh.shape)}, {eng.dp} data shards "
-            f"of {eng.slots_per_shard} slots on {model.device}{ranks}")
+            f"of {eng.slots_per_shard} slots on {model.device}{ranks}"
+            + ("" if world is None else rank_widths(eng)))
     reqs = make_requests(cfg, args)
     if not args.open_loop:
         for req in reqs:
@@ -536,6 +571,10 @@ def _serve(args, cfg, eng, param_dtype, t_build) -> Dict[str, object]:
                      f"hits {eng.image_feat_hits}, candidates rescored "
                      f"{eng.xmodal_rescored} ({eng.xmodal_parted} parted "
                      "from rank 0's S_align)")
+        if eng.arena is not None:
+            a = eng.arena_stats()["rank"]
+            line += (f"; {rank_widths(eng)[2:]}, mirror rows held at peak "
+                     f"{a['mirror_peak']}, rows fetched {a['row_fetches']}")
         if cfg.moe is not None:
             moe = model.layers[0].moe
             e0, e1 = expert_range(moe, cfg, world)

@@ -26,8 +26,8 @@ reference. Parameters are made with ``requires_grad`` off;
 Built for a rank of a serving mesh (``world``, a
 ``distributed.context.RankWorld``), a model draws every whole tensor
 from the seeded generator in the one-device order and keeps the rank's
-block under the rule table's serving specs
-(``sharding.serve_param_specs``), a part (the embedding, a layer, the
+block under the rule table's serving specs as the port cuts them
+(``sharding.rank_specs``), a part (the embedding, a layer, the
 vision tower) at a time, so that a rank never holds the whole model:
 its query and kv heads, MLP columns and vocabulary rows on the model
 axis, and an MoE layer's experts on the data axis and their hidden
@@ -36,9 +36,16 @@ weights are slices of the one-device model's, bit for bit. Row-parallel
 ``wo``, ``w_down`` and the tower's ``out_proj`` then sum over the model
 group, the tower's other column cuts gather, an MoE layer sums its
 partial outputs over the ranks that share them, the embedding is
-vocab-parallel and the logits are gathered. Attention-only decoders with
-dense or MoE MLPs, with the vlm family's evidence and tower: the other
-families raise ``NotImplementedError``.
+vocab-parallel and the logits are gathered. Decoder-only stacks are
+cut so, attention-only ones with dense or MoE MLPs, with the vlm
+family's evidence and tower, and recurrent and hybrid ones: an SSD
+block keeps its heads (the one group's B and C channels whole on every
+model rank) and sums its gated norm's squares and its ``out_proj`` over
+the model group; an RG-LRU block keeps its block of the width, gathers
+its conv output over the model group for the gates and sums
+``out_proj``; a gelu MLP's ``w_out`` is row-parallel; one kv head is
+held whole beside the rank's query heads. An encoder-decoder raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -83,20 +90,12 @@ def check_rank_supported(cfg: ModelConfig, world) -> None:
     """The families a rank of a serving mesh cannot hold yet, each with
     its step of ROADMAP.md Queue 1 item 5, and the model axis's split
     (``sharding.check_model_split``)."""
-    kinds = set(cfg.layer_kinds)
-    refused = [
-        ("recurrent layers", "step 3, the recurrent and hybrid arena over "
-         "ranks", not cfg.is_encoder_decoder and
-         bool(kinds - {ATTN, LOCAL_ATTN})),
-        ("an encoder-decoder stack", "step 4, encoder-decoder over ranks",
-         cfg.is_encoder_decoder),
-    ]
-    for what, step, present in refused:
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} over ranks are not ported yet "
-                f"(ROADMAP.md Queue 1 item 5, {step}); a rank holds "
-                "attention-only decoders, with dense or MoE MLPs")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder stack over ranks is not ported "
+            "yet (ROADMAP.md Queue 1 item 5, step 4, encoder-decoder over "
+            "ranks); a rank holds decoder-only stacks of attention, SSD and "
+            "RG-LRU blocks, with dense or MoE MLPs")
     shd.check_model_split(cfg, world)
 
 
@@ -206,8 +205,9 @@ class Model(nn.Module):
     def _keeper(self, world):
         """What the constructor passes each freshly drawn part through:
         without a world the part itself; for a rank, the part with every
-        parameter cut to the rank's block under the serving specs
-        (``sharding.cut_specs``) into new storage, so the whole tensors
+        parameter cut to the rank's block under the serving specs as the
+        port cuts them (``sharding.rank_specs``) into new storage, so the
+        whole tensors
         are freed before the next part is drawn. The draws keep the
         one-device order, so the blocks are the seeded one-device
         model's, bit for bit."""
@@ -219,8 +219,7 @@ class Model(nn.Module):
             shapes = {f"{prefix}.{k}": tuple(p.shape)
                       for k, p in part.named_parameters()}
             self._whole.update(shapes)
-            cuts = shd.cut_specs(shd.serve_param_specs(self.cfg, shapes,
-                                                       world))
+            cuts = shd.rank_specs(self.cfg, shapes, world)
             for k, p in part.named_parameters():
                 block = shd.local_shard(p.data, cuts[f"{prefix}.{k}"],
                                         world, at)
@@ -231,17 +230,25 @@ class Model(nn.Module):
 
     def _wire_rank(self, world) -> None:
         """Wire the model group into the cut model: row-parallel
-        projections sum over it, the vision tower's column cuts whose
+        projections (``wo``, ``w_down``, a non-gated MLP's ``w_out``, the
+        SSD and RG-LRU blocks' ``out_proj``, the tower's ``wo`` and
+        ``out_proj``) sum over it, the vision tower's column cuts whose
         outputs the next op needs whole (``patch_proj``, the gelu MLP's
         ``w_in`` and ``w_out``; its ``wq``/``wk``/``wv`` keep the rank's
         heads) and ``evidence_proj`` gather over it, the embedding is
         vocab-parallel and the logits gather. An MoE layer takes the
         world: it sums its experts' partial outputs itself
-        (``moe.moe_apply``)."""
-        specs = shd.serve_param_specs(self.cfg, self._whole, world)
+        (``moe.moe_apply``); so do the SSD blocks (the gated norm's sum
+        of squares) and the RG-LRU blocks (the gather of the conv output
+        the gates read) at a model axis above 1. A layer caches its kv
+        heads: ``Hkv / model``, or the one kv head every model rank holds
+        whole."""
+        specs = shd.rank_specs(self.cfg, self._whole, world)
         model_axis = shd.ShardingRules().model_axis
         for name, mod in self.named_modules():
-            if isinstance(mod, MoE):
+            if isinstance(mod, MoE) or (
+                    isinstance(mod, (SSMBlock, RGLRUBlock)) and
+                    world.model > 1):
                 mod.world = world
             if not isinstance(mod, Dense):
                 continue
@@ -256,7 +263,7 @@ class Model(nn.Module):
         if specs["embed.table"][0] == model_axis:
             self.embed.start = world.coords[1] * self.embed.table.shape[0]
             self.embed.world = self.vocab_world = world
-        if world.model > 1:
+        if world.model > 1 and self.cfg.num_kv_heads % world.model == 0:
             self.kv_heads = self.cfg.num_kv_heads // world.model
 
     # -- full-sequence forward (training / scoring) ----------------------
@@ -287,7 +294,9 @@ class Model(nn.Module):
                                          self.device)
         return tf_lib.make_cache(self.cfg, batch, cache_len,
                                  dtype or self.param_dtype, self.device,
-                                 kv_heads=self.kv_heads)
+                                 kv_heads=self.kv_heads,
+                                 split=self.world.model if self.world
+                                 is not None else 1)
 
     def make_paged_cache(self, batch: int, cache_len: int, dtype=None, *,
                          page_size: int, num_pages: int,

@@ -9,6 +9,14 @@ bit for bit). Decode is one elementwise step, written into the cache in
 place (``layers.store_state``). Gates and projections are dense products
 outside the scan. Plain PyTorch on every impl: the reference has no
 Pallas kernel here either.
+
+On a rank of a model axis (``RGLRU.world``, set by ``Model._wire_rank``)
+the block holds its block of the width w: the columns of ``w_x``,
+``w_gate``, ``w_a`` and ``w_i``, its channels of the conv and of ``lam``
+and its rows of ``out_proj`` (``sharding.rank_specs``). The gates read
+the whole conv output, which the rank gathers over the model group once
+a layer (``_gates``); the scan and the decode step are elementwise per
+channel, and ``out_proj`` sums over the model group.
 """
 from __future__ import annotations
 
@@ -48,14 +56,18 @@ class RGLRU(nn.Module):
                          dtype=torch.float32) * (0.999 - 0.9) + 0.9
         self.lam = nn.Parameter(lam, requires_grad=False)
         self.out_proj = Dense(w, d, **kw)
+        self.world = None      # a model rank's world: the gates' gather
 
 
 def _gates(p: RGLRU, x):
-    """x: (..., w) conv output. Returns (log_a, gated input) in fp32
-    (``rglru.py:43-52``)."""
+    """x: (..., w) conv output (a model rank's channels). Returns (log_a,
+    gated input) in fp32 (``rglru.py:43-52``) of those channels; on a
+    model rank ``w_a`` and ``w_i`` take the whole conv output, gathered
+    over the model group."""
     x32 = x.float()
-    r = torch.sigmoid(p.w_a(x).float())
-    i = torch.sigmoid(p.w_i(x).float())
+    x_all = x if p.world is None else p.world.all_gather_model(x, dim=-1)
+    r = torch.sigmoid(p.w_a(x_all).float())
+    i = torch.sigmoid(p.w_i(x_all).float())
     # a = exp(-c * softplus(lambda) * r)
     log_a = -_C * F.softplus(p.lam.float()) * r
     a2 = torch.exp(2.0 * log_a)
@@ -115,8 +127,11 @@ def rglru_prefill(p: RGLRU, cfg: ModelConfig, u, lengths=None
     return out, {"h": h[:, -1], "conv": conv_state}
 
 
-def make_rglru_state(cfg: ModelConfig, batch: int, dtype, device=None):
-    w, W = _width(cfg), cfg.rglru.conv_width
+def make_rglru_state(cfg: ModelConfig, batch: int, dtype, device=None,
+                     split: int = 1):
+    """Zero state of ``batch`` rows; ``split``: the model ranks the width
+    is cut over."""
+    w, W = _width(cfg) // split, cfg.rglru.conv_width
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, W - 1, w), dtype=dtype,
                                 device=device)}

@@ -7,6 +7,16 @@ L / Q chunk states (the reference's ``lax.scan``). Decode is the O(1)
 recurrent step on a (B, H, P, N) state, written into the cache in place
 (``layers.store_state``). Single B/C group, as in the 780m config.
 
+On a rank of a model axis (``SSM.world``, set by ``Model._wire_rank``)
+the block holds its block of the heads: its z, x and dt columns of
+``in_proj``, its x channels of the conv (the B and C channels whole, so
+every model rank computes them alike), its heads' ``A_log``, ``D``,
+``dt_bias`` and ``norm`` channels and its rows of ``out_proj``
+(``sharding.rank_specs``). Its dims are read off those parameters
+(``_local_dims``). The gated norm is an RMS over the whole inner width:
+a rank sums its channels' squares over the model group and divides by
+the whole width, once a layer; ``out_proj`` sums over the model group.
+
 The JAX package computes both forms in plain XLA ops, outside any Pallas
 kernel, so they stay plain PyTorch here on every impl.
 """
@@ -28,6 +38,13 @@ def _dims(cfg: ModelConfig):
     inner = s.expand * cfg.d_model
     heads = inner // s.head_dim
     return inner, heads, s.head_dim, s.state_dim, s.conv_width
+
+
+def _local_dims(p: "SSM", cfg: ModelConfig):
+    """``_dims`` of the block as held: a model rank's inner channels and
+    heads (its ``norm`` and ``A_log``), the config's P, N and W."""
+    _, _, P, N, W = _dims(cfg)
+    return p.norm.shape[0], p.A_log.shape[0], P, N, W
 
 
 class SSM(nn.Module):
@@ -56,6 +73,7 @@ class SSM(nn.Module):
                                          device=device))
         self.norm = param(torch.ones(inner, dtype=dtype, device=device))
         self.out_proj = Dense(inner, d, **kw)
+        self.world = None      # a model rank's world: the norm's sum
 
 
 def _segsum(a):
@@ -69,15 +87,22 @@ def _segsum(a):
 
 
 def _split_proj(p: SSM, cfg: ModelConfig, u):
-    inner, H, P, N, W = _dims(cfg)
+    inner, H, P, N, W = _local_dims(p, cfg)
     zxbcdt = p.in_proj(u)
     return torch.split(zxbcdt, [inner, inner + 2 * N, H], dim=-1)
 
 
-def _gated_norm(p: SSM, y, z, eps: float):
+def _gated_norm(p: SSM, cfg: ModelConfig, y, z, eps: float):
+    """RMS-normalise ``y * silu(z)`` over the whole inner width: on a
+    model rank its channels' sum of squares summed over the model
+    group."""
     y = y * F.silu(z)
     y32 = y.float()
-    var = y32.square().mean(dim=-1, keepdim=True)
+    if p.world is None:
+        var = y32.square().mean(dim=-1, keepdim=True)
+    else:
+        var = p.world.all_reduce_model(
+            y32.square().sum(dim=-1, keepdim=True)) / _dims(cfg)[0]
     y32 = y32 * torch.rsqrt(var + eps)
     return (y32 * p.norm.float()).to(z.dtype)
 
@@ -93,7 +118,7 @@ def ssm_prefill(p: SSM, cfg: ModelConfig, u, lengths=None
     row's conv tail is gathered at its length, so each row's state
     matches a prefill of that row alone up to summation order; outputs
     past a row's length are garbage."""
-    inner, H, P, N, W = _dims(cfg)
+    inner, H, P, N, W = _local_dims(p, cfg)
     Bsz, Lreal, _ = u.shape
     Q = min(cfg.ssm.chunk_size, Lreal)
     Lpad = (-Lreal) % Q
@@ -165,12 +190,16 @@ def ssm_prefill(p: SSM, cfg: ModelConfig, u, lengths=None
     y = (y_diag + y_off).reshape(Bsz, L, H, P)
     y = y + x.float() * p.D[None, None, :, None]
     y = y.reshape(Bsz, L, inner)[:, :Lreal].to(u.dtype)
-    y = _gated_norm(p, y, z, cfg.norm_eps)
+    y = _gated_norm(p, cfg, y, z, cfg.norm_eps)
     return p.out_proj(y), {"ssd": prev, "conv": conv_tail}
 
 
-def make_ssm_state(cfg: ModelConfig, batch: int, dtype, device=None):
+def make_ssm_state(cfg: ModelConfig, batch: int, dtype, device=None,
+                   split: int = 1):
+    """Zero state of ``batch`` rows; ``split``: the model ranks the heads
+    and x channels are cut over (B and C channels whole)."""
     inner, H, P, N, W = _dims(cfg)
+    inner, H = inner // split, H // split
     return {"ssd": torch.zeros((batch, H, P, N), dtype=torch.float32,
                                device=device),
             "conv": torch.zeros((batch, W - 1, inner + 2 * N), dtype=dtype,
@@ -182,7 +211,7 @@ def ssm_decode(p: SSM, cfg: ModelConfig, u, state, go=None):
     the new ``state["ssd"]`` and the shifted ``state["conv"]`` into their
     own storage (unchanged where ``go`` is False) and returns y (B, 1,
     d)."""
-    inner, H, P, N, W = _dims(cfg)
+    inner, H, P, N, W = _local_dims(p, cfg)
     Bsz = u.shape[0]
     z, xbc, dt = _split_proj(p, cfg, u)                         # (B, 1, .)
     window = torch.cat([state["conv"].to(xbc.dtype), xbc], dim=1)
@@ -196,7 +225,7 @@ def ssm_decode(p: SSM, cfg: ModelConfig, u, state, go=None):
         torch.einsum("bhp,bn->bhpn", x * dt1[..., None], Bc)
     y = torch.einsum("bhpn,bn->bhp", ssd, Cc) + x * p.D[None, :, None]
     y = y.reshape(Bsz, 1, inner).to(u.dtype)
-    y = _gated_norm(p, y, z, cfg.norm_eps)
+    y = _gated_norm(p, cfg, y, z, cfg.norm_eps)
     store_state(state["ssd"], ssd, go)
     store_state(state["conv"], window[:, 1:], go)
     return p.out_proj(y)

@@ -28,7 +28,10 @@ stack has the same ring); ``cache["k_pages"][l]`` is layer l's
 so that a cache row moves leaf by leaf. Prefill and decode update the
 cache tensors in place and return the same dict; decode writes recurrent
 state with ``copy_`` into the cache's own storage, as a captured decode
-graph needs.
+graph needs. A model rank's cache holds its block of each leaf
+(``Model.make_cache``): Hkv / model kv heads, or the one kv head whole;
+H / model SSD heads and inner / model + 2N conv channels; w / model of
+the RG-LRU width.
 """
 from __future__ import annotations
 
@@ -96,9 +99,11 @@ def _ring_len(cfg: ModelConfig, cache_len: int) -> int:
 
 
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device,
-               kv_heads: int = 0):
+               kv_heads: int = 0, split: int = 1):
     """``kv_heads``: the kv heads a layer caches (0: the config's; a model
-    rank caches its Hkv / model)."""
+    rank caches its Hkv / model, or the one kv head whole). ``split``: the
+    model ranks an SSD block's heads and an RG-LRU block's width are cut
+    over (a rank's state leaves hold its block)."""
     _, n = layer_slots(cfg)
     cache = {}
     if n.get("attn"):
@@ -109,7 +114,7 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device,
     for kind, make in ((SSM, ssm_lib.make_ssm_state),
                        (RGLRU, rglru_lib.make_rglru_state)):
         if n.get(kind):
-            state = make(cfg, n[kind] * batch, dtype, device)
+            state = make(cfg, n[kind] * batch, dtype, device, split=split)
             for key, t in state.items():
                 cache[_STATE_LEAVES[kind][key]] = t.reshape(
                     (n[kind], batch) + t.shape[1:])

@@ -170,8 +170,17 @@ every rank, as one device routes it: a decode step's MoE gathers its
 slot rows over the data group, runs the rank's experts on its cut of
 their width and sums the partial outputs back to the rank's rows
 (``models/moe.py``); on a NCCL group those collectives are part of the
-captured body too. Speculation, the prefix cache, chunked prefill and
-prefill shards over more than one rank raise ``NotImplementedError``.
+captured body too. A recurrent or hybrid model's state arena keeps its
+host allocator global and alike on every rank; shard s's rows live on
+data rank s only (``_arena_row0``, ``_arena_own``), at the rank's
+widths (its SSD heads, RG-LRU channels and query heads beside a kv
+head held whole). Every data rank prefills every request, and the
+row's data rank keeps it. A slot seeded from a row on another shard
+gets it from that shard's data rank, broadcast over the data group at
+admission into a mirror row past the rank's block, held while the
+rank's slots of the request live (``_fetch_row``). Speculation, the
+prefix cache, chunked prefill and prefill shards over more than one
+rank raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -188,8 +197,8 @@ from repro_torch.core import controller as ctrl
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import transformer as tf_lib
 from repro_torch.models.model import check_rank_supported
-from repro_torch.models.transformer import ring_lens
 from repro_torch.sampling.samplers import (GumbelNoise, sample_token,
                                            sample_token_batch,
                                            speculative_accept)
@@ -524,7 +533,7 @@ class ServeEngine:
         self.bucket_prefill = bool(bucket_prefill) and \
             model.supports_bucketed_prefill
         self.prefill_bucket_min = prefill_bucket_min
-        rings = ring_lens(self.cfg, cache_len)
+        rings = tf_lib.ring_lens(self.cfg, cache_len)
         self._min_ring = min(rings) if rings else cache_len
         self.state = self._blank_state()
         # recurrent and hybrid prompt rows: a bounded device buffer of
@@ -533,9 +542,28 @@ class ServeEngine:
         self.arena = None
         self._arena_buf = None
         if self.state_kind != "kv" and not self.paged:
-            rows = (2 * self.slots_per_shard + 4) * self.dp
-            self.arena = StateArena(rows, num_shards=self.dp)
-            self._arena_buf = model.make_cache(rows, cache_len, self._dtype)
+            per_shard = 2 * self.slots_per_shard + 4
+            self.arena = StateArena(per_shard * self.dp, num_shards=self.dp)
+            # the rows this process's buffer holds: a rank its shard's
+            # block, then a mirror row for each request whose row lies on
+            # another shard while its slots here hold it (at most a slot's
+            # worth); one process every row
+            rank = self.world is not None
+            self._arena_row0 = self.row0 // self.slots_per_shard * \
+                per_shard if rank else 0
+            self._arena_own = per_shard if rank else self.arena.num_rows
+            self._n_row_mirror = self.slots_per_shard \
+                if rank and self.dp > 1 else 0
+            self._row_mirror: Dict[int, int] = {}   # global row -> local
+            self._row_mirror_refs: Dict[int, int] = {}
+            self._row_mirror_free = list(range(
+                self._arena_own + self._n_row_mirror - 1,
+                self._arena_own - 1, -1))
+            self._slot_row_mirror: Dict[int, int] = {}
+            self.row_mirror_peak = 0
+            self.row_fetches = 0
+            self._arena_buf = model.make_cache(
+                self._arena_own + self._n_row_mirror, cache_len, self._dtype)
         self.state_specs = self.param_specs = self.arena_specs = None
         if mesh is not None:
             self._install_mesh(mesh)
@@ -607,11 +635,12 @@ class ServeEngine:
     def _check_rank_engine(self, model, spec, prefix_cache, chunked,
                            prefill_shards) -> None:
         """What a rank engine refuses: a model family no rank holds yet
-        (recurrent, hybrid, encoder-decoder; attention-only decoders with
-        dense or MoE MLPs are served), a model not cut for this rank's
-        world, and over more than one rank the features that need a sink
-        page a shard or reads of another rank's pages (ROADMAP.md Queue 1
-        item 5's later steps)."""
+        (encoder-decoder; decoder-only stacks of attention, SSD and
+        RG-LRU blocks with dense or MoE MLPs are served, a recurrent or
+        hybrid one on the dense impls, as on one device), a model not cut
+        for this rank's world, and over more than one rank the features
+        that need a sink page a shard or reads of another rank's pages
+        (ROADMAP.md Queue 1 item 5's later steps)."""
         world = self.world
         check_rank_supported(model.cfg, world)
         if model.world is not None and model.world is not world:
@@ -698,22 +727,29 @@ class ServeEngine:
                 del self._mirror_refs[g]
                 self._mirror_free.append(self._mirror.pop(g))
 
+    def _whole_cache(self, batch: int) -> Dict[str, Tuple[int, ...]]:
+        """The shapes of a dense cache of ``batch`` rows over every rank
+        (every kv head, SSD head and RG-LRU channel; one kv head once):
+        ``make_cache`` at the config's widths on the meta device."""
+        cache = tf_lib.make_cache(self.cfg, batch, self.cache_len,
+                                  self._dtype, "meta")
+        return {k: tuple(t.shape) for k, t in cache.items()}
+
     def _whole_shapes(self) -> EngineState:
         """A rank's state as the shapes of the whole tensors over every
         rank (B slot rows, every page, every kv head): what the rule table
         specs."""
-        m = self.world.model
+        dense = None if self.paged else self._whole_cache(self.B)
 
         def whole(name, t):
+            if dense is not None:
+                return dense[name]
             shape = list(t.shape)
             if name in ("pos", "block_table"):
                 shape[0] = self.B
-            elif name.endswith(("_pages", "_scale")):
+            else:                 # pools (n, P, ps, Hkv, hd), their scales
                 shape[1] = self.pool.num_pages + int(self.spec)
-                shape[3] *= m
-            else:                       # dense k/v: (n, B, S, Hkv, hd)
-                shape[1] = self.B
-                shape[3] *= m
+                shape[3] = self.cfg.num_kv_heads
             return tuple(shape)
 
         st = self.state
@@ -747,10 +783,11 @@ class ServeEngine:
         leaves += [(f, getattr(state, f), spec)
                    for f, spec in self.state_specs.items() if f != "cache"]
         if self._arena_buf is not None:
-            self.arena_specs = shd.cache_specs(self.cfg, self._arena_buf,
-                                               mesh)
+            arena = self._arena_buf if self.world is None else \
+                self._whole_cache(self.arena.num_rows)
+            self.arena_specs = shd.cache_specs(self.cfg, arena, mesh)
             leaves += [(f"arena.{k}", v, self.arena_specs[k])
-                       for k, v in self._arena_buf.items()]
+                       for k, v in arena.items()]
         for name, t, spec in leaves:
             shape = shd._shape(t)
             for dim, axes in enumerate(spec):
@@ -1554,6 +1591,8 @@ class ServeEngine:
             self.pool.reset_stats()
         if self.arena is not None:
             self.arena.reset_stats()
+            self.row_mirror_peak = len(self._row_mirror)
+            self.row_fetches = 0
 
     # -- async front-end hooks -------------------------------------------
     def has_work(self) -> bool:
@@ -1595,7 +1634,9 @@ class ServeEngine:
         if self.paged:
             self._seed_paged_slots(info, slot_ids, lim)
         else:
-            self._put_rows(st.cache, idx, self._request_row(info))
+            self._fetch_row(info, slot_ids)
+            if m:
+                self._put_rows(st.cache, idx, self._request_row(info))
         bias = info.get("bias")
         toks, lps = sample_token_batch(info["prefill_logits"], self.sampling,
                                        bias=bias, greedy=self._greedy_row,
@@ -1725,37 +1766,123 @@ class ServeEngine:
         """Move a freshly prefilled prompt row into a state-arena row,
         held until ``_finish_request`` (``engine.py:1041-1053``), so that
         prefilled but unadmitted recurrent state is bounded and
-        counted."""
+        counted. On a rank the row is written only by the data rank of
+        its shard; the others drop their prefill row."""
         if self.arena is None or info.get("cache_row") is None:
             return
         r = self.arena.alloc(1, self.arena.best_shard())[0]
-        self._put_rows(self._arena_buf, torch.tensor([r], device=self.device),
-                       info["cache_row"])
+        loc = self._arena_local(r)
+        if loc is not None:
+            self._put_rows(self._arena_buf,
+                           torch.tensor([loc], device=self.device),
+                           info["cache_row"])
         info["cache_row"] = None
         info["arena_row"] = r
 
+    def _arena_local(self, r: int) -> Optional[int]:
+        """Row ``r``'s index in this process's arena buffer: a rank's own
+        block shifted to 0 or its mirror row; None where it holds
+        neither."""
+        loc = r - self._arena_row0
+        if 0 <= loc < self._arena_own:
+            return loc
+        return self._row_mirror.get(r)
+
+    def _fetch_row(self, info, slot_ids: List[int]) -> None:
+        """On a rank mesh, before slots ``slot_ids`` are seeded from the
+        request's arena row: when a slot lies on another shard than the
+        row, the row's data rank broadcasts it over the data group (one
+        collective: every leaf's bytes), and each rank whose slots read
+        it keeps it in a mirror row, held until those slots let go
+        (``_drop_row_mirror``). The shared prompt pages of a paged engine
+        are mirrored from each rank's own prefill row
+        (``_hold_mirrors``); a recurrent row is not, since it serves the
+        request's later rounds long after that prefill row is gone."""
+        r = info.get("arena_row")
+        if r is None or self.world is None or self.dp == 1:
+            return
+        src = self.arena.shard_of(r)
+        if all(self._slot_shard(s) == src for s in slot_ids):
+            return
+        row = self._cache_row(self._arena_buf, 0)     # the leaves' layout
+        mine = [slot_ids[j] for j in self._own(slot_ids)[0]]
+        here = self.world.coords[0]
+        if here == src:
+            buf = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                             for t in self._request_row(info).values()])
+        else:
+            buf = torch.empty(sum(t.numel() * t.element_size()
+                                  for t in row.values()),
+                              dtype=torch.uint8, device=self.device)
+        self.world.broadcast_data(buf, src)
+        self.row_fetches += 1
+        if here == src or not mine:
+            return
+        if r not in self._row_mirror:
+            loc = self._row_mirror_free.pop()
+            self._row_mirror[r] = loc
+            parts, off = {}, 0
+            for k, t in row.items():
+                n = t.numel() * t.element_size()
+                parts[k] = buf[off:off + n].view(t.dtype).reshape(t.shape)
+                off += n
+            self._put_rows(self._arena_buf,
+                           torch.tensor([loc], device=self.device), parts)
+        for s in mine:
+            self._row_mirror_refs[r] = self._row_mirror_refs.get(r, 0) + 1
+            self._slot_row_mirror[s] = r
+        self.row_mirror_peak = max(self.row_mirror_peak,
+                                   len(self._row_mirror))
+
+    def _drop_row_mirror(self, s: int) -> None:
+        """Slot ``s`` lets go of the mirror row it was seeded from."""
+        r = self._slot_row_mirror.pop(s, None)
+        if r is None:
+            return
+        self._row_mirror_refs[r] -= 1
+        if not self._row_mirror_refs[r]:
+            del self._row_mirror_refs[r]
+            self._row_mirror_free.append(self._row_mirror.pop(r))
+
     def _request_row(self, info):
         """The request's 1-row prompt cache: a view of its arena row on a
-        recurrent or hybrid engine, its own prefill row otherwise."""
+        recurrent or hybrid engine (a rank's own row or mirror), its own
+        prefill row otherwise."""
         r = info.get("arena_row")
         if r is not None:
-            return self._cache_row(self._arena_buf, r)
+            return self._cache_row(self._arena_buf, self._arena_local(r))
         return info["cache_row"]
 
     def arena_stats(self) -> Dict[str, Any]:
         """State-arena telemetry of a recurrent or hybrid engine, ``{}``
         on a kv one (``engine.py:1501-1515``): the arena's counters, the
         bytes of one row over every cache leaf and the bytes the arena
-        holds resident."""
+        holds resident, of the whole arena over every rank, as the
+        reference reports them. A rank adds ``"rank"``: the rows its
+        buffer holds (its shard's block and its mirror rows), their bytes
+        at its widths, the bytes resident on it (block plus mirrors), the
+        mirror rows held now and at peak, and the rows fetched from
+        another shard."""
         if self.arena is None:
             return {}
         s: Dict[str, Any] = dict(self.arena.stats())
         s["state_kind"] = self.state_kind
-        rows = self.arena.num_rows
-        bpr = sum(leaf.numel() // rows * leaf.element_size()
-                  for leaf in self._arena_buf.values())
+        # a whole row, at the config's widths
+        bpr = sum(int(np.prod(shape)) * self._arena_buf[k].element_size()
+                  for k, shape in self._whole_cache(1).items())
         s["bytes_per_row"] = int(bpr)
-        s["resident_state_bytes"] = int(bpr) * rows
+        s["resident_state_bytes"] = int(bpr) * self.arena.num_rows
+        if self.world is not None:
+            held = self._arena_own + self._n_row_mirror
+            local = sum(leaf.numel() // held * leaf.element_size()
+                        for leaf in self._arena_buf.values())
+            s["rank"] = {
+                "rows": self._arena_own, "mirror_rows": self._n_row_mirror,
+                "bytes_per_row": int(local),
+                "resident_state_bytes": int(local) * held,
+                "mirrors_held": len(self._row_mirror),
+                "mirror_peak": self.row_mirror_peak,
+                "row_fetches": self.row_fetches}
         return s
 
     def _evidence(self, reqs: List[Request], rows: int):
@@ -2147,6 +2274,8 @@ class ServeEngine:
             self.total_tokens += n
             self.scheduler.on_finish(uid, n, int(self._slot_lim[slot]))
             self._slot_lim[slot] = self.max_new
+            if self.arena is not None:
+                self._drop_row_mirror(slot)
             if self.paged:
                 self.pool.free(self._slot_pages[slot])
                 self._slot_pages[slot] = []
@@ -2512,6 +2641,8 @@ class ServeEngine:
             self._slot_spec[s] = 1
             self._slot_lim[s] = self.max_new
             self._slot_streamed[s] = 0
+            if self.arena is not None:
+                self._drop_row_mirror(s)
             if self.paged:
                 if staged is not None and s in staged:
                     pages = staged.pop(s)[1]

@@ -307,17 +307,21 @@ def test_frontend_over_ranks_raises(model3):
 
 
 # the step of ROADMAP.md Queue 1 item 5 each refused family waits for
-REFUSED_STEP = {"mamba2-780m": 3, "recurrentgemma-2b": 3,
-                "seamless-m4t-large-v2": 4}
+REFUSED_STEP = {"seamless-m4t-large-v2": 4}
 
 
 @pytest.mark.parametrize("arch", [
     "llava-1.5-7b", "granite-moe-3b-a800m", "mamba2-780m",
     "recurrentgemma-2b", "seamless-m4t-large-v2"])
 def test_families_not_placed_raise(arch):
-    """Recurrent, hybrid and encoder-decoder models are not cut for
-    ranks: NotImplementedError naming their step of ROADMAP's item 5,
-    before any weight is drawn. The vlm family is: the reduced llava cut
+    """Encoder-decoder models are not cut for ranks: NotImplementedError
+    naming their step of ROADMAP's item 5, before any weight is drawn.
+    Recurrent and hybrid models are: the reduced mamba2 and recurrentgemma
+    cut for model rank 1 of (1, 2) hold their blocks of the seeded
+    one-device model (8 of 16 SSD heads with B and C whole, 128 of 256
+    RG-LRU channels, 2 of 4 query heads beside the one kv head), their
+    blocks and row-parallel projections wired to the world. The vlm
+    family is: the reduced llava cut
     for model rank 0 of (1, 2) holds half of each tower block's heads,
     its row-parallel projections sum and its other column cuts gather
     over the model group. So is the MoE family: the reduced granite cut
@@ -343,6 +347,37 @@ def test_families_not_placed_raise(arch):
             assert torch.equal(moe.router.kernel, ref.router.kernel)
             assert torch.equal(got.attn.wq.kernel,
                                want.attn.wq.kernel[:, cfg.d_model // 2:])
+        return
+    if cfg.ssm is not None or cfg.rglru is not None:
+        world = FakeWorld(1, 2, rank=1)
+        rank = build_model(cfg, torch.float32, device="cpu", seed=0,
+                           world=world)
+        whole = build_model(cfg, torch.float32, device="cpu", seed=0)
+        for got, want in zip(rank.layers, whole.layers):
+            if got.kind == "ssm":
+                k, ref = got.ssm.in_proj.kernel, want.ssm.in_proj.kernel
+                assert got.ssm.world is world
+                assert got.ssm.out_proj.reduce_world is world
+                assert torch.equal(k, torch.cat(
+                    [ref[:, 256:512], ref[:, 768:1024], ref[:, 1024:1056],
+                     ref[:, 1064:1072]], dim=1))
+                assert torch.equal(got.ssm.A_log, want.ssm.A_log[8:])
+            elif got.kind == "rglru":
+                assert got.rglru.world is world
+                assert got.rglru.out_proj.reduce_world is world
+                assert torch.equal(got.rglru.lam, want.rglru.lam[128:])
+                assert torch.equal(got.rglru.w_a.kernel,
+                                   want.rglru.w_a.kernel[:, 128:])
+            else:
+                assert torch.equal(got.attn.wk.kernel, want.attn.wk.kernel)
+                assert torch.equal(got.attn.wq.kernel,
+                                   want.attn.wq.kernel[:, 128:])
+                assert got.attn.wo.reduce_world is world
+            if got.mlp is not None:
+                assert got.mlp.w_out.reduce_world is world
+                assert torch.equal(got.mlp.w_out.kernel,
+                                   want.mlp.w_out.kernel[256:])
+        assert rank.kv_heads == (1 if cfg.num_kv_heads else 0)
         return
     if cfg.vision is not None:
         world = FakeWorld(1, 2)

@@ -1,8 +1,11 @@
 """Tensor parallelism over ranks, unit by unit, on the CPU.
 
-The placement rules (``sharding.local_shard``, ``place``, ``cut_specs``)
-against the rule table's specs and plain numpy slicing; the refusal of a
-model axis that would cut heads; and, on two spawned gloo ranks of a
+The placement rules (``sharding.local_shard``, ``place``, ``cut_specs``,
+``rank_specs``) against the rule table's specs and plain numpy slicing;
+the refusal of a model axis that would cut heads (and what it admits:
+one kv head held whole, a gelu MLP, SSD heads and an RG-LRU width that
+divide; an encoder-decoder stays refused); and, on two spawned gloo
+ranks of a
 (1, 2) mesh (``torch_ranks.spawn``: one thread each, a ``FileStore``
 under ``tmp_path``), the vocab-parallel embedding and unembedding and a
 row-parallel ``Dense`` against the whole tensors, the reduced qwen3's
@@ -113,13 +116,14 @@ def test_local_shard_refuses_a_ragged_cut():
 
 @pytest.mark.parametrize("name,model,ok", [
     ("qwen3-0.6b", 2, True), ("qwen2.5-32b", 2, True),
-    ("granite-34b", 2, False), ("yi-34b", 16, False),
+    ("granite-34b", 2, True), ("yi-34b", 16, False),
     ("qwen3-0.6b", 4, False)])
 def test_model_split_cuts_whole_heads(name, model, ok):
-    """H and Hkv must both divide by the model axis (each query head with
-    its kv head): granite-34b's one kv head under model=2, yi-34b's 56
-    heads under 16 and the reduced qwen3's 2 kv heads under 4 raise
-    NotImplementedError naming ROADMAP; so does a gelu MLP."""
+    """H must divide by the model axis and Hkv divide or be the one kv
+    head, which every model rank holds whole: the reduced granite-34b's
+    4 query heads over one kv head split at model=2 (a gelu MLP too);
+    yi-34b's 56 heads under 16 and the reduced qwen3's 2 kv heads under 4
+    raise NotImplementedError naming ROADMAP."""
     cfg = get_config(name) if model == 16 else _fp32(name)
     mesh = make_local_mesh((1, model))
     if ok:
@@ -130,10 +134,72 @@ def test_model_split_cuts_whole_heads(name, model, ok):
 
 
 def test_gelu_mlp_refused_over_a_model_axis():
+    """No more refused: a gelu MLP splits over model=2 with ``w_in``'s
+    columns and ``w_out``'s rows (``sharding.rank_specs``, divergence D5:
+    the rule table cuts ``w_out``'s output dim), so a layer sums once
+    over the model group; at (2, 1) it stays whole."""
     cfg = _fp32("qwen3-0.6b").with_overrides(mlp_activation="gelu")
     shd.check_model_split(cfg, make_local_mesh((2, 1)))
-    with pytest.raises(NotImplementedError, match="w_out"):
-        shd.check_model_split(cfg, make_local_mesh((1, 2)))
+    mesh = make_local_mesh((1, 2))
+    shd.check_model_split(cfg, mesh)
+    shapes = build_model(cfg, torch.float32, device="cpu").state_dict()
+    table = shd.serve_param_specs(cfg, shapes, mesh)
+    cuts = shd.rank_specs(cfg, shapes, mesh)
+    assert table["layers.0.mlp.w_out.kernel"] == (None, "model")
+    assert cuts["layers.0.mlp.w_out.kernel"] == ("model", None)
+    assert cuts["layers.0.mlp.w_in.kernel"] == (None, "model")
+    whole = shd.rank_specs(cfg, shapes, make_local_mesh((2, 1)))
+    assert whole["layers.0.mlp.w_out.kernel"] == (None, None)
+
+
+@pytest.mark.parametrize("name,model,ok,match", [
+    ("recurrentgemma-2b", 2, True, None),
+    ("recurrentgemma-2b", 4, False, "10 query heads"),
+    ("mamba2-780m", 2, True, None), ("mamba2-780m", 4, True, None),
+    ("mamba2-780m", 32, False, "48 SSD heads"),
+    ("internvl2-2b", 8, False, "vision tower")])
+def test_model_split_of_recurrent_and_hybrid_stacks(name, model, ok, match):
+    """The published recurrentgemma-2b (10 query heads over one kv head,
+    a gelu MLP, an RG-LRU width of 2560) splits at model=2 and its 10
+    heads refuse model=4; mamba2-780m's 48 SSD heads split at 2 and 4 and
+    refuse 32; a vision tower whose heads do not split whole still
+    raises. Every refusal names ROADMAP.md."""
+    cfg = get_config(name)
+    mesh = make_local_mesh((1, model))
+    if ok:
+        shd.check_model_split(cfg, mesh)
+        return
+    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP.md"):
+        shd.check_model_split(cfg, mesh)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "granite-34b"])
+def test_one_kv_head_held_whole(name):
+    """A rank of the reduced recurrentgemma or granite-34b at model=2
+    caches the one kv head (``Model.kv_heads`` 1, not 0) beside its 2 of
+    4 query heads, ``wk``/``wv`` whole (divergence D6)."""
+    from torch_ranks import FakeWorld
+    cfg = _fp32(name)
+    model = build_model(cfg, torch.float32, device="cpu",
+                        world=FakeWorld(1, 2, rank=1))
+    attn = next(b.attn for b in model.layers if hasattr(b, "attn"))
+    hd = cfg.resolved_head_dim
+    assert model.kv_heads == 1
+    assert tuple(attn.wk.kernel.shape) == (cfg.d_model, hd)
+    assert tuple(attn.wq.kernel.shape) == (cfg.d_model, 2 * hd)
+    assert model.make_cache(2, 16)["k"].shape[3] == 1
+
+
+def test_encoder_decoder_still_refused_over_ranks():
+    """``check_rank_supported`` refuses seamless on any rank world,
+    naming step 4 of ROADMAP.md Queue 1 item 5."""
+    from repro_torch.models.model import check_rank_supported
+    from torch_ranks import FakeWorld
+    cfg = _fp32("seamless-m4t-large-v2")
+    for world in (FakeWorld(2, 1), FakeWorld(1, 2)):
+        with pytest.raises(NotImplementedError,
+                           match="Queue 1 item 5, step 4"):
+            check_rank_supported(cfg, world)
 
 
 # ---------------------------------------------------------------------------

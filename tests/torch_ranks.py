@@ -201,13 +201,14 @@ class FakeWorld:
 
 
 # a config's sub-configs, by field, as plain dicts in a spawned rank
-_SUB_CONFIGS = {"vision": "VisionConfig", "moe": "MoEConfig"}
+_SUB_CONFIGS = {"vision": "VisionConfig", "moe": "MoEConfig",
+                "ssm": "SSMConfig", "rglru": "RGLRUConfig"}
 
 
 def config_fields(cfg):
-    """A (JAX or port) config's fields as plain values, its vision tower
-    and MoE settings as dicts: what ``port_config`` takes in a spawned
-    rank."""
+    """A (JAX or port) config's fields as plain values, its vision tower,
+    MoE, SSD and RG-LRU settings as dicts: what ``port_config`` takes in a
+    spawned rank."""
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(cfg)}
     for name in _SUB_CONFIGS:
@@ -259,8 +260,8 @@ def serve_cases(dp, model_ranks, cfg_fields, np_params, cases):
     """Serve each case ``(name, engine kwargs, requests, prompt length)``
     on this rank of a (dp, model) mesh, the golden harness's requests
     (``tests/data/make_golden_fifo.py``'s ``submit``); returns {name:
-    record}: the admissions, streams, pool and scheduler stats and the
-    rank's placement."""
+    record}: the admissions, streams, pool, arena and scheduler stats and
+    the rank's placement."""
     from repro_torch import config as tconfig
     from repro_torch.launch.mesh import make_rank_mesh
     from repro_torch.serving.engine import Request, ServeEngine
@@ -302,6 +303,9 @@ def serve_cases(dp, model_ranks, cfg_fields, np_params, cases):
                "eager_body": eng._eager_body,
                "host_syncs": eng.host_syncs,
                "total_steps": eng.total_steps}
+        if eng.arena is not None:
+            eng.arena.check()
+            rec["arena"] = eng.arena_stats()
         if eng.paged:
             eng.pool.check()
             rec.update(pool=eng.pool.stats(), mirror_peak=eng.mirror_peak,
@@ -576,5 +580,80 @@ def moe_ranks(units, shard_maps, serves):
     out["serve"] = {}
     for mesh, cases in runs:
         out["serve"][mesh] = serve_cases(*mesh, fields, params, cases)
+        release_world(get_world())
+    return out
+
+
+def recurrent_units(cfg_fields, np_params, x, x1, cache_len):
+    """Every layer of a reduced recurrent or hybrid model on this rank of
+    a (1, 2) mesh, on the reference's weights: each block's prefill of x
+    (B, L, d) and one decode step of x1 (B, 1, d) from its state (an SSD
+    or RG-LRU block's, or a local layer's ring of ``cache_len`` slots,
+    on both impls), a layer's MLP on x; returns {layer: outputs} (the
+    rank's blocks of the state leaves as it holds them)."""
+    from repro_torch.distributed.context import release_world
+    from repro_torch.launch.mesh import make_rank_mesh
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import rglru as rglru_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.layers import mlp
+    from repro_torch.models.transformer import window_for
+    cfg = port_config(cfg_fields)
+    world = make_rank_mesh(1, 2, device="cpu").world
+    model = rank_model(cfg, np_params, world)
+    u, u1 = torch.from_numpy(x), torch.from_numpy(x1)
+    B, L, _ = u.shape
+    out = {}
+
+    def numpy(tree):
+        return {k: v.clone().numpy() for k, v in tree.items()}
+    with torch.inference_mode():
+        for i, blk in enumerate(model.layers):
+            rec = {}
+            if blk.kind == "ssm":
+                y, st = ssm_lib.ssm_prefill(blk.ssm, cfg, u)
+                rec["prefill"] = (y.numpy(), numpy(st))
+                y1 = ssm_lib.ssm_decode(blk.ssm, cfg, u1, st)
+                rec["decode"] = (y1.numpy(), numpy(st))
+            elif blk.kind == "rglru":
+                y, st = rglru_lib.rglru_prefill(blk.rglru, cfg, u)
+                rec["prefill"] = (y.numpy(), numpy(st))
+                y1 = rglru_lib.rglru_decode(blk.rglru, cfg, u1, st)
+                rec["decode"] = (y1.numpy(), numpy(st))
+            else:
+                win = window_for(cfg, blk.kind)
+                positions = torch.arange(L).expand(B, L)
+                for impl in ("torch", "cuda"):
+                    y, (k, v) = attn_lib.attn_prefill(
+                        blk.attn, cfg, u, positions, window=win, impl=impl)
+                    kc = torch.zeros((B, cache_len) + tuple(k.shape[2:]))
+                    vc = torch.zeros_like(kc)
+                    attn_lib.prefill_into_cache(kc, vc, k, v)
+                    pos = torch.full((B,), L, dtype=torch.int32)
+                    y1 = attn_lib.attn_decode(blk.attn, cfg, u1, kc, vc,
+                                              pos, window=win, impl=impl)
+                    rec[impl] = (y.numpy(), y1.numpy(),
+                                 dict(k=kc.numpy(), v=vc.numpy()))
+                rec["q_heads"] = blk.attn.wq.kernel.shape[1] // \
+                    cfg.resolved_head_dim
+            if blk.mlp is not None:
+                rec["mlp"] = mlp(blk.mlp, u).numpy()
+            out[i] = rec
+    out["kv_heads"] = model.kv_heads
+    release_world(world)
+    return out
+
+
+def recurrent_ranks(units, serves):
+    """One spawn's recurrent work on this rank, its worlds one after
+    another: ``recurrent_units`` for each (cfg fields, params, x, x1,
+    cache_len) of ``units`` on a (1, 2) mesh (none on four ranks), then
+    ``serve_cases`` on each (cfg fields, params, mesh, cases) of
+    ``serves``."""
+    from repro_torch.distributed.context import get_world, release_world
+    out = {"units": [recurrent_units(*u) for u in units], "serve": {}}
+    for fields, params, mesh, cases in serves:
+        out["serve"][fields["name"], mesh] = serve_cases(
+            *mesh, fields, params, cases)
         release_world(get_world())
     return out
